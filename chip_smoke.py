@@ -2,18 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the four Hopper kernels of ``multiyolov5_tpu_torch/csrc``, holds each
+Builds the five Hopper kernels of ``multiyolov5_tpu_torch/csrc``, holds each
 against its plain PyTorch version at the shapes of the pspv5s 1024x512
-serving path, drives ``Engine`` (seeded random yolov5s_city_seg weights) on
-three frames on the card and on the CPU and compares them, checks that
-every kernel ran on that path, and times the path and each kernel.  Any
-failure raises and exits non-zero.  The last line of stdout is the JSON
-``{"ok": true, "device": {...}}``; the line before it the kernels' JSON.
+paths, and drives two paths with seeded random yolov5s_city_seg weights,
+each on the card and on the CPU:
+
+* serving: ``Engine`` on three frames (K1-K4);
+* eval: ``evaluate_detection`` (multi-label NMS over up to 30000
+  candidates, mAP; K1, K2, K5) and ``seg_validation`` (mIoU; K1, K2, K4)
+  on two seeded bs4 batches letterboxed from 2048x1024.
+
+It checks that every kernel ran on its path, holds each eval kernel against
+its plain version on the arguments the eval path gave it, and times the
+paths and each
+kernel beside its bound and, where one PyTorch call computes the same
+function, that call.  Any failure raises and exits non-zero.  The last line
+of stdout is the JSON ``{"ok": true, "device": {...}}``; the line before it
+the card's name and power limit, the one before that the kernels' JSON.
 Longer records go to ``chiprun_out/``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -57,6 +69,32 @@ E2E_MASK_SHARE = 1e-3
 BF16_SEG_REL = 0.25
 BF16_OBJCLS_MEAN = 0.03
 BF16_MASK_SHARE = 0.05
+
+# the eval path: cli/test.py's defaults on bench.py:277-306's geometry
+EVAL_BS, EVAL_BATCHES = 4, 2
+EVAL_CONF, EVAL_IOU, EVAL_MAX_NMS = 0.001, 0.6, 30000
+RATIO_PAD = ((IN_HW[0] / ORIG_HW[0], IN_HW[1] / ORIG_HW[1]), (0.0, 0.0))
+# Card against CPU, each on its own network outputs: float32 reassociation
+# (NET_REL) can reorder candidates whose scores tie within ~1e-7 at the
+# 30000-candidate and greedy cuts, and move a box by ~1e-4 px across an IoU
+# threshold of the matching.  Each such change moves one detection's TP
+# flags; with ~30 labels per image over 8 images that is of order 1e-3 of P,
+# R or AP, so the bound allows a few.  On identical network outputs the eval
+# (top-k, K5, matching, AP) must give identical detections and metrics.
+EVAL_METRIC_ABS = 5e-3
+# pixAcc and mIoU move by at most the share of flipped pixels (E2E_MASK_SHARE)
+# and, for mIoU, by that share over the smallest class's pixel share
+SEG_METRIC_ABS = 2e-3
+
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W) for the bounds
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
+# float32 operations of one IoU test: K3's division-free form (2 min, 2 max,
+# 2 sub, 2 clamps, 3 mul, 1 add, 1 compare), K5's division form (the same
+# overlap, the candidate's area, 2 add, 1 sub, 1 div, 1 compare)
+K3_OPS_PER_TEST = 13
+K5_OPS_PER_TEST = 17
 
 
 def log(msg: str) -> None:
@@ -106,6 +144,46 @@ def diffs(got: torch.Tensor, want: torch.Tensor):
     """(max |diff|, max |diff| / max(max |want|, 1))."""
     d = (got.float() - want.float()).abs().max().item()
     return d, d / max(want.float().abs().max().item(), 1.0)
+
+
+def bound_ms(nbytes: float, flops: float, peak: float):
+    """(least ms for the work on an H100, "bytes" or "operations")."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+@contextlib.contextmanager
+def replaced(owner, name: str, fn):
+    """Set ``owner.name`` to ``fn`` for the duration."""
+    real = getattr(owner, name)
+    setattr(owner, name, fn)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def spied(owner, name: str, before=None, after=None):
+    """Wrap ``owner.name`` for the duration: ``before(*args)`` is called
+    with the arguments, ``after(out)`` with the result."""
+    real = getattr(owner, name)
+
+    def wrapper(*args, **kw):
+        if before:
+            before(*args, **kw)
+        out = real(*args, **kw)
+        if after:
+            after(out)
+        return out
+
+    return replaced(owner, name, wrapper)
+
+
+def recorder(store: list):
+    """A ``before`` hook that keeps a copy of each call's arguments."""
+    def before(*args, **kw):
+        store.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args), kw))
+    return before
 
 
 def check(name: str, value: float, bound: float, ok: bool = None) -> None:
@@ -273,9 +351,8 @@ def compare_runs(name, got, ref, match_share, box_px, score_abs, mask_share,
     check(f"{name} mask mismatched share", mism, mask_share)
 
 
-def phase_end_to_end(eng32, eng16, frames):
+def phase_end_to_end(eng32, eng16, cpu_eng, frames):
     """[3] the serving path on the card against the CPU plain path."""
-    from multiyolov5_tpu_torch.engine import Engine
     from multiyolov5_tpu_torch.ops import kernels as K
     log(f"[3] Engine({CFG}, seed {SEED}) on {N_FRAMES} frames {IN_HW} -> {ORIG_HW}, conf {CONF}")
     K.reset_launches()
@@ -283,11 +360,10 @@ def phase_end_to_end(eng32, eng16, frames):
     torch.cuda.synchronize()
     launches = K.launch_counts()
     log(f"  launches on the card path: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the path")
+    for k in ("stem", "conv3x3", "nms", "upsample_argmax"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the serving path")
 
-    cpu_eng = Engine(cfg=CFG, device="cpu", half=False, seed=SEED)
     cpu = [cpu_eng(f, ORIG_HW, conf=CONF) for f in frames]
     post_card, post_cpu = [], []
     for f in frames:
@@ -325,12 +401,252 @@ def phase_end_to_end(eng32, eng16, frames):
     return launches
 
 
-def phase_timing(eng32, eng16, frames, sites16, nms_in):
-    """[4] bs1 serving time and each kernel against its plain version."""
+def eval_batches(eng, rng):
+    """Seeded in-memory loaders in the batch contracts of the JAX package's
+    loaders.  Detection: (imgs uint8, targets (B, T, 5) [cls, xywh
+    normalized], tmask, paths, shapes), the labels a jittered subset of
+    ``eng``'s own detections plus boxes no detection covers, so mAP is
+    neither 0 nor 1.  Segmentation: (imgs float in [0, 1], masks int32 at
+    ORIG_HW): seeded uint8 labels, 70% ``eng``'s class map, 30% random
+    classes, 10% 255, with 255 mapped to the loader's ignore -1."""
+    from multiyolov5_tpu_torch.ops.kernels import upsample_argmax
+    from multiyolov5_tpu_torch.ops.nms import non_max_suppression
+    det, seg = [], []
+    h, w = IN_HW
+    nc = eng.spec.nc
+    for b in range(EVAL_BATCHES):
+        imgs = (rng.rand(EVAL_BS, *IN_HW, 3) * 255).astype(np.uint8)
+        z, logits = eng.forward(torch.from_numpy(imgs).to(DEVICE))
+        dets = non_max_suppression(z.transpose(1, 2), EVAL_CONF, EVAL_IOU, multi_label=True,
+                                   max_nms=EVAL_MAX_NMS)
+        targets = np.zeros((EVAL_BS, 40, 5), np.float32)
+        tmask = np.zeros((EVAL_BS, 40), bool)
+        for i, d in enumerate(dets):
+            pick = d[rng.choice(len(d), min(30, len(d)), replace=False)]
+            xyxy = pick[:, :4] + rng.randn(len(pick), 4) * 6
+            extra = rng.rand(6, 2) * [w - 80, h - 80]
+            xyxy = np.concatenate([xyxy, np.concatenate([extra, extra + 80], 1)])
+            cls = np.concatenate([pick[:, 5], rng.randint(0, nc, 6)])
+            xywh = np.stack([(xyxy[:, 0] + xyxy[:, 2]) / 2 / w, (xyxy[:, 1] + xyxy[:, 3]) / 2 / h,
+                             (xyxy[:, 2] - xyxy[:, 0]) / w, (xyxy[:, 3] - xyxy[:, 1]) / h], 1)
+            targets[i, :len(cls)] = np.concatenate([cls[:, None], xywh], 1)
+            tmask[i, :len(cls)] = True
+        det.append((imgs, targets, tmask, [f"b{b}_{i}.png" for i in range(EVAL_BS)],
+                    [(ORIG_HW, RATIO_PAD)] * EVAL_BS))
+        cmap = upsample_argmax(logits.float().contiguous(), ORIG_HW, via_hw=IN_HW).cpu().numpy()
+        masks = np.where(rng.rand(*cmap.shape) < 0.3,
+                         rng.randint(0, logits.shape[1], cmap.shape), cmap).astype(np.uint8)
+        masks[rng.rand(*cmap.shape) < 0.1] = 255
+        masks = masks.astype(np.int32)
+        masks[masks == 255] = -1
+        seg.append((imgs.astype(np.float32) / 255.0, masks))
+    return det, seg
+
+
+def quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its printed lines kept out of stdout."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def run_eval(eng, det_b, seg_b, kernels: bool):
+    """evaluate_detection then seg_validation, recording every network
+    output ("net") and the detections ("dets"); with ``kernels``, also the
+    arguments of each kernel the path calls (K1 "stem", K2 "conv3x3", K5
+    "nms_greedy" and, in seg_validation, K4 "upsample_argmax")."""
+    from multiyolov5_tpu_torch import engine as engine_mod
+    from multiyolov5_tpu_torch import evaluation as E
+    from multiyolov5_tpu_torch.models import blocks
+    from multiyolov5_tpu_torch.ops import nms as nms_mod
+    rec = {k: [] for k in ("net", "dets", "stem", "conv3x3", "nms_greedy", "upsample_argmax")}
+    spies = [spied(engine_mod.Engine, "forward", after=rec["net"].append),
+             spied(E, "non_max_suppression", after=rec["dets"].extend)]
+    if kernels:
+        spies += [spied(engine_mod, "stem", before=recorder(rec["stem"])),
+                  spied(blocks, "conv3x3", before=recorder(rec["conv3x3"])),
+                  spied(nms_mod, "nms_greedy", before=recorder(rec["nms_greedy"])),
+                  spied(E, "upsample_argmax", before=recorder(rec["upsample_argmax"]))]
+    with contextlib.ExitStack() as stack:
+        for sp in spies:
+            stack.enter_context(sp)
+        det = quiet(E.evaluate_detection, eng, det_b, conf_thres=EVAL_CONF,
+                    iou_thres=EVAL_IOU)
+        seg = quiet(E.seg_validation, eng, seg_b, nclass=eng.spec.n_segcls)
+    return det, seg, rec
+
+
+def hold_eval_kernels(rec):
+    """Each kernel against its plain version on the arguments the counted
+    eval run gave it; returns the float32 max |diff| (K1, K2), the
+    mismatched pixel share (K4) and the picks differing (K5)."""
     from multiyolov5_tpu_torch.ops import kernels as K
+    errs = {}
+    for name, bound in (("stem", F32_REL), ("conv3x3", F32_REL)):
+        worst_abs = worst_rel = 0.0
+        for args, kw in rec[name]:
+            got = getattr(K, name)(*args, **kw)
+            torch.cuda.synchronize()
+            da, dr = diffs(got, getattr(K, name + "_plain")(*args, **kw))
+            worst_abs, worst_rel = max(worst_abs, da), max(worst_rel, dr)
+        shapes = sorted({tuple(a[0].shape) for a, _ in rec[name]})
+        log(f"  {name} float32 at the eval path's {len(rec[name])} calls {shapes}: "
+            f"max|diff| {worst_abs:.3e}")
+        check(f"{name} eval max|diff|/max(max|ref|,1)", worst_rel, bound)
+        errs[name] = worst_abs
+    share = 0.0
+    for args, kw in rec["upsample_argmax"]:
+        got = K.upsample_argmax(*args, **kw)
+        torch.cuda.synchronize()
+        share = max(share, (got != K.upsample_argmax_plain(*args, **kw)).float().mean().item())
+    shapes = [(tuple(a[0].shape), a[1]) for a, _ in rec["upsample_argmax"]]
+    check(f"upsample_argmax at seg_validation's {shapes} mismatched pixel share",
+          share, MASK_SHARE)
+    errs["upsample_argmax"] = share
+    diff = 0
+    for args, kw in rec["nms_greedy"]:
+        idx, valid = K.nms_greedy(*args, **kw)
+        torch.cuda.synchronize()
+        want_idx, want_valid = K.nms_greedy_plain(*args, **kw)
+        diff += int((idx != want_idx).sum()) + int((valid != want_valid).sum())
+    shapes = [tuple(a[1].shape) for a, _ in rec["nms_greedy"]]
+    check(f"nms_greedy picks differing from plain at the eval path's lists {shapes}", diff, 0)
+    errs["nms_greedy"] = float(diff)
+    return errs
+
+
+def greedy_tests(boxes, scores, idx, valid, iou):
+    """IoU tests K5 makes on these inputs: for each pick, the rows after it
+    that are still active, and the pick itself."""
+    total = 0
+    for b in range(boxes.shape[0]):
+        p = idx[b][valid[b]].long()
+        x1, y1, x2, y2 = boxes[b].unbind(1)
+        area = (x2 - x1) * (y2 - y1)
+        iw = (torch.minimum(x2[None], x2[p][:, None]) -
+              torch.maximum(x1[None], x1[p][:, None])).clamp_min(0)
+        ih = (torch.minimum(y2[None], y2[p][:, None]) -
+              torch.maximum(y1[None], y1[p][:, None])).clamp_min(0)
+        inter = iw * ih
+        over = inter / (area[None] + area[p][:, None] - inter + 1e-9) > iou
+        gone = torch.cat([torch.zeros_like(over[:1]), over.cumsum(0)[:-1] > 0])
+        after = torch.arange(boxes.shape[1], device=boxes.device)[None] > p[:, None]
+        total += int(((scores[b] > 0)[None] & ~gone & after).sum()) + len(p)
+    return total
+
+
+def phase_eval(eng32, eng16, cpu_eng):
+    """[5] the eval path on the card against the CPU, each kernel against
+    its plain version on the arguments the path gave it, and K5 on
+    synthetic lists."""
+    from multiyolov5_tpu_torch import evaluation as E
+    from multiyolov5_tpu_torch.engine import Engine
+    from multiyolov5_tpu_torch.ops import kernels as K
+    log(f"[5] eval path: evaluate_detection + seg_validation, {EVAL_BATCHES} batches of "
+        f"bs{EVAL_BS} {IN_HW} from {ORIG_HW}, conf {EVAL_CONF}, iou {EVAL_IOU}, "
+        f"multi-label, max_nms {EVAL_MAX_NMS}")
+    det_b, seg_b = eval_batches(eng32, np.random.RandomState(SEED + 5))
+    K.reset_launches()
+    (det, _, _), seg, card = run_eval(eng32, det_b, seg_b, kernels=True)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    log(f"  launches on the eval path: {launches}")
+    n_valid = [int(n) for a, _ in card["nms_greedy"] for n in (a[1] > 0).sum(1).tolist()]
+    log(f"  (box, class) candidates above conf per image (N): {n_valid}")
+    for k in ("stem", "conv3x3", "nms_greedy", "upsample_argmax"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the eval path")
+    errs = hold_eval_kernels(card)
+
+    (det_cpu, _, _), seg_cpu, cpu = run_eval(cpu_eng, det_b, seg_b, kernels=False)
+    for (z_card, seg_card), (z_cpu, seg_cpu_l) in zip(card["net"], cpu["net"]):
+        z_card, seg_card = z_card.cpu(), seg_card.cpu()
+        check(f"network fp32 bs{EVAL_BS} card vs CPU: boxes max|diff|/max(max|ref|,1)",
+              diffs(z_card[:, :4], z_cpu[:, :4])[1], NET_REL)
+        check(f"network fp32 bs{EVAL_BS} card vs CPU: obj/cls max|diff|",
+              diffs(z_card[:, 4:], z_cpu[:, 4:])[0], NET_REL)
+        check(f"network fp32 bs{EVAL_BS} card vs CPU: seg logits max|diff|/max(max|ref|,1)",
+              diffs(seg_card, seg_cpu_l)[1], NET_REL)
+    n_card = [len(d) for d in card["dets"]]
+    n_cpu = [len(d) for d in cpu["dets"]]
+    log(f"  detections per image, card {n_card}, CPU {n_cpu}")
+    check("eval fp32 card vs CPU: per-image detection counts differing",
+          sum(a != b for a, b in zip(n_card, n_cpu)), 0)
+    for name, a, b in zip(("P", "R", "mAP@.5", "mAP@.5:.95"), det, det_cpu):
+        log(f"  {name}: card {a:.6f}, CPU {b:.6f}")
+        check(f"eval fp32 card vs CPU: {name} |diff|", abs(a - b), EVAL_METRIC_ABS)
+    for name, a, b in zip(("pixAcc", "mIoU"), seg, seg_cpu):
+        log(f"  {name}: card {a:.6f}, CPU {b:.6f}")
+        check(f"seg_validation fp32 card vs CPU: {name} |diff|", abs(a - b), SEG_METRIC_ABS)
+    if not (0.0 < det[2] < 1.0 and 0.0 < seg[1] < 1.0):
+        raise AssertionError(f"degenerate metrics: mAP@.5 {det[2]}, mIoU {seg[1]}")
+
+    # evaluate_detection on the CPU over the card's own network outputs: the
+    # NMS (sort, K5's plain version), matching and AP must reproduce the
+    # card's detections and metrics exactly
+    outs = iter(card["net"][:EVAL_BATCHES])
+    replay_dets = []
+    with replaced(Engine, "forward", lambda self, x: tuple(t.cpu() for t in next(outs))), \
+            spied(E, "non_max_suppression", after=replay_dets.extend):
+        replay = quiet(E.evaluate_detection, cpu_eng, det_b, conf_thres=EVAL_CONF,
+                       iou_thres=EVAL_IOU)[0]
+    worst = max(float(np.abs(a - b).max(initial=0.0)) if a.shape == b.shape else np.inf
+                for a, b in zip(card["dets"], replay_dets))
+    check("eval detections, card vs CPU on the card's network outputs: max |diff|", worst, 0.0)
+    check("eval P, R, mAP, card vs CPU on the card's network outputs: max |diff|",
+          max(abs(a - b) for a, b in zip(det[:4], replay[:4])), 0.0)
+
+    (det16, _, _), seg16, _ = run_eval(eng16, det_b, seg_b, kernels=False)
+    log(f"  bf16 (reported, no bound): P {det16[0]:.6f} R {det16[1]:.6f} "
+        f"mAP@.5 {det16[2]:.6f} mAP@.5:.95 {det16[3]:.6f}; pixAcc {seg16[0]:.6f} "
+        f"mIoU {seg16[1]:.6f}")
+
+    # a rect eval batch shape (H = IN_HW[0] + 64): K1 and K2 take it
+    frame = (np.random.RandomState(SEED + 7).rand(1, IN_HW[0] + 64, IN_HW[1], 3) * 255
+             ).astype(np.uint8)
+    card_out = eng32.forward(torch.from_numpy(frame).to(DEVICE))
+    cpu_out = cpu_eng.forward(torch.from_numpy(frame))
+    for name, sl, rel in (("boxes", slice(0, 4), True), ("obj/cls", slice(4, None), False)):
+        d = diffs(card_out[0][:, sl].cpu(), cpu_out[0][:, sl])
+        check(f"network fp32 card vs CPU at {frame.shape[1:3]}: {name} max|diff|"
+              + ("/max(max|ref|,1)" if rel else ""), d[1] if rel else d[0], NET_REL)
+    check(f"network fp32 card vs CPU at {frame.shape[1:3]}: seg logits max|diff|/max(max|ref|,1)",
+          diffs(card_out[1].cpu(), cpu_out[1])[1], NET_REL)
+
+    # K5 against its plain version on synthetic lists
+    rng = np.random.RandomState(SEED + 6)
+    diff, shapes = 0, []
+    for n in (1025, 4224, 30000):
+        xy = rng.rand(1, n, 2) * 600
+        wh = rng.rand(1, n, 2) * 60 + 30
+        off = rng.randint(0, 10, (1, n, 1)) * 4096.0
+        boxes = torch.from_numpy(np.concatenate([xy - wh / 2 + off, xy + wh / 2 + off], 2)
+                                 .astype(np.float32)).to(DEVICE)
+        scores = torch.from_numpy(np.sort(rng.randint(1, 200, (1, n)).astype(np.float32) / 200,
+                                          1)[:, ::-1].copy()).to(DEVICE)
+        idx, valid = K.nms_greedy(boxes, scores, EVAL_IOU, 300)
+        torch.cuda.synchronize()
+        want_idx, want_valid = K.nms_greedy_plain(boxes, scores, EVAL_IOU, 300)
+        diff += int((idx != want_idx).sum()) + int((valid != want_valid).sum())
+        shapes.append(tuple(scores.shape))
+    check(f"nms_greedy picks differing from plain, synthetic lists {shapes}", diff, 0)
+    return {"launches": launches, "errs": errs, "rec": card, "det_b": det_b, "n": n_valid,
+            "metrics": {"fp32": {"card": list(det[:4]) + list(seg),
+                                 "cpu": list(det_cpu[:4]) + list(seg_cpu)},
+                        "bf16_card": list(det16[:4]) + list(seg16)}}
+
+
+def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
+    """[6] bs1 serving and bs4 eval time, and each kernel against its plain
+    version, its bound and, where there is one, a PyTorch call of the same
+    function."""
+    import torch.nn.functional as F
+
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops.kernels.stem import space_to_depth4
+    from multiyolov5_tpu_torch.ops.kernels.upsample_argmax import band_tables
     dev = torch.device(DEVICE)
-    log("[4] timing: kernels on the card's clock (CUDA graph replay, no host gaps); "
-        "Engine on the host clock around synchronised calls")
+    log("[6] timing: kernels on the card's clock (CUDA graph replay, no host gaps); "
+        "Engine and the eval entry points on the host clock around synchronised calls")
     e2e = {}
     for name, eng in (("fp32", eng32), ("bf16", eng16)):
         for f in frames:
@@ -348,34 +664,143 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in):
         log(f"  Engine.__call__ bs1 {name}: median {ms:.3f} ms/frame ({1e3 / ms:.1f} FPS) "
             f"over 5 reps of 20, range {min(reps):.3f}-{max(reps):.3f}")
 
+    from multiyolov5_tpu_torch.evaluation import evaluate_detection
+    n_img = EVAL_BS * EVAL_BATCHES
+    for name, eng in (("fp32", eng32), ("bf16", eng16)):
+        def run():
+            return quiet(evaluate_detection, eng, ev["det_b"], conf_thres=EVAL_CONF,
+                         iou_thres=EVAL_IOU)[2]
+        run()
+        reps, shares = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, t_nms, _ = run()
+            t_det = time.perf_counter() - t0
+            reps.append(t_det * 1e3 / n_img)
+            shares.append(t_nms / t_det)
+        ms = float(np.median(reps))
+        e2e[f"eval_{name}"] = {"median_ms_per_image": ms, "reps_ms_per_image": reps,
+                               "nms_share": shares}
+        log(f"  evaluate_detection bs{EVAL_BS} {name}: median {ms:.3f} ms/image over 3 reps "
+            f"of {n_img} images, range {min(reps):.3f}-{max(reps):.3f}; NMS share of it "
+            f"{min(shares):.3f}-{max(shares):.3f}")
+
     frame = torch.from_numpy(frames[0][None]).to(dev)
     w = eng16.stem_weights
     times = {"stem": (graph_ms(lambda: K.stem(frame, *w, out_dtype=torch.bfloat16)),
                       graph_ms(lambda: K.stem_plain(frame, *w, out_dtype=torch.bfloat16)))}
+    # the stem's two convolutions through cuDNN, in float32 like K1's arithmetic
+    x48 = space_to_depth4(frame).float()
+    w1, b1, w2, b2 = (w[0].permute(3, 2, 0, 1).contiguous(), w[1],
+                      w[2].permute(3, 2, 0, 1).contiguous(), w[3])
+    y1p = F.pad(F.silu(F.conv2d(x48, w1, b1, padding=1)), (1, 0, 1, 0))
+    library = {"stem": graph_ms(lambda: F.conv2d(x48, w1, b1, padding=1))
+               + graph_ms(lambda: F.conv2d(y1p, w2, b2))}
+    c_mid, c_out = w[0].shape[-1], w[2].shape[-1]
+    h4, w4 = IN_HW[0] // 4, IN_HW[1] // 4
+    bounds = {"stem": bound_ms(
+        frame.numel() + 4 * sum(t.numel() for t in w) + 2 * h4 * w4 * c_out,
+        2 * h4 * w4 * (9 * 48 * c_mid + 4 * c_mid * c_out), FP32_FLOP_S)}
+
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    k_ms = p_ms = 0.0
+    k_ms = p_ms = l_ms = b_ms = t_bytes = t_ops = 0.0
     per_site = []
     for shape, co, s, d, act, wt, b in sites16:
         x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
         km = graph_ms(lambda: K.conv3x3(x, wt, b, s, d, act))
         pm = graph_ms(lambda: K.conv3x3_plain(x, wt, b, s, d, act))
+        xc, wc, bc = x.permute(0, 3, 1, 2), wt.permute(0, 3, 1, 2), b.to(torch.bfloat16)
+        lm = graph_ms(lambda: F.conv2d(xc, wc, bc, s, d, d))
+        bsz, hh, ww, ci = shape
+        ho, wo = (hh - 1) // s + 1, (ww - 1) // s + 1
+        nbytes = 2 * (x.numel() + wt.numel() + bsz * ho * wo * co) + 4 * co
+        flops = 2 * bsz * ho * wo * co * 9 * ci
+        bm, _ = bound_ms(nbytes, flops, BF16_FLOP_S)
         per_site.append({"x": list(shape), "c_out": co, "stride": s, "dilation": d,
-                         "ms": km, "plain_ms": pm})
-        k_ms, p_ms = k_ms + km, p_ms + pm
+                         "ms": km, "plain_ms": pm, "library_ms": lm, "bound_ms": bm})
+        k_ms, p_ms, l_ms, b_ms = k_ms + km, p_ms + pm, l_ms + lm, b_ms + bm
+        t_bytes, t_ops = t_bytes + nbytes / HBM_BYTES_S, t_ops + flops / BF16_FLOP_S
     times["conv3x3"] = (k_ms, p_ms)
+    library["conv3x3"] = l_ms
+    bounds["conv3x3"] = (b_ms, "bytes" if t_bytes >= t_ops else "operations")
+
     boxes, scores, iou = nms_in[0]
     # the plain NMS synchronises every fixpoint round: host clock between events
     times["nms"] = (graph_ms(lambda: K.nms(boxes, scores, iou)),
                     cuda_ms(lambda: K.nms_plain(boxes, scores, iou), iters=5, warmup=1))
+    n = boxes.shape[0]
+    bounds["nms"] = bound_ms(21 * n, K3_OPS_PER_TEST * n * (n - 1) / 2 + 3 * n, FP32_FLOP_S)
+
     seg = torch.randn((1, 19, IN_HW[0] // 8, IN_HW[1] // 8), generator=g,
                       device=dev).to(torch.bfloat16)
     times["upsample_argmax"] = (
         graph_ms(lambda: K.upsample_argmax(seg, ORIG_HW, via_hw=IN_HW)),
         graph_ms(lambda: K.upsample_argmax_plain(seg, ORIG_HW, via_hw=IN_HW)))
+    _, th = band_tables(seg.shape[2], ORIG_HW[0], IN_HW[0])
+    _, tw = band_tables(seg.shape[3], ORIG_HW[1], IN_HW[1])
+    c, h0, w0 = seg.shape[1], ORIG_HW[0], ORIG_HW[1]
+    # per image: the W pass on h rows, the H pass, one compare a class and pixel
+    k4_ops = c * (2 * tw.shape[1] * seg.shape[2] * w0 + 2 * th.shape[1] * h0 * w0 + h0 * w0)
+    bounds["upsample_argmax"] = bound_ms(2 * seg.numel() + h0 * w0, k4_ops, FP32_FLOP_S)
+
+    # K4 as seg_validation launched it (the B5b row): bs4 float32 logits
+    (seg, out_hw), kw = ev["rec"]["upsample_argmax"][0]
+    k4_eval = {"ms": graph_ms(lambda: K.upsample_argmax(seg, out_hw, **kw)),
+               "plain_ms": graph_ms(lambda: K.upsample_argmax_plain(seg, out_hw, **kw)),
+               "bound": bound_ms(4 * seg.numel() + EVAL_BS * h0 * w0, EVAL_BS * k4_ops,
+                                 FP32_FLOP_S)}
+    log(f"  upsample_argmax at seg_validation's {tuple(seg.shape)} float32: kernel "
+        f"{k4_eval['ms']:.4f} ms, plain {k4_eval['plain_ms']:.4f} ms, bound "
+        f"{k4_eval['bound'][0]:.5f} ms ({k4_eval['bound'][1]})")
+
+    # K5 at the eval path's candidate lists (the first batch's launch)
+    (boxes, scores, iou, max_det), _ = ev["rec"]["nms_greedy"][0]
+    times["nms_greedy"] = (
+        graph_ms(lambda: K.nms_greedy(boxes, scores, iou, max_det), iters=5, replays=3),
+        cuda_ms(lambda: K.nms_greedy_plain(boxes, scores, iou, max_det), iters=1, warmup=1))
+    idx, valid = K.nms_greedy(boxes, scores, iou, max_det)
+    tests = greedy_tests(boxes, scores, idx, valid, iou)
+    bounds["nms_greedy"] = bound_ms(20 * scores.numel() + 5 * idx.numel(),
+                                    K5_OPS_PER_TEST * tests, FP32_FLOP_S)
+    log(f"  nms_greedy at the eval path's lists {tuple(scores.shape)}: {tests} IoU tests")
+
+    # Short lists: the first 1024 rows of each image's list, through K3 (one
+    # launch an image, keep masks packed) and through one K5 launch, as a
+    # (4, 1024) list and inside the (4, 30000) list with the rows past 1024
+    # invalid (what an eval image with <= 1024 candidates above conf gives)
+    from multiyolov5_tpu_torch.ops.nms import pack_keep
+    sb, ss = boxes[:, :1024].contiguous(), scores[:, :1024].contiguous()
+    cut = scores.clone()
+    cut[:, 1024:] = 0.0
+    short = {
+        "k3_x4_ms": graph_ms(lambda: [pack_keep(K.nms(sb[i], ss[i], iou), max_det)
+                                      for i in range(sb.shape[0])]),
+        "k5_1024_ms": graph_ms(lambda: K.nms_greedy(sb, ss, iou, max_det)),
+        "k5_30000_ms": graph_ms(lambda: K.nms_greedy(boxes, cut, iou, max_det)),
+    }
+    k3_idx = torch.stack([pack_keep(K.nms(sb[i], ss[i], iou), max_det)[0]
+                          for i in range(sb.shape[0])])
+    k5_idx = K.nms_greedy(boxes, cut, iou, max_det)[0]
+    short["picks_differing_k3_k5"] = int((k3_idx != k5_idx.long()).sum())
+    short["picks"] = int((k5_idx >= 0).sum())
+    # and at bs1 on the serving path's list, where nms_planar runs K3
+    b1, s1, iou1 = nms_in[0]
+    short["serving_k3_ms"] = graph_ms(lambda: pack_keep(K.nms(b1, s1, iou1), 300))
+    short["serving_k5_ms"] = graph_ms(lambda: K.nms_greedy(b1[None], s1[None], iou1, 300))
+    log(f"  serving list {tuple(s1.shape)}: K3 + pack_keep {short['serving_k3_ms']:.4f} ms, "
+        f"K5 {short['serving_k5_ms']:.4f} ms")
+    log(f"  short lists {tuple(ss.shape)}: K3 x{sb.shape[0]} + pack_keep "
+        f"{short['k3_x4_ms']:.4f} ms, K5 (4, 1024) {short['k5_1024_ms']:.4f} ms, K5 "
+        f"{tuple(scores.shape)} with 1024 valid {short['k5_30000_ms']:.4f} ms; picks "
+        f"{short['picks']}, differing K3 vs K5 {short['picks_differing_k3_k5']} (reported)")
     for k, (km, pm) in times.items():
-        log(f"  {k} bf16: kernel {km:.4f} ms, plain {pm:.4f} ms"
+        lib = library.get(k)
+        log(f"  {k}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bounds[k][0]:.5f} ms "
+            f"({bounds[k][1]}), library call "
+            + ("none" if lib is None else f"{lib:.4f} ms")
             + (f" (sum over {len(sites16)} sites)" if k == "conv3x3" else ""))
-    return e2e, times, per_site
+    return e2e, times, per_site, library, bounds, k4_eval, short
 
 
 def main() -> int:
@@ -394,29 +819,47 @@ def main() -> int:
     frames = [(rng.rand(*IN_HW, 3) * 255).astype(np.uint8) for _ in range(N_FRAMES)]
     eng32 = Engine(cfg=CFG, device=DEVICE, half=False, seed=SEED)
     eng16 = Engine(cfg=CFG, device=DEVICE, half=True, seed=SEED)
+    cpu_eng = Engine(cfg=CFG, device="cpu", half=False, seed=SEED)
 
     errs, sites16, nms_in = phase_kernels(eng32, eng16, frames)
-    launches = phase_end_to_end(eng32, eng16, frames)
-    e2e, times, per_site = phase_timing(eng32, eng16, frames, sites16, nms_in)
+    launches = phase_end_to_end(eng32, eng16, cpu_eng, frames)
+    ev = phase_eval(eng32, eng16, cpu_eng)
+    launches["nms_greedy"] = ev["launches"]["nms_greedy"]
+    errs["nms_greedy"] = ev["errs"]["nms_greedy"]
+    e2e, times, per_site, library, bounds, k4_eval, short = phase_timing(
+        eng32, eng16, frames, sites16, nms_in, ev)
 
     replaces = {
         "stem": "multiyolov5_tpu/ops/pallas/stem_kernel.py:308",
         "conv3x3": "multiyolov5_tpu/ops/pallas/conv3x3_kernel.py:98",
         "nms": "multiyolov5_tpu/ops/pallas/nms_fixpoint_kernel.py:77",
         "upsample_argmax": "multiyolov5_tpu/ops/pallas/upsample_argmax_kernel.py:309",
+        "nms_greedy": "multiyolov5_tpu/ops/pallas/nms_kernel.py:87",
     }
-    # max_abs_err: the float32 comparison of [2]; for nms the count of keep
-    # entries that differ, for upsample_argmax the mismatched pixel share
+    # launches: K1-K4 on the serving path [3], K5 on the eval path [5]
+    # (eval_launches: every kernel on the eval path).  max_abs_err: the
+    # float32 comparison of [2] at the serving shapes; for nms the keep
+    # entries that differ, for nms_greedy the picks that differ on the eval
+    # path's lists, for upsample_argmax the mismatched pixel share.
+    # eval_max_abs_err: the same on the eval path's own arguments ([5]).
     kernels = [{"name": k, "route": "cuda",
                 "source": f"multiyolov5_tpu_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
-                "err_dtype": "float32", "ms_dtype": "bfloat16"} for k in replaces]
+                "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                "library_ms": library.get(k), "eval_launches": ev["launches"][k],
+                "eval_max_abs_err": ev["errs"].get(k),
+                "err_dtype": "float32",
+                "ms_dtype": "float32" if k.startswith("nms") else "bfloat16"}
+               for k in replaces]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
-        json.dump({"card": smi, "e2e_ms_per_frame": e2e, "kernels": kernels,
-                   "conv3x3_sites": per_site}, fh, indent=1)
-    log(smi)
+        json.dump({"card": smi, "e2e_ms": e2e, "kernels": kernels,
+                   "conv3x3_sites": per_site, "upsample_argmax_eval": k4_eval,
+                   "nms_short_lists": short,
+                   "eval_candidates_per_image": ev["n"],
+                   "eval_metrics": ev["metrics"]}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
+    log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,8 +35,8 @@ class Engine:
       weights: path of a native ``.npz`` checkpoint, or None.
       cfg: model config (zoo name, yaml path or dict) when the checkpoint
         does not carry one, or for a seeded random init.
-      device: where the model runs ("cuda" launches the kernels, "cpu" runs
-        their plain versions).
+      device: where the model runs: "cuda" (the default) launches the
+        kernels, "cpu" runs their plain versions.
       half: bfloat16 parameters and activations.
       seed: seed of the random init when there are no weights.
       spec, state_dict: an unfused torch-layout ``state_dict`` for ``spec``
@@ -44,7 +44,7 @@ class Engine:
     """
 
     def __init__(self, weights: Optional[str] = None, cfg=None, *,
-                 device: Union[str, torch.device], half: bool = True,
+                 device: Union[str, torch.device] = "cuda", half: bool = True,
                  seed: int = 0, spec: Optional[ModelSpec] = None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None):
         if spec is not None:
@@ -83,8 +83,10 @@ class Engine:
         return int(max(self.spec.strides))
 
     def forward(self, frames: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """frames (B, H, W, 3) uint8 on the engine's device -> (decoded
-        candidates (B, no, N) float32, 1/8-res seg logits (B, C, h, w))."""
+        """frames (B, H, W, 3) uint8 on the engine's device, H and W any
+        multiples of the stride (serving's 512x1024, the eval loader's rect
+        shapes such as 576x1024) -> (decoded candidates (B, no, N) float32,
+        1/8-res seg logits (B, C, h, w))."""
         if frames.shape[1] % self.stride or frames.shape[2] % self.stride:
             raise ValueError(f"frame {tuple(frames.shape[1:3])} is not a "
                              f"multiple of the stride {self.stride}")

@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels (sm_90a) of the serving path, the sibling of
-``multiyolov5_tpu/ops/pallas``.
+"""Hand-written Hopper kernels (sm_90a) of the serving and eval paths, the
+sibling of ``multiyolov5_tpu/ops/pallas``.
 
 Each module holds a kernel's wrapper and its plain PyTorch version
 (``*_plain``).  A wrapper runs the plain version for a CPU tensor and
@@ -9,11 +9,12 @@ wrapper counts its launches in a plain integer attribute, ``launches``.
 
 from .conv3x3 import conv3x3, conv3x3_plain
 from .nms import nms, nms_plain
+from .nms_greedy import nms_greedy, nms_greedy_plain
 from .stem import stem, stem_plain
 from .upsample_argmax import upsample_argmax, upsample_argmax_plain
 
 KERNELS = {"stem": stem, "conv3x3": conv3x3, "nms": nms,
-           "upsample_argmax": upsample_argmax}
+           "upsample_argmax": upsample_argmax, "nms_greedy": nms_greedy}
 
 
 def reset_launches() -> None:

@@ -1,11 +1,67 @@
-"""Box math on tensors (counterpart of ``multiyolov5_tpu/utils/boxes.py``)."""
+"""Box math (counterpart of ``multiyolov5_tpu/utils/boxes.py``).
+
+Each function takes a torch tensor (on any device) or a numpy array and
+returns the same kind: the eval path runs them on tensors on the card and
+on the host-side numpy bookkeeping that mirrors the JAX package's.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
-def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
+def _xp(x):
+    return np if isinstance(x, np.ndarray) else torch
+
+
+def xyxy2xywh(x):
+    """(..., 4) corner boxes to center-size boxes."""
+    return _xp(x).stack([(x[..., 0] + x[..., 2]) / 2, (x[..., 1] + x[..., 3]) / 2,
+                         x[..., 2] - x[..., 0], x[..., 3] - x[..., 1]], -1)
+
+
+def xywh2xyxy(x):
     """(..., 4) center-size boxes to corner boxes."""
-    return torch.stack([x[..., 0] - x[..., 2] / 2, x[..., 1] - x[..., 3] / 2,
-                        x[..., 0] + x[..., 2] / 2, x[..., 1] + x[..., 3] / 2], -1)
+    return _xp(x).stack([x[..., 0] - x[..., 2] / 2, x[..., 1] - x[..., 3] / 2,
+                         x[..., 0] + x[..., 2] / 2, x[..., 1] + x[..., 3] / 2], -1)
+
+
+def clip_coords(boxes, img_shape):
+    """Clip xyxy boxes to (h, w); returns a new array."""
+    xp = _xp(boxes)
+    h, w = img_shape[:2]
+    return xp.stack([xp.clip(boxes[..., 0], 0, w), xp.clip(boxes[..., 1], 0, h),
+                     xp.clip(boxes[..., 2], 0, w), xp.clip(boxes[..., 3], 0, h)], -1)
+
+
+def scale_coords(img1_shape, coords, img0_shape, ratio_pad=None):
+    """Unmap xyxy coords from the letterboxed frame back to the original
+    (reference utils/general.py:319-332); columns past 4 pass through."""
+    if ratio_pad is None:
+        gain = min(img1_shape[0] / img0_shape[0], img1_shape[1] / img0_shape[1])
+        pad = ((img1_shape[1] - img0_shape[1] * gain) / 2,
+               (img1_shape[0] - img0_shape[0] * gain) / 2)
+    else:
+        gain = ratio_pad[0][0]
+        pad = ratio_pad[1]
+    xp = _xp(coords)
+    out = xp.stack([coords[..., 0] - pad[0], coords[..., 1] - pad[1],
+                    coords[..., 2] - pad[0], coords[..., 3] - pad[1]], -1) / gain
+    rest = coords[..., 4:]
+    out = clip_coords(out, img0_shape)
+    if rest.shape[-1]:
+        out = xp.concatenate([out, rest], -1)
+    return out
+
+
+def box_iou(box1, box2):
+    """Pairwise IoU of xyxy boxes: (N, 4), (M, 4) -> (N, M)."""
+    xp = _xp(box1)
+    area1 = (box1[:, 2] - box1[:, 0]) * (box1[:, 3] - box1[:, 1])
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
+    lt = xp.maximum(box1[:, None, :2], box2[None, :, :2])
+    rb = xp.minimum(box1[:, None, 2:4], box2[None, :, 2:4])
+    wh = xp.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (area1[:, None] + area2[None, :] - inter)

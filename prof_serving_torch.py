@@ -19,6 +19,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -50,7 +51,10 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events)
+    # kernels, copies and memsets: an operator's own row repeats the device
+    # time of the kernels it launched, so CPU-side rows are left out
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA)
     print(f"wall {wall_us / ITERS / 1e3:.3f} ms/frame under the profiler; "
           f"device busy {dev_us / ITERS / 1e3:.3f} ms/frame "
           f"({100 * dev_us / wall_us:.1f}% of wall, kernels summed)")

@@ -1,6 +1,7 @@
 """The port stands without JAX: in a fresh interpreter where importing
-``jax`` or ``multiyolov5_tpu`` raises, every module of the port imports and
-a tiny seeded Engine serves one frame on the CPU."""
+``jax`` or ``multiyolov5_tpu`` raises, every module of the port imports, a
+tiny seeded Engine serves one frame on the CPU, and the eval path
+(multi-label NMS over more than K3's 1024 rows, mAP, mIoU) runs on one batch."""
 
 import os
 import subprocess
@@ -10,7 +11,7 @@ import textwrap
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = textwrap.dedent("""
-    import importlib, pkgutil, sys
+    import contextlib, importlib, io, pkgutil, sys
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -30,6 +31,22 @@ _SCRIPT = textwrap.dedent("""
     dets, masks = eng(frame, (64, 128), conf=0.001)
     assert dets[0].ndim == 2 and dets[0].shape[1] == 6 and len(dets[0]) > 0
     assert masks[0].shape == (64, 128) and masks[0].dtype == np.uint8
+    new = {"evaluation", "ops.kernels.nms_greedy", "utils.metrics", "utils.boxes"}
+    assert {pkg.__name__ + "." + m for m in new} <= set(names)
+
+    from multiyolov5_tpu_torch.evaluation import evaluate_detection, seg_validation
+    import multiyolov5_tpu_torch.ops.nms as nms_mod
+    counts = []
+    real = nms_mod.nms_greedy
+    nms_mod.nms_greedy = lambda *a: counts.extend((a[1] > 0).sum(1).tolist()) or real(*a)
+    targets = np.array([[[1, 0.3, 0.4, 0.2, 0.3], [4, 0.7, 0.5, 0.3, 0.3]]], np.float32)
+    loader = [(frame[None], targets, np.ones((1, 2), bool), ["a.png"], [None])]
+    masks = np.random.RandomState(1).randint(-1, 19, (1, 64, 128)).astype(np.int32)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res, maps, (_, _, seen) = evaluate_detection(eng, loader, conf_thres=0.0002)
+        pix_acc, miou = seg_validation(eng, [(frame[None], masks)], nclass=19)
+    assert seen == 1 and len(res) == 7 and maps.shape == (10,) and max(counts) > 1024
+    assert 0 <= pix_acc <= 1 and 0 <= miou <= 1
     assert not any(m.split(".")[0] in ("jax", "multiyolov5_tpu") for m in sys.modules)
     print("OK", len(names))
 """)

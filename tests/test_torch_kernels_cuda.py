@@ -1,11 +1,12 @@
-"""The four Hopper kernels against their plain PyTorch versions, on the card.
+"""The five Hopper kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test decides inside itself whether a card is present
 and skips otherwise.  Run on a machine with an H100 by ``pytest -m cuda
 tests/test_torch_kernels_cuda.py``.  Inputs are seeded, at small shapes.
 Bounds: float32 max |diff| 1e-4 (summation order; TF32 off), bfloat16
 2e-2 relative to the output's scale (one bf16 rounding of the output and of
-the conv input), NMS keep masks equal, class-map mismatch share <= 1e-4."""
+the conv input), NMS keep masks and greedy picks equal, class-map mismatch
+share <= 1e-4."""
 
 import numpy as np
 import pytest
@@ -81,3 +82,23 @@ def test_upsample_argmax_kernel(dev, dtype):
     torch.cuda.synchronize()
     want = K.upsample_argmax_plain(x, (256, 512), via_hw=(128, 256))
     assert (got != want).float().mean().item() <= 1e-4
+
+
+@pytest.mark.parametrize("bsz,n,n_valid", [(1, 1025, 1025), (3, 4224, 4000), (2, 30000, 29000)])
+def test_nms_greedy_kernel(dev, bsz, n, n_valid):
+    """Sorted scores from 50 levels (ties), an invalid tail, crowded boxes in
+    four class-offset groups, as the eval path's multi-label candidates."""
+    rng = np.random.RandomState(n)
+    xy = rng.rand(bsz, n, 2) * 100
+    wh = rng.rand(bsz, n, 2) * 20 + 40
+    off = rng.randint(0, 4, (bsz, n, 1)) * 4096.0
+    boxes = torch.from_numpy(np.concatenate([xy - wh / 2 + off, xy + wh / 2 + off], 2)
+                             .astype(np.float32)).to(dev)
+    scores = np.sort(rng.randint(1, 51, (bsz, n)).astype(np.float32) / 50, 1)[:, ::-1].copy()
+    scores[:, n_valid:] = 0
+    scores = torch.from_numpy(scores).to(dev)
+    idx, valid = K.nms_greedy(boxes, scores, 0.6, 300)
+    torch.cuda.synchronize()
+    want_idx, want_valid = K.nms_greedy_plain(boxes, scores, 0.6, 300)
+    assert torch.equal(idx, want_idx) and torch.equal(valid, want_valid)
+    assert valid.sum(1).min() > 250 and idx.max() > 900   # deep suppression
