@@ -2,20 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the five Hopper kernels of ``multiyolov5_tpu_torch/csrc``, holds each
-against its plain PyTorch version at the shapes of the pspv5s 1024x512
-paths, and drives two paths with seeded random yolov5s_city_seg weights,
-each on the card and on the CPU:
+Builds the six Hopper kernels of ``multiyolov5_tpu_torch/csrc``, holds each
+against its plain PyTorch version at the shapes of the pspv5s paths, and
+drives three paths with seeded random yolov5s_city_seg weights, on the card
+and, for reference, on the CPU:
 
 * serving: ``Engine`` on three frames (K1-K4);
 * eval: ``evaluate_detection`` (multi-label NMS over up to 30000
   candidates, mAP; K1, K2, K5) and ``seg_validation`` (mIoU; K1, K2, K4)
-  on two seeded bs4 batches letterboxed from 2048x1024.
+  on two seeded bs4 batches letterboxed from 2048x1024;
+* training: the dual-task train step (det bs8 832x832 + seg bs8 512x1024,
+  SGD, EMA; K6 forward and backward), one float32 step against the CPU's,
+  a scheduled 20-step bf16 run whose EMA checkpoint ``Engine`` serves.
 
-It checks that every kernel ran on its path, holds each eval kernel against
-its plain version on the arguments the eval path gave it, and times the
-paths and each
-kernel beside its bound and, where one PyTorch call computes the same
+It checks that every kernel ran on its path, holds each kernel against its
+plain version on the arguments its path gave it, and times the paths and
+each kernel beside its bound and, where one PyTorch call computes the same
 function, that call.  Any failure raises and exits non-zero.  The last line
 of stdout is the JSON ``{"ok": true, "device": {...}}``; the line before it
 the card's name and power limit, the one before that the kernels' JSON.
@@ -86,15 +88,48 @@ EVAL_METRIC_ABS = 5e-3
 # and, for mIoU, by that share over the smallest class's pixel share
 SEG_METRIC_ABS = 2e-3
 
+# the train path [7]: bench.py:bench_train's geometry (:64-84) with
+# load_hyp("scratch"), and its lr, bias lr and momentum (:96-98)
+TRAIN_BS, TRAIN_DET_HW, TRAIN_SEG_HW = 8, (832, 832), (512, 1024)
+TRAIN_TARGETS, TRAIN_MAX_T = 20, 128
+TRAIN_STEP_ARGS = (0.01, 0.01, 0.9)
+TRAIN_RUN_STEPS = 20     # the scheduled run, as cli/train.py:379-381 drives it
+TRAIN_REPS, TRAIN_REP_STEPS = 5, 5
+# K6 against its plain version on the step's own arguments: both read the
+# same logits and compute in float32, so the loss differs by summation order
+# only; dz by that and, in bf16, one rounding of each side's float32 value
+SEG_CE_LOSS_REL = 1e-4
+SEG_CE_DZ_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # of max |dz|
+# One float32 step, card against CPU (TF32 off): reassociation in cuDNN's
+# and oneDNN's convolutions and their backward.  On the CPU, the same step
+# at full width (det 320x320, seg 128x256, bs2) in float32 against float64
+# gave losses within 1e-7 relative and every tensor's change within 9e-4 of
+# that change (median 5e-5).  cuDNN's float32 convolutions differ from the
+# CPU's by more than float32 from float64 does: the serving network's
+# outputs differ by 1.2e-4 of their scale ([3]).  So the losses are held at
+# 1e-4, and the changes at 50x the rehearsal's worst tensor.
+TRAIN_LOSS_REL = 1e-4
+TRAIN_UPDATE_REL = 5e-2  # of each tensor's own change, + 2 float32 ulps of its values
+
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W) for the bounds
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
+# exp2 on the SFUs: 16 results per clock per SM (CUDA C++ programming
+# guide, arithmetic throughput for compute capability 9.0), 132 SMs at the
+# 1.98 GHz boost clock
+SFU_OP_S = 132 * 16 * 1.98e9
 # float32 operations of one IoU test: K3's division-free form (2 min, 2 max,
 # 2 sub, 2 clamps, 3 mul, 1 add, 1 compare), K5's division form (the same
 # overlap, the candidate's area, 2 add, 1 sub, 1 div, 1 compare)
 K3_OPS_PER_TEST = 13
 K5_OPS_PER_TEST = 17
+# float32 operations K6 needs per (label pixel, class), besides its two exps
+# (the forward's logsumexp, the backward's softmax): the forward's 2x2
+# interpolation (6 mul, 3 add) and online logsumexp (3); the backward's
+# interpolation (9), p - lse, - onehot, * w (3) and the four tap products
+# and sums (8)
+K6_OPS_PER_PIXEL_CLASS = 12 + 20
 
 
 def log(msg: str) -> None:
@@ -803,6 +838,256 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
     return e2e, times, per_site, library, bounds, k4_eval, short
 
 
+def train_batch(rng, bs: int, nc: int, nseg: int):
+    """bench.py:74-84's batch: uint8 det images with 20 targets each, padded
+    to TRAIN_MAX_T; float seg images in [0, 1]; int64 labels in [-1, nseg)."""
+    from multiyolov5_tpu_torch.train.losses import pad_targets
+    imgs = (rng.rand(bs, *TRAIN_DET_HW, 3) * 255).astype(np.uint8)
+    labels = []
+    for _ in range(bs):
+        lab = np.zeros((TRAIN_TARGETS, 5), np.float32)
+        lab[:, 0] = rng.randint(0, nc, TRAIN_TARGETS)
+        lab[:, 1:3] = rng.rand(TRAIN_TARGETS, 2) * 0.6 + 0.2
+        lab[:, 3:5] = rng.rand(TRAIN_TARGETS, 2) * 0.2 + 0.05
+        labels.append(lab)
+    tgts, mask = pad_targets(labels, TRAIN_MAX_T)
+    seg_imgs = rng.rand(bs, *TRAIN_SEG_HW, 3).astype(np.float32)
+    seg_lbls = rng.randint(-1, nseg, (bs, *TRAIN_SEG_HW))
+    return imgs, tgts, mask, seg_imgs, seg_lbls
+
+
+def train_state(spec, sd, dtype, device, bs: int):
+    """(state, step) of the port's trainer from ``sd`` with load_hyp("scratch")."""
+    from multiyolov5_tpu_torch.data.hyps import load_hyp
+    from multiyolov5_tpu_torch.train import trainer as T
+    cfg = T.TrainConfig(hyp=load_hyp("scratch"), batch_size=bs, compute_dtype=dtype)
+    ts, groups = T.create_train_state(spec, cfg, state_dict=sd, device=device)
+    return ts, T.make_train_step(spec, cfg, groups)
+
+
+def change_errors(got: dict, want: dict, init: dict):
+    """Each entry held by its change from ``init``: (entries with
+    max |u_got - u_want| > TRAIN_UPDATE_REL * max |u_want| + 2 ulp(max |want|),
+    the worst and the median of max |u_got - u_want| / max |u_want| over
+    entries that moved by more than 1000 ulps)."""
+    eps = float(np.finfo(np.float32).eps)
+    bad, rel = [], []
+    for k, w in want.items():
+        w = w.float().cpu()
+        g, i = got[k].float().cpu(), init[k].float().cpu()
+        err = (g - w).abs().max().item()
+        span, top = (w - i).abs().max().item(), w.abs().max().item()
+        if err > TRAIN_UPDATE_REL * span + 2 * eps * top:
+            bad.append(k)
+        if span > 1e3 * eps * top:
+            rel.append(err / span)
+    return bad, max(rel), float(np.median(rel))
+
+
+def k6_against_plain(z, y, w, upstream: float):
+    """K6 and its plain version, forward and backward, on one call's
+    arguments: (|loss diff|, max |dz diff|, max |dz diff| / max |plain dz|)."""
+    from multiyolov5_tpu_torch.ops import kernels as K
+    out = []
+    for fn in (K.seg_ce, K.seg_ce_plain):
+        zz = z.detach().clone().requires_grad_(True)
+        loss = fn(zz, y, w)
+        (loss * upstream).backward()
+        torch.cuda.synchronize()
+        out.append((loss.detach().float().cpu(), zz.grad.float()))
+    (lk, gk), (lp, gp) = out
+    d = (gk - gp).abs().max().item()
+    return abs(lk.item() - lp.item()) / abs(lp.item()), d, d / gp.abs().max().item()
+
+
+def phase_train():
+    """[7] the dual-task train step on the card: K6 against its plain version
+    on the counted steps' arguments, the counted float32 step against the
+    same step on the CPU, a scheduled 20-step run, the EMA checkpoint served
+    by Engine, and timing."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from multiyolov5_tpu_torch.data.hyps import load_hyp
+    from multiyolov5_tpu_torch.engine import Engine
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.train import trainer as T
+    from multiyolov5_tpu_torch.train.optim import WarmupCosine
+    from multiyolov5_tpu_torch.utils.checkpoint import save_npz
+    log(f"[7] train step: {CFG} seed {SEED}, det bs{TRAIN_BS} {TRAIN_DET_HW} uint8 "
+        f"({TRAIN_TARGETS} targets an image, max {TRAIN_MAX_T}), seg bs{TRAIN_BS} "
+        f"{TRAIN_SEG_HW}, hyp scratch, lr/lr_bias/momentum {TRAIN_STEP_ARGS}")
+    spec = load_spec(CFG)
+    sd = seeded_state_dict(spec, SEED)
+    host = train_batch(np.random.RandomState(SEED + 9), TRAIN_BS, spec.nc, spec.n_segcls)
+    batch = tuple(torch.as_tensor(a).to(DEVICE) for a in host)
+    args = (*TRAIN_STEP_ARGS, True)
+    upstream = TRAIN_BS * T.TrainConfig(hyp={}).seggain   # the step's seg loss scale
+    res = {"launches": {}, "k6": {}}
+
+    # one counted step per compute type, recording K6's arguments
+    states, rec = {}, {}
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        ts, step = train_state(spec, sd, dt, DEVICE, TRAIN_BS)
+        rec[name] = []
+        K.reset_launches()
+        with spied(T, "seg_ce", before=lambda z, y, w=None, store=rec[name]: store.append(
+                (z.detach().clone(), y.clone(), w))):
+            ts, m = step(ts, *batch, *args)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        res["launches"][name] = counts
+        log(f"  {name} step: total {m['total'].item():.5f}, det items "
+            f"{[round(v, 5) for v in m['det_items'].tolist()]}, seg {m['seg_loss'].item():.5f}; "
+            f"launches {counts}")
+        if not np.isfinite(m["total"].item()):
+            raise AssertionError(f"{name} train step: loss not finite")
+        if (counts["seg_ce"], counts["seg_ce_bwd"]) != (1, 1):
+            raise AssertionError(f"{name} train step: K6 forward/backward launched "
+                                 f"{counts['seg_ce']}/{counts['seg_ce_bwd']} times, not once each")
+        states[name] = (ts, step, m)
+
+    # K6 against its plain version on the arguments the counted steps gave it
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        z, y, w = rec[name][0]
+        dl, dabs, drel = k6_against_plain(z, y, w, upstream)
+        log(f"  seg_ce {name} on the step's {tuple(z.shape)} {str(z.dtype)[6:]} logits, "
+            f"{tuple(y.shape)} {str(y.dtype)[6:]} labels: loss |diff| {dl:.3e} relative, "
+            f"dz max|diff| {dabs:.3e}")
+        check(f"seg_ce {name} loss |diff|/|plain|", dl, SEG_CE_LOSS_REL)
+        check(f"seg_ce {name} dz max|diff|/max|plain dz|", drel, SEG_CE_DZ_REL[dt])
+        res["k6"][name] = {"loss_rel": dl, "dz_max_abs": dabs, "dz_rel": drel}
+
+    # the counted float32 step against the same step on the CPU
+    t_cpu = time.perf_counter()
+    ts_h, step_h = train_state(spec, sd, torch.float32, "cpu", TRAIN_BS)
+    ts_h, m_h = step_h(ts_h, *host, *args)
+    t_cpu = time.perf_counter() - t_cpu
+    ts_c, _, m_c = states["fp32"]
+    log(f"  fp32 bs{TRAIN_BS} step, card vs CPU (the CPU step took {t_cpu:.1f} s)")
+    for k in ("total", "seg_loss", "det_items"):
+        a, b = m_c[k].cpu(), m_h[k]
+        check(f"train fp32 card vs CPU: {k} max|diff|/|CPU|",
+              ((a - b).abs() / b.abs()).max().item(), TRAIN_LOSS_REL)
+    init = {k: v.float() for k, v in sd.items()}
+    mom0 = {k: torch.zeros_like(v) for k, v in ts_h.opt["momentum"].items()}
+    res["card_vs_cpu"] = {}
+    for what, got, want, ref in (("params+BN", ts_c.state_dict(), ts_h.state_dict(), init),
+                                 ("EMA", ts_c.ema, ts_h.ema, init),
+                                 ("momentum", ts_c.opt["momentum"], ts_h.opt["momentum"], mom0)):
+        bad, worst, med = change_errors(got, want, ref)
+        log(f"  {what}: {len(want)} tensors, change |diff|/|change| worst {worst:.3e}, "
+            f"median {med:.3e}")
+        check(f"train fp32 card vs CPU: {what} tensors off their change bound", len(bad), 0)
+        res["card_vs_cpu"][what] = {"worst": worst, "median": med}
+    del ts_h
+
+    # a scheduled run (cli/train.py:287-294, 379-381) on one fixed batch, bf16
+    ts, step = train_state(spec, sd, torch.bfloat16, DEVICE, TRAIN_BS)
+    hyp = load_hyp("scratch")
+    nw = min(max(round(hyp["warmup_epochs"] * TRAIN_RUN_STEPS), 800),
+             max(TRAIN_RUN_STEPS // 2, 1))
+    sched = WarmupCosine(lr0=hyp["lr0"], lrf=hyp["lrf"], epochs=1, warmup_iters=nw,
+                         warmup_bias_lr=hyp["warmup_bias_lr"],
+                         warmup_momentum=hyp["warmup_momentum"], momentum=hyp["momentum"])
+    losses = []
+    for ni in range(TRAIN_RUN_STEPS):
+        lr, lr_bias, mom = sched.at(ni, 0)
+        ts, m = step(ts, *batch, lr, lr_bias, mom,
+                     ni % sched.accumulate_at(ni, 64, TRAIN_BS) == 0)
+        losses.append(m["total"])
+    losses = [v.item() for v in losses]
+    log(f"  {TRAIN_RUN_STEPS}-step bf16 run ({ts.updates} updates, warmup {nw}): total "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {[round(v, 3) for v in losses]}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"scheduled run: loss not finite or not falling: {losses}")
+    res["run"] = {"losses": losses, "updates": ts.updates, "warmup_iters": nw}
+
+    # the EMA weights through a checkpoint into the serving path
+    frame = (np.random.RandomState(SEED + 11).rand(*IN_HW, 3) * 255).astype(np.uint8)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, "last.npz")
+        save_npz(path, T.checkpoint_tree(ts, spec, epoch=0))
+        served = Engine(path, device=DEVICE, half=True)(frame, ORIG_HW, conf=CONF)
+    direct = Engine(spec=spec, state_dict={k: v.float().cpu() for k, v in ts.ema.items()},
+                    device=DEVICE, half=True)(frame, ORIG_HW, conf=CONF)
+    dets, mask = served[0][0], served[1][0]
+    log(f"  Engine(weights=the run's EMA checkpoint): {len(dets)} detections, class map "
+        f"{mask.shape} with {len(np.unique(mask))} classes")
+    if not (np.isfinite(dets).all() and mask.shape == ORIG_HW
+            and np.array_equal(dets, direct[0][0]) and np.array_equal(mask, direct[1][0])):
+        raise AssertionError("the EMA checkpoint does not serve as the EMA weights do")
+    del ts
+
+    # timing: ms/step, img/s, peak memory; K6 beside its bound, plain, library
+    log("  timing: train steps on the host clock around synchronised runs of "
+        f"{TRAIN_REP_STEPS}; K6 on the card's clock (CUDA graph replay)")
+    res["step"] = {}
+    for name, (ts, step, _) in states.items():
+        for _ in range(2):
+            step(ts, *batch, *args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(ts, *batch, *args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        reps = []
+        for _ in range(TRAIN_REPS):
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_REP_STEPS):
+                step(ts, *batch, *args)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3 / TRAIN_REP_STEPS)
+        ms = float(np.median(reps))
+        res["step"][name] = {"median_ms": ms, "reps_ms": reps, "img_per_s": TRAIN_BS / ms * 1e3,
+                             "peak_bytes": peak}
+        log(f"  train step bs{TRAIN_BS} {name}: median {ms:.2f} ms/step "
+            f"({TRAIN_BS / ms * 1e3:.1f} img/s) over {TRAIN_REPS} reps of {TRAIN_REP_STEPS}, "
+            f"range {min(reps):.2f}-{max(reps):.2f}; peak device memory {peak / 2**30:.2f} GiB")
+    del states
+
+    res["k6_times"] = {}
+    for name in ("bf16", "fp32"):
+        z, y, w = rec[name][0]
+        z = z.contiguous()        # as the wrapper hands the head's channels_last logits on
+        y32 = y.to(torch.int32)
+        wv = torch.ones(z.shape[1], dtype=torch.float32, device=z.device)
+        stats, lse = K.seg_ce_forward(z, y32, wv)
+        g = torch.full((1,), upstream, dtype=torch.float32, device=z.device)
+
+        def plain():
+            zz = z.detach().requires_grad_(True)
+            (K.seg_ce_plain(zz, y) * upstream).backward()
+
+        def library():
+            zz = z.detach().requires_grad_(True)
+            up = F.interpolate(zz, size=tuple(y.shape[1:]), mode="bilinear", align_corners=True)
+            (F.cross_entropy(up, y, ignore_index=-1) * upstream).backward()
+
+        t = {"fwd_ms": graph_ms(lambda: K.seg_ce_forward(z, y32, wv)),
+             "bwd_ms": graph_ms(lambda: K.seg_ce_backward(z, y32, wv, lse, stats, g)),
+             "plain_ms": cuda_ms(plain, iters=10, warmup=2),
+             "library_ms": cuda_ms(library, iters=10, warmup=2)}
+        b, c = z.shape[:2]
+        n = b * c * y.shape[1] * y.shape[2]
+        zb = z.numel() * z.element_size()
+        nbytes = 3 * zb + 2 * (4 * y.numel() + 4 * c) + 4
+        t_ops = max(2 * n / SFU_OP_S, K6_OPS_PER_PIXEL_CLASS * n / FP32_FLOP_S) * 1e3
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t["bound_ms"], t["bound_by"] = max(t_ops, t_bytes), (
+            "operations" if t_ops >= t_bytes else "bytes")
+        res["k6_times"][name] = t
+        log(f"  seg_ce {name} {tuple(z.shape)} -> {tuple(y.shape[1:])}: forward "
+            f"{t['fwd_ms']:.4f} ms, backward {t['bwd_ms']:.4f} ms; plain fwd+bwd "
+            f"{t['plain_ms']:.4f} ms; F.interpolate + F.cross_entropy fwd+bwd "
+            f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -828,6 +1113,17 @@ def main() -> int:
     errs["nms_greedy"] = ev["errs"]["nms_greedy"]
     e2e, times, per_site, library, bounds, k4_eval, short = phase_timing(
         eng32, eng16, frames, sites16, nms_in, ev)
+    eval_launches, eval_errs = ev["launches"], ev["errs"]
+    eval_n, eval_metrics = ev["n"], ev["metrics"]
+    del eng32, eng16, cpu_eng, ev
+    tr = phase_train()
+    k6 = tr["k6_times"]["bf16"]
+    train_counts = tr["launches"]["bf16"]
+    launches["seg_ce"] = train_counts["seg_ce"] + train_counts["seg_ce_bwd"]
+    errs["seg_ce"] = tr["k6"]["fp32"]["dz_max_abs"]
+    times["seg_ce"] = (k6["fwd_ms"] + k6["bwd_ms"], k6["plain_ms"])
+    bounds["seg_ce"] = (k6["bound_ms"], k6["bound_by"])
+    library["seg_ce"] = k6["library_ms"]
 
     replaces = {
         "stem": "multiyolov5_tpu/ops/pallas/stem_kernel.py:308",
@@ -835,29 +1131,39 @@ def main() -> int:
         "nms": "multiyolov5_tpu/ops/pallas/nms_fixpoint_kernel.py:77",
         "upsample_argmax": "multiyolov5_tpu/ops/pallas/upsample_argmax_kernel.py:309",
         "nms_greedy": "multiyolov5_tpu/ops/pallas/nms_kernel.py:87",
+        "seg_ce": "multiyolov5_tpu/ops/pallas/seg_ce_kernel.py:256",
     }
-    # launches: K1-K4 on the serving path [3], K5 on the eval path [5]
-    # (eval_launches: every kernel on the eval path).  max_abs_err: the
-    # float32 comparison of [2] at the serving shapes; for nms the keep
-    # entries that differ, for nms_greedy the picks that differ on the eval
-    # path's lists, for upsample_argmax the mismatched pixel share.
-    # eval_max_abs_err: the same on the eval path's own arguments ([5]).
+    # launches: K1-K4 on the serving path [3], K5 on the eval path [5], K6
+    # (forward + backward) in the counted bf16 train step [7];
+    # eval_launches and train_launches: every kernel on those paths.
+    # max_abs_err: the float32 comparison of [2] at the serving shapes; for
+    # nms the keep entries that differ, for nms_greedy the picks that differ
+    # on the eval path's lists, for upsample_argmax the mismatched pixel
+    # share, for seg_ce max |dz diff| on the float32 train step's arguments
+    # (the loss's, relative, is in chip_smoke.json).  eval_max_abs_err:
+    # the same on the eval path's own arguments ([5]).  seg_ce's times are
+    # forward + backward on the bf16 train step's arguments.
     kernels = [{"name": k, "route": "cuda",
                 "source": f"multiyolov5_tpu_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
                 "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-                "library_ms": library.get(k), "eval_launches": ev["launches"][k],
-                "eval_max_abs_err": ev["errs"].get(k),
+                "library_ms": library.get(k), "eval_launches": eval_launches[k],
+                "eval_max_abs_err": eval_errs.get(k),
+                "train_launches": train_counts[k] + (train_counts["seg_ce_bwd"]
+                                                     if k == "seg_ce" else 0),
                 "err_dtype": "float32",
                 "ms_dtype": "float32" if k.startswith("nms") else "bfloat16"}
                for k in replaces]
+    kernels[-1].update(fwd_ms=k6["fwd_ms"], bwd_ms=k6["bwd_ms"],
+                       fwd_launches=train_counts["seg_ce"],
+                       bwd_launches=train_counts["seg_ce_bwd"])
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": smi, "e2e_ms": e2e, "kernels": kernels,
                    "conv3x3_sites": per_site, "upsample_argmax_eval": k4_eval,
                    "nms_short_lists": short,
-                   "eval_candidates_per_image": ev["n"],
-                   "eval_metrics": ev["metrics"]}, fh, indent=1)
+                   "eval_candidates_per_image": eval_n,
+                   "eval_metrics": eval_metrics, "train": tr}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

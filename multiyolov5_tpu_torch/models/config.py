@@ -46,6 +46,14 @@ class ModelSpec:
     yaml: Dict[str, Any] = field(default_factory=dict)
     ch_in: int = 3
 
+    @property
+    def na(self) -> int:
+        return len(self.anchors[0]) // 2
+
+    @property
+    def nl(self) -> int:
+        return len(self.anchors)
+
 
 def _resolve_arg(a: Any, env: Dict[str, Any]) -> Any:
     """Resolve string args ('nc', 'anchors', 'None', 'nearest') like the

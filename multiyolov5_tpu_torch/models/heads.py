@@ -14,13 +14,15 @@ from .blocks import FFM, RFB2, Conv, PyramidPooling
 
 
 class Detect(nn.Module):
-    """reference models/yolo.py:189-230, serving form only.
+    """reference models/yolo.py:189-230.
 
-    ``forward`` returns the decoded candidates PLANAR, (B, no, N) float32
-    with rows [x, y, w, h, obj, cls...] in input pixels and N ordered
-    (scale, anchor, pixel) — the order of detect_decode_planar
+    In eval mode ``forward`` returns the decoded candidates PLANAR, (B, no,
+    N) float32 with rows [x, y, w, h, obj, cls...] in input pixels and N
+    ordered (scale, anchor, pixel) — the order of detect_decode_planar
     (multiyolov5_tpu/models/heads.py:75-138) that ops/nms.nms_planar's
-    lower-index-first top-k ties depend on."""
+    lower-index-first top-k ties depend on.  In training mode it returns
+    the raw per-level maps (B, na, ny, nx, no) in the conv's dtype, the
+    layout of detect_raw (multiyolov5_tpu/models/heads.py:53-72)."""
 
     def __init__(self, nc: int, anchors, ch: Sequence[int], strides: Sequence[int]):
         super().__init__()
@@ -42,7 +44,14 @@ class Detect(nn.Module):
                 b[:, 4] += math.log(8 / (640 / s) ** 2)
                 b[:, 5:] += math.log(0.6 / (self.nc - 0.99))
 
-    def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
+    def forward(self, xs: List[torch.Tensor]):
+        if self.training:
+            outs = []
+            for conv, x in zip(self.m, xs):
+                y = conv(x)
+                b, _, ny, nx = y.shape
+                outs.append(y.view(b, self.na, self.no, ny, nx).permute(0, 1, 3, 4, 2))
+            return outs
         zs = []
         for i, x in enumerate(xs):
             y = self.m[i](x).float()                       # (B, na*no, ny, nx)

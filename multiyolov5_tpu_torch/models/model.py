@@ -53,7 +53,9 @@ class Model(nn.Module):
     backbone, the seg head included) run through kernel K2, the
     sites where the JAX package routes its Pallas 3x3s at batch 1.
     ``forward`` returns (decoded candidates (B, no, N) float32 or None,
-    1/8-res seg logits (B, n_segcls, h, w) or None)."""
+    1/8-res seg logits (B, n_segcls, h, w) or None); in training mode the
+    first is the list of raw per-level maps (B, na, ny, nx, no)
+    (heads.Detect), the input of train/losses.DetectionLoss."""
 
     def __init__(self, spec: ModelSpec, fused: bool = False):
         super().__init__()

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels (sm_90a) of the serving and eval paths, the
+"""Hand-written Hopper kernels (sm_90a) of the serving, eval and train paths, the
 sibling of ``multiyolov5_tpu/ops/pallas``.
 
 Each module holds a kernel's wrapper and its plain PyTorch version
@@ -10,11 +10,13 @@ wrapper counts its launches in a plain integer attribute, ``launches``.
 from .conv3x3 import conv3x3, conv3x3_plain
 from .nms import nms, nms_plain
 from .nms_greedy import nms_greedy, nms_greedy_plain
+from .seg_ce import seg_ce, seg_ce_backward, seg_ce_forward, seg_ce_plain
 from .stem import stem, stem_plain
 from .upsample_argmax import upsample_argmax, upsample_argmax_plain
 
 KERNELS = {"stem": stem, "conv3x3": conv3x3, "nms": nms,
-           "upsample_argmax": upsample_argmax, "nms_greedy": nms_greedy}
+           "upsample_argmax": upsample_argmax, "nms_greedy": nms_greedy,
+           "seg_ce": seg_ce_forward, "seg_ce_bwd": seg_ce_backward}
 
 
 def reset_launches() -> None:

@@ -1,0 +1,223 @@
+"""Dual-task train step and training state (counterpart of
+``multiyolov5_tpu/train/trainer.py``).
+
+Each call of the step reproduces the reference's schedule (reference
+train.py:335-401): a detection forward and backward, then a segmentation
+forward and backward, the BN running statistics advancing in both.  The
+gradients accumulate in the parameters' ``.grad`` across calls; when
+``do_update`` is set, one SGD (nesterov) or Adam step over the 3 param
+groups fires, the EMA of every float ``state_dict`` entry follows, and the
+gradients are zeroed.  Compute runs under bf16 autocast by default, with
+float32 parameters and no GradScaler, as the JAX package's bf16 compute
+does; ``compute_dtype=torch.float32`` runs it in float32.  On the card the
+model runs channels_last.
+
+The seg loss is K6 (ops/kernels/seg_ce.py) wherever the JAX package would
+call ``seg_ce_up8`` (its trainer.py:125-141: plain CE, a PSP/Base/Lab
+head), on the card always, not only on a TPU.  The OHEM and focal losses
+upsample the 1/8-res logits and take the plain losses.
+
+Not ported: ``pack_stem``, the ``det_hwna`` layout and the one-hot gather
+(TPU layout work); ``remat``, the mesh / DDP branch, ``autobalance`` and the
+BiSe aux losses (ROADMAP item 11).
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.config import ModelSpec
+from ..models.model import Model, init_model
+from ..ops.kernels import seg_ce
+from ..ops.resize import resize_bilinear
+from ..utils.checkpoint import to_jax_params
+from . import optim
+from .losses import DetectionLoss, ohem_ce_loss, seg_focal_loss, segmentation_loss
+
+
+@dataclass
+class TrainConfig:
+    """The step's settings (the JAX package's TrainConfig less the epoch
+    count, the seg batch size and the target cap, which its CLI reads)."""
+
+    hyp: Dict[str, float]
+    batch_size: int = 16               # detection batch size
+    nbs: int = 64                      # nominal batch size
+    detgain: float = 0.6               # reference train.py:290
+    seggain: float = 0.35
+    seg_loss: str = "ce"               # ce | ohem | focal
+    seg_enabled: bool = True           # False = detection-only training
+    adam: bool = False
+    quad: bool = False                 # quad collate (reference train.py:368)
+    compute_dtype: torch.dtype = torch.bfloat16
+    class_weight: Optional[np.ndarray] = None
+
+
+@dataclass
+class TrainState:
+    """The training state, updated in place by the step.
+
+    model: the unfused network, float32 parameters, in training mode; their
+    ``.grad`` hold the gradients accumulated since the last update.  opt:
+    {"momentum": {name: buffer}} for SGD, {"m": ..., "v": ..., "t": steps}
+    for Adam.  ema: every ``state_dict`` entry (parameters, BN statistics,
+    anchors) by name.  updates: optimizer steps taken."""
+
+    model: Model
+    opt: Dict[str, Any]
+    ema: Dict[str, torch.Tensor]
+    updates: int = 0
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's live ``state_dict`` entries, ``num_batches_tracked`` aside."""
+        return {k: v for k, v in self.model.state_dict().items()
+                if not k.endswith(".num_batches_tracked")}
+
+
+def _load(model: Model, sd: Dict[str, torch.Tensor]) -> None:
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    bad = [k for k in missing if not k.endswith(".num_batches_tracked")] + unexpected
+    if bad:
+        raise KeyError(f"state_dict does not match the model: {bad[:8]}")
+
+
+def create_train_state(spec: ModelSpec, cfg: TrainConfig, seed: int = 0,
+                       state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                       device="cuda") -> Tuple[TrainState, Dict[str, int]]:
+    """(state, param groups) on ``device``: the weights of ``state_dict``
+    (an unfused torch-layout one, e.g. ``from_jax_params`` of the JAX
+    package's), or a seeded random init (models/model.init_model)."""
+    dev = torch.device(device)
+    model = Model(spec)
+    if state_dict is None:
+        init_model(model, torch.Generator().manual_seed(seed))
+    else:
+        _load(model, state_dict)
+    model.to(dev)
+    if dev.type == "cuda":
+        model.to(memory_format=torch.channels_last)
+    model.train()
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = torch.zeros_like(p)
+    zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}  # noqa: E731
+    opt = {"m": zeros(), "v": zeros(), "t": 0} if cfg.adam else {"momentum": zeros()}
+    ts = TrainState(model, opt, {})
+    ts.ema = {k: v.detach().clone() for k, v in ts.state_dict().items()}
+    groups = optim.classify_params(params, dict(model.named_buffers()))
+    return ts, groups
+
+
+def _images(a, dev: torch.device) -> torch.Tensor:
+    """(B, H, W, 3) host or device images -> float32 (B, 3, H, W) on
+    ``dev``, channels_last on the card (the NHWC data as it lies)."""
+    x = torch.as_tensor(a).to(dev).permute(0, 3, 1, 2).float()
+    return x if dev.type == "cuda" else x.contiguous()
+
+
+def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int]):
+    """Returns step(ts, det_imgs, det_tgts, det_mask, seg_imgs, seg_lbls,
+    lr, lr_bias, momentum, do_update, rng=None) -> (ts, metrics).
+
+    det_imgs (B, H, W, 3) uint8; det_tgts (B, T, 5) [cls, xywh] normalized
+    and det_mask (B, T) bool, from losses.pad_targets; seg_imgs (B', H', W',
+    3) float in [0, 1]; seg_lbls (B', H', W') int, -1 unlabelled; host
+    arrays or tensors.  ``rng`` is the dropout generator of the heads that
+    have dropout, none of which is ported: pspv5s draws no random numbers.
+    metrics: {"det_items": (lbox, lobj, lcls, loss), "seg_loss", "total"},
+    tensors on the state's device (reading them synchronises)."""
+    det_loss_fn = DetectionLoss(
+        nc=spec.nc, na=spec.na,
+        anchors=np.asarray(spec.anchors, np.float32).reshape(spec.nl, spec.na, 2)
+        / np.asarray(spec.strides, np.float32)[:, None, None],
+        strides=spec.strides, hyp=cfg.hyp)
+    accumulate_target = max(round(cfg.nbs / cfg.batch_size), 1)
+    # reference train.py:117 scales weight decay by total_bs*accumulate/nbs
+    wd = cfg.hyp.get("weight_decay", 0.0) * cfg.batch_size * accumulate_target / cfg.nbs
+    cw = None if cfg.class_weight is None else torch.as_tensor(cfg.class_weight,
+                                                               dtype=torch.float32)
+    seg_module = spec.rows[spec.seg_index].module if spec.seg_index is not None else None
+    fused_ce = cfg.seg_loss == "ce" and seg_module in ("SegMaskPSP", "SegMaskBase",
+                                                       "SegMaskLab")
+    low = cfg.compute_dtype != torch.float32
+
+    def seg_loss_fn(logits, lbls):
+        if fused_ce:
+            return seg_ce(logits, lbls, cw)
+        up = resize_bilinear(logits, tuple(lbls.shape[-2:]))
+        if cfg.seg_loss == "ohem":
+            return ohem_ce_loss(up, lbls)
+        if cfg.seg_loss == "focal":
+            return seg_focal_loss(up, lbls)
+        return segmentation_loss(up, lbls, cw)
+
+    def update(ts: TrainState, lr: float, lr_bias: float, momentum: float) -> None:
+        names, params = zip(*ts.model.named_parameters())
+        grads = [p.grad for p in params]
+        with torch.no_grad():
+            if cfg.adam:
+                ts.opt["t"] += 1
+                optim.adam_update(names, params, grads, [ts.opt["m"][k] for k in names],
+                                  [ts.opt["v"][k] for k in names], ts.opt["t"], groups,
+                                  lr, lr_bias, momentum, wd)
+            else:
+                optim.sgd_update(names, params, grads,
+                                 [ts.opt["momentum"][k] for k in names], groups, lr,
+                                 lr_bias, momentum, wd)
+            ts.updates += 1
+            optim.ema_update(ts.ema, ts.state_dict(), optim.ema_decay(ts.updates))
+            torch._foreach_zero_(grads)
+
+    def step(ts: TrainState, det_imgs, det_tgts, det_mask, seg_imgs, seg_lbls,
+             lr: float, lr_bias: float, momentum: float, do_update: bool,
+             rng: Optional[torch.Generator] = None):
+        model = ts.model
+        dev = next(model.parameters()).device
+        amp = torch.autocast(dev.type, dtype=cfg.compute_dtype, enabled=low)
+        with amp:
+            det_raw, _ = model(_images(det_imgs, dev) / 255.0)
+        dloss, ditems = det_loss_fn(det_raw, torch.as_tensor(det_tgts).to(dev),
+                                    torch.as_tensor(det_mask).to(dev))
+        dloss = dloss * cfg.detgain * (4.0 if cfg.quad else 1.0)
+        dloss.backward()
+        total = dloss.detach()
+        sloss = torch.zeros((), dtype=torch.float32, device=dev)
+        if cfg.seg_enabled and spec.seg_index is not None:
+            # second forward: the BN statistics already advanced on the det batch
+            with amp:
+                _, seg_out = model(_images(seg_imgs, dev))
+            # reference train.py:386 scales the mean CE by the DETECTION
+            # batch size (the two tasks share one accumulated optimizer step)
+            sl = seg_loss_fn(seg_out, torch.as_tensor(seg_lbls).to(dev)) \
+                * cfg.batch_size * cfg.seggain
+            sl.backward()
+            sloss = sl.detach()
+            total = total + sloss
+        if do_update:
+            update(ts, lr, lr_bias, momentum)
+        return ts, {"det_items": ditems, "seg_loss": sloss, "total": total}
+
+    return step
+
+
+def checkpoint_tree(ts: TrainState, spec: ModelSpec, epoch: Optional[int] = None,
+                    best_fitness: Optional[float] = None) -> Dict[str, Any]:
+    """The JAX package's training checkpoint (its cli/train.py:469-475), for
+    utils/checkpoint.save_npz: HWIO conv weights, EMA beside the raw
+    weights, the optimizer state and the update count."""
+    params, state = to_jax_params(ts.state_dict())
+    ema_params, ema_state = to_jax_params(ts.ema)
+    if "momentum" in ts.opt:
+        opt = to_jax_params(ts.opt["momentum"])[0]
+    else:
+        opt = (to_jax_params(ts.opt["m"])[0], to_jax_params(ts.opt["v"])[0],
+               np.asarray(ts.opt["t"], np.int32))
+    return {"params": params, "state": state, "ema_params": ema_params,
+            "ema_state": ema_state, "opt": opt,
+            "updates": np.asarray(ts.updates, np.int32), "epoch": epoch,
+            "best_fitness": best_fitness, "spec_yaml": json.dumps(spec.yaml)}

@@ -3,9 +3,12 @@
 Each function takes a torch tensor (on any device) or a numpy array and
 returns the same kind: the eval path runs them on tensors on the card and
 on the host-side numpy bookkeeping that mirrors the JAX package's.
+``bbox_iou_ciou``, the detection loss's, takes torch tensors only.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -65,3 +68,31 @@ def box_iou(box1, box2):
     wh = xp.clip(rb - lt, 0, None)
     inter = wh[..., 0] * wh[..., 1]
     return inter / (area1[:, None] + area2[None, :] - inter)
+
+
+def bbox_iou_ciou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise CIoU of xywh boxes (reference utils/general.py:343-385,
+    CIoU branch; multiyolov5_tpu/utils/boxes.py:85-113), on torch tensors.
+
+    The alpha term carries no gradient, like the reference's
+    ``torch.no_grad()`` and the JAX package's ``stop_gradient``."""
+    b1x1, b1x2 = box1[..., 0] - box1[..., 2] / 2, box1[..., 0] + box1[..., 2] / 2
+    b1y1, b1y2 = box1[..., 1] - box1[..., 3] / 2, box1[..., 1] + box1[..., 3] / 2
+    b2x1, b2x2 = box2[..., 0] - box2[..., 2] / 2, box2[..., 0] + box2[..., 2] / 2
+    b2y1, b2y2 = box2[..., 1] - box2[..., 3] / 2, box2[..., 1] + box2[..., 3] / 2
+
+    inter = ((torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(min=0) *
+             (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0))
+    w1, h1 = b1x2 - b1x1, b1y2 - b1y1 + eps
+    w2, h2 = b2x2 - b2x1, b2y2 - b2y1 + eps
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+
+    cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)
+    ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)
+    c2 = cw ** 2 + ch ** 2 + eps
+    rho2 = ((b2x1 + b2x2 - b1x1 - b1x2) ** 2 + (b2y1 + b2y2 - b1y1 - b1y2) ** 2) / 4
+    v = (4 / math.pi ** 2) * torch.square(torch.atan(w2 / h2) - torch.atan(w1 / h1))
+    with torch.no_grad():
+        alpha = v / (v - iou + (1 + eps))
+    return iou - (rho2 / c2 + v * alpha)

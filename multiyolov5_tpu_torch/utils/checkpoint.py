@@ -3,12 +3,14 @@
 The JAX package keeps flat ``params``/``state`` dicts of numpy arrays whose
 keys already are the torch ``state_dict`` names; only conv weights differ,
 HWIO there and OIHW here.  Its native ``.npz`` format (a JSON skeleton plus
-one array per leaf) is read here without JAX.
+one array per leaf) is read and written here without JAX, so the JAX
+package loads what the port's training writes and the other way round.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -28,6 +30,60 @@ def from_jax_params(params: Dict[str, Any], state: Dict[str, Any]) -> Dict[str, 
             arr = np.transpose(arr, (3, 2, 0, 1))
         out[k] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+# state_dict entries that the JAX package keeps in ``state``, not ``params``
+# (multiyolov5_tpu/utils/checkpoint.py:28-30)
+_STATE_SUFFIXES = (".running_mean", ".running_var", ".anchors", ".anchor_grid")
+
+
+def to_jax_params(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, np.ndarray],
+                                                        Dict[str, np.ndarray]]:
+    """A torch ``state_dict`` -> JAX-layout ``(params, state)`` numpy dicts,
+    the inverse of :func:`from_jax_params`: 4-D ``.weight`` arrays go OIHW
+    -> HWIO (``from_torch_state_dict``,
+    multiyolov5_tpu/utils/checkpoint.py:33-51); BN running statistics and
+    the Detect anchor buffers go to ``state``; ``num_batches_tracked`` is
+    dropped."""
+    params: Dict[str, np.ndarray] = {}
+    state: Dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if k.endswith(".num_batches_tracked"):
+            continue
+        arr = v.detach().cpu().numpy()
+        if arr.ndim == 4 and k.endswith(".weight"):
+            arr = np.transpose(arr, (2, 3, 1, 0))
+        (state if k.endswith(_STATE_SUFFIXES) else params)[k] = np.ascontiguousarray(arr)
+    return params, state
+
+
+def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> Any:
+    """Flatten nested dicts/lists/tuples of arrays into string keys; returns
+    the JSON skeleton of the structure (the JAX package's format)."""
+    if isinstance(tree, dict):
+        return {k: _flatten(v, f"{prefix}/{k}", out) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        kind = "list" if isinstance(tree, list) else "tuple"
+        return {"__seq__": kind,
+                "items": [_flatten(v, f"{prefix}/{i}", out) for i, v in enumerate(tree)]}
+    if tree is None:
+        return {"__none__": True}
+    if isinstance(tree, (int, float, str, bool)):
+        return {"__scalar__": tree}
+    out[prefix] = np.asarray(tree)
+    return {"__leaf__": prefix}
+
+
+def save_npz(path: str, tree: Dict[str, Any]) -> None:
+    """Write ``tree`` (numpy arrays and scalars in dicts, lists and tuples)
+    as a native ``.npz`` checkpoint that the JAX package's ``load_npz``
+    reads."""
+    arrays: Dict[str, np.ndarray] = {}
+    skel = _flatten(tree, "", arrays)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as fh:
+        np.savez(fh, __skeleton__=np.frombuffer(json.dumps(skel).encode(), dtype=np.uint8),
+                 **arrays)
 
 
 def _unflatten(skel: Any, arrays: Dict[str, np.ndarray]) -> Any:
@@ -67,3 +123,19 @@ def load_checkpoint(path: str) -> Tuple[Optional[Any], Dict[str, torch.Tensor]]:
     spec_yaml = tree.get("spec_yaml")
     cfg = json.loads(spec_yaml) if isinstance(spec_yaml, str) else spec_yaml
     return cfg, from_jax_params(params, state)
+
+
+def strip_optimizer(path: str, out_path: Optional[str] = None) -> None:
+    """Finalize a training checkpoint for inference (reference
+    utils/general.py:512-525; multiyolov5_tpu/utils/checkpoint.py:212-227):
+    the EMA weights become the weights, the optimizer state goes."""
+    ckpt = load_npz(path)
+    final = {
+        "params": ckpt.get("ema_params") or ckpt["params"],
+        "state": ckpt.get("ema_state") or ckpt["state"],
+        "spec_yaml": ckpt.get("spec_yaml"),
+        "updates": ckpt.get("updates", ckpt.get("step")),
+        "epoch": ckpt.get("epoch"),
+        "best_fitness": ckpt.get("best_fitness"),
+    }
+    save_npz(out_path or path, final)

@@ -1,12 +1,17 @@
 """The port stands without JAX: in a fresh interpreter where importing
 ``jax`` or ``multiyolov5_tpu`` raises, every module of the port imports, a
-tiny seeded Engine serves one frame on the CPU, and the eval path
-(multi-label NMS over more than K3's 1024 rows, mAP, mIoU) runs on one batch."""
+tiny seeded Engine serves one frame on the CPU, the eval path (multi-label
+NMS over more than K3's 1024 rows, mAP, mIoU) runs on one batch, and the
+dual-task train step of the TINY spec (tests/test_torch_train_step.py)
+takes one update on the CPU."""
 
+import json
 import os
 import subprocess
 import sys
 import textwrap
+
+from test_torch_train_step import TINY
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,7 +36,8 @@ _SCRIPT = textwrap.dedent("""
     dets, masks = eng(frame, (64, 128), conf=0.001)
     assert dets[0].ndim == 2 and dets[0].shape[1] == 6 and len(dets[0]) > 0
     assert masks[0].shape == (64, 128) and masks[0].dtype == np.uint8
-    new = {"evaluation", "ops.kernels.nms_greedy", "utils.metrics", "utils.boxes"}
+    new = {"evaluation", "ops.kernels.nms_greedy", "utils.metrics", "utils.boxes",
+           "train.trainer", "train.losses", "train.optim", "data.hyps", "ops.kernels.seg_ce"}
     assert {pkg.__name__ + "." + m for m in new} <= set(names)
 
     from multiyolov5_tpu_torch.evaluation import evaluate_detection, seg_validation
@@ -47,6 +53,24 @@ _SCRIPT = textwrap.dedent("""
         pix_acc, miou = seg_validation(eng, [(frame[None], masks)], nclass=19)
     assert seen == 1 and len(res) == 7 and maps.shape == (10,) and max(counts) > 1024
     assert 0 <= pix_acc <= 1 and 0 <= miou <= 1
+
+    import json, os, torch
+    from multiyolov5_tpu_torch.data.hyps import load_hyp
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.train.losses import pad_targets
+    from multiyolov5_tpu_torch.train.trainer import (TrainConfig, create_train_state,
+                                                     make_train_step)
+    spec = load_spec(json.loads(os.environ["TINY_SPEC"]))
+    cfg = TrainConfig(hyp=load_hyp("scratch"), batch_size=2,
+                      compute_dtype=torch.float32)
+    ts, groups = create_train_state(spec, cfg, seed=0, device="cpu")
+    step = make_train_step(spec, cfg, groups)
+    rng = np.random.RandomState(2)
+    tgts, tmask = pad_targets([np.array([[1, 0.5, 0.5, 0.3, 0.3]], np.float32)] * 2, 4)
+    ts, m = step(ts, (rng.rand(2, 64, 64, 3) * 255).astype(np.uint8), tgts, tmask,
+                 rng.rand(2, 64, 64, 3).astype(np.float32), rng.randint(-1, 4, (2, 64, 64)),
+                 0.01, 0.01, 0.9, True)
+    assert ts.updates == 1 and np.isfinite(float(m["total"])) and float(m["seg_loss"]) > 0
     assert not any(m.split(".")[0] in ("jax", "multiyolov5_tpu") for m in sys.modules)
     print("OK", len(names))
 """)
@@ -54,6 +78,7 @@ _SCRIPT = textwrap.dedent("""
 
 def test_port_imports_and_runs_without_jax():
     res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
+                         env={**os.environ, "TINY_SPEC": json.dumps(TINY)},
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.startswith("OK")

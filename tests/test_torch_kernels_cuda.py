@@ -1,4 +1,4 @@
-"""The five Hopper kernels against their plain PyTorch versions, on the card.
+"""The six Hopper kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test decides inside itself whether a card is present
 and skips otherwise.  Run on a machine with an H100 by ``pytest -m cuda
@@ -6,7 +6,10 @@ tests/test_torch_kernels_cuda.py``.  Inputs are seeded, at small shapes.
 Bounds: float32 max |diff| 1e-4 (summation order; TF32 off), bfloat16
 2e-2 relative to the output's scale (one bf16 rounding of the output and of
 the conv input), NMS keep masks and greedy picks equal, class-map mismatch
-share <= 1e-4."""
+share <= 1e-4.  K6 (seg_ce): the loss within 1e-4 relative (float32 sums
+in another order; its bf16 input is the same for both), dz within 1e-4
+(float32) or 1e-2 (bf16: one rounding of each side's float32 value) of
+max |dz|; all-ignored labels give exactly 0 and a zero gradient."""
 
 import numpy as np
 import pytest
@@ -102,3 +105,39 @@ def test_nms_greedy_kernel(dev, bsz, n, n_valid):
     want_idx, want_valid = K.nms_greedy_plain(boxes, scores, 0.6, 300)
     assert torch.equal(idx, want_idx) and torch.equal(valid, want_valid)
     assert valid.sum(1).min() > 250 and idx.max() > 900   # deep suppression
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 19, 64, 128, 8), (1, 4, 6, 12, 8), (2, 5, 8, 16, 8)])
+def test_seg_ce_kernel(dev, dtype, shape):
+    b, c, h, w, k = shape
+    rng = np.random.RandomState(h * w + c)
+    z = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(dev, dtype)
+    y = rng.randint(0, c, (b, k * h, k * w))
+    y = torch.from_numpy(np.where(rng.rand(*y.shape) < 0.2, -1, y)).to(dev)
+    wv = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5).to(dev)
+    out = {}
+    for name, fn in (("kernel", K.seg_ce), ("plain", K.seg_ce_plain)):
+        zz = z.clone().requires_grad_(True)
+        loss = fn(zz, y, wv)
+        (loss * 3.5).backward()
+        torch.cuda.synchronize()
+        out[name] = (loss.detach(), zz.grad)
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    assert gk.dtype == dtype and gk.shape == z.shape
+    assert abs(lk.item() - lp.item()) <= 1e-4 * abs(lp.item())
+    bound = (1e-4 if dtype == torch.float32 else 1e-2) * gp.float().abs().max().item()
+    assert (gk.float() - gp.float()).abs().max().item() <= bound
+
+
+def test_seg_ce_kernel_all_ignored(dev):
+    z = torch.randn(2, 5, 8, 16, generator=torch.Generator().manual_seed(3)).to(dev)
+    z.requires_grad_(True)
+    y = torch.full((2, 64, 128), -1, dtype=torch.int64, device=dev)
+    launches = K.seg_ce_forward.launches, K.seg_ce_backward.launches
+    loss = K.seg_ce(z, y)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (K.seg_ce_forward.launches, K.seg_ce_backward.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert loss.item() == 0.0 and z.grad.abs().max().item() == 0.0
