@@ -2,12 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the six Hopper kernels of ``multiyolov5_tpu_torch/csrc``, holds each
+Builds the seven Hopper kernels of ``multiyolov5_tpu_torch/csrc``, holds each
 against its plain PyTorch version at the shapes of the pspv5s paths, and
-drives three paths with seeded random yolov5s_city_seg weights, on the card
+drives four paths with seeded random yolov5s_city_seg weights, on the card
 and, for reference, on the CPU:
 
 * serving: ``Engine`` on three frames (K1-K4);
+* batched serving: ``InferenceServer`` (max_batch 8, img_size 1024) on
+  seeded 2048x1024 BGR frames from four client threads (K1, K2, K7, K5,
+  K4), each result against ``Engine`` on the same letterboxed batch, the
+  float32 server against a CPU server, and a pspv5m (yolov5m_city_seg) bs2
+  forward against the CPU's;
 * eval: ``evaluate_detection`` (multi-label NMS over up to 30000
   candidates, mAP; K1, K2, K5) and ``seg_validation`` (mIoU; K1, K2, K4)
   on two seeded bs4 batches letterboxed from 2048x1024;
@@ -45,6 +50,11 @@ CONF = 0.001                                   # a full 1024-candidate NMS list
 SEED = 0
 N_FRAMES = 3
 DEVICE = "cuda"
+# batched serving [8]: serving.py's defaults but conf (a full NMS list), on
+# square 1024x1024 letterboxed frames as the JAX server serves them
+SERVE_IMG, SERVE_BS, SERVE_WAIT_MS = 1024, 8, 100
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_TAIL = 4, 4, 3
+M_CFG = "yolov5m_city_seg"
 
 # bounds, each stated with its reason
 F32_REL = 1e-4     # float32 vs float32: summation order only (TF32 off)
@@ -267,6 +277,71 @@ def record_path_inputs(eng, frame):
     return sites, nms_inputs
 
 
+def c3_case(gen, shape, ch, n, dt, shortcut=True):
+    """A seeded NHWC input and K7 arguments (fan-in scaled OHWI weights,
+    float32 biases) of one C3 with c2 = c1."""
+    c1 = shape[-1]
+
+    def wt(*s):
+        return (torch.randn(*s, generator=gen, device=DEVICE) / np.sqrt(np.prod(s[1:]))).to(dt)
+
+    def bias(c):
+        return torch.randn(c, generator=gen, device=DEVICE) * 0.1
+
+    mws = [(wt(ch, 1, 1, ch), bias(ch), wt(ch, 3, 3, ch), bias(ch)) for _ in range(n)]
+    args = (wt(ch, 1, 1, c1), bias(ch), wt(ch, 1, 1, c1), bias(ch), wt(c1, 1, 1, 2 * ch),
+            bias(c1), mws, shortcut)
+    return torch.randn(shape, generator=gen, device=DEVICE).to(dt), args
+
+
+def c3_work(x, args):
+    """(bytes, flops) of one C3: x and y once, the weights and biases once;
+    2 flops a MAC of cv1, cv2, cv3 and each bottleneck's 1x1 and 3x3."""
+    c1, ch, c2, n = x.shape[-1], args[0].shape[0], args[4].shape[0], len(args[6])
+    px = x.numel() // c1
+    tensors = list(args[:6]) + [t for m in args[6] for t in m]
+    nbytes = x.element_size() * (x.numel() + px * c2) + sum(
+        t.numel() * t.element_size() for t in tensors)
+    return nbytes, 2 * px * (2 * c1 * ch + 2 * ch * c2 + n * 10 * ch * ch)
+
+
+def c3_row(eng):
+    """The engine's row-2 C3 module, the one K7 runs."""
+    from multiyolov5_tpu_torch.models.blocks import C3
+    mod = eng.model.model[2]
+    if not (isinstance(mod, C3) and mod.c3_kernel):
+        raise AssertionError("row 2 is not a C3 on the K7 route")
+    return mod
+
+
+def hold_c3(eng32, eng16):
+    """K7 against c3_plain at the batched paths' shapes: pspv5s row 2 at bs8
+    1024x1024 (the engines' weights), pspv5m row 2 at bs2 (c_ 48, two
+    bottlenecks), no shortcut, and an H x W that is no multiple of the tile.
+    Returns the float32 max |diff| at the pspv5s serving shape."""
+    from multiyolov5_tpu_torch.ops import kernels as K
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    side = SERVE_IMG // 4
+    out = None
+    for eng, dt, bound in ((eng32, torch.float32, F32_REL), (eng16, torch.bfloat16, BF16_REL)):
+        args = c3_row(eng).kernel_args()
+        cases = [("pspv5s row 2", torch.randn((SERVE_BS, side, side, args[0].shape[-1]),
+                                              generator=g, device=DEVICE).to(dt), args),
+                 ("pspv5m row 2", *c3_case(g, (2, side, side, 96), 48, 2, dt)),
+                 ("no shortcut", *c3_case(g, (2, 64, 128, 64), 32, 1, dt, False)),
+                 ("odd H x W", *c3_case(g, (3, 37, 53, 64), 32, 1, dt))]
+        for name, x, a in cases:
+            got = K.c3(x, *a)
+            torch.cuda.synchronize()
+            d, rel = diffs(got, K.c3_plain(x, *a))
+            log(f"  c3 {str(dt)[6:]} {name} {tuple(x.shape)} c_ {a[0].shape[0]} n {len(a[6])}: "
+                f"max|diff| {d:.3e}")
+            check(f"c3 {str(dt)[6:]} {name} max|diff|/max(max|ref|,1)", rel, bound)
+            if out is None:
+                out = d
+    return out
+
+
 def phase_kernels(eng32, eng16, frames):
     """[2] each kernel against its plain version at the path's shapes."""
     from multiyolov5_tpu_torch.ops import kernels as K
@@ -335,6 +410,9 @@ def phase_kernels(eng32, eng16, frames):
         check(f"upsample_argmax {str(dt)[6:]} mismatched pixel share", share, MASK_SHARE)
         if dt == torch.float32:
             res["upsample_argmax"] = share
+
+    # K7 at the batched forward's shapes
+    res["c3"] = hold_c3(eng32, eng16)
     return res, sites16, nms_in
 
 
@@ -395,9 +473,10 @@ def phase_end_to_end(eng32, eng16, cpu_eng, frames):
     torch.cuda.synchronize()
     launches = K.launch_counts()
     log(f"  launches on the card path: {launches}")
-    for k in ("stem", "conv3x3", "nms", "upsample_argmax"):
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the serving path")
+    want = {"stem": N_FRAMES, "conv3x3": 10 * N_FRAMES, "nms": N_FRAMES,
+            "upsample_argmax": N_FRAMES, "c3": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"bs1 serving launches {launches}, want {want}")
 
     cpu = [cpu_eng(f, ORIG_HW, conf=CONF) for f in frames]
     post_card, post_cpu = [], []
@@ -487,18 +566,20 @@ def quiet(fn, *args, **kw):
 def run_eval(eng, det_b, seg_b, kernels: bool):
     """evaluate_detection then seg_validation, recording every network
     output ("net") and the detections ("dets"); with ``kernels``, also the
-    arguments of each kernel the path calls (K1 "stem", K2 "conv3x3", K5
-    "nms_greedy" and, in seg_validation, K4 "upsample_argmax")."""
+    arguments of each kernel the path calls (K1 "stem", K2 "conv3x3", K7
+    "c3", K5 "nms_greedy" and, in seg_validation, K4 "upsample_argmax")."""
     from multiyolov5_tpu_torch import engine as engine_mod
     from multiyolov5_tpu_torch import evaluation as E
     from multiyolov5_tpu_torch.models import blocks
     from multiyolov5_tpu_torch.ops import nms as nms_mod
-    rec = {k: [] for k in ("net", "dets", "stem", "conv3x3", "nms_greedy", "upsample_argmax")}
+    rec = {k: [] for k in ("net", "dets", "stem", "conv3x3", "c3", "nms_greedy",
+                           "upsample_argmax")}
     spies = [spied(engine_mod.Engine, "forward", after=rec["net"].append),
              spied(E, "non_max_suppression", after=rec["dets"].extend)]
     if kernels:
         spies += [spied(engine_mod, "stem", before=recorder(rec["stem"])),
                   spied(blocks, "conv3x3", before=recorder(rec["conv3x3"])),
+                  spied(blocks, "c3", before=recorder(rec["c3"])),
                   spied(nms_mod, "nms_greedy", before=recorder(rec["nms_greedy"])),
                   spied(E, "upsample_argmax", before=recorder(rec["upsample_argmax"]))]
     with contextlib.ExitStack() as stack:
@@ -512,11 +593,11 @@ def run_eval(eng, det_b, seg_b, kernels: bool):
 
 def hold_eval_kernels(rec):
     """Each kernel against its plain version on the arguments the counted
-    eval run gave it; returns the float32 max |diff| (K1, K2), the
+    eval run gave it; returns the float32 max |diff| (K1, K2, K7), the
     mismatched pixel share (K4) and the picks differing (K5)."""
     from multiyolov5_tpu_torch.ops import kernels as K
     errs = {}
-    for name, bound in (("stem", F32_REL), ("conv3x3", F32_REL)):
+    for name, bound in (("stem", F32_REL), ("conv3x3", F32_REL), ("c3", F32_REL)):
         worst_abs = worst_rel = 0.0
         for args, kw in rec[name]:
             got = getattr(K, name)(*args, **kw)
@@ -590,6 +671,9 @@ def phase_eval(eng32, eng16, cpu_eng):
     for k in ("stem", "conv3x3", "nms_greedy", "upsample_argmax"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the eval path")
+    if launches["c3"] != len(card["net"]):
+        raise AssertionError(f"K7 launched {launches['c3']} times in {len(card['net'])} "
+                             f"bs{EVAL_BS} eval forwards, not once each")
     errs = hold_eval_kernels(card)
 
     (det_cpu, _, _), seg_cpu, cpu = run_eval(cpu_eng, det_b, seg_b, kernels=False)
@@ -734,9 +818,16 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
                + graph_ms(lambda: F.conv2d(y1p, w2, b2))}
     c_mid, c_out = w[0].shape[-1], w[2].shape[-1]
     h4, w4 = IN_HW[0] // 4, IN_HW[1] // 4
+    stem_flops = 2 * h4 * w4 * (9 * 48 * c_mid + 4 * c_mid * c_out)
     bounds = {"stem": bound_ms(
         frame.numel() + 4 * sum(t.numel() for t in w) + 2 * h4 * w4 * c_out,
-        2 * h4 * w4 * (9 * 48 * c_mid + 4 * c_mid * c_out), FP32_FLOP_S)}
+        stem_flops, FP32_FLOP_S)}
+    # B1c (stem_apply_pallas, not ported): K1's function with the /255
+    # unfolded, on a float32 (B, H/4, W/4, 48) space-to-depth input
+    bounds["b1c"] = bound_ms(4 * frame.numel() + 4 * sum(t.numel() for t in w)
+                             + 2 * h4 * w4 * c_out, stem_flops, FP32_FLOP_S)
+    log(f"  B1c stem_apply_pallas bound at K1's serving shapes (float32 input, bf16 "
+        f"output): {bounds['b1c'][0]:.5f} ms ({bounds['b1c'][1]})")
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     k_ms = p_ms = l_ms = b_ms = t_bytes = t_ops = 0.0
@@ -829,13 +920,264 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
         f"{short['k3_x4_ms']:.4f} ms, K5 (4, 1024) {short['k5_1024_ms']:.4f} ms, K5 "
         f"{tuple(scores.shape)} with 1024 valid {short['k5_30000_ms']:.4f} ms; picks "
         f"{short['picks']}, differing K3 vs K5 {short['picks_differing_k3_k5']} (reported)")
+    # K7 at bs8 1024x1024 serving's row-2 C3 (bf16), and at the eval path's
+    # (float32, the counted eval run's own arguments); "library" is the
+    # unfused sequence the module runs otherwise (5 cuDNN convs, cat, add):
+    # no single PyTorch call computes a C3
+    c3_times = {}
+    side = SERVE_IMG // 4
+    (x_ev, *a_ev), _ = ev["rec"]["c3"][0]
+    for name, eng, x, args in (
+            ("serving", eng16, None, None), ("eval", eng32, x_ev, tuple(a_ev))):
+        mod = c3_row(eng)
+        args = args or mod.kernel_args()
+        if x is None:
+            x = torch.randn((SERVE_BS, side, side, args[0].shape[-1]), generator=g,
+                            device=dev).to(torch.bfloat16)
+        xc = x.permute(0, 3, 1, 2)
+
+        def sequence(mod=mod, xc=xc):
+            with torch.inference_mode():
+                return mod.cv3(torch.cat([mod.m(mod.cv1(xc)), mod.cv2(xc)], 1))
+
+        nbytes, flops = c3_work(x, args)
+        c3_times[name] = {
+            "x": list(x.shape), "dtype": str(x.dtype)[6:],
+            "ms": graph_ms(lambda: K.c3(x, *args)),
+            "plain_ms": graph_ms(lambda: K.c3_plain(x, *args)),
+            "library_ms": graph_ms(sequence),
+            "bound": bound_ms(nbytes, flops, BF16_FLOP_S if x.dtype == torch.bfloat16
+                              else FP32_FLOP_S),
+            "bytes": nbytes, "flops": flops}
+        t = c3_times[name]
+        log(f"  c3 {name} {tuple(x.shape)} {t['dtype']}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library (sequence) {t['library_ms']:.4f} ms, bound "
+            f"{t['bound'][0]:.5f} ms ({t['bound'][1]}; {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+    t = c3_times["serving"]
+    times["c3"] = (t["ms"], t["plain_ms"])
+    library["c3"] = t["library_ms"]
+    bounds["c3"] = t["bound"]
+
     for k, (km, pm) in times.items():
         lib = library.get(k)
         log(f"  {k}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bounds[k][0]:.5f} ms "
             f"({bounds[k][1]}), library call "
             + ("none" if lib is None else f"{lib:.4f} ms")
             + (f" (sum over {len(sites16)} sites)" if k == "conv3x3" else ""))
-    return e2e, times, per_site, library, bounds, k4_eval, short
+    return e2e, times, per_site, library, bounds, k4_eval, short, c3_times
+
+
+def serve(server, frames, clients: int = 1):
+    """Submit ``frames`` to ``server`` from ``clients`` threads (contiguous
+    shares, each thread submitting its share in order) and return the
+    results in frame order."""
+    import threading
+    futs = [None] * len(frames)
+    per = -(-len(frames) // clients)
+
+    def client(i0):
+        for i in range(i0, min(i0 + per, len(frames))):
+            futs[i] = server.submit(frames[i])
+
+    threads = [threading.Thread(target=client, args=(i0,)) for i0 in range(0, len(frames), per)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return [f.result(timeout=600) for f in futs]
+
+
+def same_outputs(a, b) -> bool:
+    """Two (dets, class map) results equal to the bit."""
+    return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+def phase_serving(eng32, eng16, cpu_eng):
+    """[8] batched serving: InferenceServer on the card against Engine on the
+    same letterboxed batches, K7 once per batched forward, the float32
+    server against a CPU server, a pspv5m bs2 forward against the CPU's,
+    and the serving readings."""
+    from multiyolov5_tpu_torch.data.letterbox import letterbox
+    from multiyolov5_tpu_torch.engine import Engine
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.serving import InferenceServer
+    n_main = SERVE_CLIENTS * SERVE_PER_CLIENT
+    log(f"[8] batched serving: InferenceServer(max_batch {SERVE_BS}, img_size {SERVE_IMG}, "
+        f"max_wait {SERVE_WAIT_MS} ms, conf {CONF}) on seeded BGR {ORIG_HW} frames: "
+        f"{n_main} from {SERVE_CLIENTS} client threads, then {SERVE_TAIL}")
+    rng = np.random.RandomState(SEED + 13)
+    frames = [rng.randint(0, 256, (*ORIG_HW, 3)).astype(np.uint8)
+              for _ in range(n_main + SERVE_TAIL)]
+    res = {}
+
+    # bf16 server; every engine call recorded with its batch and outputs
+    calls = []
+    real_call = Engine.__call__
+
+    def recorded(self, x, *a, **kw):
+        out = real_call(self, x, *a, **kw)
+        calls.append((self, x.clone(), out))
+        return out
+
+    server = InferenceServer(engine=eng16, img_size=SERVE_IMG, max_batch=SERVE_BS,
+                             max_wait_ms=SERVE_WAIT_MS, conf=CONF)
+    try:
+        server.warmup(ORIG_HW)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        with replaced(Engine, "__call__", recorded):
+            got = serve(server, frames[:n_main], SERVE_CLIENTS)
+            got += serve(server, frames[n_main:])
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+    finally:
+        server.close()
+    sizes = [tuple(x.shape) for _, x, _ in calls]
+    log(f"  batches {sizes}; launches {launches}")
+    # which batch row holds each frame: letterbox it as the server does
+    where = []
+    for f in frames:
+        lb = letterbox(f, SERVE_IMG, auto=False, stride=eng16.stride, device=DEVICE)[0].flip(-1)
+        hits = [(j, r) for j, (_, x, _) in enumerate(calls) for r in range(x.shape[0])
+                if torch.equal(x[r], lb)]
+        if not hits:
+            raise AssertionError("a frame is in no served batch")
+        where.append(hits[0])
+    n_real = [1 + max(r for j, r in where if j == i) for i in range(len(calls))]
+    padded = [(n, x.shape[0]) for n, (_, x, _) in zip(n_real, calls) if n < x.shape[0]]
+    for (_, x, _), n in zip(calls, n_real):
+        if not all(torch.equal(x[r], x[n - 1]) for r in range(n, x.shape[0])):
+            raise AssertionError("a bucket is not padded with its last frame")
+    if not padded:
+        raise AssertionError(f"no padded bucket among the batches {sizes}")
+    batched = sum(x.shape[0] > 1 for _, x, _ in calls)
+    check("K7 launches - batched forwards (bs > 1)", abs(launches["c3"] - batched), 0)
+    want = {"stem": len(calls), "conv3x3": 10 * len(calls), "nms": len(calls) - batched,
+            "nms_greedy": batched, "upsample_argmax": len(calls)}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"server launches {launches}, want {want}")
+    # each result against Engine on the same letterboxed batch, padded to its bucket
+    differ = 0
+    for (j, r), out in zip(where, got):
+        eng, x, (dets, masks) = calls[j]
+        differ += not same_outputs(out, (dets[r], masks[r]))
+    for eng, x, (dets, masks) in calls:
+        d2, m2 = eng16(x, ORIG_HW, conf=CONF)
+        differ += sum(not same_outputs((a, b), (c, e)) for a, b, c, e in zip(dets, masks, d2, m2))
+    check("bf16 server results (and their batches' rows) differing from Engine on the "
+          "same padded batch", differ, 0)
+    for d, m in got:
+        if not (np.isfinite(d).all() and d.shape[1] == 6 and m.shape == ORIG_HW
+                and m.dtype == np.uint8):
+            raise AssertionError("malformed server output")
+    res.update(batches=sizes, padded=padded, launches=launches, stats=server.stats(),
+               dets_per_frame=[len(d) for d, _ in got])
+
+    # the float32 server on the card against one on the CPU, on 2 frames
+    runs = {}
+    for name, eng in (("card", eng32), ("cpu", cpu_eng)):
+        rec = {"x": [], "net": []}
+        srv = InferenceServer(engine=eng, img_size=SERVE_IMG, max_batch=SERVE_BS,
+                              max_wait_ms=1000, conf=CONF)
+        t0 = time.perf_counter()
+        try:
+            with spied(Engine, "__call__", before=lambda self, x, *a, **k: rec["x"].append(x)), \
+                    spied(Engine, "forward", after=rec["net"].append):
+                outs = serve(srv, frames[:2])
+        finally:
+            srv.close()
+        runs[name] = (outs, rec, time.perf_counter() - t0)
+    (outs_c, rec_c, _), (outs_h, rec_h, t_cpu) = runs["card"], runs["cpu"]
+    log(f"  fp32 server, card vs CPU on 2 frames (the CPU server took {t_cpu:.1f} s)")
+    if not (len(rec_c["x"]) == len(rec_h["x"]) == 1 and rec_c["x"][0].shape[0] == 2):
+        raise AssertionError("the 2 frames were not served as one bs2 batch")
+    check("letterboxed bs2 batch, card vs CPU: pixels differing",
+          int((rec_c["x"][0].cpu() != rec_h["x"][0]).sum()), 0)
+    (z_card, seg_card), (z_cpu, seg_cpu) = rec_c["net"][0], rec_h["net"][0]
+    z_card, seg_card = z_card.cpu(), seg_card.cpu()
+    check("network fp32 bs2 card vs CPU: boxes max|diff|/max(max|ref|,1)",
+          diffs(z_card[:, :4], z_cpu[:, :4])[1], NET_REL)
+    check("network fp32 bs2 card vs CPU: obj/cls max|diff|",
+          diffs(z_card[:, 4:], z_cpu[:, 4:])[0], NET_REL)
+    check("network fp32 bs2 card vs CPU: seg logits max|diff|/max(max|ref|,1)",
+          diffs(seg_card, seg_cpu)[1], NET_REL)
+    in_hw = (SERVE_IMG, SERVE_IMG)
+    post_card = eng32.postprocess(z_card.to(DEVICE), seg_card.to(DEVICE), in_hw, ORIG_HW,
+                                  conf=CONF)
+    post_cpu = cpu_eng.postprocess(z_card, seg_card, in_hw, ORIG_HW, conf=CONF)
+    compare_runs("server post-processing (bs2 NMS on K5, unmap, mask) card vs CPU on the "
+                 "card's network outputs", post_card, post_cpu, MATCH_SHARE, BOX_PX,
+                 SCORE_ABS, MASK_SHARE)
+    merge = lambda outs: ([d for d, _ in outs], [m for _, m in outs])  # noqa: E731
+    compare_runs("fp32 server end to end card vs CPU", merge(outs_c), merge(outs_h),
+                 E2E_MATCH_SHARE, BOX_PX, E2E_SCORE_ABS, E2E_MASK_SHARE)
+
+    # pspv5m: the float32 bs2 forward at SERVE_IMG x SERVE_IMG, card against CPU
+    spec_m = load_spec(M_CFG)
+    sd_m = seeded_state_dict(spec_m, SEED)
+    m_card = Engine(spec=spec_m, state_dict=sd_m, device=DEVICE, half=False)
+    m_cpu = Engine(spec=spec_m, state_dict=sd_m, device="cpu", half=False)
+    del sd_m
+    x = rec_h["x"][0]
+    K.reset_launches()
+    zm_card, segm_card = m_card.forward(x.to(DEVICE))
+    torch.cuda.synchronize()
+    m_launches = K.launch_counts()
+    check(f"{M_CFG} bs2 forward: K7 launches - 1", abs(m_launches["c3"] - 1), 0)
+    zm_cpu, segm_cpu = m_cpu.forward(x)
+    zm_card, segm_card = zm_card.cpu(), segm_card.cpu()
+    check(f"network fp32 {M_CFG} bs2 card vs CPU: boxes max|diff|/max(max|ref|,1)",
+          diffs(zm_card[:, :4], zm_cpu[:, :4])[1], NET_REL)
+    check(f"network fp32 {M_CFG} bs2 card vs CPU: obj/cls max|diff|",
+          diffs(zm_card[:, 4:], zm_cpu[:, 4:])[0], NET_REL)
+    check(f"network fp32 {M_CFG} bs2 card vs CPU: seg logits max|diff|/max(max|ref|,1)",
+          diffs(segm_card, segm_cpu)[1], NET_REL)
+    c3m = c3_row(m_card)
+    res["pspv5m"] = {"launches": m_launches, "c3_c_": c3m.cv1.conv.out_channels,
+                     "c3_n": len(c3m.m)}
+    del m_card, m_cpu
+
+    # readings, bf16: the server's frames/s, Engine at bs8 and bs1 on 1024x1024
+    server = InferenceServer(engine=eng16, img_size=SERVE_IMG, max_batch=SERVE_BS,
+                             max_wait_ms=SERVE_WAIT_MS, conf=CONF)
+    n_burst = 4 * SERVE_BS
+    burst = [frames[i % len(frames)] for i in range(n_burst)]
+    reps = []
+    try:
+        serve(server, burst[:SERVE_BS])
+        for _ in range(3):
+            t0 = time.perf_counter()
+            serve(server, burst, SERVE_CLIENTS)
+            reps.append((time.perf_counter() - t0) * 1e3 / n_burst)
+        stats = server.stats()
+    finally:
+        server.close()
+    x8 = server.letterbox_batch(frames[:SERVE_BS])
+    readings = {"server_bs8": {"ms_per_frame": reps, "frames_per_s": [1e3 / r for r in reps],
+                               "stats": stats}}
+    for name, xb, n in (("engine_bs8", x8, 5), ("engine_bs1", x8[:1], 10)):
+        eng16(xb, ORIG_HW, conf=CONF)
+        rr = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                eng16(xb, ORIG_HW, conf=CONF)
+            rr.append((time.perf_counter() - t0) * 1e3 / n / xb.shape[0])
+        readings[name] = {"ms_per_frame": rr}
+    ms = float(np.median(reps))
+    log(f"  InferenceServer bs{SERVE_BS} bf16: median {ms:.3f} ms/frame ({1e3 / ms:.1f} "
+        f"frames/s) over 3 bursts of {n_burst} frames from {SERVE_CLIENTS} threads, range "
+        f"{min(reps):.3f}-{max(reps):.3f}; mean batch {stats['mean_batch']:.2f}")
+    for name in ("engine_bs8", "engine_bs1"):
+        rr = readings[name]["ms_per_frame"]
+        log(f"  Engine.__call__ {name[-3:]} bf16 at {in_hw} -> {ORIG_HW}: median "
+            f"{float(np.median(rr)):.3f} ms/frame over 5 reps, range {min(rr):.3f}-{max(rr):.3f}")
+    res["readings"] = readings
+    return res
 
 
 def train_batch(rng, bs: int, nc: int, nseg: int):
@@ -1111,11 +1453,15 @@ def main() -> int:
     ev = phase_eval(eng32, eng16, cpu_eng)
     launches["nms_greedy"] = ev["launches"]["nms_greedy"]
     errs["nms_greedy"] = ev["errs"]["nms_greedy"]
-    e2e, times, per_site, library, bounds, k4_eval, short = phase_timing(
+    e2e, times, per_site, library, bounds, k4_eval, short, c3_times = phase_timing(
         eng32, eng16, frames, sites16, nms_in, ev)
     eval_launches, eval_errs = ev["launches"], ev["errs"]
     eval_n, eval_metrics = ev["n"], ev["metrics"]
-    del eng32, eng16, cpu_eng, ev
+    del ev
+    sv = phase_serving(eng32, eng16, cpu_eng)
+    n_batched = sum(b[0] > 1 for b in sv["batches"])
+    launches["c3"] = sv["launches"]["c3"]
+    del eng32, eng16, cpu_eng
     tr = phase_train()
     k6 = tr["k6_times"]["bf16"]
     train_counts = tr["launches"]["bf16"]
@@ -1132,9 +1478,11 @@ def main() -> int:
         "upsample_argmax": "multiyolov5_tpu/ops/pallas/upsample_argmax_kernel.py:309",
         "nms_greedy": "multiyolov5_tpu/ops/pallas/nms_kernel.py:87",
         "seg_ce": "multiyolov5_tpu/ops/pallas/seg_ce_kernel.py:256",
+        "c3": "multiyolov5_tpu/ops/pallas/c3_kernel.py:391",
     }
     # launches: K1-K4 on the serving path [3], K5 on the eval path [5], K6
-    # (forward + backward) in the counted bf16 train step [7];
+    # (forward + backward) in the counted bf16 train step [7], K7 in the
+    # bf16 batched server's run [8] (serving_batches batched forwards);
     # eval_launches and train_launches: every kernel on those paths.
     # max_abs_err: the float32 comparison of [2] at the serving shapes; for
     # nms the keep entries that differ, for nms_greedy the picks that differ
@@ -1142,7 +1490,9 @@ def main() -> int:
     # share, for seg_ce max |dz diff| on the float32 train step's arguments
     # (the loss's, relative, is in chip_smoke.json).  eval_max_abs_err:
     # the same on the eval path's own arguments ([5]).  seg_ce's times are
-    # forward + backward on the bf16 train step's arguments.
+    # forward + backward on the bf16 train step's arguments; c3's at bs8
+    # 1024x1024 serving's row-2 C3, its library time the unfused cuDNN
+    # sequence (5 convs, cat, add), its max_abs_err at that shape.
     kernels = [{"name": k, "route": "cuda",
                 "source": f"multiyolov5_tpu_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
@@ -1155,15 +1505,22 @@ def main() -> int:
                 "err_dtype": "float32",
                 "ms_dtype": "float32" if k.startswith("nms") else "bfloat16"}
                for k in replaces]
-    kernels[-1].update(fwd_ms=k6["fwd_ms"], bwd_ms=k6["bwd_ms"],
-                       fwd_launches=train_counts["seg_ce"],
-                       bwd_launches=train_counts["seg_ce_bwd"])
+    kk = {k["name"]: k for k in kernels}
+    kk["seg_ce"].update(fwd_ms=k6["fwd_ms"], bwd_ms=k6["bwd_ms"],
+                        fwd_launches=train_counts["seg_ce"],
+                        bwd_launches=train_counts["seg_ce_bwd"])
+    kk["c3"].update(serving_batches=n_batched, eval_ms=c3_times["eval"]["ms"],
+                    eval_plain_ms=c3_times["eval"]["plain_ms"],
+                    eval_library_ms=c3_times["eval"]["library_ms"],
+                    eval_bound_ms=c3_times["eval"]["bound"][0])
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": smi, "e2e_ms": e2e, "kernels": kernels,
                    "conv3x3_sites": per_site, "upsample_argmax_eval": k4_eval,
                    "nms_short_lists": short,
                    "eval_candidates_per_image": eval_n,
-                   "eval_metrics": eval_metrics, "train": tr}, fh, indent=1)
+                   "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
+                   "b1c_bound_ms": bounds["b1c"],
+                   "serving_bs8": sv}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

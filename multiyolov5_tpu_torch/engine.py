@@ -2,8 +2,9 @@
 
 One call runs, on ``device``:
     uint8 letterboxed frame -> folded stem (K1) -> trunk rows 2-23 (neck
-    3x3s on K2) -> PSP seg head (K2) + Detect decode (float32) -> NMS (K3)
-    -> letterbox unmap -> upsample + argmax class map (K4)
+    3x3s on K2; at batch > 1 the narrow backbone C3 on K7) -> PSP seg
+    head (K2) + Detect decode (float32) -> NMS (K3 for one frame, one K5
+    launch for a batch) -> letterbox unmap -> upsample + argmax class map (K4)
 and returns host arrays.  Weights come from a JAX-package ``.npz``
 checkpoint, from a ``state_dict``, or from a seeded random init; BN is
 folded at build and ``half=True`` then casts the parameters to bfloat16.
@@ -108,6 +109,11 @@ class Engine:
         x = x.to(self.device).contiguous()
         z, seg = self.forward(x)
         return self.postprocess(z, seg, tuple(x.shape[1:3]), orig_hw, conf, iou)
+
+    def warmup(self, in_hw: Tuple[int, int], orig_hw: Tuple[int, int], **kw) -> None:
+        """One call on a blank bs1 frame of ``in_hw``: builds the kernels and
+        warms the allocator and cuDNN for that geometry."""
+        self(np.zeros((1, *in_hw, 3), np.uint8), orig_hw, **kw)
 
     def postprocess(self, z: torch.Tensor, seg: Optional[torch.Tensor],
                     in_hw: Tuple[int, int], orig_hw: Tuple[int, int],

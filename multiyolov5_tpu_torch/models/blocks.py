@@ -5,7 +5,9 @@
 Every block is built either unfused (conv without bias, then BN, eps 1e-3)
 or ``fused`` (BN folded into a biased conv, see ops/nn.fuse_conv_bn).  A
 block built with ``kernel=True`` runs its fused 3x3 convs through the K2
-kernel (ops/kernels/conv3x3.py); all other convs are ``F.conv2d``.
+kernel (ops/kernels/conv3x3.py); a fused C3 built with ``c3_kernel=True``
+runs whole through the K7 kernel (ops/kernels/c3.py) in eval mode at batch
+> 1; all other convs are ``F.conv2d``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels import conv3x3
+from ..ops.kernels import c3, conv3x3
 from ..ops.nn import BN_EPS, BN_MOMENTUM, autopad
 from ..ops.resize import adaptive_avg_pool_multi, max_pool_same, resize_bilinear, upsample_nearest
 
@@ -26,7 +28,7 @@ def _bn(c: int) -> nn.BatchNorm2d:
 
 
 def _kernel_weights(conv: nn.Conv2d):
-    """(OHWI weight, float32 bias) of a fused conv for K2, cached on the conv
+    """(OHWI weight, float32 bias) of a fused conv for K2 and K7, cached on the conv
     and rebuilt whenever the parameters change (dtype, device or values)."""
     w, b = conv.weight, conv.bias
     key = (w.data_ptr(), w._version, w.dtype, b.data_ptr(), b._version)
@@ -102,10 +104,17 @@ class Bottleneck(nn.Module):
 
 
 class C3(nn.Module):
-    """reference models/common.py:138-152."""
+    """reference models/common.py:138-152.
+
+    ``c3_kernel``: a fused C3 with 8 <= c_ <= 48, c_ % 8 == 0 runs whole
+    through K7 in eval mode at batch > 1: the sites, batch rule and widths
+    where the JAX package runs ``c3_packed_pallas``
+    (multiyolov5_tpu/models/blocks.py:125-192, minus its TPU geometry
+    checks)."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
-                 e: float = 0.5, fused: bool = False, kernel: bool = False):
+                 e: float = 0.5, fused: bool = False, kernel: bool = False,
+                 c3_kernel: bool = False):
         super().__init__()
         c_ = int(c2 * e)
         self.cv1 = Conv(c1, c_, 1, fused=fused)
@@ -113,9 +122,26 @@ class C3(nn.Module):
         self.cv3 = Conv(2 * c_, c2, 1, fused=fused)
         self.m = nn.Sequential(*[Bottleneck(c_, c_, shortcut, 1.0, fused, kernel)
                                  for _ in range(n)])
+        self.shortcut = shortcut
+        self.c3_kernel = c3_kernel and fused and 8 <= c_ <= 48 and c_ % 8 == 0
 
     def forward(self, x):
+        if self.c3_kernel and not self.training and x.shape[0] > 1:
+            return self._k7(x)
         return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+    def kernel_args(self):
+        """K7's arguments after x: the cached OHWI / float32 weights and
+        biases of cv1, cv2, cv3, the bottlenecks', and ``shortcut``."""
+        mws = [(*_kernel_weights(b.cv1.conv), *_kernel_weights(b.cv2.conv)) for b in self.m]
+        return (*_kernel_weights(self.cv1.conv), *_kernel_weights(self.cv2.conv),
+                *_kernel_weights(self.cv3.conv), mws, self.shortcut)
+
+    def _k7(self, x):
+        """The whole block through K7.  On the card the model runs
+        channels_last, so both permutes are views."""
+        y = c3(x.permute(0, 2, 3, 1).contiguous(), *self.kernel_args())
+        return y.permute(0, 3, 1, 2)
 
 
 class SPP(nn.Module):

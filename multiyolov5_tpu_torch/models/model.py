@@ -19,7 +19,8 @@ from .config import ModelSpec
 from .heads import Detect, SegMaskPSP
 
 
-def _build_row(spec: ModelSpec, row, fused: bool, kernel: bool) -> nn.Module:
+def _build_row(spec: ModelSpec, row, fused: bool, kernel: bool,
+               c3_kernel: bool) -> nn.Module:
     m, a = row.module, row.args
     if row.n != 1 and m not in ("C3",):
         raise NotImplementedError(f"row {row.i}: repeated {m}")
@@ -30,7 +31,7 @@ def _build_row(spec: ModelSpec, row, fused: bool, kernel: bool) -> nn.Module:
                       a[3] if len(a) > 3 else 1, fused=fused, kernel=kernel)
     if m == "C3":
         return B.C3(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else True,
-                    fused=fused, kernel=kernel)
+                    fused=fused, kernel=kernel, c3_kernel=c3_kernel)
     if m == "SPP":
         return B.SPP(a[0], a[1], tuple(a[2]) if len(a) > 2 else (5, 9, 13),
                      fused=fused)
@@ -62,7 +63,8 @@ class Model(nn.Module):
         self.spec = spec
         neck_start = len(spec.yaml.get("backbone", []))
         self.model = nn.ModuleList(
-            _build_row(spec, row, fused, kernel=row.i >= neck_start)
+            _build_row(spec, row, fused, kernel=row.i >= neck_start,
+                       c3_kernel=row.i < neck_start)
             for row in spec.rows)
 
     def forward(self, x: torch.Tensor, start_layer: int = 0):

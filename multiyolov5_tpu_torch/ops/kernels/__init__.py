@@ -7,6 +7,7 @@ launches its kernel for a CUDA tensor; any other device raises.  Every
 wrapper counts its launches in a plain integer attribute, ``launches``.
 """
 
+from .c3 import c3, c3_plain
 from .conv3x3 import conv3x3, conv3x3_plain
 from .nms import nms, nms_plain
 from .nms_greedy import nms_greedy, nms_greedy_plain
@@ -16,7 +17,8 @@ from .upsample_argmax import upsample_argmax, upsample_argmax_plain
 
 KERNELS = {"stem": stem, "conv3x3": conv3x3, "nms": nms,
            "upsample_argmax": upsample_argmax, "nms_greedy": nms_greedy,
-           "seg_ce": seg_ce_forward, "seg_ce_bwd": seg_ce_backward}
+           "seg_ce": seg_ce_forward, "seg_ce_bwd": seg_ce_backward,
+           "c3": c3}
 
 
 def reset_launches() -> None:

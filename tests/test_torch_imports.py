@@ -3,7 +3,9 @@
 tiny seeded Engine serves one frame on the CPU, the eval path (multi-label
 NMS over more than K3's 1024 rows, mAP, mIoU) runs on one batch, and the
 dual-task train step of the TINY spec (tests/test_torch_train_step.py)
-takes one update on the CPU."""
+takes one update on the CPU, and an ``InferenceServer`` on the TINY spec
+serves two frames in one batch (through the K7 route of its backbone C3s)
+and closes."""
 
 import json
 import os
@@ -37,7 +39,8 @@ _SCRIPT = textwrap.dedent("""
     assert dets[0].ndim == 2 and dets[0].shape[1] == 6 and len(dets[0]) > 0
     assert masks[0].shape == (64, 128) and masks[0].dtype == np.uint8
     new = {"evaluation", "ops.kernels.nms_greedy", "utils.metrics", "utils.boxes",
-           "train.trainer", "train.losses", "train.optim", "data.hyps", "ops.kernels.seg_ce"}
+           "train.trainer", "train.losses", "train.optim", "data.hyps", "ops.kernels.seg_ce",
+           "serving", "data.letterbox", "ops.kernels.c3"}
     assert {pkg.__name__ + "." + m for m in new} <= set(names)
 
     from multiyolov5_tpu_torch.evaluation import evaluate_detection, seg_validation
@@ -71,6 +74,19 @@ _SCRIPT = textwrap.dedent("""
                  rng.rand(2, 64, 64, 3).astype(np.float32), rng.randint(-1, 4, (2, 64, 64)),
                  0.01, 0.01, 0.9, True)
     assert ts.updates == 1 and np.isfinite(float(m["total"])) and float(m["seg_loss"]) > 0
+
+    from multiyolov5_tpu_torch.models import blocks
+    from multiyolov5_tpu_torch.serving import InferenceServer
+    k7 = []
+    real_c3 = blocks.c3
+    blocks.c3 = lambda x, *a: k7.append(tuple(x.shape)) or real_c3(x, *a)
+    server = InferenceServer(cfg=json.loads(os.environ["TINY_SPEC"]), device="cpu",
+                             half=False, img_size=64, max_wait_ms=500, conf=0.001)
+    futs = [server.submit((rng.rand(64, 128, 3) * 255).astype(np.uint8)) for _ in range(2)]
+    outs = [f.result(timeout=120) for f in futs]
+    server.close()
+    assert all(d.shape[1] == 6 and mk.shape == (64, 128) for d, mk in outs)
+    assert server.stats()["batches"] == 1 and k7 and all(s[0] == 2 for s in k7)
     assert not any(m.split(".")[0] in ("jax", "multiyolov5_tpu") for m in sys.modules)
     print("OK", len(names))
 """)

@@ -1,4 +1,4 @@
-"""The six Hopper kernels against their plain PyTorch versions, on the card.
+"""The seven Hopper kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test decides inside itself whether a card is present
 and skips otherwise.  Run on a machine with an H100 by ``pytest -m cuda
@@ -9,7 +9,9 @@ the conv input), NMS keep masks and greedy picks equal, class-map mismatch
 share <= 1e-4.  K6 (seg_ce): the loss within 1e-4 relative (float32 sums
 in another order; its bf16 input is the same for both), dz within 1e-4
 (float32) or 1e-2 (bf16: one rounding of each side's float32 value) of
-max |dz|; all-ignored labels give exactly 0 and a zero gradient."""
+max |dz|; all-ignored labels give exactly 0 and a zero gradient.  K7 (c3):
+the float32 and bf16 bounds above, at pspv5s's and pspv5m's C3 widths, an
+odd H x W that is not a multiple of the tile, and no shortcut."""
 
 import numpy as np
 import pytest
@@ -141,3 +143,26 @@ def test_seg_ce_kernel_all_ignored(dev):
     assert (K.seg_ce_forward.launches, K.seg_ce_backward.launches) == (
         launches[0] + 1, launches[1] + 1)
     assert loss.item() == 0.0 and z.grad.abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 20, 36, 64, 32, 1, True), (1, 13, 29, 64, 32, 1, True),
+                                   (2, 16, 24, 96, 48, 2, True), (2, 9, 17, 64, 32, 1, False)])
+def test_c3_kernel(dev, dtype, shape):
+    b, h, w, c1, ch, n, shortcut = shape
+    g = torch.Generator().manual_seed(h * w + n)
+
+    def wt(*s):
+        return (torch.randn(*s, generator=g) / np.sqrt(np.prod(s[1:]))).to(dev, dtype)
+
+    def bias(c):
+        return (torch.randn(c, generator=g) * 0.1).to(dev)
+
+    x = torch.randn(b, h, w, c1, generator=g).to(dev, dtype)
+    args = [wt(ch, 1, 1, c1), bias(ch), wt(ch, 1, 1, c1), bias(ch), wt(c1, 1, 1, 2 * ch), bias(c1)]
+    mws = [(wt(ch, 1, 1, ch), bias(ch), wt(ch, 3, 3, ch), bias(ch)) for _ in range(n)]
+    launches = K.c3.launches
+    got = K.c3(x, *args, mws, shortcut)
+    torch.cuda.synchronize()
+    assert K.c3.launches == launches + 1 and got.shape == (b, h, w, c1)
+    _close(got, K.c3_plain(x, *args, mws, shortcut), dtype)

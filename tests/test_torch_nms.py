@@ -77,3 +77,25 @@ def test_nms_planar_matches_jax(conf, agnostic, max_nms):
     assert got_valid.sum() > 10
     np.testing.assert_allclose(got_det.numpy(), np.asarray(want_det),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_nms_planar_bs8_is_one_k5_launch(monkeypatch):
+    """bs8 serving: 8 lists of 1024 candidates go to one K5 call (its plain
+    version here) and give the JAX package's detections."""
+    import multiyolov5_tpu_torch.ops.nms as nms_mod
+    rng = np.random.RandomState(8)
+    b = 8
+    zs = _planar_candidates(rng, b, nc=10, na=3, grids=(320, 80, 20))
+    want_det, want_valid = jax_nms_planar([jnp.asarray(z) for z in zs], conf_thres=0.25,
+                                          iou_thres=0.45, max_nms=1024, max_det=300)
+    z = np.concatenate([zi.transpose(2, 0, 1, 3).reshape(b, zi.shape[0], -1)
+                        for zi in zs], 2)
+    calls = []
+    real = nms_mod.nms_greedy
+    monkeypatch.setattr(nms_mod, "nms_greedy",
+                        lambda boxes, *a: calls.append(tuple(boxes.shape)) or real(boxes, *a))
+    got_det, got_valid = nms_planar(torch.from_numpy(z), 0.25, 0.45, max_nms=1024, max_det=300)
+    assert calls == [(8, 1024, 4)]
+    np.testing.assert_array_equal(got_valid.numpy(), np.asarray(want_valid))
+    assert got_valid.sum(1).min() > 10
+    np.testing.assert_allclose(got_det.numpy(), np.asarray(want_det), rtol=1e-5, atol=1e-5)
