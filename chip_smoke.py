@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the seven Hopper kernels of ``multiyolov5_tpu_torch/csrc``, holds each
-against its plain PyTorch version at the shapes of the pspv5s paths, and
-drives four paths with seeded random yolov5s_city_seg weights, on the card
-and, for reference, on the CPU:
+Builds the seven Hopper kernels of ``multiyolov5_tpu_torch/csrc`` (K1 in two
+modes), holds each against its plain PyTorch version at the shapes of the
+paths, and drives five paths with seeded random weights (yolov5s_city_seg
+unless named), on the card and, for reference, on the CPU:
 
 * serving: ``Engine`` on three frames (K1-K4);
 * batched serving: ``InferenceServer`` (max_batch 8, img_size 1024) on
@@ -19,6 +19,13 @@ and, for reference, on the CPU:
 * training: the dual-task train step (det bs8 832x832 + seg bs8 512x1024,
   SGD, EMA; K6 forward and backward), one float32 step against the CPU's,
   a scheduled 20-step bf16 run whose EMA checkpoint ``Engine`` serves.
+* the other model families [9]: K1's float mode (B1c) against its plain
+  version at s and x width; ``Engine`` at bs1 for the Base, BiSe and Lab
+  seg heads, pspv5x (``yolov5x_city_seg``), detection-only ``yolov5s`` and
+  P6 ``yolov5s6`` at full width, card against CPU; ``seg_validation`` of
+  BiSe on float batches off the k/255 lattice (K1's float mode, K4); an
+  ``InferenceServer`` on ``yolov5s``; ``yolov5l_city_seg`` at bs2, where K7
+  must not launch (c_ 64).
 
 It checks that every kernel ran on its path, holds each kernel against its
 plain version on the arguments its path gave it, and times the paths and
@@ -120,6 +127,29 @@ SEG_CE_DZ_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # of max |dz|
 # 1e-4, and the changes at 50x the rehearsal's worst tensor.
 TRAIN_LOSS_REL = 1e-4
 TRAIN_UPDATE_REL = 5e-2  # of each tensor's own change, + 2 float32 ulps of its values
+
+# the other model families [9], each at full width and depth, bs1
+FAMILY_CFGS = ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
+               "yolov5x_city_seg", "yolov5s", "yolov5s6")
+BISE_CFG, DET_CFG, L_CFG = "yolov5s_city_seg_bise", "yolov5s", "yolov5l_city_seg"
+FAMILY_REPS, FAMILY_ITERS = 5, 10
+# [9] holds each network's float32 output against the same network in
+# float64 on the CPU: rounding errors grow with depth and activation
+# scale, past NET_REL on the deepest model.  Measured by this phase at
+# 1024x512, seed 0, on an H100 machine: the CPU's own float32 boxes are
+# 4.8e-3 off float64 on pspv5x (past NET_REL), 3.5e-5 to 2.6e-4 on the
+# s-size models; the card's error was 0.95-2.9x the CPU's across the six
+# configurations and their outputs (cuDNN's and K2's summation orders).
+# So the card is held to 4x the CPU's own error, never tighter than NET_REL.
+F64_FACTOR = 4.0
+# bf16 against fp32: phase [3]'s bounds come from the JAX package's own
+# bf16 drift on pspv5s.  The deeper pspv5x drifts further (on an H100
+# machine, seed 0: seg logits 0.26 of their scale, obj/cls mean 0.065,
+# against pspv5s's 0.08-0.11 and 0.009-0.011), so each configuration is
+# held to 2x the drift of bf16 itself on its network, measured by the CPU's
+# bf16 engine against its fp32 one, and never tighter than [3]'s bounds.
+BF16_FACTOR = 2.0
+STEM_BATCHES = (1, 4)
 
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W) for the bounds
 HBM_BYTES_S = 3.35e12
@@ -376,6 +406,16 @@ def phase_kernels(eng32, eng16, frames):
         log(f"  conv3x3 {str(dt)[6:]} max|diff| {worst_abs:.3e} over {len(sites)} sites")
         check(f"conv3x3 {str(dt)[6:]} max|diff|/max(max|ref|,1)", worst_rel, bound)
         res.setdefault("conv3x3", worst_abs)
+    # bf16 at c_in 48, the BK = 16 path: SegMaskLab's detail conv at 1/8 res
+    x = torch.randn((1, IN_HW[0] // 8, IN_HW[1] // 8, 48), generator=g, device=dev)
+    wt = (torch.randn((48, 3, 3, 48), generator=g, device=dev) / np.sqrt(9 * 48))
+    b = torch.randn(48, generator=g, device=dev) * 0.1
+    x, wt = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+    got = K.conv3x3(x, wt, b)
+    torch.cuda.synchronize()
+    d, rel = diffs(got, K.conv3x3_plain(x, wt, b))
+    log(f"  conv3x3 bf16 c_in 48 {tuple(x.shape)}: max|diff| {d:.3e}")
+    check("conv3x3 bf16 c_in 48 max|diff|/max(max|ref|,1)", rel, BF16_REL)
 
     # K3 on seeded overlapping box sets at N = 1024, and on the path's input
     rng = np.random.RandomState(SEED)
@@ -446,11 +486,14 @@ def compare_runs(name, got, ref, match_share, box_px, score_abs, mask_share,
     n_ref = sum(len(d) for d in ref[0])
     shares, boxes, scores = zip(*(match_dets(a, r, match_px)
                                   for a, r in zip(got[0], ref[0])))
-    mism = float(np.mean([(a != r).mean() for a, r in zip(got[1], ref[1])]))
+    if any((a is None) != (r is None) for a, r in zip(got[1], ref[1])):
+        raise AssertionError(f"{name}: a class map on one side only")
+    mism = float(np.mean([(a != r).mean() if a is not None else 0.0
+                          for a, r in zip(got[1], ref[1])]))
     log(f"  {name}: detections {n_got} vs {n_ref}")
     for d, m in zip(*got):
-        if not (np.isfinite(d).all() and d.shape[1] == 6 and m.shape == ORIG_HW
-                and m.dtype == np.uint8):
+        if not (np.isfinite(d).all() and d.shape[1] == 6
+                and (m is None or (m.shape == ORIG_HW and m.dtype == np.uint8))):
             raise AssertionError(f"{name}: malformed output")
     if match_share is None:
         log(f"  {name} detections matched within {match_px:g} px: "
@@ -566,7 +609,8 @@ def quiet(fn, *args, **kw):
 def run_eval(eng, det_b, seg_b, kernels: bool):
     """evaluate_detection then seg_validation, recording every network
     output ("net") and the detections ("dets"); with ``kernels``, also the
-    arguments of each kernel the path calls (K1 "stem", K2 "conv3x3", K7
+    arguments of each kernel the path calls (K1 "stem", uint8 frames in
+    evaluate_detection and float ones in seg_validation, K2 "conv3x3", K7
     "c3", K5 "nms_greedy" and, in seg_validation, K4 "upsample_argmax")."""
     from multiyolov5_tpu_torch import engine as engine_mod
     from multiyolov5_tpu_torch import evaluation as E
@@ -593,21 +637,24 @@ def run_eval(eng, det_b, seg_b, kernels: bool):
 
 def hold_eval_kernels(rec):
     """Each kernel against its plain version on the arguments the counted
-    eval run gave it; returns the float32 max |diff| (K1, K2, K7), the
-    mismatched pixel share (K4) and the picks differing (K5)."""
+    eval run gave it; returns the float32 max |diff| (K1 in each mode, K2,
+    K7), the mismatched pixel share (K4) and the picks differing (K5)."""
     from multiyolov5_tpu_torch.ops import kernels as K
     errs = {}
-    for name, bound in (("stem", F32_REL), ("conv3x3", F32_REL), ("c3", F32_REL)):
+    calls = dict(rec, stem=[c for c in rec["stem"] if not c[0][0].is_floating_point()],
+                 stem_float=[c for c in rec["stem"] if c[0][0].is_floating_point()])
+    for name, plain in (("stem", K.stem_plain), ("stem_float", K.stem_plain),
+                        ("conv3x3", K.conv3x3_plain), ("c3", K.c3_plain)):
         worst_abs = worst_rel = 0.0
-        for args, kw in rec[name]:
+        for args, kw in calls[name]:
             got = getattr(K, name)(*args, **kw)
             torch.cuda.synchronize()
-            da, dr = diffs(got, getattr(K, name + "_plain")(*args, **kw))
+            da, dr = diffs(got, plain(*args, **kw))
             worst_abs, worst_rel = max(worst_abs, da), max(worst_rel, dr)
-        shapes = sorted({tuple(a[0].shape) for a, _ in rec[name]})
-        log(f"  {name} float32 at the eval path's {len(rec[name])} calls {shapes}: "
+        shapes = sorted({tuple(a[0].shape) for a, _ in calls[name]})
+        log(f"  {name} float32 at the eval path's {len(calls[name])} calls {shapes}: "
             f"max|diff| {worst_abs:.3e}")
-        check(f"{name} eval max|diff|/max(max|ref|,1)", worst_rel, bound)
+        check(f"{name} eval max|diff|/max(max|ref|,1)", worst_rel, F32_REL)
         errs[name] = worst_abs
     share = 0.0
     for args, kw in rec["upsample_argmax"]:
@@ -668,7 +715,7 @@ def phase_eval(eng32, eng16, cpu_eng):
     log(f"  launches on the eval path: {launches}")
     n_valid = [int(n) for a, _ in card["nms_greedy"] for n in (a[1] > 0).sum(1).tolist()]
     log(f"  (box, class) candidates above conf per image (N): {n_valid}")
-    for k in ("stem", "conv3x3", "nms_greedy", "upsample_argmax"):
+    for k in ("stem", "stem_float", "conv3x3", "nms_greedy", "upsample_argmax"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the eval path")
     if launches["c3"] != len(card["net"]):
@@ -1180,6 +1227,383 @@ def phase_serving(eng32, eng16, cpu_eng):
     return res
 
 
+def stem_bound(frame, w, out_bytes: int):
+    """(least ms, "bytes" or "operations") of K1 on ``frame``: the frame read
+    once, the weights once, the output written once; 2 flops a MAC of the
+    two folded convs on the fp32 CUDA cores."""
+    bsz, h, wd, _ = frame.shape
+    c_mid, c_out = w[0].shape[-1], w[2].shape[-1]
+    px = bsz * (h // 4) * (wd // 4)
+    nbytes = (frame.numel() * frame.element_size() + 4 * sum(t.numel() for t in w)
+              + out_bytes * px * c_out)
+    return bound_ms(nbytes, 2 * px * (9 * 48 * c_mid + 4 * c_mid * c_out), FP32_FLOP_S)
+
+
+def stem_library_ms(frame, w):
+    """The stem's two convolutions as cuDNN ``conv2d`` calls on the float
+    space-to-depth input, in float32 like K1's arithmetic."""
+    import torch.nn.functional as F
+
+    from multiyolov5_tpu_torch.ops.kernels.stem import space_to_depth4
+    x48 = space_to_depth4(frame).float()
+    w1, b1, w2, b2 = (w[0].permute(3, 2, 0, 1).contiguous(), w[1],
+                      w[2].permute(3, 2, 0, 1).contiguous(), w[3])
+    y1p = F.pad(F.silu(F.conv2d(x48, w1, b1, padding=1)), (1, 0, 1, 0))
+    return (graph_ms(lambda: F.conv2d(x48, w1, b1, padding=1))
+            + graph_ms(lambda: F.conv2d(y1p, w2, b2)))
+
+
+def hold_stem_modes(widths):
+    """K1's float mode (B1c) against ``stem_plain`` on float32 and bfloat16
+    frames in [0, 1] off the k/255 lattice, and its uint8 mode at x width,
+    at bs 1 and 4 on IN_HW frames; each case timed beside its bound, its
+    plain version and the cuDNN pair.  ``widths``: {name: (uint8 weights,
+    float weights)} of real engines."""
+    from multiyolov5_tpu_torch.ops import kernels as K
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    rows = []
+    for width, (w_u8, w_f) in widths.items():
+        for bsz in STEM_BATCHES:
+            u8 = torch.randint(0, 256, (bsz, *IN_HW, 3), generator=g, device=DEVICE,
+                               dtype=torch.uint8)
+            f32 = torch.rand((bsz, *IN_HW, 3), generator=g, device=DEVICE)
+            lib = stem_library_ms(f32, w_f)
+            cases = [("float", f32, w_f, torch.float32, F32_REL),
+                     ("float", f32.to(torch.bfloat16), w_f, torch.bfloat16, BF16_REL)]
+            if width == "x":
+                cases.append(("uint8", u8, w_u8, torch.bfloat16, BF16_REL))
+            for mode, frame, w, odt, bound in cases:
+                got = K.stem(frame, *w, out_dtype=odt)
+                torch.cuda.synchronize()
+                d, rel = diffs(got, K.stem_plain(frame, *w, out_dtype=odt))
+                name = (f"stem {mode} {width} width (c_mid {w[0].shape[-1]}) "
+                        f"{str(frame.dtype)[6:]} {tuple(frame.shape)} -> {str(odt)[6:]}")
+                check(f"{name} max|diff|/max(max|ref|,1)", rel, bound)
+                bm, by = stem_bound(frame, w, 2 if odt == torch.bfloat16 else 4)
+                row = {"mode": mode, "width": width, "c_mid": w[0].shape[-1],
+                       "frame": list(frame.shape), "frame_dtype": str(frame.dtype)[6:],
+                       "out_dtype": str(odt)[6:], "max_abs_err": d, "rel_err": rel,
+                       "ms": graph_ms(lambda: K.stem(frame, *w, out_dtype=odt), iters=10),
+                       "plain_ms": graph_ms(lambda: K.stem_plain(frame, *w, out_dtype=odt),
+                                            iters=10),
+                       "library_ms": lib, "bound_ms": bm, "bound_by": by}
+                rows.append(row)
+                log(f"  {name}: max|diff| {d:.3e}; kernel {row['ms']:.4f} ms, plain "
+                    f"{row['plain_ms']:.4f} ms, cuDNN conv2d x2 (fp32) {lib:.4f} ms, bound "
+                    f"{bm:.5f} ms ({by})")
+    return rows
+
+
+def k2_sites(model) -> int:
+    """The K2 sites of a fused model (one launch each a forward)."""
+    from multiyolov5_tpu_torch.models import blocks
+    return sum(1 for m in model.modules()
+               if isinstance(m, (blocks.Conv, blocks.ConvBN)) and m.kernel)
+
+
+
+
+def frame_ms(eng, frame):
+    """Engine.__call__ ms/frame: FAMILY_REPS reps of FAMILY_ITERS calls."""
+    eng(frame, ORIG_HW, conf=CONF)
+    reps = []
+    for _ in range(FAMILY_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FAMILY_ITERS):
+            eng(frame, ORIG_HW, conf=CONF)
+        reps.append((time.perf_counter() - t0) * 1e3 / FAMILY_ITERS)
+    return reps
+
+
+def forward64(eng, x):
+    """A CPU engine's network in float64, folded stem included: the
+    reference of [9]'s float32 checks."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from multiyolov5_tpu_torch.ops.kernels.stem import space_to_depth4
+    model = copy.deepcopy(eng.model).double()
+    w1, b1, w2, b2 = (t.double() for t in eng.stem_weights)
+    with torch.inference_mode():
+        y = F.silu(F.conv2d(space_to_depth4(x).double(), w1.permute(3, 2, 0, 1), b1, padding=1))
+        y = F.silu(F.conv2d(F.pad(y, (1, 0, 1, 0)), w2.permute(3, 2, 0, 1), b2))
+        z, seg = model(y, start_layer=2)
+    return z, None if seg is None else seg.float()
+
+
+def run_family(cfg, frame):
+    """One configuration at bs1 on seeded weights: launches; the card's
+    fp32 network against float64 and its post-processing against the CPU's;
+    bf16 against fp32 beside the CPU's own bf16 drift; every K2 site
+    against its plain version; ms/frame."""
+    from multiyolov5_tpu_torch.engine import Engine
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    from multiyolov5_tpu_torch.ops import kernels as K
+    spec = load_spec(cfg)
+    sd = seeded_state_dict(spec, SEED)
+    e32 = Engine(spec=spec, state_dict=sd, device=DEVICE, half=False)
+    e16 = Engine(spec=spec, state_dict=sd, device=DEVICE, half=True)
+    cpu = Engine(spec=spec, state_dict=sd, device="cpu", half=False)
+    n_k2 = k2_sites(e32.model)
+    seg = spec.seg_index is not None
+    log(f"  {cfg}: {len(spec.rows)} rows, seg head "
+        f"{spec.rows[spec.seg_index].module if seg else 'none'}, strides {spec.strides}, "
+        f"stem c_mid {e32.stem_weights[0].shape[-1]}, {n_k2} K2 sites")
+    x = torch.from_numpy(frame[None]).to(DEVICE)
+    K.reset_launches()
+    z_card, seg_card = e32.forward(x)
+    card = e32.postprocess(z_card, seg_card, IN_HW, ORIG_HW, conf=CONF)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    want = {"stem": 1, "stem_float": 0, "conv3x3": n_k2, "nms": 1, "nms_greedy": 0,
+            "upsample_argmax": int(seg), "c3": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{cfg} bs1 launches {launches}, want {want}")
+    t0 = time.perf_counter()
+    z_cpu, seg_cpu = cpu.forward(x.cpu())
+    t_cpu = time.perf_counter() - t0
+    ref = cpu.postprocess(z_cpu, seg_cpu, IN_HW, ORIG_HW, conf=CONF)
+    if not seg and (seg_card is not None or seg_cpu is not None or card[1] != [None]):
+        raise AssertionError(f"{cfg}: a detection-only model gave a seg output")
+    z64, seg64 = forward64(cpu, x.cpu())
+    z_card = z_card.cpu()
+    net = {}
+    for what, sl, rel in (("boxes", slice(0, 4), True), ("obj/cls", slice(4, None), False),
+                          ("seg logits", None, True)):
+        if sl is None and not seg:
+            continue
+        a_c, a_p, a_r = ((z_card[:, sl], z_cpu[:, sl], z64[:, sl]) if sl is not None
+                         else (seg_card.cpu(), seg_cpu, seg64))
+        k = 1 if rel else 0
+        e_card, e_cpu, e_cc = diffs(a_c, a_r)[k], diffs(a_p, a_r)[k], diffs(a_c, a_p)[k]
+        net[what] = {"card_vs_f64": e_card, "cpu_vs_f64": e_cpu, "card_vs_cpu": e_cc}
+        unit = "max|diff|/max(max|ref|,1)" if rel else "max|diff|"
+        log(f"  {cfg} network fp32 {what} {unit}: card vs CPU {e_cc:.3e}; against float64, "
+            f"card {e_card:.3e}, CPU {e_cpu:.3e}")
+        check(f"{cfg} network fp32 card vs float64: {what} {unit}", e_card,
+              max(NET_REL, F64_FACTOR * e_cpu))
+    compare_runs(f"{cfg} post-processing card vs CPU on the card's network outputs", card,
+                 cpu.postprocess(z_card, None if seg_card is None else seg_card.cpu(), IN_HW,
+                                 ORIG_HW, conf=CONF),
+                 MATCH_SHARE, BOX_PX, SCORE_ABS, MASK_SHARE)
+    # phase [3]'s end-to-end bounds assume networks within NET_REL of each other
+    close = all(v["card_vs_cpu"] <= NET_REL for v in net.values())
+    compare_runs(f"{cfg} end to end fp32 card vs CPU (the CPU forward took {t_cpu:.1f} s)"
+                 + ("" if close else "; networks past NET_REL: detections reported"),
+                 card, ref, E2E_MATCH_SHARE if close else None, BOX_PX if close else None,
+                 E2E_SCORE_ABS, E2E_MASK_SHARE)
+    z16, seg16 = e16.forward(x)
+    z32, seg32 = e32.forward(x)
+    # bf16's own drift on this network: the CPU's bf16 engine against its fp32
+    t0 = time.perf_counter()
+    cpu16 = Engine(spec=spec, state_dict=sd, device="cpu", half=True)
+    zc16, segc16 = cpu16.forward(x.cpu())
+    t_cpu16 = time.perf_counter() - t0
+    del cpu16
+    bf16 = {"card": {"objcls_mean": (z16[:, 4:].float() - z32[:, 4:]).abs().mean().item()},
+            "cpu": {"objcls_mean": (zc16[:, 4:].float() - z_cpu[:, 4:]).abs().mean().item()},
+            "cpu_s": t_cpu16}
+    if seg:
+        bf16["card"]["seg_rel"] = diffs(seg16, seg32)[1]
+        bf16["cpu"]["seg_rel"] = diffs(segc16, seg_cpu)[1]
+    for key, what, bound in (("seg_rel", "seg logits max|diff|/max(max|ref|,1)", BF16_SEG_REL),
+                             ("objcls_mean", "obj/cls mean |diff|", BF16_OBJCLS_MEAN)):
+        if key in bf16["card"]:
+            got, own = bf16["card"][key], bf16["cpu"][key]
+            log(f"  {cfg} network bf16 vs fp32 {what}: card {got:.3e}, CPU {own:.3e} "
+                f"(the CPU's bf16 forward took {t_cpu16:.1f} s)")
+            check(f"{cfg} network bf16 vs fp32 card: {what}", got,
+                  max(bound, BF16_FACTOR * own))
+    # every K2 site of the path, on the engines' own weights and shapes
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    worst = {}
+    for eng, dt, bound in ((e32, torch.float32, F32_REL), (e16, torch.bfloat16, BF16_REL)):
+        sites, _ = record_path_inputs(eng, frame)
+        worst_rel = 0.0
+        for shape, co, st, dl, act, wt, b in sites:
+            xs = torch.randn(shape, generator=g, device=DEVICE).to(dt)
+            got = K.conv3x3(xs, wt, b, st, dl, act)
+            torch.cuda.synchronize()
+            worst_rel = max(worst_rel, diffs(got, K.conv3x3_plain(xs, wt, b, st, dl, act))[1])
+        check(f"{cfg} conv3x3 {str(dt)[6:]} at its {len(sites)} sites "
+              f"(c_in {sorted({s[0][-1] for s in sites})}) max|diff|/max(max|ref|,1)",
+              worst_rel, bound)
+        worst[str(dt)[6:]] = worst_rel
+    res = {"launches_per_frame": launches, "k2_sites": n_k2, "k2_rel_err": worst,
+           "cpu_forward_s": t_cpu, "dets": len(card[0][0]), "network_fp32": net,
+           "bf16_vs_fp32": bf16}
+    for name, eng in (("fp32", e32), ("bf16", e16)):
+        reps = frame_ms(eng, frame)
+        res[f"{name}_ms"] = reps
+        log(f"  {cfg} Engine.__call__ bs1 {name}: median {float(np.median(reps)):.3f} "
+            f"ms/frame over {FAMILY_REPS} reps of {FAMILY_ITERS}, range "
+            f"{min(reps):.3f}-{max(reps):.3f}")
+    return res, (e32, e16, cpu)
+
+
+def phase_families(eng32, frames):
+    """[9] the other model families: K1's float mode, each configuration of
+    FAMILY_CFGS at bs1, BiSe's seg_validation on float batches, an
+    InferenceServer on a detection-only model, and pspv5l at bs2 off K7.
+    A failed bound is reported where it happens and raised at the end of
+    the phase, so one run shows every one."""
+    failures = []
+    real = check
+
+    def deferred(name, value, bound, ok=None):
+        try:
+            real(name, value, bound, ok)
+        except AssertionError as e:
+            failures.append(str(e))
+
+    with replaced(sys.modules[__name__], "check", deferred):
+        res = _phase_families(eng32, frames)
+    if failures:
+        raise AssertionError(f"[9]: {len(failures)} bound(s) failed: {failures}")
+    return res
+
+
+def _phase_families(eng32, frames):
+    from multiyolov5_tpu_torch import engine as engine_mod
+    from multiyolov5_tpu_torch import evaluation as E
+    from multiyolov5_tpu_torch.engine import Engine
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.serving import InferenceServer
+    log(f"[9] other model families at full width: {', '.join(FAMILY_CFGS)}, seed {SEED}, "
+        f"bs1 {IN_HW} -> {ORIG_HW}, conf {CONF}")
+    res = {"configs": {}}
+    engines = {}
+    for cfg in FAMILY_CFGS:
+        res["configs"][cfg], engines[cfg] = run_family(cfg, frames[0])
+        if cfg not in (BISE_CFG, DET_CFG, "yolov5x_city_seg"):
+            del engines[cfg]
+
+    # K1 in its float mode (and uint8 at x width) against stem_plain
+    x32 = engines["yolov5x_city_seg"][0]
+    res["stem"] = hold_stem_modes({"s": (eng32.stem_weights, eng32.stem_weights_float),
+                                   "x": (x32.stem_weights, x32.stem_weights_float)})
+    del engines["yolov5x_city_seg"]
+
+    # seg_validation of BiSe on float batches off the k/255 lattice
+    b32, _, b_cpu = engines.pop(BISE_CFG)
+    rng = np.random.RandomState(SEED + 21)
+    batches = []
+    for _ in range(EVAL_BATCHES):
+        imgs = rng.rand(EVAL_BS, *IN_HW, 3).astype(np.float32)
+        _, logits = b32.forward(torch.from_numpy(imgs).to(DEVICE))
+        cmap = K.upsample_argmax(logits.contiguous(), ORIG_HW, via_hw=IN_HW).cpu().numpy()
+        masks = np.where(rng.rand(*cmap.shape) < 0.3,
+                         rng.randint(0, logits.shape[1], cmap.shape), cmap).astype(np.int32)
+        masks[rng.rand(*cmap.shape) < 0.1] = -1
+        batches.append((imgs, masks))
+    stems = []
+    K.reset_launches()
+    with spied(engine_mod, "stem", before=recorder(stems)):
+        card = quiet(E.seg_validation, b32, batches, nclass=b32.spec.n_segcls)
+    torch.cuda.synchronize()
+    sv_launches = K.launch_counts()
+    log(f"  {BISE_CFG} seg_validation on {EVAL_BATCHES} float32 bs{EVAL_BS} batches: "
+        f"launches {sv_launches}")
+    want = {"stem": 0, "stem_float": EVAL_BATCHES, "upsample_argmax": EVAL_BATCHES}
+    if {k: sv_launches[k] for k in want} != want:
+        raise AssertionError(f"seg_validation launches {sv_launches}, want {want}")
+    t0 = time.perf_counter()
+    cpu = quiet(E.seg_validation, b_cpu, batches, nclass=b_cpu.spec.n_segcls)
+    t_cpu = time.perf_counter() - t0
+    for name, a, b in zip(("pixAcc", "mIoU"), card, cpu):
+        log(f"  {name}: card {a:.6f}, CPU {b:.6f} (the CPU run took {t_cpu:.1f} s)")
+        check(f"{BISE_CFG} seg_validation fp32 card vs CPU: {name} |diff|", abs(a - b),
+              SEG_METRIC_ABS)
+    if not 0.0 < card[1] < 1.0:
+        raise AssertionError(f"degenerate mIoU {card[1]}")
+    worst_abs = worst_rel = 0.0
+    for args, kw in stems:
+        got = K.stem(*args, **kw)
+        torch.cuda.synchronize()
+        da, dr = diffs(got, K.stem_plain(*args, **kw))
+        worst_abs, worst_rel = max(worst_abs, da), max(worst_rel, dr)
+    check(f"stem float on seg_validation's {len(stems)} calls "
+          f"{sorted({tuple(a[0].shape) for a, _ in stems})} max|diff|/max(max|ref|,1)",
+          worst_rel, F32_REL)
+    res["seg_validation"] = {"launches": sv_launches, "card": list(card), "cpu": list(cpu),
+                             "stem_float_max_abs_err": worst_abs}
+    del b32, b_cpu
+
+    # InferenceServer on the detection-only model: one padded bucket
+    _, d16, _ = engines.pop(DET_CFG)
+    frames_bgr = [np.random.RandomState(SEED + 23 + i).randint(0, 256, (*ORIG_HW, 3))
+                  .astype(np.uint8) for i in range(4)]
+    calls = []
+    real_call = Engine.__call__
+
+    def recorded(self, x, *a, **kw):
+        out = real_call(self, x, *a, **kw)
+        calls.append((x.clone(), out))
+        return out
+
+    server = InferenceServer(engine=d16, img_size=SERVE_IMG, max_batch=SERVE_BS,
+                             max_wait_ms=1000, conf=CONF)
+    n_real = []
+    try:
+        server.warmup(ORIG_HW)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        with replaced(Engine, "__call__", recorded), \
+                spied(InferenceServer, "letterbox_batch",
+                      before=lambda self, fr: n_real.append(len(fr))):
+            got = serve(server, frames_bgr)
+        torch.cuda.synchronize()
+        srv_launches = K.launch_counts()
+    finally:
+        server.close()
+    sizes = [tuple(x.shape) for x, _ in calls]
+    batched = sum(x.shape[0] > 1 for x, _ in calls)
+    log(f"  {DET_CFG} InferenceServer bf16 on {len(frames_bgr)} frames: batches {sizes}, "
+        f"launches {srv_launches}")
+    from multiyolov5_tpu_torch.models.blocks import C3
+    n_c3 = sum(isinstance(m, C3) and m.c3_kernel for m in d16.model.modules())
+    check(f"{DET_CFG} server: K7 launches - batched forwards x {n_c3} K7 row(s)",
+          abs(srv_launches["c3"] - batched * n_c3), 0)
+    if srv_launches["upsample_argmax"] != 0 or any(m is not None for _, m in got):
+        raise AssertionError("the detection-only server made a class map")
+    served = [(d, m) for n, (x, (dets, masks)) in zip(n_real, calls)
+              for d, m in zip(dets[:n], masks[:n])]
+    differ = sum(not np.array_equal(a[0], b[0]) for a, b in zip(got, served))
+    for x, (dets, _) in calls:
+        d2, m2 = d16(x, ORIG_HW, conf=CONF)
+        differ += sum(not np.array_equal(a, b) for a, b in zip(dets, d2)) + (m2 != [None] * len(d2))
+    check(f"{DET_CFG} server results differing from Engine on the same padded batch", differ, 0)
+    for d, _ in got:
+        if not (np.isfinite(d).all() and d.shape[1] == 6):
+            raise AssertionError("malformed server output")
+    res["server"] = {"batches": sizes, "launches": srv_launches,
+                     "dets_per_frame": [len(d) for d, _ in got]}
+    del d16, engines
+
+    # pspv5l at bs2: its row-2 C3 (c_ 64) is past K7's width gate
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    spec_l = load_spec(L_CFG)
+    l32 = Engine(spec=spec_l, state_dict=seeded_state_dict(spec_l, SEED), device=DEVICE,
+                 half=False)
+    x2 = torch.from_numpy(np.stack(frames[:2])).to(DEVICE)
+    K.reset_launches()
+    z, seg = l32.forward(x2)
+    torch.cuda.synchronize()
+    l_launches = K.launch_counts()
+    log(f"  {L_CFG} bs2 fp32 forward: row-2 C3 c_ {l32.model.model[2].cv1.conv.out_channels}, "
+        f"launches {l_launches}")
+    check(f"{L_CFG} bs2 forward: K7 launches", l_launches["c3"], 0)
+    if not (bool(torch.isfinite(z).all()) and bool(torch.isfinite(seg).all())
+            and z.shape[0] == 2 and seg.shape == (2, 19, IN_HW[0] // 8, IN_HW[1] // 8)):
+        raise AssertionError(f"{L_CFG} bs2: outputs not finite or malformed")
+    res["pspv5l_bs2"] = {"launches": l_launches}
+    return res
+
+
 def train_batch(rng, bs: int, nc: int, nseg: int):
     """bench.py:74-84's batch: uint8 det images with 20 targets each, padded
     to TRAIN_MAX_T; float seg images in [0, 1]; int64 labels in [-1, nseg)."""
@@ -1461,6 +1885,7 @@ def main() -> int:
     sv = phase_serving(eng32, eng16, cpu_eng)
     n_batched = sum(b[0] > 1 for b in sv["batches"])
     launches["c3"] = sv["launches"]["c3"]
+    fam = phase_families(eng32, frames)
     del eng32, eng16, cpu_eng
     tr = phase_train()
     k6 = tr["k6_times"]["bf16"]
@@ -1471,8 +1896,20 @@ def main() -> int:
     bounds["seg_ce"] = (k6["bound_ms"], k6["bound_by"])
     library["seg_ce"] = k6["library_ms"]
 
+    # K1's float mode (B1c): launches on [9]'s seg_validation run, its error
+    # on that run's arguments, its times at that shape (s width, float32
+    # (4, H, W, 3) frames, float32 output)
+    sf = next(r for r in fam["stem"] if r["mode"] == "float" and r["width"] == "s"
+              and r["frame"][0] == EVAL_BS and r["frame_dtype"] == "float32")
+    launches["stem_float"] = fam["seg_validation"]["launches"]["stem_float"]
+    errs["stem_float"] = fam["seg_validation"]["stem_float_max_abs_err"]
+    times["stem_float"] = (sf["ms"], sf["plain_ms"])
+    bounds["stem_float"] = (sf["bound_ms"], sf["bound_by"])
+    library["stem_float"] = sf["library_ms"]
+
     replaces = {
         "stem": "multiyolov5_tpu/ops/pallas/stem_kernel.py:308",
+        "stem_float": "multiyolov5_tpu/ops/pallas/stem_kernel.py:415",
         "conv3x3": "multiyolov5_tpu/ops/pallas/conv3x3_kernel.py:98",
         "nms": "multiyolov5_tpu/ops/pallas/nms_fixpoint_kernel.py:77",
         "upsample_argmax": "multiyolov5_tpu/ops/pallas/upsample_argmax_kernel.py:309",
@@ -1480,7 +1917,8 @@ def main() -> int:
         "seg_ce": "multiyolov5_tpu/ops/pallas/seg_ce_kernel.py:256",
         "c3": "multiyolov5_tpu/ops/pallas/c3_kernel.py:391",
     }
-    # launches: K1-K4 on the serving path [3], K5 on the eval path [5], K6
+    # launches: K1-K4 on the serving path [3], K1's float mode (stem_float)
+    # on [9]'s seg_validation run, K5 on the eval path [5], K6
     # (forward + backward) in the counted bf16 train step [7], K7 in the
     # bf16 batched server's run [8] (serving_batches batched forwards);
     # eval_launches and train_launches: every kernel on those paths.
@@ -1494,7 +1932,7 @@ def main() -> int:
     # 1024x1024 serving's row-2 C3, its library time the unfused cuDNN
     # sequence (5 convs, cat, add), its max_abs_err at that shape.
     kernels = [{"name": k, "route": "cuda",
-                "source": f"multiyolov5_tpu_torch/csrc/{k}.cu",
+                "source": f"multiyolov5_tpu_torch/csrc/{k.split('_float')[0]}.cu",
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
                 "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
@@ -1503,7 +1941,8 @@ def main() -> int:
                 "train_launches": train_counts[k] + (train_counts["seg_ce_bwd"]
                                                      if k == "seg_ce" else 0),
                 "err_dtype": "float32",
-                "ms_dtype": "float32" if k.startswith("nms") else "bfloat16"}
+                "ms_dtype": ("float32" if k.startswith("nms") or k == "stem_float"
+                             else "bfloat16")}
                for k in replaces]
     kk = {k["name"]: k for k in kernels}
     kk["seg_ce"].update(fwd_ms=k6["fwd_ms"], bwd_ms=k6["bwd_ms"],
@@ -1520,7 +1959,7 @@ def main() -> int:
                    "eval_candidates_per_image": eval_n,
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
                    "b1c_bound_ms": bounds["b1c"],
-                   "serving_bs8": sv}, fh, indent=1)
+                   "serving_bs8": sv, "families": fam}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

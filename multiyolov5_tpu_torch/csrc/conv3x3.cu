@@ -15,9 +15,11 @@
 // channels of one tap, zero outside the image) and the weight tile into
 // shared memory; c_in % BK == 0 keeps every K step inside one tap.
 //   * bfloat16: 4 warps, each a 32x32 sub-tile of mma.sync m16n8k16
-//     (bf16 in, fp32 accumulate) on the tensor cores, BK = 32.  Tiles move
-//     by 16-byte cp.async into a 3-stage ring, so two K steps' loads are in
-//     flight while one computes.  Needs c_in % 32 == 0 and c_out % 8 == 0.
+//     (bf16 in, fp32 accumulate) on the tensor cores, BK = 32, or BK = 16
+//     where c_in is an odd multiple of 16 (SegMaskLab's 48-channel detail
+//     conv).  Tiles move by 16-byte cp.async into a 3-stage ring, so two K
+//     steps' loads are in flight while one computes.  Needs c_in % 16 == 0
+//     and c_out % 8 == 0.
 //   * float32: 256 threads, each a 4x4 register micro-tile on the fp32 CUDA
 //     cores, BK = 16; no TF32, so it matches a float32 reference closely.
 //
@@ -122,9 +124,8 @@ conv3x3_f32(const float* __restrict__ x, const float* __restrict__ w,
 // --------------------------------------------------------------- bfloat16
 namespace bf16k {
 
-constexpr int BM = 64, BN = 64, BK = 32, NT = 128;
+constexpr int BM = 64, BN = 64, NT = 128;
 constexpr int STAGES = 3;    // cp.async ring: two K steps in flight while one computes
-constexpr int LD = BK + 8;   // smem row pitch in bf16: 80 bytes, conflict-free fragments
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -149,12 +150,18 @@ __device__ __forceinline__ void cp_async_wait_stage() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 2));
 }
 
+// BK 32 or 16 channels a K step.  Shared-memory rows are BK + 8 bf16 long
+// (80 or 48 bytes): the fragment loads of a warp hit 32 distinct banks.
+template <int BK>
 __global__ void __launch_bounds__(NT)
 conv3x3_bf16(const __nv_bfloat16* __restrict__ x,
              const __nv_bfloat16* __restrict__ w,
              const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
              int B, int H, int W, int Ci, int Ho, int Wo, int Co,
              int stride, int dil, int act) {
+  constexpr int LD = BK + 8;
+  constexpr int CPR = BK / 8;              // 16-byte chunks a tile row
+  constexpr int NCP = BM * CPR / NT;       // chunks a thread copies a tile
   __shared__ __align__(16) __nv_bfloat16 As[STAGES][BM][LD];   // [pixel][k]
   __shared__ __align__(16) __nv_bfloat16 Bs[STAGES][BN][LD];   // [c_out][k]
   const int tid = threadIdx.x;
@@ -166,12 +173,12 @@ conv3x3_bf16(const __nv_bfloat16* __restrict__ x,
   const int K = 9 * Ci;
   const int nk = K / BK;
 
-  // 16-byte copies: tile row = idx / 4, 8-channel chunk = idx % 4
-  int a_base[2], a_iy[2], a_ix[2];
-  bool a_ok[2];
+  // 16-byte copies: tile row = idx / CPR, 8-channel chunk = idx % CPR
+  int a_base[NCP], a_iy[NCP], a_ix[NCP];
+  bool a_ok[NCP];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + (tid + i * NT) / 4;
+  for (int i = 0; i < NCP; ++i) {
+    const int m = m0 + (tid + i * NT) / CPR;
     a_ok[i] = m < M;
     const int mm = a_ok[i] ? m : 0;
     const int b = mm / (Ho * Wo);
@@ -186,9 +193,9 @@ conv3x3_bf16(const __nv_bfloat16* __restrict__ x,
     const int cb = k0 - tap * Ci;
     const int dy = tap / 3, dx = tap % 3;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < NCP; ++i) {
       const int idx = tid + i * NT;
-      const int row = idx / 4, chunk = idx % 4;
+      const int row = idx / CPR, chunk = idx % CPR;
       const int iy = a_iy[i] + dy * dil, ix = a_ix[i] + dx * dil;
       const bool ok = a_ok[i] && iy >= 0 && iy < H && ix >= 0 && ix < W;
       const __nv_bfloat16* src =
@@ -272,7 +279,7 @@ conv3x3_bf16(const __nv_bfloat16* __restrict__ x,
 
 // x: (B, H, W, Ci) NHWC; w: (Co, 3, 3, Ci) OHWI; bias: (Co,) float32;
 // y: (B, Ho, Wo, Co) NHWC.  dtype: DT_F32 or DT_BF16 for x, w and y; the
-// wrapper checks c_in % 16 (float32) or c_in % 32 and c_out % 8 (bfloat16).
+// wrapper checks c_in % 16, and for bfloat16 c_out % 8.
 extern "C" int mk_conv3x3(const void* x, const void* w, const float* bias,
                           void* y, int B, int H, int W, int Ci, int Ho, int Wo,
                           int Co, int stride, int dil, int act, int dtype,
@@ -281,7 +288,8 @@ extern "C" int mk_conv3x3(const void* x, const void* w, const float* bias,
   const int M = B * Ho * Wo;
   if (dtype == DT_BF16) {
     dim3 grid((M + bf16k::BM - 1) / bf16k::BM, (Co + bf16k::BN - 1) / bf16k::BN);
-    bf16k::conv3x3_bf16<<<grid, bf16k::NT, 0, s>>>(
+    auto kernel = Ci % 32 == 0 ? &bf16k::conv3x3_bf16<32> : &bf16k::conv3x3_bf16<16>;
+    kernel<<<grid, bf16k::NT, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
         bias, static_cast<__nv_bfloat16*>(y), B, H, W, Ci, Ho, Wo, Co, stride,
         dil, act);

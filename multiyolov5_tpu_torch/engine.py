@@ -1,14 +1,17 @@
 """Inference engine (counterpart of ``multiyolov5_tpu/engine.py``).
 
 One call runs, on ``device``:
-    uint8 letterboxed frame -> folded stem (K1) -> trunk rows 2-23 (neck
-    3x3s on K2; at batch > 1 the narrow backbone C3 on K7) -> PSP seg
-    head (K2) + Detect decode (float32) -> NMS (K3 for one frame, one K5
-    launch for a batch) -> letterbox unmap -> upsample + argmax class map (K4)
-and returns host arrays.  Weights come from a JAX-package ``.npz``
-checkpoint, from a ``state_dict``, or from a seeded random init; BN is
-folded at build and ``half=True`` then casts the parameters to bfloat16.
-Decode and NMS stay float32.
+    letterboxed frame (uint8, or float in [0, 1]) -> folded stem (K1) ->
+    trunk (neck 3x3s on K2; at batch > 1 the narrow backbone C3 on K7) ->
+    seg head (its Pallas-site 3x3s on K2), if the model has one, + Detect
+    decode (float32) -> NMS (K3 for one frame, one K5 launch for a batch)
+    -> letterbox unmap -> upsample + argmax class map (K4)
+and returns host arrays.  Every zoo entry runs: the four seg heads,
+detection-only models (no class map) and the 4-level P6 models (stride
+64).  Weights come from a JAX-package ``.npz`` checkpoint, from a
+``state_dict``, or from a seeded random init; BN is folded at build and
+``half=True`` then casts the parameters to bfloat16.  Decode and NMS stay
+float32.
 """
 
 from __future__ import annotations
@@ -63,14 +66,16 @@ class Engine:
         self.dtype = torch.bfloat16 if half else torch.float32
         fsd = fuse_conv_bn(sd)
 
-        # rows 0-1 run as the folded stem; /255 folds into conv1's weights
+        # rows 0-1 run as the folded stem; for uint8 frames /255 folds into
+        # conv1's weights, float frames (already in [0, 1]) take them unscaled
         hwio = lambda k: np.asarray(fsd[k]).transpose(2, 3, 1, 0)  # noqa: E731
-        w1, b1, w2, b2 = stem_lib.fold_stem_weights(
-            hwio("model.0.conv.conv.weight"), np.asarray(fsd["model.0.conv.conv.bias"]),
-            hwio("model.1.conv.weight"), np.asarray(fsd["model.1.conv.bias"]))
-        self.stem_weights = tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-            for a in (w1 * _INV255, b1, w2, b2))
+        w1, b1, w2, b2 = (torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                          for a in stem_lib.fold_stem_weights(
+                              hwio("model.0.conv.conv.weight"),
+                              np.asarray(fsd["model.0.conv.conv.bias"]),
+                              hwio("model.1.conv.weight"), np.asarray(fsd["model.1.conv.bias"])))
+        self.stem_weights = (w1 * _INV255, b1, w2, b2)
+        self.stem_weights_float = (w1, b1, w2, b2)
 
         model = Model(spec, fused=True)
         model.load_state_dict(fsd, strict=True)
@@ -84,25 +89,29 @@ class Engine:
         return int(max(self.spec.strides))
 
     def forward(self, frames: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """frames (B, H, W, 3) uint8 on the engine's device, H and W any
-        multiples of the stride (serving's 512x1024, the eval loader's rect
-        shapes such as 576x1024) -> (decoded candidates (B, no, N) float32,
-        1/8-res seg logits (B, C, h, w))."""
+        """frames (B, H, W, 3) on the engine's device, uint8, or float32 or
+        bfloat16 in [0, 1] (the seg loader's x / 255, used as it is), H and
+        W any multiples of the stride (serving's 512x1024, the eval
+        loader's rect shapes such as 576x1024) -> (decoded candidates (B,
+        no, N) float32, 1/8-res seg logits (B, C, h, w), or None for a
+        detection-only model)."""
         if frames.shape[1] % self.stride or frames.shape[2] % self.stride:
             raise ValueError(f"frame {tuple(frames.shape[1:3])} is not a "
                              f"multiple of the stride {self.stride}")
+        weights = (self.stem_weights_float if frames.is_floating_point()
+                   else self.stem_weights)
         with torch.inference_mode():
-            y1 = stem(frames, *self.stem_weights, out_dtype=self.dtype)
+            y1 = stem(frames, *weights, out_dtype=self.dtype)
             return self.model(y1.permute(0, 3, 1, 2), start_layer=2)
 
     def __call__(self, img: Union[np.ndarray, torch.Tensor],
                  orig_hw: Tuple[int, int], conf: float = 0.25,
                  iou: float = 0.45) -> Tuple[List[np.ndarray], List[Optional[np.ndarray]]]:
-        """img: (H, W, 3) or (B, H, W, 3) letterboxed RGB uint8.
+        """img: (H, W, 3) or (B, H, W, 3) letterboxed RGB, uint8 or float in [0, 1].
 
         Returns (per image an (n, 6) float32 array [x1, y1, x2, y2, conf,
         cls] in original-frame pixels, per image an (H0, W0) uint8 class
-        map or None)."""
+        map, or None for a detection-only model)."""
         x = torch.as_tensor(img)
         if x.dim() == 3:
             x = x[None]

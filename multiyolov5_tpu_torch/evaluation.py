@@ -10,7 +10,8 @@ iouv = linspace(.5, .95, 10), ap_per_class.
 ``seg_validation`` reproduces test.seg_validation (test.py:31-65): the
 head's x8 align-corners upsample, the resize to the label size and the
 argmax are one K4 launch on the 1/8-res logits, and the streaming
-intersection/union accumulates on the host.
+intersection/union accumulates on the host.  Its float batches (the seg
+loader's x / 255) reach the forward unquantised, through K1's float mode.
 
 Both take a port ``Engine``, or build one on ``device`` (the card by
 default) in float32 (``half=False``, as ``cli/test.py`` defaults, for exact
@@ -43,10 +44,12 @@ def _engine(engine: Union[Engine, str, None], cfg, device, half) -> Engine:
 
 def _frames(imgs, device: torch.device) -> torch.Tensor:
     """A loader batch (B, H, W, 3), uint8 or float in [0, 1] (the seg
-    loader's x / 255), as a contiguous uint8 tensor on ``device``."""
+    loader's x / 255), as a contiguous tensor on ``device``: uint8 stays
+    uint8, a float batch goes to the forward as float32 (bfloat16 as it
+    is), unquantised, as the JAX package feeds it to its forward."""
     x = torch.as_tensor(np.ascontiguousarray(imgs))
-    if x.is_floating_point():
-        x = torch.round(x.float() * 255.0).clamp(0, 255).to(torch.uint8)
+    if x.is_floating_point() and x.dtype != torch.bfloat16:
+        x = x.float()
     return x.to(device).contiguous()
 
 

@@ -69,7 +69,7 @@ class Conv(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Bare ``nn.Sequential(Conv2d, BatchNorm2d)`` + SiLU inside RFB2
+    """Bare ``nn.Sequential(Conv2d, BatchNorm2d)`` + SiLU inside RFB2 and ASPP
     (keys ``<name>.0.weight``, ``<name>.1.running_mean``)."""
 
     def __init__(self, c1: int, c2: int, d: int = 1, fused: bool = False,
@@ -161,6 +161,23 @@ class SPP(nn.Module):
         return self.cv2(torch.cat([x] + [max_pool_same(x, k) for k in self.k], 1))
 
 
+class C3SPP(nn.Module):
+    """A C3 whose bottleneck chain is one SPP (multiyolov5_tpu/models/blocks.py:254-274):
+    c_ = c1 * e, the SPP widens c_ to 1.5 c_."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13), e: float = 0.5,
+                 fused: bool = False):
+        super().__init__()
+        c_ = int(c1 * e)
+        self.cv1 = Conv(c1, c_, 1, fused=fused)
+        self.cv2 = Conv(c1, c_, 1, fused=fused)
+        self.cv3 = Conv(c_ + int(c_ * 1.5), c2, 1, fused=fused)
+        self.m = SPP(c_, int(c_ * 1.5), k, fused=fused)
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
 class Focus(nn.Module):
     """reference models/common.py:542-551: 2x2 space-to-depth (phase order
     [ee, oe, eo, oo], H-offset first) then Conv."""
@@ -192,11 +209,28 @@ class Upsample(nn.Module):
         return upsample_nearest(x, self.scale)
 
 
+def _global_branch(c1: int, c2: int, fused: bool) -> nn.Module:
+    """The ``nn.Sequential(AdaptiveAvgPool2d(1), Conv(c1, c2, 1))`` global
+    branch (key ``<name>.1``); :func:`_global_apply` pools with a mean, which
+    unlike torch's channels_last adaptive pool is fast on the card."""
+    branch = nn.Module()
+    branch.add_module("1", Conv(c1, c2, 1, fused=fused))
+    return branch
+
+
+def _global_apply(branch: nn.Module, x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The global branch on ``x``, broadcast to ``like``'s shape (the
+    nearest upsample of a 1x1 map)."""
+    return getattr(branch, "1")(x.mean((2, 3), keepdim=True)).expand_as(like)
+
+
 class RFB2(nn.Module):
-    """Cascaded-dilation block, reference models/common.py:470-511."""
+    """Cascaded-dilation block, reference models/common.py:470-511.  With
+    ``has_globel`` a fifth branch convolves the global mean of x2 (not of
+    x) and broadcasts it (multiyolov5_tpu/models/blocks.py:590-628)."""
 
     def __init__(self, c1: int, c2: int, map_reduce: int = 4, d=(2, 3),
-                 fused: bool = False, kernel: bool = False):
+                 has_globel: bool = False, fused: bool = False, kernel: bool = False):
         super().__init__()
         inter = c1 // map_reduce
         self.branch0 = nn.Sequential(Conv(c1, inter, 1, fused=fused),
@@ -204,13 +238,44 @@ class RFB2(nn.Module):
         self.branch1 = ConvBN(inter, inter, d[0], fused, kernel)
         self.branch2 = ConvBN(inter, inter, d[1], fused, kernel)
         self.branch3 = nn.Sequential(Conv(c1, inter, 1, fused=fused))
-        self.ConvLinear = Conv(4 * inter, c2, 1, fused=fused)
+        self.branch4 = _global_branch(inter, inter, fused) if has_globel else None
+        self.ConvLinear = Conv((5 if has_globel else 4) * inter, c2, 1, fused=fused)
 
     def forward(self, x):
         x0 = self.branch0(x)
         x1 = self.branch1(x0)
         x2 = self.branch2(x1)
-        return self.ConvLinear(torch.cat([x0, x1, x2, self.branch3(x)], 1))
+        xs = [x0, x1, x2, self.branch3(x)]
+        if self.branch4 is not None:
+            xs.append(_global_apply(self.branch4, x2, x0))
+        return self.ConvLinear(torch.cat(xs, 1))
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling, reference models/common.py:233-255:
+    a 1x1 branch, three bias-free 3x3 + BN branches at dilations 3, 6 and 9
+    (SegMaskLab's) and, with ``has_globel``, a global-mean branch, fused by
+    a 1x1.  The dilated 3x3s stay cuDNN convolutions: the JAX package runs
+    them in XLA (multiyolov5_tpu/models/blocks.py:513-533), and dilations 6
+    and 9 lie outside K2's contract."""
+
+    def __init__(self, c1: int, c2: int, has_globel: bool = True, map_reduce: int = 4,
+                 fused: bool = False):
+        super().__init__()
+        hid = c1 // map_reduce
+        self.branch0 = nn.Sequential(Conv(c1, hid, 1, fused=fused))
+        self.branch1 = ConvBN(c1, hid, 3, fused)
+        self.branch2 = ConvBN(c1, hid, 6, fused)
+        self.branch3 = ConvBN(c1, hid, 9, fused)
+        self.branch4 = _global_branch(c1, hid, fused) if has_globel else None
+        self.ConvLinear = Conv((5 if has_globel else 4) * hid, c2, 1, fused=fused)
+
+    def forward(self, x):
+        x0 = self.branch0(x)
+        xs = [x0, self.branch1(x), self.branch2(x), self.branch3(x)]
+        if self.branch4 is not None:
+            xs.append(_global_apply(self.branch4, x, x0))
+        return self.ConvLinear(torch.cat(xs, 1))
 
 
 class PyramidPooling(nn.Module):

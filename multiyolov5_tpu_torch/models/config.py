@@ -5,6 +5,8 @@ and compiles it into a static :class:`ModelSpec`: resolved per-layer
 channels, depth/width-scaled args, the save set of intermediate outputs and
 analytic strides.  Pure Python; for the modules this package builds
 (models/model.py) the specs equal the JAX package's field for field.
+Detection-only configs (no ``n_segcls``) compile with ``seg_index`` and
+``n_segcls`` None.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from ..ops.nn import make_divisible
 # Modules whose first arg is the output-channel count (reference yolo.py:389-390)
 _CH_OUT_MODULES = {"Conv", "Bottleneck", "SPP", "Focus", "C3"}
 _REPEAT_INSERT = {"C3"}
-_SEG_HEADS = {"SegMaskPSP"}
+_SEG_HEADS = {"SegMaskPSP", "SegMaskBase", "SegMaskBiSe", "SegMaskLab"}
 
 
 @dataclass

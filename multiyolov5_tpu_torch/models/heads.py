@@ -1,4 +1,12 @@
-"""Detection and segmentation heads (counterpart of ``multiyolov5_tpu/models/heads.py``)."""
+"""Detection and segmentation heads (counterpart of ``multiyolov5_tpu/models/heads.py``).
+
+Every seg head returns its 1/8-res logits (B, n_segcls, h, w); the x8
+upsample is composed into the mask kernel (ops/kernels/upsample_argmax.py)
+at serving and eval, and into the seg loss (ops/kernels/seg_ce.py) in
+training.  Built with ``kernel=True`` (fused, from the neck on), a head runs
+its 3x3 convs through K2 at the sites where the JAX package runs a Pallas
+3x3; the bias-free 3x3s (Base's ``m.3``, ASPP's dilated branches) stay
+cuDNN convolutions, as they stay XLA convolutions there."""
 
 from __future__ import annotations
 
@@ -10,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.resize import resize_bilinear
-from .blocks import FFM, RFB2, Conv, PyramidPooling
+from .blocks import ASPP, C3, C3SPP, FFM, RFB2, Conv, PyramidPooling
 
 
 class Detect(nn.Module):
@@ -70,9 +78,7 @@ class Detect(nn.Module):
 
 
 class SegMaskPSP(nn.Module):
-    """PSP segmentation head, reference models/yolo.py:149-186.  ``forward``
-    returns the 1/8-res logits (B, n_segcls, h, w); the x8 upsample is
-    composed into the mask kernel (ops/kernels/upsample_argmax.py)."""
+    """PSP segmentation head, reference models/yolo.py:149-186."""
 
     def __init__(self, n_segcls: int, c_hid: int, ch: Sequence[int],
                  fused: bool = False, kernel: bool = False):
@@ -93,3 +99,80 @@ class SegMaskPSP(nn.Module):
         feat = torch.cat([self.m8(x8), resize_bilinear(self.m16(x16), hw),
                           resize_bilinear(self.m32(x32), hw)], 1)
         return self.out(feat)
+
+
+class SegMaskBase(nn.Module):
+    """C3 + C3SPP + a bias-free 3x3 to the classes, reference
+    models/yolo.py:129-146 (multiyolov5_tpu/models/heads.py:248-269)."""
+
+    def __init__(self, n_segcls: int, n: int, c_hid: int, shortcut: bool,
+                 ch: Sequence[int], fused: bool = False, kernel: bool = False):
+        super().__init__()
+        c_out = int(c_hid * 1.5)
+        self.m = nn.Sequential(
+            C3(ch[0], c_hid, n=n, shortcut=shortcut, fused=fused, kernel=kernel),
+            C3SPP(c_hid, c_out, fused=fused),
+            nn.Dropout(0.1),
+            nn.Conv2d(c_out, n_segcls, 3, 1, 1, bias=False))
+
+    def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
+        return self.m(xs[0])
+
+
+class SegMaskBiSe(nn.Module):
+    """BiSeNet-style head, reference models/yolo.py:30-86
+    (multiyolov5_tpu/models/heads.py:273-314).  The aux pair (``aux16``,
+    ``aux32``) is built, so the JAX package's weights load whole, but only
+    training reads it, and training of this head is not ported yet."""
+
+    def __init__(self, n_segcls: int, ch: Sequence[int], fused: bool = False,
+                 kernel: bool = False):
+        super().__init__()
+        c8, c16, c32 = ch
+        self.m8 = nn.Sequential(Conv(c8, 128, 1, fused=fused))
+        self.m16 = nn.Sequential(RFB2(c16, 128, map_reduce=4, fused=fused, kernel=kernel))
+        self.m32 = nn.Sequential(RFB2(c32, 128, map_reduce=8, has_globel=True,
+                                      fused=fused, kernel=kernel))
+        self.up16 = nn.Sequential(Conv(128, 128, 3, fused=fused, kernel=kernel))
+        self.up32 = nn.Sequential(Conv(128, 128, 3, fused=fused, kernel=kernel))
+        self.out = nn.Sequential(FFM(256, 256, k=3, fused=fused, kernel=kernel),
+                                 nn.Dropout(0.1), nn.Conv2d(256, n_segcls, 1))
+        self.aux16 = nn.Sequential(Conv(128, 128, 3, fused=fused), nn.Conv2d(128, n_segcls, 1))
+        self.aux32 = nn.Sequential(Conv(128, 128, 3, fused=fused), nn.Conv2d(128, n_segcls, 1))
+
+    def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("SegMaskBiSe training (the aux pair and its losses) "
+                                      "is not ported yet")
+        x8, x16, x32 = xs
+        f32 = self.up32(self.m32(x32))
+        feat3 = resize_bilinear(f32, (f32.shape[2] * 2, f32.shape[3] * 2))
+        f16 = self.up16(self.m16(x16) + feat3)
+        feat2 = resize_bilinear(f16, (f16.shape[2] * 2, f16.shape[3] * 2))
+        return self.out(torch.cat([self.m8(x8), feat2], 1))
+
+
+class SegMaskLab(nn.Module):
+    """DeepLabV3+-style head, reference models/yolo.py:93-124
+    (multiyolov5_tpu/models/heads.py:318-344): an ASPP encoder on the 1/16
+    map (``map_reduce`` 5 - n), a 48-channel detail branch on the 1/8 map,
+    an FFM decoder."""
+
+    def __init__(self, n_segcls: int, n: int, c_hid: int, ch: Sequence[int],
+                 fused: bool = False, kernel: bool = False):
+        super().__init__()
+        c_detail, c16 = ch
+        self.detail = nn.Sequential(Conv(c_detail, 48, 1, fused=fused),
+                                    Conv(48, 48, 3, fused=fused, kernel=kernel))
+        self.encoder = nn.Sequential(
+            Conv(c16, c_hid * 2, 1, fused=fused),
+            ASPP(c_hid * 2, 256, has_globel=False, map_reduce=5 - n, fused=fused))
+        self.decoder = nn.Sequential(FFM(256 + 48, 256, k=1, fused=fused),
+                                     Conv(256, c_hid, 3, fused=fused, kernel=kernel),
+                                     nn.Conv2d(c_hid, n_segcls, 1))
+
+    def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
+        x_detail, x16 = xs
+        e = self.encoder(x16)
+        e = resize_bilinear(e, (e.shape[2] * 2, e.shape[3] * 2))
+        return self.decoder(torch.cat([self.detail(x_detail), e], 1))

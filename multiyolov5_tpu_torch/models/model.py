@@ -2,8 +2,8 @@
 
 :class:`Model` builds one module per spec row under ``model.<i>``, so its
 ``state_dict`` keys equal the JAX package's param/state keys, and walks the
-rows with the spec's save set.  Only the modules of the seg+det zoo
-entries (models/zoo.py) are built; other rows raise.
+rows with the spec's save set.  The modules of every zoo entry
+(models/zoo.py) are built; other rows raise.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch.nn as nn
 from . import blocks as B
 from ..ops.nn import BN_MOMENTUM
 from .config import ModelSpec
-from .heads import Detect, SegMaskPSP
+from .heads import Detect, SegMaskBase, SegMaskBiSe, SegMaskLab, SegMaskPSP
 
 
 def _build_row(spec: ModelSpec, row, fused: bool, kernel: bool,
@@ -41,6 +41,12 @@ def _build_row(spec: ModelSpec, row, fused: bool, kernel: bool,
         return B.Concat()
     if m == "SegMaskPSP":
         return SegMaskPSP(a[0], a[2], a[4], fused=fused, kernel=kernel)
+    if m == "SegMaskBase":
+        return SegMaskBase(a[0], a[1], a[2], a[3], a[4], fused=fused, kernel=kernel)
+    if m == "SegMaskBiSe":
+        return SegMaskBiSe(a[0], a[4], fused=fused, kernel=kernel)
+    if m == "SegMaskLab":
+        return SegMaskLab(a[0], a[1], a[2], a[4], fused=fused, kernel=kernel)
     if m == "Detect":
         return Detect(a[0], a[1], a[2], spec.strides)
     raise NotImplementedError(f"module {m!r} (row {row.i})")
@@ -50,11 +56,12 @@ class Model(nn.Module):
     """The network of a :class:`ModelSpec` on NCHW tensors.
 
     ``fused=True`` builds BN-folded convs (load a ``fuse_conv_bn``'d
-    state_dict); then the 3x3 convs from the neck on (rows past the
+    state_dict); then the SiLU 3x3 convs from the neck on (rows past the
     backbone, the seg head included) run through kernel K2, the
     sites where the JAX package routes its Pallas 3x3s at batch 1.
     ``forward`` returns (decoded candidates (B, no, N) float32 or None,
-    1/8-res seg logits (B, n_segcls, h, w) or None); in training mode the
+    1/8-res seg logits (B, n_segcls, h, w), or None for a detection-only
+    model); in training mode the
     first is the list of raw per-level maps (B, na, ny, nx, no)
     (heads.Detect), the input of train/losses.DetectionLoss."""
 
@@ -99,7 +106,10 @@ def init_model(model: Model, generator: torch.Generator) -> Model:
     default init shrinks activations about threefold per conv, and the
     network's outputs become nearly constant over the image: near-tied
     scores and a one-class mask.  Measured statistics keep activations at
-    unit scale, so random weights give spread scores and varied masks."""
+    unit scale, so random weights give spread scores and varied masks.
+    The statistics pass runs the eval forward with only the BN layers in
+    training mode, so BNs off that forward (BiSe's aux pair) keep unit
+    statistics."""
     g = generator
     with torch.no_grad():
         for mod in model.modules():
@@ -117,7 +127,10 @@ def init_model(model: Model, generator: torch.Generator) -> Model:
         det = model.spec.detect_index
         if det is not None and det >= 0:
             model.model[det].init_bias_prior()
-        model.train()
+        model.eval()
+        for mod in model.modules():       # BN alone in training mode
+            if isinstance(mod, nn.BatchNorm2d):
+                mod.train()
         model(torch.rand(2, model.spec.ch_in, 256, 512, generator=g))
         model.eval()
         for mod in model.modules():

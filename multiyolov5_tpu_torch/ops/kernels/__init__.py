@@ -12,10 +12,10 @@ from .conv3x3 import conv3x3, conv3x3_plain
 from .nms import nms, nms_plain
 from .nms_greedy import nms_greedy, nms_greedy_plain
 from .seg_ce import seg_ce, seg_ce_backward, seg_ce_forward, seg_ce_plain
-from .stem import stem, stem_plain
+from .stem import stem, stem_float, stem_plain
 from .upsample_argmax import upsample_argmax, upsample_argmax_plain
 
-KERNELS = {"stem": stem, "conv3x3": conv3x3, "nms": nms,
+KERNELS = {"stem": stem, "stem_float": stem_float, "conv3x3": conv3x3, "nms": nms,
            "upsample_argmax": upsample_argmax, "nms_greedy": nms_greedy,
            "seg_ce": seg_ce_forward, "seg_ce_bwd": seg_ce_backward,
            "c3": c3}

@@ -35,8 +35,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             stride: int = 1, dilation: int = 1, act: bool = True) -> torch.Tensor:
     """K2 on a CUDA tensor, :func:`conv3x3_plain` on a CPU tensor.
 
-    Kernel inputs: x contiguous NHWC float32 (Ci % 16 == 0) or bfloat16
-    (Ci % 32 == 0, Co % 8 == 0), w contiguous OHWI of x's dtype, b
+    Kernel inputs: x contiguous NHWC float32 or bfloat16 with Ci % 16 == 0
+    (bfloat16 also Co % 8 == 0), w contiguous OHWI of x's dtype, b
     contiguous float32."""
     if not build.on_device(x, "conv3x3"):
         return conv3x3_plain(x, w, b, stride, dilation, act)
@@ -44,11 +44,9 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     bsz, h, wd, ci = x.shape
     build.require(x.dtype in _DTYPES, f"conv3x3: dtype {x.dtype}")
     co = w.shape[0]
-    if x.dtype == torch.bfloat16:
-        build.require(ci % 32 == 0 and co % 8 == 0,
-                      f"conv3x3: bf16 needs c_in % 32 == 0 and c_out % 8 == 0, got {ci}, {co}")
-    else:
-        build.require(ci % 16 == 0, f"conv3x3: c_in {ci} is not a multiple of 16")
+    build.require(ci % 16 == 0, f"conv3x3: c_in {ci} is not a multiple of 16")
+    build.require(x.dtype != torch.bfloat16 or co % 8 == 0,
+                  f"conv3x3: bf16 needs c_out % 8 == 0, got {co}")
     build.require(tuple(w.shape) == (co, 3, 3, ci) and w.is_contiguous()
                   and w.dtype == x.dtype and w.device == x.device,
                   f"conv3x3: weight {tuple(w.shape)} {w.dtype}")

@@ -11,7 +11,7 @@ K7.
 
     server = InferenceServer(engine=Engine(cfg="yolov5s_city_seg"), img_size=1024)
     fut = server.submit(frame_bgr)          # from any thread
-    boxes, class_map = fut.result()
+    boxes, class_map = fut.result()       # class_map None for a detection-only model
     server.stats() / server.close()
 """
 

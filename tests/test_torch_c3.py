@@ -7,7 +7,10 @@ in float32.
   against both Pallas kernels on the same seeded weights: rtol/atol 2e-5,
   the bound of tests/test_c3_kernel.py (float32 sums in another order).
 * The route: a fused eval ``Model`` calls ``kernels.c3`` for pspv5s's row-2
-  C3 (c_ 32) at batch 2, and not at batch 1, unfused, or in training.
+  C3 (c_ 32) at batch 2, and not at batch 1, unfused, or in training.  The
+  width gate of B3b (8 <= c_ <= 48): across the zoo only row 2 of the s and
+  m models takes K7; the l (c_ 64) and x (c_ 80) models' row 2 does not, and
+  at batch 2 never calls it.
 * The whole fused forward at bs2 on pspv5s at 128x256 against the JAX
   ``forward(fused=True)`` with ``MULTIYOLOV5_FORCE_C3PACK=1``, so the JAX
   side really runs ``c3_packed_pallas`` at row 2 (at 64x64 its geometry
@@ -91,6 +94,25 @@ def test_model_routes_row2_c3_to_kernel(monkeypatch, bsz, fused, training, calls
     assert seen == [(bsz, 16, 16, 64)] * calls
     assert [i for i, m in enumerate(model.model)
             if isinstance(m, blocks.C3) and m.c3_kernel] == ([2] if fused else [])
+
+
+@pytest.mark.parametrize("cfg,rows", [
+    ("yolov5s_city_seg", [2]), ("yolov5m_city_seg", [2]), ("yolov5l_city_seg", []),
+    ("yolov5x_city_seg", []), ("yolov5s6", [2]), ("yolov5x6", []), ("yolov5l", [])])
+def test_k7_width_gate(monkeypatch, cfg, rows):
+    spec = load_spec(cfg)
+    with torch.device("meta"):
+        model = Model(spec, fused=True)
+    assert [i for i, m in enumerate(model.model)
+            if isinstance(m, blocks.C3) and m.c3_kernel] == rows
+    a = spec.rows[2].args                  # row 2 alone, on the CPU, at batch 2
+    row2 = blocks.C3(a[0], a[1], n=a[2], fused=True, c3_kernel=True).eval()
+    seen = []
+    real = blocks.c3
+    monkeypatch.setattr(blocks, "c3", lambda x, *w: seen.append(x.shape) or real(x, *w))
+    with torch.no_grad():
+        row2(torch.zeros(2, a[0], 16, 16))
+    assert len(seen) == len(rows)
 
 
 def test_fused_bs2_forward_matches_jax_with_c3_kernel(monkeypatch):

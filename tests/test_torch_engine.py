@@ -23,11 +23,13 @@ import pytest
 import torch
 
 from multiyolov5_tpu.engine import Engine as JaxEngine
+from multiyolov5_tpu.models import zoo as jax_zoo
 from multiyolov5_tpu.models.config import load_spec as jax_load_spec
 from multiyolov5_tpu.models.model import forward as jax_forward
 from multiyolov5_tpu.models.model import init_model
 from multiyolov5_tpu.utils.checkpoint import save_npz
 from multiyolov5_tpu_torch.engine import Engine
+from multiyolov5_tpu_torch.models import zoo
 from multiyolov5_tpu_torch.models.config import load_spec
 from multiyolov5_tpu_torch.utils.checkpoint import from_jax_params
 
@@ -50,11 +52,17 @@ def slice_pair():
     return spec, params, state, jeng, peng, img
 
 
-@pytest.mark.parametrize("cfg", ["yolov5s_city_seg", "yolov5m_city_seg"])
+def test_zoo_names_match_jax():
+    assert zoo.available() == jax_zoo.available()
+
+
+@pytest.mark.parametrize("cfg", jax_zoo.available())
 def test_spec_matches_jax(cfg):
     a, b = jax_load_spec(cfg), load_spec(cfg)
     assert [vars(r) for r in a.rows] == [vars(r) for r in b.rows]
     assert (a.anchors, a.strides, a.save) == (b.anchors, b.strides, b.save)
+    assert ((a.nc, a.n_segcls, a.seg_index, a.detect_index)
+            == (b.nc, b.n_segcls, b.seg_index, b.detect_index))
 
 
 def test_candidates_and_seg_logits_match(slice_pair):

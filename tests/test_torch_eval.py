@@ -230,3 +230,37 @@ def test_seg_metric_and_confusion_copy_is_exact():
     for c in (ca, cb):
         c.process_batch(dets, labels)
     np.testing.assert_array_equal(ca.matrix, cb.matrix)
+
+
+def test_float_batches_are_not_quantised(slice_pair, monkeypatch):
+    """A float batch off the k/255 lattice (``rng.rand``, float32) goes to
+    the forward as float, through K1's float mode (its plain version here),
+    as the JAX package's ``seg_validation`` feeds it to its forward: the
+    1/8-res logits of ``Engine.forward`` and of the forward inside
+    ``seg_validation`` match the JAX forward's within 1e-4 (the tolerance of
+    tests/test_torch_engine.py), and pixAcc and mIoU match within 1e-4.
+    Rounding the batch to uint8 first moves the logits far past that."""
+    spec, params, state, peng = slice_pair
+    rng = np.random.RandomState(11)
+    imgs = rng.rand(2, *IN_HW, 3).astype(np.float32)
+    _, seg_j, _ = jax_forward(spec, params, state, jnp.asarray(imgs), train=False,
+                              fused=True, decode=False, seg_up=False)
+    seg_j = np.array(seg_j)
+    _, seg_p = peng.forward(torch.from_numpy(imgs))
+    np.testing.assert_allclose(seg_p.numpy(), seg_j, rtol=0, atol=1e-4)
+
+    cmap = port_eval.upsample_argmax(torch.from_numpy(seg_j), ORIG_HW,
+                                     via_hw=IN_HW).numpy().astype(np.int32)
+    masks = np.where(rng.rand(*cmap.shape) < 0.3,
+                     rng.randint(0, spec.n_segcls, cmap.shape), cmap).astype(np.int32)
+    masks[rng.rand(*cmap.shape) < 0.1] = -1
+    seen = []
+    real = Engine.forward
+    monkeypatch.setattr(Engine, "forward",
+                        lambda self, x: seen.append(x.dtype) or real(self, x))
+    want = jax_eval.seg_validation(spec, params, state, [(imgs, masks)],
+                                   nclass=spec.n_segcls, fused=True)
+    got = port_eval.seg_validation(peng, [(imgs, masks)], nclass=spec.n_segcls)
+    assert seen == [torch.float32]
+    assert 0.3 < got[0] < 0.95 and 0.1 < got[1] < 0.95
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

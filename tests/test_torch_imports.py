@@ -1,6 +1,8 @@
 """The port stands without JAX: in a fresh interpreter where importing
 ``jax`` or ``multiyolov5_tpu`` raises, every module of the port imports, a
-tiny seeded Engine serves one frame on the CPU, the eval path (multi-label
+tiny seeded Engine serves one frame on the CPU, so does each other model
+family (the Base, BiSe and Lab seg heads, detection-only, P6; narrowed) on
+a float frame, the eval path (multi-label
 NMS over more than K3's 1024 rows, mAP, mIoU) runs on one batch, and the
 dual-task train step of the TINY spec (tests/test_torch_train_step.py)
 takes one update on the CPU, and an ``InferenceServer`` on the TINY spec
@@ -42,6 +44,14 @@ _SCRIPT = textwrap.dedent("""
            "train.trainer", "train.losses", "train.optim", "data.hyps", "ops.kernels.seg_ce",
            "serving", "data.letterbox", "ops.kernels.c3"}
     assert {pkg.__name__ + "." + m for m in new} <= set(names)
+    from multiyolov5_tpu_torch.models import zoo
+    for name in ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
+                 "yolov5s", "yolov5s6"):
+        cfg = zoo.get(name)
+        cfg["width_multiple"] = 0.125
+        fd, fm = Engine(cfg=cfg, device="cpu", half=False, seed=0)(
+            np.random.RandomState(3).rand(64, 128, 3).astype(np.float32), (64, 128), conf=0.001)
+        assert fd[0].shape[1] == 6 and (fm[0] is None) == ("n_segcls" not in cfg)
 
     from multiyolov5_tpu_torch.evaluation import evaluate_detection, seg_validation
     import multiyolov5_tpu_torch.ops.nms as nms_mod

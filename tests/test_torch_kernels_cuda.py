@@ -11,7 +11,10 @@ in another order; its bf16 input is the same for both), dz within 1e-4
 (float32) or 1e-2 (bf16: one rounding of each side's float32 value) of
 max |dz|; all-ignored labels give exactly 0 and a zero gradient.  K7 (c3):
 the float32 and bf16 bounds above, at pspv5s's and pspv5m's C3 widths, an
-odd H x W that is not a multiple of the tile, and no shortcut."""
+odd H x W that is not a multiple of the tile, and no shortcut.  K1's float
+mode: float32 and bfloat16 frames in [0, 1] at s and x width (c_mid 128,
+320), the bounds above.  K2 in bf16 at c_in 48 (SegMaskLab's detail conv,
+the BK = 16 path)."""
 
 import numpy as np
 import pytest
@@ -53,6 +56,24 @@ def test_stem_kernel(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("frame_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_mid,c_out", [(128, 64), (320, 160)])
+def test_stem_kernel_float_mode(dev, dtype, frame_dtype, c_mid, c_out):
+    g = torch.Generator().manual_seed(c_mid)
+    frame = torch.rand(2, 64, 96, 3, generator=g).to(frame_dtype)
+    w1 = torch.randn(3, 3, 48, c_mid, generator=g) * 0.2
+    b1 = torch.randn(c_mid, generator=g) * 0.1
+    w2 = torch.randn(2, 2, c_mid, c_out, generator=g) * 0.05
+    b2 = torch.randn(c_out, generator=g) * 0.1
+    args = [t.to(dev).contiguous() for t in (frame, w1, b1, w2, b2)]
+    K.reset_launches()
+    got = K.stem(*args, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert (K.stem.launches, K.stem_float.launches) == (0, 1)
+    _close(got, K.stem_plain(*args, out_dtype=dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("stride,dil,act", [(1, 1, True), (1, 2, True), (1, 3, False),
                                             (2, 1, True)])
 def test_conv3x3_kernel(dev, dtype, stride, dil, act):
@@ -63,6 +84,17 @@ def test_conv3x3_kernel(dev, dtype, stride, dil, act):
     got = K.conv3x3(x, w, b, stride, dil, act)
     torch.cuda.synchronize()
     _close(got, K.conv3x3_plain(x, w, b, stride, dil, act), dtype)
+
+
+@pytest.mark.parametrize("ci,co", [(48, 48), (16, 24)])
+def test_conv3x3_kernel_bf16_c_in_16(dev, ci, co):
+    g = torch.Generator().manual_seed(ci)
+    x = torch.randn(1, 32, 64, ci, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(co, 3, 3, ci, generator=g) * 0.05).to(dev, torch.bfloat16)
+    b = (torch.randn(co, generator=g) * 0.1).to(dev)
+    got = K.conv3x3(x, w, b)
+    torch.cuda.synchronize()
+    _close(got, K.conv3x3_plain(x, w, b), torch.bfloat16)
 
 
 @pytest.mark.parametrize("n", [1, 300, 1024])

@@ -4,7 +4,10 @@ The same seeded uint8 frame and stem weights go through
 ``multiyolov5_tpu_torch.ops.kernels.stem_plain`` and through the JAX u8 Pallas
 kernel (interpret mode on the CPU) and the XLA ``stem_apply``.  float32 on
 both sides; the /255 fold into conv1's weights and the conv summation order
-differ, so outputs agree to 1e-4 absolute (|y| is O(1))."""
+differ, so outputs agree to 1e-4 absolute (|y| is O(1)).  K1's float mode
+(B1c): the same on a seeded float32 frame in [0, 1], off the k/255 lattice,
+with w1 unscaled, against ``stem_apply_pallas`` (interpret mode) and
+``stem_apply`` on its space-to-depth, to 1e-4 absolute."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 from multiyolov5_tpu.engine import space_to_depth_host
 from multiyolov5_tpu.ops import stem as jax_stem
 from multiyolov5_tpu.ops.pallas.stem_kernel import (pack_stem96_host,
+                                                    stem_apply_pallas,
                                                     stem_apply_pallas_u8,
                                                     stem_pack_geometry)
 from multiyolov5_tpu_torch.ops import stem as torch_stem
@@ -59,6 +63,25 @@ def test_stem_plain_matches_jax(b, h, w, c2, c2b):
     got = stem(torch.from_numpy(frame), w1p, b1p, w2p, b2p)   # CPU: plain
     got_plain = stem_plain(torch.from_numpy(frame), w1p, b1p, w2p, b2p)
     assert got.shape == (b, hq, wq, c2b)
+    np.testing.assert_array_equal(got.numpy(), got_plain.numpy())
+    np.testing.assert_allclose(got.numpy(), want_kernel, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), want_xla, rtol=0, atol=ATOL)
+
+
+# the same two stems, on float frames: K1's float mode
+@pytest.mark.parametrize("b,h,w,c2,c2b", [(2, 32, 64, 16, 24), (1, 64, 96, 32, 64)])
+def test_stem_float_mode_matches_jax(b, h, w, c2, c2b):
+    rng = np.random.RandomState(20 + h)
+    fw = jax_stem.fold_stem_weights(*_weights(rng, c2, c2b))
+    frame = rng.rand(b, h, w, 3).astype(np.float32)
+    x48 = space_to_depth_host(space_to_depth_host(frame))
+    want_kernel = np.asarray(stem_apply_pallas(jnp.asarray(x48), *fw))
+    want_xla = np.asarray(jax_stem.stem_apply(jnp.asarray(x48), *fw))
+
+    w1p, b1p, w2p, b2p = (torch.from_numpy(a) for a in fw)
+    got = stem(torch.from_numpy(frame), w1p, b1p, w2p, b2p)     # CPU: plain
+    got_plain = stem_plain(torch.from_numpy(frame), w1p, b1p, w2p, b2p)
+    assert got.shape == (b, h // 4, w // 4, c2b)
     np.testing.assert_array_equal(got.numpy(), got_plain.numpy())
     np.testing.assert_allclose(got.numpy(), want_kernel, rtol=0, atol=ATOL)
     np.testing.assert_allclose(got.numpy(), want_xla, rtol=0, atol=ATOL)
