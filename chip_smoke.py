@@ -30,7 +30,10 @@ unless named), on the card and, for reference, on the CPU:
 It checks that every kernel ran on its path, holds each kernel against its
 plain version on the arguments its path gave it, and times the paths and
 each kernel beside its bound and, where one PyTorch call computes the same
-function, that call.  Any failure raises and exits non-zero.  The last line
+function, that call in the same dtype.  [1] counts the tensor-core (HMMA)
+instructions in K1's bf16 form and K2's bf16 kernel (cuobjdump of the
+built library); [2] prints K2's launch plan (tile, cluster split, CTAs) at
+each pspv5s site and requires one CTA an SM at each.  Any failure raises and exits non-zero.  The last line
 of stdout is the JSON ``{"ok": true, "device": {...}}``; the line before it
 the card's name and power limit, the one before that the kernels' JSON.
 Longer records go to ``chiprun_out/``.
@@ -42,6 +45,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -280,7 +284,31 @@ def phase_card():
         f"({os.path.relpath(path, ROOT)})")
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as fh:
         fh.write(nvcc_log)
+    mma = tensor_core_ops(path)
+    for name in ("stem_tc", "conv3x3_tma"):
+        n = sum(v for k, v in mma.items() if name in k)
+        log(f"  HMMA/HGMMA instructions in the SASS of {name} (all instantiations): {n}")
+        if n == 0:
+            raise AssertionError(f"{name} has no tensor-core instruction")
     return smi
+
+
+def tensor_core_ops(lib) -> dict:
+    """{kernel symbol: HMMA/HGMMA instructions} in ``cuobjdump -sass`` of the
+    built library."""
+    exe = next((c for c in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump")
+                if c and os.path.exists(c)), None)
+    if exe is None:
+        raise RuntimeError("cuobjdump not found")
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+        elif fn and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
 
 
 def record_path_inputs(eng, frame):
@@ -372,9 +400,18 @@ def hold_c3(eng32, eng16):
     return out
 
 
+def plan_text(p, dtype) -> str:
+    """A K2 launch plan (ops/kernels/conv3x3.py plan) in words."""
+    px = f"8x{p.bm // 8}" if dtype == torch.bfloat16 else f"{p.bm}"
+    return (f"tile {px} px x {p.bn} ch, BK {p.bk}, split {p.split}, {p.tiles} tiles, "
+            f"{p.ctas} CTAs, {p.k_steps} K steps a CTA")
+
+
 def phase_kernels(eng32, eng16, frames):
     """[2] each kernel against its plain version at the path's shapes."""
     from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops.kernels.conv3x3 import SMS
+    from multiyolov5_tpu_torch.ops.kernels.conv3x3 import plan as conv_plan
     dev = torch.device(DEVICE)
     log("[2] kernels vs plain at the pspv5s 1024x512 path shapes")
     res = {}
@@ -406,6 +443,13 @@ def phase_kernels(eng32, eng16, frames):
         log(f"  conv3x3 {str(dt)[6:]} max|diff| {worst_abs:.3e} over {len(sites)} sites")
         check(f"conv3x3 {str(dt)[6:]} max|diff|/max(max|ref|,1)", worst_rel, bound)
         res.setdefault("conv3x3", worst_abs)
+        # the launch plan of each site: at bs1 every site fills the card
+        for shape, co, s, d, act, wt, b in sites:
+            ho, wo = (shape[1] - 1) // s + 1, (shape[2] - 1) // s + 1
+            p = conv_plan(shape[0], ho, wo, shape[3], co, dt, s, d)
+            log(f"    {str(dt)[6:]} {shape} -> {co} s{s} d{d}: {plan_text(p, dt)}")
+            check(f"conv3x3 {str(dt)[6:]} {shape} -> {co} s{s}: SMs without a CTA",
+                  max(0, SMS - p.ctas), 0)
     # bf16 at c_in 48, the BK = 16 path: SegMaskLab's detail conv at 1/8 res
     x = torch.randn((1, IN_HW[0] // 8, IN_HW[1] // 8, 48), generator=g, device=dev)
     wt = (torch.randn((48, 3, 3, 48), generator=g, device=dev) / np.sqrt(9 * 48))
@@ -808,7 +852,7 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
     import torch.nn.functional as F
 
     from multiyolov5_tpu_torch.ops import kernels as K
-    from multiyolov5_tpu_torch.ops.kernels.stem import space_to_depth4
+    from multiyolov5_tpu_torch.ops.kernels.conv3x3 import plan as conv_plan
     from multiyolov5_tpu_torch.ops.kernels.upsample_argmax import band_tables
     dev = torch.device(DEVICE)
     log("[6] timing: kernels on the card's clock (CUDA graph replay, no host gaps); "
@@ -856,25 +900,21 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
     w = eng16.stem_weights
     times = {"stem": (graph_ms(lambda: K.stem(frame, *w, out_dtype=torch.bfloat16)),
                       graph_ms(lambda: K.stem_plain(frame, *w, out_dtype=torch.bfloat16)))}
-    # the stem's two convolutions through cuDNN, in float32 like K1's arithmetic
-    x48 = space_to_depth4(frame).float()
-    w1, b1, w2, b2 = (w[0].permute(3, 2, 0, 1).contiguous(), w[1],
-                      w[2].permute(3, 2, 0, 1).contiguous(), w[3])
-    y1p = F.pad(F.silu(F.conv2d(x48, w1, b1, padding=1)), (1, 0, 1, 0))
-    library = {"stem": graph_ms(lambda: F.conv2d(x48, w1, b1, padding=1))
-               + graph_ms(lambda: F.conv2d(y1p, w2, b2))}
-    c_mid, c_out = w[0].shape[-1], w[2].shape[-1]
-    h4, w4 = IN_HW[0] // 4, IN_HW[1] // 4
-    stem_flops = 2 * h4 * w4 * (9 * 48 * c_mid + 4 * c_mid * c_out)
-    bounds = {"stem": bound_ms(
-        frame.numel() + 4 * sum(t.numel() for t in w) + 2 * h4 * w4 * c_out,
-        stem_flops, FP32_FLOP_S)}
-    # B1c (stem_apply_pallas, not ported): K1's function with the /255
-    # unfolded, on a float32 (B, H/4, W/4, 48) space-to-depth input
-    bounds["b1c"] = bound_ms(4 * frame.numel() + 4 * sum(t.numel() for t in w)
-                             + 2 * h4 * w4 * c_out, stem_flops, FP32_FLOP_S)
-    log(f"  B1c stem_apply_pallas bound at K1's serving shapes (float32 input, bf16 "
-        f"output): {bounds['b1c'][0]:.5f} ms ({bounds['b1c'][1]})")
+    # the stem's two convolutions through cuDNN in bf16, K1's bf16 form's type
+    library = {"stem": stem_library_ms(frame, w, torch.bfloat16)}
+    bounds = {"stem": stem_bound(frame, w, torch.bfloat16)}
+    # K1 bf16 at the batched server's shape: bs8 1024x1024 frames
+    fr8 = torch.randint(0, 256, (SERVE_BS, SERVE_IMG, SERVE_IMG, 3), device=dev,
+                        dtype=torch.uint8, generator=torch.Generator(device=dev).manual_seed(SEED))
+    stem_bs8 = {"frame": list(fr8.shape),
+                "ms": graph_ms(lambda: K.stem(fr8, *w, out_dtype=torch.bfloat16), iters=5),
+                "library_ms": stem_library_ms(fr8, w, torch.bfloat16),
+                "bound": stem_bound(fr8, w, torch.bfloat16),
+                "bound_fp32": stem_bound(fr8, w, torch.float32)}
+    log(f"  stem bf16 at bs{SERVE_BS} {SERVE_IMG}x{SERVE_IMG}: kernel {stem_bs8['ms']:.4f} ms, "
+        f"cuDNN conv2d x2 (bf16) {stem_bs8['library_ms']:.4f} ms, bound "
+        f"{stem_bs8['bound'][0]:.5f} ms ({stem_bs8['bound'][1]}; fp32 arithmetic "
+        f"{stem_bs8['bound_fp32'][0]:.5f})")
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     k_ms = p_ms = l_ms = b_ms = t_bytes = t_ops = 0.0
@@ -891,12 +931,50 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
         flops = 2 * bsz * ho * wo * co * 9 * ci
         bm, _ = bound_ms(nbytes, flops, BF16_FLOP_S)
         per_site.append({"x": list(shape), "c_out": co, "stride": s, "dilation": d,
+                         "plan": plan_text(conv_plan(bsz, ho, wo, ci, co, torch.bfloat16, s, d),
+                                           torch.bfloat16),
                          "ms": km, "plain_ms": pm, "library_ms": lm, "bound_ms": bm})
         k_ms, p_ms, l_ms, b_ms = k_ms + km, p_ms + pm, l_ms + lm, b_ms + bm
         t_bytes, t_ops = t_bytes + nbytes / HBM_BYTES_S, t_ops + flops / BF16_FLOP_S
     times["conv3x3"] = (k_ms, p_ms)
     library["conv3x3"] = l_ms
     bounds["conv3x3"] = (b_ms, "bytes" if t_bytes >= t_ops else "operations")
+    log(f"  conv3x3 bf16 per site (bs1, {IN_HW[1]}x{IN_HW[0]}):")
+    for r in per_site:
+        log(f"    {tuple(r['x'])} -> {r['c_out']} s{r['stride']} d{r['dilation']} "
+            f"{r['plan']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f}")
+    # K2 in float32 at the eval path's sites (the first bs4 forward's 10
+    # calls), beside cuDNN in float32 (TF32 off) per site
+    f32_sites = []
+    for (x, wt, b), kw in ev["rec"]["conv3x3"][:len(sites16)]:
+        s, d, act = kw.get("stride", 1), kw.get("dilation", 1), kw.get("act", True)
+        xc, wc = x.permute(0, 3, 1, 2), wt.permute(0, 3, 1, 2)
+        bsz, hh, ww, ci = x.shape
+        co = wt.shape[0]
+        ho, wo = (hh - 1) // s + 1, (ww - 1) // s + 1
+        bm, _ = bound_ms(4 * (x.numel() + wt.numel() + bsz * ho * wo * co + co),
+                         2 * bsz * ho * wo * co * 9 * ci, FP32_FLOP_S)
+        f32_sites.append({
+            "x": list(x.shape), "c_out": co, "stride": s, "dilation": d,
+            "plan": plan_text(conv_plan(bsz, ho, wo, ci, co, x.dtype, s, d), x.dtype),
+            "ms": graph_ms(lambda: K.conv3x3(x, wt, b, s, d, act)),
+            # few repetitions: cuDNN fp32 without TF32 takes ~75 ms at FFM's site
+            "plain_ms": graph_ms(lambda: K.conv3x3_plain(x, wt, b, s, d, act), iters=3,
+                                 replays=2),
+            "library_ms": graph_ms(lambda: F.conv2d(xc, wc, b, s, d, d), iters=3, replays=2),
+            "bound_ms": bm})
+    k2_f32 = {k: sum(r[k] for r in f32_sites) for k in ("ms", "plain_ms", "library_ms",
+                                                         "bound_ms")}
+    log(f"  conv3x3 float32 at the eval path's {len(f32_sites)} bs{EVAL_BS} sites: kernel "
+        f"{k2_f32['ms']:.4f} ms, plain {k2_f32['plain_ms']:.4f}, cuDNN fp32 "
+        f"{k2_f32['library_ms']:.4f}, bound {k2_f32['bound_ms']:.5f} (sums)")
+    for r in f32_sites:
+        log(f"    {tuple(r['x'])} -> {r['c_out']} s{r['stride']} d{r['dilation']} "
+            f"{r['plan']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f}")
+    k2_f32["sites"] = f32_sites
+    k2_sweep = sweep_k2_plans(sites16)
 
     boxes, scores, iou = nms_in[0]
     # the plain NMS synchronises every fixpoint round: host clock between events
@@ -1012,7 +1090,58 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
             f"({bounds[k][1]}), library call "
             + ("none" if lib is None else f"{lib:.4f} ms")
             + (f" (sum over {len(sites16)} sites)" if k == "conv3x3" else ""))
-    return e2e, times, per_site, library, bounds, k4_eval, short, c3_times
+    return (e2e, times, per_site, library, bounds, k4_eval, short, c3_times, k2_f32, k2_sweep,
+            stem_bs8)
+
+
+def sweep_k2_plans(sites16):
+    """K2 bf16 at each distinct pspv5s bs1 site under other launch plans than
+    the planner's (tile 8x8 or 8x16 px, 64 or 128 channels, splits 1, 2, 3,
+    6), each held to BF16_REL against plain: the evidence for plan()'s
+    choice."""
+    import importlib
+
+    from multiyolov5_tpu_torch.ops import kernels as K
+    kmod = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.conv3x3")
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    rows, seen = [], set()
+    log("  conv3x3 bf16 launch plans per distinct site (planned, then the three fastest):")
+    for shape, co, s, d, act, wt, b in sites16:
+        if (shape, co, s) in seen:      # the dilation does not change the plan
+            continue
+        seen.add((shape, co, s))
+        x = torch.randn(shape, generator=g, device=DEVICE).to(torch.bfloat16)
+        bsz, hh, ww, ci = shape
+        ho, wo = (hh - 1) // s + 1, (ww - 1) // s + 1
+        planned = kmod.plan(bsz, ho, wo, ci, co, torch.bfloat16, s, d)
+        want = K.conv3x3_plain(x, wt, b, s, d, act)
+        nk = 9 * ci // planned.bk
+        res = []
+        for bm in (64, 128):
+            for bn in (64, 128) if co % 128 == 0 else (64,):
+                tiles = bsz * -(-ho // 8) * -(-wo // (bm // 8)) * -(-co // bn)
+                for split in (1, 2, 3, 6):
+                    if split > max(1, nk // 2) or tiles * split > 3 * 132:
+                        continue
+                    p = kmod.Plan(bm, bn, planned.bk, split, tiles, tiles * split,
+                                  -(-nk // split))
+                    got = kmod._launch(x, wt, b, s, d, act, p)
+                    torch.cuda.synchronize()
+                    check(f"conv3x3 plan {bm}/{bn}/{split} at {shape} max|diff|/max(max|ref|,1)",
+                          diffs(got, want)[1], BF16_REL)
+                    res.append({"bm": bm, "bn": bn, "split": split, "ctas": tiles * split,
+                                "ms": graph_ms(lambda: kmod._launch(x, wt, b, s, d, act, p),
+                                               iters=10, replays=3)})
+        res.sort(key=lambda r: r["ms"])
+        mine = next(r for r in res if (r["bm"], r["bn"], r["split"])
+                    == (planned.bm, planned.bn, planned.split))
+        rows.append({"x": list(shape), "c_out": co, "stride": s, "dilation": d,
+                     "planned": mine, "plans": res})
+        log(f"    {shape} -> {co} s{s} d{d}: planned 8x{planned.bm // 8}/{planned.bn}/"
+            f"{planned.split} {mine['ms'] * 1e3:.2f} us; " + ", ".join(
+                f"8x{r['bm'] // 8}/{r['bn']}/{r['split']} ({r['ctas']} CTAs) "
+                f"{r['ms'] * 1e3:.2f} us" for r in res[:3]))
+    return rows
 
 
 def serve(server, frames, clients: int = 1):
@@ -1227,38 +1356,45 @@ def phase_serving(eng32, eng16, cpu_eng):
     return res
 
 
-def stem_bound(frame, w, out_bytes: int):
-    """(least ms, "bytes" or "operations") of K1 on ``frame``: the frame read
-    once, the weights once, the output written once; 2 flops a MAC of the
-    two folded convs on the fp32 CUDA cores."""
+def stem_bound(frame, w, out_dtype):
+    """(least ms, "bytes" or "operations") of K1 on ``frame`` at the
+    arithmetic its form does: the frame read once, the weights once, the
+    output written once; 2 flops a MAC of the two folded convs, on the bf16
+    tensor cores with bf16 weights for a bfloat16 output, on the fp32 CUDA
+    cores with float32 weights for a float32 one."""
     bsz, h, wd, _ = frame.shape
     c_mid, c_out = w[0].shape[-1], w[2].shape[-1]
     px = bsz * (h // 4) * (wd // 4)
-    nbytes = (frame.numel() * frame.element_size() + 4 * sum(t.numel() for t in w)
-              + out_bytes * px * c_out)
-    return bound_ms(nbytes, 2 * px * (9 * 48 * c_mid + 4 * c_mid * c_out), FP32_FLOP_S)
+    bf16 = out_dtype == torch.bfloat16
+    nbytes = (frame.numel() * frame.element_size()
+              + (2 if bf16 else 4) * (w[0].numel() + w[2].numel())
+              + 4 * (w[1].numel() + w[3].numel()) + (2 if bf16 else 4) * px * c_out)
+    return bound_ms(nbytes, 2 * px * (9 * 48 * c_mid + 4 * c_mid * c_out),
+                    BF16_FLOP_S if bf16 else FP32_FLOP_S)
 
 
-def stem_library_ms(frame, w):
-    """The stem's two convolutions as cuDNN ``conv2d`` calls on the float
-    space-to-depth input, in float32 like K1's arithmetic."""
+def stem_library_ms(frame, w, dtype):
+    """The stem's two convolutions as cuDNN ``conv2d`` calls on the
+    space-to-depth input, in ``dtype`` (TF32 off for float32)."""
     import torch.nn.functional as F
 
     from multiyolov5_tpu_torch.ops.kernels.stem import space_to_depth4
-    x48 = space_to_depth4(frame).float()
-    w1, b1, w2, b2 = (w[0].permute(3, 2, 0, 1).contiguous(), w[1],
-                      w[2].permute(3, 2, 0, 1).contiguous(), w[3])
+    x48 = space_to_depth4(frame).to(dtype)
+    w1, b1, w2, b2 = (w[0].permute(3, 2, 0, 1).contiguous().to(dtype), w[1].to(dtype),
+                      w[2].permute(3, 2, 0, 1).contiguous().to(dtype), w[3].to(dtype))
     y1p = F.pad(F.silu(F.conv2d(x48, w1, b1, padding=1)), (1, 0, 1, 0))
     return (graph_ms(lambda: F.conv2d(x48, w1, b1, padding=1))
             + graph_ms(lambda: F.conv2d(y1p, w2, b2)))
 
 
 def hold_stem_modes(widths):
-    """K1's float mode (B1c) against ``stem_plain`` on float32 and bfloat16
-    frames in [0, 1] off the k/255 lattice, and its uint8 mode at x width,
-    at bs 1 and 4 on IN_HW frames; each case timed beside its bound, its
-    plain version and the cuDNN pair.  ``widths``: {name: (uint8 weights,
-    float weights)} of real engines."""
+    """K1 against ``stem_plain``: its float mode (B1c) on float32 frames ->
+    float32 (the float32 form) and bfloat16 frames -> bfloat16 in [0, 1] off
+    the k/255 lattice, and its uint8 mode -> bfloat16 (the tensor-core form),
+    at bs 1 and 4 on IN_HW frames; each case timed beside its bound at the
+    form's arithmetic, its plain version and the cuDNN pair in the output's
+    dtype.  ``widths``: {name: (uint8 weights, float weights)} of real
+    engines."""
     from multiyolov5_tpu_torch.ops import kernels as K
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
     rows = []
@@ -1267,19 +1403,18 @@ def hold_stem_modes(widths):
             u8 = torch.randint(0, 256, (bsz, *IN_HW, 3), generator=g, device=DEVICE,
                                dtype=torch.uint8)
             f32 = torch.rand((bsz, *IN_HW, 3), generator=g, device=DEVICE)
-            lib = stem_library_ms(f32, w_f)
             cases = [("float", f32, w_f, torch.float32, F32_REL),
-                     ("float", f32.to(torch.bfloat16), w_f, torch.bfloat16, BF16_REL)]
-            if width == "x":
-                cases.append(("uint8", u8, w_u8, torch.bfloat16, BF16_REL))
+                     ("float", f32.to(torch.bfloat16), w_f, torch.bfloat16, BF16_REL),
+                     ("uint8", u8, w_u8, torch.bfloat16, BF16_REL)]
             for mode, frame, w, odt, bound in cases:
+                lib = stem_library_ms(frame, w, odt)
                 got = K.stem(frame, *w, out_dtype=odt)
                 torch.cuda.synchronize()
                 d, rel = diffs(got, K.stem_plain(frame, *w, out_dtype=odt))
                 name = (f"stem {mode} {width} width (c_mid {w[0].shape[-1]}) "
                         f"{str(frame.dtype)[6:]} {tuple(frame.shape)} -> {str(odt)[6:]}")
                 check(f"{name} max|diff|/max(max|ref|,1)", rel, bound)
-                bm, by = stem_bound(frame, w, 2 if odt == torch.bfloat16 else 4)
+                bm, by = stem_bound(frame, w, odt)
                 row = {"mode": mode, "width": width, "c_mid": w[0].shape[-1],
                        "frame": list(frame.shape), "frame_dtype": str(frame.dtype)[6:],
                        "out_dtype": str(odt)[6:], "max_abs_err": d, "rel_err": rel,
@@ -1289,8 +1424,8 @@ def hold_stem_modes(widths):
                        "library_ms": lib, "bound_ms": bm, "bound_by": by}
                 rows.append(row)
                 log(f"  {name}: max|diff| {d:.3e}; kernel {row['ms']:.4f} ms, plain "
-                    f"{row['plain_ms']:.4f} ms, cuDNN conv2d x2 (fp32) {lib:.4f} ms, bound "
-                    f"{bm:.5f} ms ({by})")
+                    f"{row['plain_ms']:.4f} ms, cuDNN conv2d x2 ({str(odt)[6:]}) {lib:.4f} ms, "
+                    f"bound {bm:.5f} ms ({by})")
     return rows
 
 
@@ -1877,8 +2012,8 @@ def main() -> int:
     ev = phase_eval(eng32, eng16, cpu_eng)
     launches["nms_greedy"] = ev["launches"]["nms_greedy"]
     errs["nms_greedy"] = ev["errs"]["nms_greedy"]
-    e2e, times, per_site, library, bounds, k4_eval, short, c3_times = phase_timing(
-        eng32, eng16, frames, sites16, nms_in, ev)
+    (e2e, times, per_site, library, bounds, k4_eval, short, c3_times, k2_f32, k2_sweep,
+     stem_bs8) = phase_timing(eng32, eng16, frames, sites16, nms_in, ev)
     eval_launches, eval_errs = ev["launches"], ev["errs"]
     eval_n, eval_metrics = ev["n"], ev["metrics"]
     del ev
@@ -1954,11 +2089,12 @@ def main() -> int:
                     eval_bound_ms=c3_times["eval"]["bound"][0])
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": smi, "e2e_ms": e2e, "kernels": kernels,
-                   "conv3x3_sites": per_site, "upsample_argmax_eval": k4_eval,
+                   "conv3x3_sites": per_site, "conv3x3_eval_f32": k2_f32,
+                   "conv3x3_plan_sweep": k2_sweep, "stem_bs8": stem_bs8,
+                   "upsample_argmax_eval": k4_eval,
                    "nms_short_lists": short,
                    "eval_candidates_per_image": eval_n,
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
-                   "b1c_bound_ms": bounds["b1c"],
                    "serving_bs8": sv, "families": fam}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     log(smi)

@@ -26,3 +26,29 @@ __device__ __forceinline__ float silu_f(float v) { return v / (1.0f + expf(-v));
 
 // Dtype codes passed from Python: 0 = float32, 1 = bfloat16, 2 = uint8.
 enum { DT_F32 = 0, DT_BF16 = 1, DT_U8 = 2 };
+
+// Tensor-core building blocks of the redesigned kernels (K1's bf16 form,
+// K2), in their own namespace so that no kernel file's local helpers of the
+// same name collide with them.
+namespace mk {
+
+// mma.sync m16n8k16, bf16 in, fp32 accumulate: c += a * b.  Not volatile:
+// it touches no memory, so the compiler may schedule it between loads.
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the row address
+// of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+}  // namespace mk

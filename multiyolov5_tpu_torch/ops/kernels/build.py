@@ -1,7 +1,8 @@
 """Build and bind the Hopper kernels of ``multiyolov5_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` files compile with nvcc into one shared library with a
-plain C interface, loaded with ctypes.  The build runs at the first kernel
+Each ``csrc/*.cu`` file compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ctypes.  The build runs at the first kernel
 launch of a process, into ``build/kernels/`` at the repository root, under
 a name that carries a hash of the sources and flags, so an edited source is
 never served by a stale library.  A failed build raises with nvcc's output.
@@ -23,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 
@@ -69,18 +70,41 @@ def library() -> ctypes.CDLL:
         path = BUILD_DIR / f"libmultiyolov5_kernels_{h.hexdigest()[:16]}.so"
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            _LIB.build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                    f"{_LIB.build_log}")
-            os.replace(tmp, path)
+            _LIB.build_log = _compile(srcs, path)
         _LIB.cdll = ctypes.CDLL(str(path))
         _LIB.path = path
         return _LIB.cdll
+
+
+def _compile(srcs, path: Path) -> str:
+    """nvcc each source to an object in parallel, then link ``path``;
+    returns nvcc's output (the ptxas report), raises on a failure."""
+    tag = f"{os.getpid()}.tmp"
+    objs = [path.with_name(f"{path.stem}.{p.stem}.{tag}.o") for p in srcs]
+    procs = [(subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+              p) for p, o in zip(srcs, objs)]
+    log, failed = [], []
+    for proc, src in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    tmp = path.with_suffix(f".{tag}")
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n" + "".join(log))
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return "".join(log)
 
 
 def build_info():

@@ -3,12 +3,15 @@
 Counterpart of ``conv3x3_silu_pallas`` / ``conv3x3s2_silu_pallas``
 (multiyolov5_tpu/ops/pallas/conv3x3_kernel.py:98, :153) and
 ``conv3x3_packed_pallas`` (multiyolov5_tpu/ops/pallas/c3_kernel.py:270).
-The kernel is ``csrc/conv3x3.cu``; its design notes are there.
+The kernel is ``csrc/conv3x3.cu``; its design notes are there.  :func:`plan`
+picks its tile and its split of K over a thread-block cluster on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -16,7 +19,79 @@ import torch.nn.functional as F
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+
+SMS = 132           # streaming multiprocessors of an H100 SXM
+MAX_SPLIT = 8       # CTAs a portable thread-block cluster may hold
+
+
+class Plan(NamedTuple):
+    """One K2 launch: a CTA computes a ``bm`` x ``bn`` output tile over
+    ``k_steps`` (or one fewer) of the conv's ``9 * c_in / bk`` K steps; the
+    ``split`` CTAs of a cluster share the K steps and sum their partial
+    tiles through distributed shared memory.  bfloat16: the ``bm`` pixels
+    are an 8 x ``bm / 8`` rectangle of one image; float32: ``bm``
+    consecutive output pixels."""
+    bm: int
+    bn: int
+    bk: int
+    split: int
+    tiles: int
+    ctas: int
+    k_steps: int
+
+
+def plan(bsz: int, ho: int, wo: int, c_in: int, c_out: int, dtype: torch.dtype,
+         stride: int = 1, dilation: int = 1) -> Plan:
+    """The tile and split of K2 for a (bsz, ho, wo, c_out) output of a
+    ``c_in``-channel input in ``dtype``.
+
+    bfloat16: BK 64 where c_in allows (else 32, else 16).  A 128-pixel
+    tile (8x16) with 128 channels, or else 64, where those tiles alone give
+    one CTA an SM; otherwise a 64-pixel tile (8x8), with 128 channels where
+    c_out is a multiple of 128 and that gives one CTA per two SMs, else 64.
+    float32: 64 px x 64 ch, BK 16.  Where the tiles are fewer than the SMs,
+    K is split over the CTAs of a cluster until the grid reaches one CTA an
+    SM: the least split that does or, where the grid stays within two CTAs
+    an SM, the next that divides the K steps evenly; at most 8 and at least
+    two K steps a CTA.  On the H100 these were the fastest plans that fill
+    the card at pspv5s's ten bs1 sites (PERF.md).  Raises ValueError on a
+    shape the kernel does not take."""
+    if min(bsz, ho, wo, c_out) < 1:
+        raise ValueError(f"conv3x3: empty output {(bsz, ho, wo, c_out)}")
+    if c_in % 16:
+        raise ValueError(f"conv3x3: c_in {c_in} is not a multiple of 16")
+    if stride not in (1, 2) or dilation not in (1, 2, 3):
+        raise ValueError(f"conv3x3: stride {stride}, dilation {dilation}")
+    if dtype == torch.bfloat16:
+        if c_out % 8:
+            raise ValueError(f"conv3x3: bf16 needs c_out % 8 == 0, got {c_out}")
+        bk = 64 if c_in % 64 == 0 else 32 if c_in % 32 == 0 else 16
+        wide = c_out % 128 == 0
+
+        def tiles(bm, bn):      # an 8 x bm/8 rectangle of one image x bn channels
+            return (bsz * math.ceil(ho / 8) * math.ceil(wo / (bm // 8))
+                    * math.ceil(c_out / bn))
+
+        bm, bn = 64, 128 if wide and tiles(64, 128) >= SMS / 2 else 64
+        for big in ((128, 128), (128, 64)):
+            if (big[1] == 64 or wide) and tiles(*big) >= SMS:
+                bm, bn = big
+                break
+        n_tiles = tiles(bm, bn)
+    elif dtype == torch.float32:
+        bk, bm, bn = 16, 64, 64
+        n_tiles = math.ceil(bsz * ho * wo / bm) * math.ceil(c_out / bn)
+    else:
+        raise ValueError(f"conv3x3: dtype {dtype}")
+    nk = 9 * c_in // bk
+    cap = max(1, min(MAX_SPLIT, nk // 2))
+    split = 1
+    if n_tiles < SMS:
+        least = min(cap, math.ceil(SMS / n_tiles))
+        split = next((s for s in range(least, cap + 1)
+                      if nk % s == 0 and n_tiles * s <= 2 * SMS), least)
+    return Plan(bm, bn, bk, split, n_tiles, n_tiles * split, math.ceil(nk / split))
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -37,31 +112,35 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
     Kernel inputs: x contiguous NHWC float32 or bfloat16 with Ci % 16 == 0
     (bfloat16 also Co % 8 == 0), w contiguous OHWI of x's dtype, b
-    contiguous float32."""
+    contiguous float32; :func:`plan` raises on any other shape."""
     if not build.on_device(x, "conv3x3"):
         return conv3x3_plain(x, w, b, stride, dilation, act)
     build.require(x.dim() == 4 and x.is_contiguous(), "conv3x3: x must be contiguous NHWC")
     bsz, h, wd, ci = x.shape
     build.require(x.dtype in _DTYPES, f"conv3x3: dtype {x.dtype}")
     co = w.shape[0]
-    build.require(ci % 16 == 0, f"conv3x3: c_in {ci} is not a multiple of 16")
-    build.require(x.dtype != torch.bfloat16 or co % 8 == 0,
-                  f"conv3x3: bf16 needs c_out % 8 == 0, got {co}")
     build.require(tuple(w.shape) == (co, 3, 3, ci) and w.is_contiguous()
                   and w.dtype == x.dtype and w.device == x.device,
                   f"conv3x3: weight {tuple(w.shape)} {w.dtype}")
     build.require(tuple(b.shape) == (co,) and b.dtype == torch.float32
                   and b.is_contiguous() and b.device == x.device,
                   "conv3x3: bias must be contiguous float32 (c_out,)")
-    build.require(stride in (1, 2) and dilation in (1, 2, 3),
-                  f"conv3x3: stride {stride}, dilation {dilation}")
+    ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
+    return _launch(x, w, b, stride, dilation, act,
+                   plan(bsz, ho, wo, ci, co, x.dtype, stride, dilation))
+
+
+def _launch(x, w, b, stride, dilation, act, p: Plan) -> torch.Tensor:
+    """One K2 launch with the plan ``p`` (checked arguments)."""
+    bsz, h, wd, ci = x.shape
+    co = w.shape[0]
     ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
     y = torch.empty((bsz, ho, wo, co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         fn = build.function("mk_conv3x3", _ARGTYPES)
         err = fn(build.ptr(x), build.ptr(w), build.ptr(b), build.ptr(y),
                  bsz, h, wd, ci, ho, wo, co, stride, dilation, int(act),
-                 _DTYPES[x.dtype], build.stream_of(x))
+                 _DTYPES[x.dtype], p.bm, p.bn, p.bk, p.split, build.stream_of(x))
     build.check(err, "conv3x3")
     conv3x3.launches += 1
     return y

@@ -6,6 +6,12 @@ On a uint8 frame, the counterpart of ``stem_apply_pallas_u8`` and
 [0, 1], of ``stem_apply_pallas`` (:415), with w1 unscaled.  The kernel is
 ``csrc/stem.cu``; its design notes are there.  The two modes count their
 launches apart: ``stem.launches`` (uint8) and ``stem_float.launches``.
+
+A bfloat16 output runs the tensor-core form, which computes as the TPU
+kernel does in bf16: bf16 operands, float32 accumulation, a bf16 y1.  It
+reads the weights from a bf16 copy packed in the mma fragment order
+(:func:`pack_weights`), made once and kept on the w1 tensor.  A float32
+output runs the float32 form.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ import torch.nn.functional as F
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+CHUNK = 64          # c_mid channels the tensor-core form computes at a time
+MAX_COUT = 160      # the widest c_out its conv2 accumulators take (x width)
 
 
 def space_to_depth4(frame: torch.Tensor) -> torch.Tensor:
@@ -37,12 +45,63 @@ def stem_plain(frame: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """frame (B, H, W, 3), uint8 (w1 with /255 folded in) or float in
     [0, 1] (w1 unscaled); w1 (3, 3, 48, c_mid) HWIO; w2 (2, 2, c_mid, c_out)
     HWIO; float32 weights and biases.  Returns (B, H/4, W/4, c_out) in
-    ``out_dtype``, computed in float32."""
+    ``out_dtype``, computed in float32.
+
+    A bfloat16 output rounds as the TPU kernel does in bf16
+    (``stem_kernel.py:75-95``, ``:178-181``, ``:212-214``, ``:415-423``): the
+    frame, w1 and w2 to bf16, products and sums in float32, float32 biases,
+    y1 rounded to bf16 after its SiLU."""
     x = space_to_depth4(frame).float()
-    y = F.silu(F.conv2d(x, w1.permute(3, 2, 0, 1), b1, padding=1))
+    w1, w2 = w1.permute(3, 2, 0, 1), w2.permute(3, 2, 0, 1)
+    bf16 = out_dtype == torch.bfloat16
+    if bf16:
+        x, w1, w2 = (t.to(torch.bfloat16).float() for t in (x, w1, w2))
+    y = F.silu(F.conv2d(x, w1, b1, padding=1))
+    if bf16:
+        y = y.to(torch.bfloat16).float()
     y = F.pad(y, (1, 0, 1, 0))       # conv2's halo pads the activated map
-    y = F.silu(F.conv2d(y, w2.permute(3, 2, 0, 1), b2))
+    y = F.silu(F.conv2d(y, w2, b2))
     return y.permute(0, 2, 3, 1).to(out_dtype)
+
+
+def pack_weights(w1: torch.Tensor, w2: torch.Tensor):
+    """The tensor-core form's weights: bf16 copies of w1 (3, 3, 48, c_mid)
+    and w2 (2, 2, c_mid, c_out) in the B-fragment order of mma m16n8k16,
+    so that each lane of a warp reads its four registers of two 8-column
+    tiles as one 16-byte load.  c_mid is padded to a multiple of CHUNK and
+    c_out to a multiple of 32 with zeros (a pad channel of y1 is SiLU(0) = 0
+    and meets zero weights).
+
+    Returns (p1, p2): p1 [chunk][27 k16][4 n16][g 8][t 4][nt 2][h 2][e 2],
+    p2 [chunk][4 taps][4 k16][c_out_p / 16][g][t][nt][h][e], where k = 16 *
+    k16 + 8 * h + 2 * t + e and n = 16 * n16 + 8 * nt + g."""
+    c_mid, c_out = w1.shape[-1], w2.shape[-1]
+    cm_p = -(-c_mid // CHUNK) * CHUNK
+    co_p = -(-c_out // 32) * 32
+    nch = cm_p // CHUNK
+    b1m = F.pad(w1.reshape(9 * 48, c_mid), (0, cm_p - c_mid)).to(torch.bfloat16)
+    p1 = (b1m.reshape(27, 2, 4, 2, nch, 4, 2, 8)          # k16 h t e | ch n16 nt g
+          .permute(4, 0, 5, 7, 2, 6, 1, 3).contiguous())
+    b2m = F.pad(w2.reshape(4, c_mid, c_out), (0, co_p - c_out, 0, cm_p - c_mid))
+    p2 = (b2m.to(torch.bfloat16)
+          .reshape(4, nch, 4, 2, 4, 2, co_p // 16, 2, 8)   # tap ch k16 h t e | n16 nt g
+          .permute(1, 0, 2, 6, 8, 4, 7, 3, 5).contiguous())
+    return p1, p2
+
+
+def _packed(w1: torch.Tensor, w2: torch.Tensor):
+    """:func:`pack_weights` of these tensors, kept on ``w1`` for the next
+    call with the same ``w2`` while both versions stay (an in-place update
+    repacks)."""
+    def version(t):     # an inference tensor has no version counter
+        return -1 if t.is_inference() else t._version
+
+    key = (w2, version(w1), version(w2))
+    hit = getattr(w1, "_k1_packed", None)
+    if hit is None or hit[0] is not w2 or hit[1:3] != key[1:]:
+        hit = (*key, pack_weights(w1, w2))
+        w1._k1_packed = hit
+    return hit[3]
 
 
 def stem(frame: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -87,15 +146,22 @@ def _launch(frame, w1, b1, w2, b2, out_dtype):
                       and t.is_contiguous() and t.device == frame.device,
                       f"stem: weight {tuple(t.shape)} {t.dtype}, want {shape} float32")
     build.require(out_dtype in (torch.float32, torch.bfloat16), f"stem: dtype {out_dtype}")
-    smem = (11 * 11 * 48 + 81 * c_mid) * 4
-    build.require(smem <= 227 * 1024, f"stem: c_mid {c_mid} too wide")
     out = torch.empty((bsz, h // 4, w // 4, c_out), dtype=out_dtype,
                       device=frame.device)
     with torch.cuda.device(frame.device):
-        fn = build.function("mk_stem", _ARGTYPES)
-        err = fn(build.ptr(frame), build.ptr(w1), build.ptr(b1), build.ptr(w2),
-                 build.ptr(b2), build.ptr(out), bsz, h // 4, w // 4, c_mid,
-                 c_out, _DTYPES[frame.dtype], _DTYPES[out_dtype],
+        if out_dtype == torch.bfloat16:
+            build.require(c_out % 2 == 0 and c_out <= MAX_COUT,
+                          f"stem: the bf16 form takes an even c_out <= {MAX_COUT}, got {c_out}")
+            p1, p2 = _packed(w1, w2)
+            fn = build.function("mk_stem_tc", _ARGTYPES)
+            args = (p1, b1, p2, b2)
+        else:
+            smem = (11 * 11 * 48 + 81 * c_mid) * 4
+            build.require(smem <= 227 * 1024, f"stem: c_mid {c_mid} too wide")
+            fn = build.function("mk_stem", _ARGTYPES)
+            args = (w1, b1, w2, b2)
+        err = fn(build.ptr(frame), *map(build.ptr, args), build.ptr(out), bsz,
+                 h // 4, w // 4, c_mid, c_out, _DTYPES[frame.dtype],
                  build.stream_of(frame))
     build.check(err, "stem")
     return out

@@ -14,7 +14,12 @@ the float32 and bf16 bounds above, at pspv5s's and pspv5m's C3 widths, an
 odd H x W that is not a multiple of the tile, and no shortcut.  K1's float
 mode: float32 and bfloat16 frames in [0, 1] at s and x width (c_mid 128,
 320), the bounds above.  K2 in bf16 at c_in 48 (SegMaskLab's detail conv,
-the BK = 16 path)."""
+the BK = 16 path).  K2's planned launches: a 6-way cluster split at
+pspv5s's 1/32-res site, odd H x W, stride 2 at odd sizes, dilation 3, c_out
+8 and 24, in both dtypes.  K1's tensor-core form (bfloat16 output) at
+c_mid 32, 128, 192 and 320 on uint8 and float32 frames, at B = 3 with H/4
+and W/4 that are no multiple of its 8x16 tile, held to the bf16 bound
+above against ``stem_plain``, which rounds as the kernel does."""
 
 import numpy as np
 import pytest
@@ -95,6 +100,51 @@ def test_conv3x3_kernel_bf16_c_in_16(dev, ci, co):
     got = K.conv3x3(x, w, b)
     torch.cuda.synchronize()
     _close(got, K.conv3x3_plain(x, w, b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,co,stride,dil", [
+    ((1, 16, 32, 256), 256, 1, 1),     # pspv5s 1/32 res: a 6-way split
+    ((2, 37, 23, 64), 64, 1, 1),       # odd H x W
+    ((1, 33, 47, 128), 128, 2, 1),     # stride 2, odd sizes
+    ((1, 24, 40, 64), 64, 1, 3),       # dilation 3
+    ((1, 20, 36, 32), 8, 1, 1),        # c_out 8
+    ((2, 19, 21, 48), 24, 2, 2),       # c_out 24, c_in 48 (BK 16)
+])
+def test_conv3x3_kernel_planned(dev, dtype, shape, co, stride, dil):
+    from multiyolov5_tpu_torch.ops.kernels.conv3x3 import plan
+    g = torch.Generator().manual_seed(co + stride * 7 + dil)
+    x = torch.randn(*shape, generator=g).to(dev, dtype)
+    w = (torch.randn(co, 3, 3, shape[-1], generator=g) / (9 * shape[-1]) ** 0.5).to(dev, dtype)
+    b = (torch.randn(co, generator=g) * 0.1).to(dev)
+    ho, wo = (shape[1] - 1) // stride + 1, (shape[2] - 1) // stride + 1
+    p = plan(shape[0], ho, wo, shape[-1], co, dtype, stride, dil)
+    if shape == (1, 16, 32, 256):
+        assert p.split == 6 and p.ctas >= 132
+    got = K.conv3x3(x, w, b, stride, dil, True)
+    torch.cuda.synchronize()
+    _close(got, K.conv3x3_plain(x, w, b, stride, dil, True), dtype)
+
+
+@pytest.mark.parametrize("frame_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("c_mid,c_out", [(32, 16), (128, 64), (192, 96), (320, 160)])
+def test_stem_kernel_bf16_widths(dev, frame_dtype, c_mid, c_out):
+    g = torch.Generator().manual_seed(c_mid + 1)
+    if frame_dtype == torch.uint8:
+        frame = torch.randint(0, 256, (3, 44, 76, 3), generator=g, dtype=torch.uint8)
+        scale = 0.2 / 255
+    else:
+        frame = torch.rand(3, 44, 76, 3, generator=g)
+        scale = 0.2
+    w1 = torch.randn(3, 3, 48, c_mid, generator=g) * scale
+    b1 = torch.randn(c_mid, generator=g) * 0.1
+    w2 = torch.randn(2, 2, c_mid, c_out, generator=g) / (4 * c_mid) ** 0.5
+    b2 = torch.randn(c_out, generator=g) * 0.1
+    args = [t.to(dev).contiguous() for t in (frame, w1, b1, w2, b2)]
+    got = K.stem(*args, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 11, 19, c_out)
+    _close(got, K.stem_plain(*args, out_dtype=torch.bfloat16), torch.bfloat16)
 
 
 @pytest.mark.parametrize("n", [1, 300, 1024])

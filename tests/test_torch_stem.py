@@ -7,7 +7,10 @@ both sides; the /255 fold into conv1's weights and the conv summation order
 differ, so outputs agree to 1e-4 absolute (|y| is O(1)).  K1's float mode
 (B1c): the same on a seeded float32 frame in [0, 1], off the k/255 lattice,
 with w1 unscaled, against ``stem_apply_pallas`` (interpret mode) and
-``stem_apply`` on its space-to-depth, to 1e-4 absolute."""
+``stem_apply`` on its space-to-depth, to 1e-4 absolute.  A bfloat16 output
+rounds as the TPU kernels do in bf16 (bf16 operands, a bf16 y1): against
+``stem_apply_pallas_u8(out_dtype=bfloat16)`` and ``stem_apply_pallas`` on
+a bf16 space-to-depth, to one bf16 ulp (see ``_assert_bf16_close``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -85,3 +88,48 @@ def test_stem_float_mode_matches_jax(b, h, w, c2, c2b):
     np.testing.assert_array_equal(got.numpy(), got_plain.numpy())
     np.testing.assert_allclose(got.numpy(), want_kernel, rtol=0, atol=ATOL)
     np.testing.assert_allclose(got.numpy(), want_xla, rtol=0, atol=ATOL)
+
+
+# bf16 output: the same two stems, against the TPU kernel's bf16 rounding
+@pytest.mark.parametrize("b,h,w,c2,c2b", [(2, 32, 64, 16, 24), (1, 64, 96, 32, 64)])
+def test_stem_plain_bf16_matches_jax(b, h, w, c2, c2b):
+    rng = np.random.RandomState(30 + h)
+    fw = jax_stem.fold_stem_weights(*_weights(rng, c2, c2b))
+    w1p, b1p, w2p, b2p = (torch.from_numpy(a) for a in fw)
+    hq, wq = h // 4, w // 4
+
+    # uint8 frame: the /255 folded into w1 before its bf16 rounding, as
+    # stem_apply_pallas_u8 folds it (stem_kernel.py:178-181)
+    frame = (rng.rand(b, h, w, 3) * 255).astype(np.uint8)
+    x48 = space_to_depth_host(space_to_depth_host(frame))
+    cp, _ = stem_pack_geometry(hq, wq)
+    want = np.asarray(stem_apply_pallas_u8(
+        jnp.asarray(pack_stem96_host(x48, cp)), *fw, cols=wq,
+        out_dtype=jnp.bfloat16).astype(jnp.float32))
+    got = stem(torch.from_numpy(frame), w1p * np.float32(1.0 / 255.0), b1p, w2p, b2p,
+               out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hq, wq, c2b)
+    _assert_bf16_close(got.float().numpy(), want)
+
+    # float frame on its bf16 space-to-depth: stem_apply_pallas in bf16
+    frame = rng.rand(b, h, w, 3).astype(np.float32)
+    x48 = space_to_depth_host(space_to_depth_host(frame))
+    want = np.asarray(stem_apply_pallas(jnp.asarray(x48, jnp.bfloat16), *fw)
+                      .astype(jnp.float32))
+    got = stem(torch.from_numpy(frame), w1p, b1p, w2p, b2p, out_dtype=torch.bfloat16)
+    _assert_bf16_close(got.float().numpy(), want)
+
+
+def _assert_bf16_close(got, want):
+    """Both sides multiply the same bf16 operands exactly and sum in float32
+    in different orders, so a y1 or output value near a rounding boundary
+    can land on the neighbouring bf16.  Measured: equal in 3 of the 4 cases,
+    at most 2.4e-4 of the values differing, by at most 0.035 of a bf16 ulp
+    of the output's scale.  Bound: one bf16 ulp (2^-8) of the scale and
+    1e-3 of the values.  Rounding only the output (float32 operands and y1,
+    the port's earlier bf16 mode) puts 52-60% of the values off, by up to
+    1.3 ulps."""
+    scale = max(np.abs(want).max(), 1.0)
+    diff = np.abs(got - want)
+    assert diff.max() <= 2.0 ** -8 * scale
+    assert (diff > 0).mean() <= 1e-3
