@@ -31,8 +31,8 @@ It checks that every kernel ran on its path, holds each kernel against its
 plain version on the arguments its path gave it, and times the paths and
 each kernel beside its bound and, where one PyTorch call computes the same
 function, that call in the same dtype.  [1] counts the tensor-core (HMMA)
-instructions in K1's bf16 form and K2's bf16 kernel (cuobjdump of the
-built library); [2] prints K2's launch plan (tile, cluster split, CTAs) at
+instructions in K1's two forms (bf16 and 3xTF32) and K2's bf16 kernel
+(cuobjdump of the built library); [2] prints K2's launch plan (tile, cluster split, CTAs) at
 each pspv5s site and requires one CTA an SM at each.  Any failure raises and exits non-zero.  The last line
 of stdout is the JSON ``{"ok": true, "device": {...}}``; the line before it
 the card's name and power limit, the one before that the kernels' JSON.
@@ -158,6 +158,7 @@ STEM_BATCHES = (1, 4)
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W) for the bounds
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
 BF16_FLOP_S = 989e12
 # exp2 on the SFUs: 16 results per clock per SM (CUDA C++ programming
 # guide, arithmetic throughput for compute capability 9.0), 132 SMs at the
@@ -285,7 +286,7 @@ def phase_card():
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as fh:
         fh.write(nvcc_log)
     mma = tensor_core_ops(path)
-    for name in ("stem_tc", "conv3x3_tma"):
+    for name in ("stem_tc", "stem_tf32", "conv3x3_tma"):
         n = sum(v for k, v in mma.items() if name in k)
         log(f"  HMMA/HGMMA instructions in the SASS of {name} (all instantiations): {n}")
         if n == 0:
@@ -910,10 +911,10 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
                 "ms": graph_ms(lambda: K.stem(fr8, *w, out_dtype=torch.bfloat16), iters=5),
                 "library_ms": stem_library_ms(fr8, w, torch.bfloat16),
                 "bound": stem_bound(fr8, w, torch.bfloat16),
-                "bound_fp32": stem_bound(fr8, w, torch.float32)}
+                "bound_fp32": stem_bound(fr8, w, torch.float32, cuda_cores=True)}
     log(f"  stem bf16 at bs{SERVE_BS} {SERVE_IMG}x{SERVE_IMG}: kernel {stem_bs8['ms']:.4f} ms, "
         f"cuDNN conv2d x2 (bf16) {stem_bs8['library_ms']:.4f} ms, bound "
-        f"{stem_bs8['bound'][0]:.5f} ms ({stem_bs8['bound'][1]}; fp32 arithmetic "
+        f"{stem_bs8['bound'][0]:.5f} ms ({stem_bs8['bound'][1]}; fp32 on the CUDA cores "
         f"{stem_bs8['bound_fp32'][0]:.5f})")
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -1356,21 +1357,31 @@ def phase_serving(eng32, eng16, cpu_eng):
     return res
 
 
-def stem_bound(frame, w, out_dtype):
+def stem_bound(frame, w, out_dtype, cuda_cores: bool = False):
     """(least ms, "bytes" or "operations") of K1 on ``frame`` at the
     arithmetic its form does: the frame read once, the weights once, the
-    output written once; 2 flops a MAC of the two folded convs, on the bf16
-    tensor cores with bf16 weights for a bfloat16 output, on the fp32 CUDA
-    cores with float32 weights for a float32 one."""
+    output written once; 2 flops a MAC of the two folded convs.  A bfloat16
+    output: bf16 weights on the bf16 tensor cores.  A float32 output: the
+    3xTF32 form's products (3 a MAC; 2 for conv1 on a uint8 or bfloat16
+    frame, exact in tf32) at the TF32 peak; with
+    ``cuda_cores``, one float32 FMA a MAC at the CUDA cores' peak instead,
+    the first form's arithmetic."""
     bsz, h, wd, _ = frame.shape
     c_mid, c_out = w[0].shape[-1], w[2].shape[-1]
     px = bsz * (h // 4) * (wd // 4)
-    bf16 = out_dtype == torch.bfloat16
-    nbytes = (frame.numel() * frame.element_size()
-              + (2 if bf16 else 4) * (w[0].numel() + w[2].numel())
-              + 4 * (w[1].numel() + w[3].numel()) + (2 if bf16 else 4) * px * c_out)
-    return bound_ms(nbytes, 2 * px * (9 * 48 * c_mid + 4 * c_mid * c_out),
-                    BF16_FLOP_S if bf16 else FP32_FLOP_S)
+    mac1, mac2 = px * 9 * 48 * c_mid, px * 4 * c_mid * c_out
+    nw = w[0].numel() + w[2].numel()
+    nbias = 4 * (w[1].numel() + w[3].numel())
+    nframe = frame.numel() * frame.element_size()
+    if out_dtype == torch.bfloat16:
+        return bound_ms(nframe + 2 * nw + nbias + 2 * px * c_out, 2 * (mac1 + mac2),
+                        BF16_FLOP_S)
+    if cuda_cores:
+        return bound_ms(nframe + 4 * nw + nbias + 4 * px * c_out, 2 * (mac1 + mac2),
+                        FP32_FLOP_S)
+    p1 = 3 if frame.dtype == torch.float32 else 2
+    return bound_ms(nframe + 4 * nw + nbias + 4 * px * c_out, 2 * (p1 * mac1 + 3 * mac2),
+                    TF32_FLOP_S)
 
 
 def stem_library_ms(frame, w, dtype):
@@ -1389,12 +1400,13 @@ def stem_library_ms(frame, w, dtype):
 
 def hold_stem_modes(widths):
     """K1 against ``stem_plain``: its float mode (B1c) on float32 frames ->
-    float32 (the float32 form) and bfloat16 frames -> bfloat16 in [0, 1] off
-    the k/255 lattice, and its uint8 mode -> bfloat16 (the tensor-core form),
-    at bs 1 and 4 on IN_HW frames; each case timed beside its bound at the
-    form's arithmetic, its plain version and the cuDNN pair in the output's
-    dtype.  ``widths``: {name: (uint8 weights, float weights)} of real
-    engines."""
+    float32 (the 3xTF32 form) and bfloat16 frames -> bfloat16 in [0, 1] off
+    the k/255 lattice, and its uint8 mode -> float32 (eval's detection
+    batches) and -> bfloat16 (serving), at bs 1 and 4 on IN_HW frames; each
+    case timed beside its bound at the form's arithmetic (a float32 output
+    also at the CUDA cores' float32 rate), its plain version and the cuDNN
+    pair in the output's dtype.  ``widths``: {name: (uint8 weights, float
+    weights)} of real engines."""
     from multiyolov5_tpu_torch.ops import kernels as K
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
     rows = []
@@ -1405,6 +1417,7 @@ def hold_stem_modes(widths):
             f32 = torch.rand((bsz, *IN_HW, 3), generator=g, device=DEVICE)
             cases = [("float", f32, w_f, torch.float32, F32_REL),
                      ("float", f32.to(torch.bfloat16), w_f, torch.bfloat16, BF16_REL),
+                     ("uint8", u8, w_u8, torch.float32, F32_REL),
                      ("uint8", u8, w_u8, torch.bfloat16, BF16_REL)]
             for mode, frame, w, odt, bound in cases:
                 lib = stem_library_ms(frame, w, odt)
@@ -1422,10 +1435,14 @@ def hold_stem_modes(widths):
                        "plain_ms": graph_ms(lambda: K.stem_plain(frame, *w, out_dtype=odt),
                                             iters=10),
                        "library_ms": lib, "bound_ms": bm, "bound_by": by}
+                cores = ""
+                if odt == torch.float32:
+                    row["cuda_core_bound_ms"] = stem_bound(frame, w, odt, cuda_cores=True)[0]
+                    cores = f"; fp32 on the CUDA cores {row['cuda_core_bound_ms']:.5f}"
                 rows.append(row)
                 log(f"  {name}: max|diff| {d:.3e}; kernel {row['ms']:.4f} ms, plain "
                     f"{row['plain_ms']:.4f} ms, cuDNN conv2d x2 ({str(odt)[6:]}) {lib:.4f} ms, "
-                    f"bound {bm:.5f} ms ({by})")
+                    f"bound {bm:.5f} ms ({by}{cores})")
     return rows
 
 
@@ -2041,6 +2058,9 @@ def main() -> int:
     times["stem_float"] = (sf["ms"], sf["plain_ms"])
     bounds["stem_float"] = (sf["bound_ms"], sf["bound_by"])
     library["stem_float"] = sf["library_ms"]
+    # K1's uint8 mode -> float32 at eval's detection batch (s width, bs4)
+    su = next(r for r in fam["stem"] if r["mode"] == "uint8" and r["width"] == "s"
+              and r["frame"][0] == EVAL_BS and r["out_dtype"] == "float32")
 
     replaces = {
         "stem": "multiyolov5_tpu/ops/pallas/stem_kernel.py:308",
@@ -2083,6 +2103,12 @@ def main() -> int:
     kk["seg_ce"].update(fwd_ms=k6["fwd_ms"], bwd_ms=k6["bwd_ms"],
                         fwd_launches=train_counts["seg_ce"],
                         bwd_launches=train_counts["seg_ce_bwd"])
+    # the float32 form (3xTF32) beside the CUDA cores' float32 bound
+    kk["stem_float"].update(cuda_core_bound_ms=sf["cuda_core_bound_ms"])
+    kk["stem"].update(fp32_ms=su["ms"], fp32_plain_ms=su["plain_ms"],
+                      fp32_library_ms=su["library_ms"], fp32_bound_ms=su["bound_ms"],
+                      fp32_cuda_core_bound_ms=su["cuda_core_bound_ms"],
+                      fp32_frame=su["frame"])
     kk["c3"].update(serving_batches=n_batched, eval_ms=c3_times["eval"]["ms"],
                     eval_plain_ms=c3_times["eval"]["plain_ms"],
                     eval_library_ms=c3_times["eval"]["library_ms"],

@@ -18,161 +18,64 @@
 // padding pads the *activated* y1 map, not conv1 applied to padded input:
 // y1 entries above or left of the image are zero.
 //
-// Two forms, by output type:
-//
-// bfloat16 output (tc namespace) computes as the TPU kernel does in bf16
-// (stem_kernel.py:75-95, :178-181, :212-214): the frame, the (folded) w1
-// and w2 rounded to bf16, float32 accumulation, float32 b1 and b2, y1
-// rounded to bf16 after the SiLU.  Both convs are implicit GEMMs on the
-// tensor cores (mma.sync m16n8k16).  A CTA of 8 warps owns an 8x16 tile of
-// output pixels; it stages the 11x19x48 input patch (bf16) in shared memory
-// once, then walks c_mid in chunks of 64 channels:
+// Two forms, by output type, both on the tensor cores with one skeleton.
+// A CTA of 8 warps owns an 8x16 tile of output pixels; it stages the
+// 11x19x48 input patch in shared memory once, then walks c_mid in chunks
+// of 64 channels:
 //   conv1: M = the 9x17 y1 tile (153 rows, padded to 160), N = 64, K = 432;
-//          the chunk of y1 (bf16) goes to shared memory;
+//          the chunk of y1 goes to shared memory;
 //   conv2: M = the 128 output pixels, N = c_out, K = 4 taps x 64; its fp32
 //          partial sums stay in registers across the chunks.
-// So shared memory (45 KB) does not grow with c_mid, and the 9x17 tile
-// recomputes 20% (an 8x8 tile's 9x9 would recompute 27%).  A
-// operands come by ldmatrix from rows padded to an odd multiple of 16
-// bytes; B operands (the weights) come as 16-byte loads per lane from a
-// copy the wrapper packs once in the mma fragment order (bf16, c_mid
-// padded to a multiple of 64 and c_out to a multiple of 32 with zeros), so
-// no CTA stages weights in shared memory.  The conv2 accumulators cost
-// c_out / 2 registers a thread: at x width (c_out 160) one CTA an SM.
+// So shared memory does not grow with c_mid, and the 9x17 tile recomputes
+// 20% (an 8x8 tile's 9x9 would recompute 27%).  A operands come by
+// ldmatrix from rows padded to an odd multiple of 16 bytes (no bank
+// conflicts); B operands (the weights) come as 16-byte loads per lane from
+// a copy the wrapper packs once in the mma fragment order (c_mid padded to
+// a multiple of 64 and c_out to a multiple of 32 with zeros), so no CTA
+// stages weights in shared memory.  The conv2 accumulators cost c_out / 2
+// registers a thread: at x width (c_out 160) one CTA an SM.
 //
-// float32 output (f32 namespace, the CUDA-core form) keeps float32 arithmetic
-// on the CUDA cores, as the TPU kernel does at f32: an 8x8 output tile,
-// the 11x11x48 patch and the 9x9 x c_mid y1 tile in shared memory
-// ((11*11*48 + 81*c_mid) * 4 bytes: 124 KB at x width, one CTA an SM).
+// bfloat16 output (tc namespace, stem_tc) computes as the TPU kernel does
+// in bf16 (stem_kernel.py:75-95, :178-181, :212-214): the frame, the
+// (folded) w1 and w2 rounded to bf16, float32 accumulation, float32 b1 and
+// b2, y1 rounded to bf16 after the SiLU; mma.sync m16n8k16, the patch and
+// y1 in bf16 (45 KB of shared memory).
 //
-// What bounds it on an H100: per 1024x512 frame at s width (c_mid 128,
-// c_out 64) 5.8 GFLOP (11.2 GMAC at x width is 22.5 GFLOP); the frame read
-// (1.5 MB uint8, 6 MB float32) and the output write are small.  In bf16 the
-// tensor cores make it a few-microsecond kernel at its bound; mma.sync,
-// the 20% recompute and the synchronised chunk loop keep this form above it.
+// float32 output (tf32 namespace, stem_tf32) replaces the same TPU kernels
+// at float32, the eval path's form (evaluation.py builds a float32
+// Engine): products and sums float32-accurate, float32 biases, the exact
+// expf SiLU.  The TPU computes an f32 matmul in several bf16 passes of its
+// MXU; this card's counterpart is 3xTF32 on mma.sync m16n8k8: x = hi + lo
+// with hi = tf32_rna(x), lo = tf32_rna(x - hi), and a * b summed as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo, ~2^-22 of it, dropped),
+// float32 accumulation throughout.  The tensor core truncates each mma's
+// sum toward zero, so a long chain of mmas drifts toward zero: each k8
+// step sums into a fresh accumulator, and the running sum takes it on the
+// CUDA cores, rounded to nearest (see mma_hi).  The weights come split on the
+// host (ops/kernels/stem.py pack_weights_tf32, hi and lo side by side);
+// the patch and y1 are split in registers after ldmatrix.  A uint8 or bf16
+// frame value is exact in tf32, so on those frames conv1 needs 2 products,
+// not 3.  The patch (52-float rows, 43.5 KB) and the y1 chunk (68-float
+// rows, 43.5 KB) are float32: 87 KB of dynamic shared memory, two CTAs an
+// SM up to c_out 64 (s width; the launch bounds cap registers at 128 for
+// that).  A chunk of 32 would halve y1's shared memory, but registers, not
+// shared memory, cap the CTAs an SM, and conv1 would reuse each split A
+// fragment for one n8 tile instead of two.
+//
+// What bounds it on an H100: 2 flops a MAC of the two convs, 3 TF32
+// products a MAC (2 for conv1 on a uint8 or bf16 frame), at 495 TFLOP/s:
+// per 1024x512 frame at s width (c_mid 128, c_out 64) 5.8 GFLOP of
+// float32 work, 0.035 ms as 3xTF32 on a float frame, 0.028 on a uint8
+// one (0.086 ms as float32 on the CUDA cores at 67 TFLOP/s); 22.5 GFLOP
+// at x width.  The frame read (1.5 MB uint8, 6 MB float32) and the output
+// write are small.  mma.sync (not wgmma), the 20% recompute, the
+// in-register splits and the synchronised chunk loop keep both forms above
+// their bounds.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
-
-// ------------------------------------------- float32, on the CUDA cores
-namespace f32 {
-
-constexpr int TH = 8, TW = 8;              // output tile
-constexpr int MH = TH + 1, MW = TW + 1;    // y1 tile incl. top/left halo
-constexpr int PH = TH + 3, PW = TW + 3;    // input patch
-constexpr int CIN = 48;
-constexpr int NT = 256;
-
-template <typename TI, typename T>
-__global__ void __launch_bounds__(NT)
-stem_kernel(const TI* __restrict__ frame, const float* __restrict__ w1,
-            const float* __restrict__ b1, const float* __restrict__ w2,
-            const float* __restrict__ b2, T* __restrict__ out, int H4, int W4,
-            int cmid, int cout) {
-  extern __shared__ float smem[];
-  float* xin = smem;                    // [PH][PW][CIN]
-  float* mid = smem + PH * PW * CIN;    // [MH][MW][cmid]
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
-  const int H = 4 * H4, W = 4 * W4;
-
-  // input patch: quarter-grid rows r0-2 .. r0+TH, cols c0-2 .. c0+TW
-  for (int idx = tid; idx < PH * PW * CIN; idx += NT) {
-    const int ch = idx % CIN;
-    const int pix = idx / CIN;
-    const int U = r0 - 2 + pix / PW, V = c0 - 2 + pix % PW;
-    float v = 0.f;
-    if (U >= 0 && U < H4 && V >= 0 && V < W4) {
-      const int outer = ch / 12, inner = (ch % 12) / 3, c = ch % 3;
-      const int row = 4 * U + 2 * (outer & 1) + (inner & 1);
-      const int col = 4 * V + 2 * (outer >> 1) + (inner >> 1);
-      v = to_f<TI>(frame[((size_t)(b * H + row) * W + col) * 3 + c]);
-    }
-    xin[idx] = v;
-  }
-  __syncthreads();
-
-  // conv1: an item is one channel over 3 rows of the 9x9 y1 tile
-  for (int item = tid; item < cmid * 3; item += NT) {
-    const int co = item % cmid, chunk = item / cmid;
-    float acc[3][MW];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < MW; ++j) acc[i][j] = 0.f;
-    for (int du = 0; du < 3; ++du) {
-      for (int cin = 0; cin < CIN; ++cin) {
-        float wv[3];
-#pragma unroll
-        for (int dv = 0; dv < 3; ++dv)
-          wv[dv] = w1[((du * 3 + dv) * CIN + cin) * cmid + co];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          const float* src = xin + ((chunk * 3 + i + du) * PW) * CIN + cin;
-          float in[PW];
-#pragma unroll
-          for (int j = 0; j < PW; ++j) in[j] = src[j * CIN];
-#pragma unroll
-          for (int dv = 0; dv < 3; ++dv)
-#pragma unroll
-            for (int j = 0; j < MW; ++j) acc[i][j] += wv[dv] * in[j + dv];
-        }
-      }
-    }
-    const float bias = b1[co];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const int mr = chunk * 3 + i;
-#pragma unroll
-      for (int j = 0; j < MW; ++j) {
-        const bool pad = (r0 - 1 + mr < 0) || (c0 - 1 + j < 0);
-        mid[(mr * MW + j) * cmid + co] = pad ? 0.f : silu_f(acc[i][j] + bias);
-      }
-    }
-  }
-  __syncthreads();
-
-  // conv2: an item is one output channel over 2 rows of the 8x8 tile
-  for (int item = tid; item < cout * (TH / 2); item += NT) {
-    const int co = item % cout, chunk = item / cout;
-    float acc[2][TW];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < TW; ++j) acc[i][j] = 0.f;
-    for (int du = 0; du < 2; ++du) {
-      for (int cm = 0; cm < cmid; ++cm) {
-        const float wa = w2[((du * 2 + 0) * cmid + cm) * cout + co];
-        const float wb = w2[((du * 2 + 1) * cmid + cm) * cout + co];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float* src = mid + ((chunk * 2 + i + du) * MW) * cmid + cm;
-          float m[MW];
-#pragma unroll
-          for (int j = 0; j < MW; ++j) m[j] = src[j * cmid];
-#pragma unroll
-          for (int j = 0; j < TW; ++j) acc[i][j] += wa * m[j] + wb * m[j + 1];
-        }
-      }
-    }
-    const float bias = b2[co];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + chunk * 2 + i;
-      if (r >= H4) continue;
-#pragma unroll
-      for (int j = 0; j < TW; ++j) {
-        const int c = c0 + j;
-        if (c < W4)
-          out[((size_t)(b * H4 + r) * W4 + c) * cout + co] =
-              from_f<T>(silu_f(acc[i][j] + bias));
-      }
-    }
-  }
-}
-
-}  // namespace f32
 
 // ------------------------------------------- bfloat16, on the tensor cores
 namespace tc {
@@ -379,45 +282,251 @@ int launch_np(const void* frame, const void* p1, const float* b1, const void* p2
 
 }  // namespace tc
 
-namespace f32 {
+// ------------------------------------------- float32, 3xTF32 on the tensor cores
+namespace tf32 {
 
-template <typename TI, typename T>
-int launch(const void* frame, const float* w1, const float* b1,
-           const float* w2, const float* b2, void* out, int B, int H4, int W4,
-           int cmid, int cout, cudaStream_t stream) {
-  const size_t smem = (size_t)(PH * PW * CIN + MH * MW * cmid) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      stem_kernel<TI, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+constexpr int TH = 8, TW = 16;              // output tile
+constexpr int MH = TH + 1, MW = TW + 1;     // y1 tile incl. top/left halo
+constexpr int MID = MH * MW, MPAD = 160;    // 153 y1 rows, padded to 10 m16 tiles
+constexpr int PH = TH + 3, PW = TW + 3;     // input patch
+constexpr int CIN = 48, CH = 64;            // conv1 K channels; c_mid chunk
+constexpr int XLD = 52, YLD = 68;           // row pitches in floats: 13 and 17 x 16 bytes
+constexpr int K1S = 9 * CIN / 8;            // conv1 k8 steps (54)
+constexpr int K2S = 4 * CH / 8;             // conv2 k8 steps a chunk (32)
+constexpr int NT = 256;
+constexpr int SMEM = (PH * PW * XLD + MPAD * YLD) * 4;   // 43,472 + 43,520 bytes
+
+// One k8 step of 3xTF32 for the two n8 tiles of a 16-byte B load, chained
+// in one tensor-core accumulator c that starts at zero: mma_lo adds a_lo *
+// bh (for an A operand that is not exact in tf32), mma_hi adds a_hi * bl
+// and then a_hi * bh, the large term, last; add4 adds c to the running sum
+// by FADD, rounded to nearest.  The tensor core truncates its sums toward
+// zero, ~2^-24.5 of a sum's value each time, so every truncation that the
+// large terms pass biases the output toward zero.  Measured on pspv5x's
+// stem (x width) against float64, as a gain on every output: chaining the
+// whole sum in one accumulator (the first version of this form) read
+// 1.2e-4 off stem_plain; chaining a pair of k8 steps, 1 - 1.6e-7; one k8
+// step, as here, 1 - 9.8e-8 at an rms error of 3.6e-8 of the output's
+// scale (float32 on the CPU: 3.4e-8, no gain error).  Flushing every mma
+// by FADD halves the gain error (1 - 5e-8) but adds roundings (rms
+// 4.8e-8) and costs 14% at s width.
+__device__ __forceinline__ void mma_lo(float (&c0)[4], float (&c1)[4], const uint32_t (&lo)[4],
+                                       const uint4& bh) {
+  mk::mma1688_tf32(c0, lo, bh.x, bh.y);
+  mk::mma1688_tf32(c1, lo, bh.z, bh.w);
+}
+
+__device__ __forceinline__ void mma_hi(float (&c0)[4], float (&c1)[4], const uint32_t (&a)[4],
+                                       const uint4& bh, const uint4& bl) {
+  mk::mma1688_tf32(c0, a, bl.x, bl.y);
+  mk::mma1688_tf32(c1, a, bl.z, bl.w);
+  mk::mma1688_tf32(c0, a, bh.x, bh.y);
+  mk::mma1688_tf32(c1, a, bh.z, bh.w);
+}
+
+__device__ __forceinline__ void add4(float (&acc)[4], const float (&t)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q] += t[q];
+}
+
+// p1: conv1's B fragments, uint4 [chunk][54][4 n16][hi, lo][32 lanes]; p2:
+// conv2's, uint4 [chunk][32][c_out_p / 16][hi, lo][32 lanes]
+// (ops/kernels/stem.py pack_weights_tf32 packs both).  NP2 = c_out_p / 32:
+// the 16-column pairs each of conv2's two column warps owns.
+template <typename TI, int NP2>
+__global__ void __launch_bounds__(NT, NP2 <= 2 ? 2 : 1)
+stem_tf32(const TI* __restrict__ frame, const uint4* __restrict__ p1,
+          const float* __restrict__ b1, const uint4* __restrict__ p2,
+          const float* __restrict__ b2, float* __restrict__ out, int H4, int W4,
+          int cmid, int cout) {
+  extern __shared__ __align__(16) float smem[];
+  float* xin = smem;                        // [PH * PW][XLD]
+  float* y1s = smem + PH * PW * XLD;        // [MPAD][YLD]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
+  const int H = 4 * H4, W = 4 * W4;
+  const int nch = (cmid + CH - 1) / CH;
+  constexpr int NPT = 2 * NP2;              // 16-column tiles of c_out_p
+  // a uint8 or bfloat16 frame value is exact in tf32: conv1's A has no lo
+  constexpr bool EXACT = !std::is_same<TI, float>::value;
+
+  // input patch: quarter-grid rows r0-2 .. r0+TH, cols c0-2 .. c0+TW; an
+  // item is one patch pixel's frame row 4U + a: 4 pixels x 3 channels
+  for (int it = tid; it < PH * PW * 4; it += NT) {
+    const int px = it >> 2, a = it & 3;
+    const int U = r0 - 2 + px / PW, V = c0 - 2 + px % PW;
+    float* dst = xin + px * XLD + (a >> 1) * 12 + (a & 1) * 3;
+    const bool in = U >= 0 && U < H4 && V >= 0 && V < W4;
+    const TI* src = frame + ((size_t)(b * H + 4 * U + a) * W + 4 * V) * 3;
+#pragma unroll
+    for (int bb = 0; bb < 4; ++bb)          // column offset 2q + s
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        dst[(bb >> 1) * 24 + (bb & 1) * 6 + c] = in ? to_f<TI>(src[bb * 3 + c]) : 0.f;
+  }
+
+  // conv1 warp tile: 80 y1 rows (5 m16) x 16 chunk columns (2 n8)
+  const int wm1 = warp / 4, wn1 = warp % 4;
+  int pbase[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    int m = wm1 * 80 + i * 16 + lane % 16;
+    m = m < MID ? m : 0;
+    pbase[i] = (m / MW) * PW + m % MW;
+  }
+  // conv2 warp tile: 32 output pixels (2 m16) x NP2 * 16 columns
+  const int wm2 = warp / 2, wn2 = warp % 2;
+  int obase[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int o = wm2 * 32 + i * 16 + lane % 16;
+    obase[i] = (o / TW) * MW + o % TW;
+  }
+  const int acol = (lane / 16) * 4;
+
+  float acc2[2][2 * NP2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * NP2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc2[i][j][q] = 0.f;
+  __syncthreads();
+
+  for (int ch = 0; ch < nch; ++ch) {
+    // ---- conv1 for channels ch*64 .. ch*64+63 of y1
+    float acc1[5][2][4];
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc1[i][j][q] = 0.f;
+    const uint4* q1 = p1 + (size_t)ch * K1S * 4 * 64 + wn1 * 64 + lane;
+    for (int tap = 0; tap < 9; ++tap) {
+      const int off = (tap / 3) * PW + tap % 3;
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        const uint4* q = q1 + (tap * 6 + j) * 256;
+        const uint4 bh = __ldg(q), bl = __ldg(q + 32);
+#pragma unroll
+        for (int i = 0; i < 5; ++i) {
+          uint32_t a[4];
+          mk::ldsm_x4(a, xin + (pbase[i] + off) * XLD + j * 8 + acol);
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+          if (!EXACT) {
+            uint32_t lo[4];
+            mk::tf32_split(a, lo);
+            mma_lo(t0, t1, lo, bh);
+          }
+          mma_hi(t0, t1, a, bh, bl);
+          add4(acc1[i][0], t0);
+          add4(acc1[i][1], t1);
+        }
+      }
+    }
+    __syncthreads();                        // the last chunk's conv2 is done with y1s
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = wm1 * 80 + i * 16 + g + half * 8;
+        const int mr = m / MW, mc = m % MW;
+        const bool halo = r0 - 1 + mr < 0 || c0 - 1 + mc < 0;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int n = wn1 * 16 + nt * 8 + 2 * t, nn = ch * CH + n;
+          const float v0 = acc1[i][nt][half * 2] + (nn < cmid ? b1[nn] : 0.f);
+          const float v1 = acc1[i][nt][half * 2 + 1] + (nn + 1 < cmid ? b1[nn + 1] : 0.f);
+          *reinterpret_cast<float2*>(y1s + m * YLD + n) =
+              halo ? make_float2(0.f, 0.f) : make_float2(silu_f(v0), silu_f(v1));
+        }
+      }
+    __syncthreads();
+
+    // ---- conv2's partial sum over this chunk of c_mid
+    const uint4* q2 = p2 + ((size_t)ch * K2S * NPT + wn2 * NP2) * 64 + lane;
+#pragma unroll 2
+    for (int ks = 0; ks < K2S; ++ks) {
+      const int tap = ks / 8, c8 = ks % 8;
+      const int off = (tap / 2) * MW + tap % 2;
+      uint32_t a[2][4], lo[2][4];           // y1 is not exact in tf32: split it
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mk::ldsm_x4(a[i], y1s + (obase[i] + off) * YLD + c8 * 8 + acol);
+        mk::tf32_split(a[i], lo[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < NP2; ++j) {
+        const uint4* q = q2 + (ks * NPT + j) * 64;
+        const uint4 bh = __ldg(q), bl = __ldg(q + 32);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_lo(t0, t1, lo[i], bh);
+          mma_hi(t0, t1, a[i], bh, bl);
+          add4(acc2[i][2 * j], t0);
+          add4(acc2[i][2 * j + 1], t1);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int o = wm2 * 32 + i * 16 + g + half * 8;
+      const int r = r0 + o / TW, c = c0 + o % TW;
+      if (r >= H4 || c >= W4) continue;
+      float* dst = out + ((size_t)(b * H4 + r) * W4 + c) * cout;
+#pragma unroll
+      for (int nt = 0; nt < 2 * NP2; ++nt) {
+        const int n = wn2 * NP2 * 16 + nt * 8 + 2 * t;
+        if (n >= cout) continue;
+        *reinterpret_cast<float2*>(dst + n) =
+            make_float2(silu_f(acc2[i][nt][half * 2] + b2[n]),
+                        silu_f(acc2[i][nt][half * 2 + 1] + b2[n + 1]));
+      }
+    }
+}
+
+template <typename TI, int NP2>
+int launch(const void* frame, const void* p1, const float* b1, const void* p2,
+           const float* b2, void* out, int B, int H4, int W4, int cmid, int cout,
+           cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(stem_tf32<TI, NP2>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(stem_tf32<TI, NP2>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((W4 + TW - 1) / TW, (H4 + TH - 1) / TH, B);
-  stem_kernel<TI, T><<<grid, NT, smem, stream>>>(
-      static_cast<const TI*>(frame), w1, b1, w2, b2, static_cast<T*>(out), H4,
-      W4, cmid, cout);
+  stem_tf32<TI, NP2><<<grid, NT, SMEM, stream>>>(
+      static_cast<const TI*>(frame), static_cast<const uint4*>(p1), b1,
+      static_cast<const uint4*>(p2), b2, static_cast<float*>(out), H4, W4, cmid, cout);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace f32
+template <typename TI>
+int launch_np(const void* frame, const void* p1, const float* b1, const void* p2,
+              const float* b2, void* out, int B, int H4, int W4, int cmid, int cout,
+              cudaStream_t s) {
+  switch ((cout + 31) / 32) {
+    case 1: return launch<TI, 1>(frame, p1, b1, p2, b2, out, B, H4, W4, cmid, cout, s);
+    case 2: return launch<TI, 2>(frame, p1, b1, p2, b2, out, B, H4, W4, cmid, cout, s);
+    case 3: return launch<TI, 3>(frame, p1, b1, p2, b2, out, B, H4, W4, cmid, cout, s);
+    case 4: return launch<TI, 4>(frame, p1, b1, p2, b2, out, B, H4, W4, cmid, cout, s);
+    case 5: return launch<TI, 5>(frame, p1, b1, p2, b2, out, B, H4, W4, cmid, cout, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tf32
 
 }  // namespace
-
-// frame: (B, 4*H4, 4*W4, 3) in `in_dtype` (DT_U8, or DT_F32 / DT_BF16 in
-// [0, 1]); w1: (3, 3, 48, cmid) float32 HWIO, with the /255 folded in for
-// a uint8 frame; b1: (cmid,); w2: (2, 2, cmid, cout) float32 HWIO;
-// b2: (cout,); out: (B, H4, W4, cout) NHWC float32.  The CUDA-core form.
-extern "C" int mk_stem(const void* frame, const float* w1, const float* b1,
-                       const float* w2, const float* b2, void* out, int B,
-                       int H4, int W4, int cmid, int cout, int in_dtype,
-                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == DT_U8)
-    return f32::launch<uint8_t, float>(frame, w1, b1, w2, b2, out, B, H4, W4, cmid,
-                                       cout, s);
-  if (in_dtype == DT_BF16)
-    return f32::launch<__nv_bfloat16, float>(frame, w1, b1, w2, b2, out, B, H4, W4,
-                                             cmid, cout, s);
-  return f32::launch<float, float>(frame, w1, b1, w2, b2, out, B, H4, W4, cmid,
-                                   cout, s);
-}
 
 // The bfloat16-output form on the tensor cores: p1 and p2 are the packed
 // bf16 weights of ops/kernels/stem.py pack_weights (c_mid padded to a
@@ -434,4 +543,22 @@ extern "C" int mk_stem_tc(const void* frame, const void* p1, const float* b1,
     return tc::launch_np<__nv_bfloat16>(frame, p1, b1, p2, b2, out, B, H4, W4, cmid,
                                         cout, s);
   return tc::launch_np<float>(frame, p1, b1, p2, b2, out, B, H4, W4, cmid, cout, s);
+}
+
+// The float32-output form, 3xTF32 on the tensor cores: p1 and p2 are the
+// packed tf32 hi / lo weights of ops/kernels/stem.py pack_weights_tf32
+// (c_mid padded to a multiple of 64, c_out to a multiple of 32, cout even
+// and <= 160); b1: (cmid,), b2: (cout,) float32; out: (B, H4, W4, cout)
+// NHWC float32.
+extern "C" int mk_stem_tf32(const void* frame, const void* p1, const float* b1,
+                            const void* p2, const float* b2, void* out, int B,
+                            int H4, int W4, int cmid, int cout, int in_dtype,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == DT_U8)
+    return tf32::launch_np<uint8_t>(frame, p1, b1, p2, b2, out, B, H4, W4, cmid, cout, s);
+  if (in_dtype == DT_BF16)
+    return tf32::launch_np<__nv_bfloat16>(frame, p1, b1, p2, b2, out, B, H4, W4, cmid,
+                                          cout, s);
+  return tf32::launch_np<float>(frame, p1, b1, p2, b2, out, B, H4, W4, cmid, cout, s);
 }

@@ -7,11 +7,13 @@ On a uint8 frame, the counterpart of ``stem_apply_pallas_u8`` and
 ``csrc/stem.cu``; its design notes are there.  The two modes count their
 launches apart: ``stem.launches`` (uint8) and ``stem_float.launches``.
 
-A bfloat16 output runs the tensor-core form, which computes as the TPU
-kernel does in bf16: bf16 operands, float32 accumulation, a bf16 y1.  It
-reads the weights from a bf16 copy packed in the mma fragment order
-(:func:`pack_weights`), made once and kept on the w1 tensor.  A float32
-output runs the float32 form.
+Both output types run on the tensor cores, each from a copy of the weights
+packed in its mma's fragment order, made once and kept on the w1 tensor.
+A bfloat16 output computes as the TPU kernel does in bf16: bf16 operands,
+float32 accumulation, a bf16 y1 (:func:`pack_weights`).  A float32 output
+computes to float32 accuracy by 3xTF32: each operand split into tf32 hi
+and lo parts, three products a MAC (two for conv1 on a uint8 or bfloat16
+frame, exact in tf32), float32 accumulation (:func:`pack_weights_tf32`).
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-CHUNK = 64          # c_mid channels the tensor-core form computes at a time
-MAX_COUT = 160      # the widest c_out its conv2 accumulators take (x width)
+CHUNK = 64          # c_mid channels both forms compute at a time
+MAX_COUT = 160      # the widest c_out their conv2 accumulators take (x width)
 
 
 def space_to_depth4(frame: torch.Tensor) -> torch.Tensor:
@@ -72,9 +74,11 @@ def pack_weights(w1: torch.Tensor, w2: torch.Tensor):
     c_out to a multiple of 32 with zeros (a pad channel of y1 is SiLU(0) = 0
     and meets zero weights).
 
-    Returns (p1, p2): p1 [chunk][27 k16][4 n16][g 8][t 4][nt 2][h 2][e 2],
-    p2 [chunk][4 taps][4 k16][c_out_p / 16][g][t][nt][h][e], where k = 16 *
-    k16 + 8 * h + 2 * t + e and n = 16 * n16 + 8 * nt + g."""
+    Returns bf16 (p1, p2): p1 [chunk][27 k16][4 n16][g 8][t 4][nt 2][h
+    2][e 2] holds w1.reshape(432, c_mid)[16 * k16 + 8 * h + 2 * t + e][CHUNK
+    * chunk + 16 * n16 + 8 * nt + g], p2 [chunk][4 tap][4 k16][c_out_p / 16
+    n16][g][t][nt][h][e] holds w2.reshape(4, c_mid, c_out)[tap][CHUNK *
+    chunk + 16 * k16 + 8 * h + 2 * t + e][16 * n16 + 8 * nt + g]."""
     c_mid, c_out = w1.shape[-1], w2.shape[-1]
     cm_p = -(-c_mid // CHUNK) * CHUNK
     co_p = -(-c_out // 32) * 32
@@ -89,18 +93,64 @@ def pack_weights(w1: torch.Tensor, w2: torch.Tensor):
     return p1, p2
 
 
-def _packed(w1: torch.Tensor, w2: torch.Tensor):
-    """:func:`pack_weights` of these tensors, kept on ``w1`` for the next
-    call with the same ``w2`` while both versions stay (an in-place update
-    repacks)."""
+def tf32_split(w: torch.Tensor):
+    """(hi, lo) of a float32 tensor: hi = w rounded to tf32 (10 mantissa
+    bits; to nearest, ties away from zero, as ``cvt.rna.tf32.f32``), lo =
+    w - hi rounded the same way, so that |w - (hi + lo)| <= 2^-22 |w|.
+    Float32 bit arithmetic: the low 13 mantissa bits are cleared after
+    adding half of their range to the magnitude."""
+    def rna(x):
+        return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(w)
+    return hi, rna(w - hi)
+
+
+def pack_weights_tf32(w1: torch.Tensor, w2: torch.Tensor):
+    """The float32 form's weights: w1 (3, 3, 48, c_mid) and w2 (2, 2, c_mid,
+    c_out), split by :func:`tf32_split` into tf32 hi and lo parts, in the
+    B-fragment order of mma m16n8k8 (b0 = (k = t, n = g), b1 = (k = t + 4,
+    n = g) for lane 4 g + t), so that each lane reads the registers of two
+    8-column tiles of one part as one 16-byte load, the hi load and the lo
+    load 512 bytes apart.  c_mid is padded to a multiple of CHUNK and c_out
+    to a multiple of 32 with zeros, as in :func:`pack_weights`.
+
+    Returns float32 (p1, p2): p1 [chunk][54 k8][4 n16][part 2][g 8][t 4][nt
+    2][h 2] holds part(w1.reshape(432, c_mid))[8 * k8 + 4 * h + t][CHUNK *
+    chunk + 16 * n16 + 8 * nt + g], p2 [chunk][4 tap][8 k8][c_out_p / 16
+    n16][part][g][t][nt][h] holds part(w2.reshape(4, c_mid, c_out))[tap][CHUNK
+    * chunk + 8 * k8 + 4 * h + t][16 * n16 + 8 * nt + g], part 0 hi, 1 lo."""
+    c_mid, c_out = w1.shape[-1], w2.shape[-1]
+    cm_p = -(-c_mid // CHUNK) * CHUNK
+    co_p = -(-c_out // 32) * 32
+    nch = cm_p // CHUNK
+    b1m = torch.stack(tf32_split(F.pad(w1.reshape(9 * 48, c_mid), (0, cm_p - c_mid))))
+    p1 = (b1m.reshape(2, 54, 2, 4, nch, 4, 2, 8)          # part k8 h t | ch n16 nt g
+          .permute(4, 1, 5, 0, 7, 3, 6, 2).contiguous())
+    b2m = F.pad(w2.reshape(4, c_mid, c_out), (0, co_p - c_out, 0, cm_p - c_mid))
+    p2 = (torch.stack(tf32_split(b2m))
+          .reshape(2, 4, nch, 8, 2, 4, co_p // 16, 2, 8)   # part tap ch k8 h t | n16 nt g
+          .permute(2, 1, 3, 6, 0, 8, 5, 7, 4).contiguous())
+    return p1, p2
+
+
+_PACKERS = {torch.bfloat16: pack_weights, torch.float32: pack_weights_tf32}
+
+
+def _packed(w1: torch.Tensor, w2: torch.Tensor, out_dtype: torch.dtype):
+    """The packed weights of the form that computes ``out_dtype`` (its
+    packer in ``_PACKERS``), kept on ``w1`` per form for the next call with
+    the same ``w2`` while both versions stay (an in-place update repacks)."""
     def version(t):     # an inference tensor has no version counter
         return -1 if t.is_inference() else t._version
 
     key = (w2, version(w1), version(w2))
-    hit = getattr(w1, "_k1_packed", None)
+    cache = getattr(w1, "_k1_packed", None)
+    if cache is None:
+        cache = w1._k1_packed = {}
+    hit = cache.get(out_dtype)
     if hit is None or hit[0] is not w2 or hit[1:3] != key[1:]:
-        hit = (*key, pack_weights(w1, w2))
-        w1._k1_packed = hit
+        hit = cache[out_dtype] = (*key, _PACKERS[out_dtype](w1, w2))
     return hit[3]
 
 
@@ -146,21 +196,15 @@ def _launch(frame, w1, b1, w2, b2, out_dtype):
                       and t.is_contiguous() and t.device == frame.device,
                       f"stem: weight {tuple(t.shape)} {t.dtype}, want {shape} float32")
     build.require(out_dtype in (torch.float32, torch.bfloat16), f"stem: dtype {out_dtype}")
+    build.require(c_out % 2 == 0 and c_out <= MAX_COUT,
+                  f"stem: takes an even c_out <= {MAX_COUT}, got {c_out}")
     out = torch.empty((bsz, h // 4, w // 4, c_out), dtype=out_dtype,
                       device=frame.device)
     with torch.cuda.device(frame.device):
-        if out_dtype == torch.bfloat16:
-            build.require(c_out % 2 == 0 and c_out <= MAX_COUT,
-                          f"stem: the bf16 form takes an even c_out <= {MAX_COUT}, got {c_out}")
-            p1, p2 = _packed(w1, w2)
-            fn = build.function("mk_stem_tc", _ARGTYPES)
-            args = (p1, b1, p2, b2)
-        else:
-            smem = (11 * 11 * 48 + 81 * c_mid) * 4
-            build.require(smem <= 227 * 1024, f"stem: c_mid {c_mid} too wide")
-            fn = build.function("mk_stem", _ARGTYPES)
-            args = (w1, b1, w2, b2)
-        err = fn(build.ptr(frame), *map(build.ptr, args), build.ptr(out), bsz,
+        p1, p2 = _packed(w1, w2, out_dtype)
+        fn = build.function("mk_stem_tc" if out_dtype == torch.bfloat16 else "mk_stem_tf32",
+                            _ARGTYPES)
+        err = fn(build.ptr(frame), *map(build.ptr, (p1, b1, p2, b2)), build.ptr(out), bsz,
                  h // 4, w // 4, c_mid, c_out, _DTYPES[frame.dtype],
                  build.stream_of(frame))
     build.check(err, "stem")

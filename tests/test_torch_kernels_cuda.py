@@ -16,10 +16,11 @@ mode: float32 and bfloat16 frames in [0, 1] at s and x width (c_mid 128,
 320), the bounds above.  K2 in bf16 at c_in 48 (SegMaskLab's detail conv,
 the BK = 16 path).  K2's planned launches: a 6-way cluster split at
 pspv5s's 1/32-res site, odd H x W, stride 2 at odd sizes, dilation 3, c_out
-8 and 24, in both dtypes.  K1's tensor-core form (bfloat16 output) at
-c_mid 32, 128, 192 and 320 on uint8 and float32 frames, at B = 3 with H/4
-and W/4 that are no multiple of its 8x16 tile, held to the bf16 bound
-above against ``stem_plain``, which rounds as the kernel does."""
+8 and 24, in both dtypes.  K1's two forms (bfloat16 output, and the 3xTF32
+float32 output) at c_mid 32, 128, 192 and 320 on uint8 and float32
+frames, at B = 3 with H/4 and W/4 that are no multiple of their 8x16
+tile, held to the bounds above against ``stem_plain`` (which rounds as the
+bf16 form does), and both forms in turns on the same weight tensors."""
 
 import numpy as np
 import pytest
@@ -126,9 +127,10 @@ def test_conv3x3_kernel_planned(dev, dtype, shape, co, stride, dil):
     _close(got, K.conv3x3_plain(x, w, b, stride, dil, True), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("frame_dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("c_mid,c_out", [(32, 16), (128, 64), (192, 96), (320, 160)])
-def test_stem_kernel_bf16_widths(dev, frame_dtype, c_mid, c_out):
+def test_stem_kernel_bf16_widths(dev, dtype, frame_dtype, c_mid, c_out):
     g = torch.Generator().manual_seed(c_mid + 1)
     if frame_dtype == torch.uint8:
         frame = torch.randint(0, 256, (3, 44, 76, 3), generator=g, dtype=torch.uint8)
@@ -141,10 +143,27 @@ def test_stem_kernel_bf16_widths(dev, frame_dtype, c_mid, c_out):
     w2 = torch.randn(2, 2, c_mid, c_out, generator=g) / (4 * c_mid) ** 0.5
     b2 = torch.randn(c_out, generator=g) * 0.1
     args = [t.to(dev).contiguous() for t in (frame, w1, b1, w2, b2)]
-    got = K.stem(*args, out_dtype=torch.bfloat16)
+    got = K.stem(*args, out_dtype=dtype)
     torch.cuda.synchronize()
-    assert got.shape == (3, 11, 19, c_out)
-    _close(got, K.stem_plain(*args, out_dtype=torch.bfloat16), torch.bfloat16)
+    assert got.shape == (3, 11, 19, c_out) and got.dtype == dtype
+    _close(got, K.stem_plain(*args, out_dtype=dtype), dtype)
+
+
+def test_stem_kernel_alternating_forms(dev):
+    """Both forms on the same weight tensors, in turns: each reads its own
+    packed copy (kept side by side on w1), as chip_smoke's [2] calls them."""
+    g = torch.Generator().manual_seed(7)
+    frame = torch.randint(0, 256, (2, 64, 96, 3), generator=g, dtype=torch.uint8)
+    w1 = torch.randn(3, 3, 48, 128, generator=g) * (0.2 / 255)
+    b1 = torch.randn(128, generator=g) * 0.1
+    w2 = torch.randn(2, 2, 128, 64, generator=g) / 512 ** 0.5
+    b2 = torch.randn(64, generator=g) * 0.1
+    args = [t.to(dev).contiguous() for t in (frame, w1, b1, w2, b2)]
+    for dtype in (torch.float32, torch.bfloat16, torch.float32, torch.bfloat16):
+        got = K.stem(*args, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        _close(got, K.stem_plain(*args, out_dtype=dtype), dtype)
 
 
 @pytest.mark.parametrize("n", [1, 300, 1024])

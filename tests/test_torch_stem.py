@@ -25,7 +25,9 @@ from multiyolov5_tpu.ops.pallas.stem_kernel import (pack_stem96_host,
                                                     stem_pack_geometry)
 from multiyolov5_tpu_torch.ops import stem as torch_stem
 from multiyolov5_tpu_torch.ops.kernels import stem, stem_plain
-from multiyolov5_tpu_torch.ops.kernels.stem import space_to_depth4
+from multiyolov5_tpu_torch.ops.kernels.stem import (CHUNK, _packed, pack_weights,
+                                                    pack_weights_tf32, space_to_depth4,
+                                                    tf32_split)
 
 ATOL = 1e-4
 
@@ -133,3 +135,106 @@ def _assert_bf16_close(got, want):
     diff = np.abs(got - want)
     assert diff.max() <= 2.0 ** -8 * scale
     assert (diff > 0).mean() <= 1e-3
+
+
+def _rna_tf32_reference(w):
+    """w rounded to 11 significant bits (to a multiple of 2^-136 below
+    float32's normal range, as tf32's subnormals), ties away from zero, in
+    float64 arithmetic (independent of the bit trick)."""
+    w = w.astype(np.float64)
+    _, e = np.frexp(w)
+    q = 2.0 ** np.maximum(e - 11, -136)
+    return (np.sign(w) * np.floor(np.abs(w) / q + 0.5) * q).astype(np.float32)
+
+
+def test_tf32_split():
+    rng = np.random.RandomState(5)
+    w = np.concatenate([rng.randn(4096) * 10.0 ** rng.uniform(-6, 3, 4096),
+                        [1.0, -1.0, 3e-38, -7e4]]).astype(np.float32)
+    ties = (rng.randint(0x30000000, 0x50000000, 64) & ~0x1FFF | 0x1000).astype(np.int32)
+    w = np.concatenate([w, ties.view(np.float32), -ties.view(np.float32)])
+    hi, lo = (t.numpy() for t in tf32_split(torch.from_numpy(w)))
+    assert not (hi.view(np.int32) & 0x1FFF).any()
+    assert not (lo.view(np.int32) & 0x1FFF).any()
+    np.testing.assert_array_equal(hi, _rna_tf32_reference(w))
+    np.testing.assert_array_equal(lo, _rna_tf32_reference(w - hi))
+    # where lo stays in float32's normal range (weights are far from 2^-104)
+    err = np.abs(w.astype(np.float64) - hi.astype(np.float64) - lo.astype(np.float64))
+    normal = np.abs(w) >= 2.0 ** -104
+    assert normal.sum() == len(w) - 1 and (err <= 2.0 ** -21 * np.abs(w))[normal].all()
+
+
+def _unpack(p, fields, k_of, n_of, shape):
+    """Scatter packed weights back to ``shape`` by a docstring's index
+    formula: ``fields`` names p's axes, ``k_of`` and ``n_of`` map the index
+    arrays to the row and column of the (part, ..., k, n) target."""
+    idx = dict(zip(fields, np.indices(p.shape)))
+    lead = tuple(idx[f].ravel() for f in shape[1])
+    out = np.full(shape[0], np.nan, np.float32)
+    count = np.zeros(shape[0], np.int64)
+    at = lead + (k_of(idx).ravel(), n_of(idx).ravel())
+    out[at] = p.float().numpy().ravel()
+    np.add.at(count, at, 1)
+    assert (count == 1).all()          # each weight (and pad) packed exactly once
+    return out
+
+
+@pytest.mark.parametrize("form", ["bf16", "tf32"])
+@pytest.mark.parametrize("c_mid,c_out", [(32, 16), (128, 64), (320, 160)])
+def test_pack_weights_round_trip(form, c_mid, c_out):
+    rng = np.random.RandomState(c_mid + c_out)
+    w1 = rng.randn(3, 3, 48, c_mid).astype(np.float32)
+    w2 = rng.randn(2, 2, c_mid, c_out).astype(np.float32)
+    cm_p, co_p, ch = -(-c_mid // CHUNK) * CHUNK, -(-c_out // 32) * 32, CHUNK
+    m1 = np.zeros((432, cm_p), np.float32)
+    m1[:, :c_mid] = w1.reshape(432, c_mid)
+    m2 = np.zeros((4, cm_p, co_p), np.float32)
+    m2[:, :c_mid, :c_out] = w2.reshape(4, c_mid, c_out)
+    packer = pack_weights if form == "bf16" else pack_weights_tf32
+    p1, p2 = packer(torch.from_numpy(w1), torch.from_numpy(w2))
+    if form == "bf16":
+        assert p1.dtype == p2.dtype == torch.bfloat16
+        got1 = _unpack(p1, ["c", "k", "n16", "g", "t", "nt", "h", "e"],
+                       lambda i: 16 * i["k"] + 8 * i["h"] + 2 * i["t"] + i["e"],
+                       lambda i: ch * i["c"] + 16 * i["n16"] + 8 * i["nt"] + i["g"],
+                       (m1.shape, ()))
+        got2 = _unpack(p2, ["c", "tap", "k", "n16", "g", "t", "nt", "h", "e"],
+                       lambda i: ch * i["c"] + 16 * i["k"] + 8 * i["h"] + 2 * i["t"] + i["e"],
+                       lambda i: 16 * i["n16"] + 8 * i["nt"] + i["g"],
+                       (m2.shape, ("tap",)))
+        want1, want2 = (torch.from_numpy(m).to(torch.bfloat16).float().numpy()
+                        for m in (m1, m2))
+        np.testing.assert_array_equal(got1, want1)
+        np.testing.assert_array_equal(got2, want2)
+        return
+    assert p1.dtype == p2.dtype == torch.float32
+    got1 = _unpack(p1, ["c", "k", "n16", "part", "g", "t", "nt", "h"],
+                   lambda i: 8 * i["k"] + 4 * i["h"] + i["t"],
+                   lambda i: ch * i["c"] + 16 * i["n16"] + 8 * i["nt"] + i["g"],
+                   ((2, *m1.shape), ("part",)))
+    got2 = _unpack(p2, ["c", "tap", "k", "n16", "part", "g", "t", "nt", "h"],
+                   lambda i: ch * i["c"] + 8 * i["k"] + 4 * i["h"] + i["t"],
+                   lambda i: 16 * i["n16"] + 8 * i["nt"] + i["g"],
+                   ((2, *m2.shape), ("part", "tap")))
+    for got, m in ((got1, m1), (got2, m2)):
+        hi = _rna_tf32_reference(m)
+        np.testing.assert_array_equal(got[0], hi)
+        np.testing.assert_array_equal(got[1], _rna_tf32_reference(m - hi))
+
+
+def test_packed_cache_keeps_each_form():
+    """The packed copies of both forms live side by side on w1: alternating
+    output types neither repacks nor hands one form the other's copy; an
+    in-place update of w2 repacks."""
+    g = torch.Generator().manual_seed(3)
+    w1, w2 = torch.randn(3, 3, 48, 64, generator=g), torch.randn(2, 2, 64, 32, generator=g)
+    f32, bf16 = _packed(w1, w2, torch.float32), _packed(w1, w2, torch.bfloat16)
+    assert f32[0].dtype == torch.float32 and bf16[0].dtype == torch.bfloat16
+    for _ in range(2):
+        assert _packed(w1, w2, torch.float32) is f32
+        assert _packed(w1, w2, torch.bfloat16) is bf16
+    w2.mul_(2)
+    again = _packed(w1, w2, torch.float32)
+    assert again is not f32
+    torch.testing.assert_close(again[1], pack_weights_tf32(w1, w2)[1], rtol=0, atol=0)
+    assert _packed(w1, w2, torch.bfloat16) is not bf16
