@@ -31,12 +31,15 @@ It checks that every kernel ran on its path, holds each kernel against its
 plain version on the arguments its path gave it, and times the paths and
 each kernel beside its bound and, where one PyTorch call computes the same
 function, that call in the same dtype.  [1] counts the tensor-core (HMMA)
-instructions in K1's two forms (bf16 and 3xTF32) and K2's bf16 kernel
-(cuobjdump of the built library); [2] prints K2's launch plan (tile, cluster split, CTAs) at
-each pspv5s site and requires one CTA an SM at each.  Any failure raises and exits non-zero.  The last line
-of stdout is the JSON ``{"ok": true, "device": {...}}``; the line before it
-the card's name and power limit, the one before that the kernels' JSON.
-Longer records go to ``chiprun_out/``.
+instructions in K1's and K7's two forms each (bf16 and 3xTF32) and K2's
+bf16 kernel (cuobjdump of the built library); [2] prints K2's launch plan
+(tile, cluster split, CTAs) at each pspv5s site and requires one CTA an SM
+at each, and K7's plan at each case, whose layout's byte count
+ops/kernels/c3.py must give as the kernel does.  Any failure raises and
+exits non-zero.  The last line of stdout is the JSON ``{"ok": true,
+"device": {...}}``; the line before it the card's name and power limit,
+the one before that the kernels' JSON.  Longer records go to
+``chiprun_out/``.
 """
 
 from __future__ import annotations
@@ -286,7 +289,7 @@ def phase_card():
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as fh:
         fh.write(nvcc_log)
     mma = tensor_core_ops(path)
-    for name in ("stem_tc", "stem_tf32", "conv3x3_tma"):
+    for name in ("stem_tc", "stem_tf32", "conv3x3_tma", "c3_bf16", "c3_tf32"):
         n = sum(v for k, v in mma.items() if name in k)
         log(f"  HMMA/HGMMA instructions in the SASS of {name} (all instantiations): {n}")
         if n == 0:
@@ -364,6 +367,49 @@ def c3_work(x, args):
     return nbytes, 2 * px * (2 * c1 * ch + 2 * ch * c2 + n * 10 * ch * ch)
 
 
+def c3_bound(x, args, cuda_cores: bool = False):
+    """(least ms, "bytes" or "operations") of K7 on ``x`` (c3_work's bytes
+    and flops) at the arithmetic its form does: bfloat16 on the bf16 tensor
+    cores; float32 as 3xTF32, three TF32 products a MAC at the TF32 peak,
+    or with ``cuda_cores`` one float32 FMA a MAC at the CUDA cores' peak
+    (the first form's arithmetic)."""
+    nbytes, flops = c3_work(x, args)
+    if x.dtype == torch.bfloat16:
+        return bound_ms(nbytes, flops, BF16_FLOP_S)
+    return bound_ms(nbytes, flops, FP32_FLOP_S) if cuda_cores else bound_ms(
+        nbytes, 3 * flops, TF32_FLOP_S)
+
+
+def c3_module(args):
+    """A fused eval ``C3`` module on the card (channels_last) holding K7's
+    arguments as its conv weights: the unfused sequence the model runs off
+    K7 (5 cuDNN convs, cat, add), the library yardstick."""
+    from multiyolov5_tpu_torch.models.blocks import C3
+    wcv1, bcv1, wcv2, bcv2, wcv3, bcv3, mws, shortcut = args
+    mod = C3(wcv1.shape[-1], wcv3.shape[0], n=len(mws), shortcut=shortcut, fused=True)
+    convs = [mod.cv1.conv, mod.cv2.conv, mod.cv3.conv] + [
+        c for b in mod.m for c in (b.cv1.conv, b.cv2.conv)]
+    pairs = [(wcv1, bcv1), (wcv2, bcv2), (wcv3, bcv3)] + [
+        p for m in mws for p in ((m[0], m[1]), (m[2], m[3]))]
+    with torch.no_grad():
+        for conv, (w, b) in zip(convs, pairs):
+            conv.weight.copy_(w.permute(0, 3, 1, 2))
+            conv.bias.copy_(b)
+    return mod.eval().to(device=wcv1.device, dtype=wcv1.dtype,
+                         memory_format=torch.channels_last)
+
+
+def c3_sequence_ms(mod, x):
+    """Device ms of ``mod``'s unfused sequence on NHWC ``x``."""
+    xc = x.permute(0, 3, 1, 2)
+
+    def sequence():
+        with torch.inference_mode():
+            return mod.cv3(torch.cat([mod.m(mod.cv1(xc)), mod.cv2(xc)], 1))
+
+    return graph_ms(sequence)
+
+
 def c3_row(eng):
     """The engine's row-2 C3 module, the one K7 runs."""
     from multiyolov5_tpu_torch.models.blocks import C3
@@ -376,9 +422,16 @@ def c3_row(eng):
 def hold_c3(eng32, eng16):
     """K7 against c3_plain at the batched paths' shapes: pspv5s row 2 at bs8
     1024x1024 (the engines' weights), pspv5m row 2 at bs2 (c_ 48, two
-    bottlenecks), no shortcut, and an H x W that is no multiple of the tile.
-    Returns the float32 max |diff| at the pspv5s serving shape."""
+    bottlenecks), no shortcut, and an H x W that is no multiple of the tile;
+    at each, ops/kernels/c3.py's layout count must equal the kernel's
+    (mk_c3_smem_bytes) at every plan.  Returns the float32 max |diff| at
+    the pspv5s serving shape."""
+    import ctypes
+
     from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops.kernels import build
+    from multiyolov5_tpu_torch.ops.kernels.c3 import PLANS, plan, smem_bytes
+    smem_c = build.function("mk_c3_smem_bytes", [ctypes.c_int] * 9)
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     side = SERVE_IMG // 4
     out = None
@@ -390,11 +443,21 @@ def hold_c3(eng32, eng16):
                  ("no shortcut", *c3_case(g, (2, 64, 128, 64), 32, 1, dt, False)),
                  ("odd H x W", *c3_case(g, (3, 37, 53, 64), 32, 1, dt))]
         for name, x, a in cases:
+            widths = (x.shape[-1], a[0].shape[0], a[4].shape[0], len(a[6]))
+            for pl in PLANS[dt]:
+                py, cu = smem_bytes(*widths, *pl, dt), smem_c(*widths, *pl,
+                                                              int(dt == torch.bfloat16))
+                if py != cu:
+                    raise AssertionError(f"c3 {widths} plan {pl} {dt}: "
+                                         f"smem_bytes {py} != mk_c3_smem_bytes {cu}")
             got = K.c3(x, *a)
             torch.cuda.synchronize()
             d, rel = diffs(got, K.c3_plain(x, *a))
+            p = plan(*x.shape, *widths[1:], dt)
             log(f"  c3 {str(dt)[6:]} {name} {tuple(x.shape)} c_ {a[0].shape[0]} n {len(a[6])}: "
-                f"max|diff| {d:.3e}")
+                f"max|diff| {d:.3e}; plan {p.th}x{p.tw} tile, {p.nbuf} weight buffer(s) of "
+                f"{p.rows or 'all'} rows, {p.smem} B, {p.ctas} CTAs (layout bytes = "
+                "mk_c3_smem_bytes at every plan)")
             check(f"c3 {str(dt)[6:]} {name} max|diff|/max(max|ref|,1)", rel, bound)
             if out is None:
                 out = d
@@ -1046,40 +1109,41 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
         f"{short['k3_x4_ms']:.4f} ms, K5 (4, 1024) {short['k5_1024_ms']:.4f} ms, K5 "
         f"{tuple(scores.shape)} with 1024 valid {short['k5_30000_ms']:.4f} ms; picks "
         f"{short['picks']}, differing K3 vs K5 {short['picks_differing_k3_k5']} (reported)")
-    # K7 at bs8 1024x1024 serving's row-2 C3 (bf16), and at the eval path's
-    # (float32, the counted eval run's own arguments); "library" is the
-    # unfused sequence the module runs otherwise (5 cuDNN convs, cat, add):
-    # no single PyTorch call computes a C3
+    # K7 at bs8 1024x1024 serving's row-2 C3 (bf16), at the eval path's
+    # (float32, the counted eval run's own arguments) and at pspv5m's
+    # (float32, c_ 48, two bottlenecks, bs2 1024x1024, seeded weights);
+    # "library" is the unfused sequence the module runs otherwise (5 cuDNN
+    # convs, cat, add; TF32 off): no single PyTorch call computes a C3
     c3_times = {}
     side = SERVE_IMG // 4
     (x_ev, *a_ev), _ = ev["rec"]["c3"][0]
-    for name, eng, x, args in (
-            ("serving", eng16, None, None), ("eval", eng32, x_ev, tuple(a_ev))):
-        mod = c3_row(eng)
+    x_m, a_m = c3_case(g, (2, side, side, 96), 48, 2, torch.float32)
+    for name, mod, x, args in (
+            ("serving", c3_row(eng16), None, None),
+            ("eval", c3_row(eng32), x_ev, tuple(a_ev)),
+            ("pspv5m", c3_module(a_m), x_m, a_m)):
         args = args or mod.kernel_args()
         if x is None:
             x = torch.randn((SERVE_BS, side, side, args[0].shape[-1]), generator=g,
                             device=dev).to(torch.bfloat16)
-        xc = x.permute(0, 3, 1, 2)
-
-        def sequence(mod=mod, xc=xc):
-            with torch.inference_mode():
-                return mod.cv3(torch.cat([mod.m(mod.cv1(xc)), mod.cv2(xc)], 1))
-
         nbytes, flops = c3_work(x, args)
         c3_times[name] = {
             "x": list(x.shape), "dtype": str(x.dtype)[6:],
+            "c_": args[0].shape[0], "n": len(args[6]),
             "ms": graph_ms(lambda: K.c3(x, *args)),
             "plain_ms": graph_ms(lambda: K.c3_plain(x, *args)),
-            "library_ms": graph_ms(sequence),
-            "bound": bound_ms(nbytes, flops, BF16_FLOP_S if x.dtype == torch.bfloat16
-                              else FP32_FLOP_S),
+            "library_ms": c3_sequence_ms(mod, x),
+            "bound": c3_bound(x, args),
             "bytes": nbytes, "flops": flops}
         t = c3_times[name]
-        log(f"  c3 {name} {tuple(x.shape)} {t['dtype']}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library (sequence) {t['library_ms']:.4f} ms, bound "
-            f"{t['bound'][0]:.5f} ms ({t['bound'][1]}; {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP)")
+        if x.dtype == torch.float32:
+            t["cuda_core_bound"] = c3_bound(x, args, cuda_cores=True)
+        log(f"  c3 {name} {tuple(x.shape)} {t['dtype']} c_ {t['c_']} n {t['n']}: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (sequence) "
+            f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}"
+            + ("" if x.dtype == torch.bfloat16 else
+               f", 3xTF32; CUDA-core fp32 {t['cuda_core_bound'][0]:.5f}")
+            + f"; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     t = c3_times["serving"]
     times["c3"] = (t["ms"], t["plain_ms"])
     library["c3"] = t["library_ms"]
@@ -2109,10 +2173,13 @@ def main() -> int:
                       fp32_library_ms=su["library_ms"], fp32_bound_ms=su["bound_ms"],
                       fp32_cuda_core_bound_ms=su["cuda_core_bound_ms"],
                       fp32_frame=su["frame"])
+    # K7's float32 form (3xTF32) at eval's shape: its bound beside the CUDA
+    # cores' float32 bound
     kk["c3"].update(serving_batches=n_batched, eval_ms=c3_times["eval"]["ms"],
                     eval_plain_ms=c3_times["eval"]["plain_ms"],
                     eval_library_ms=c3_times["eval"]["library_ms"],
-                    eval_bound_ms=c3_times["eval"]["bound"][0])
+                    eval_bound_ms=c3_times["eval"]["bound"][0],
+                    eval_cuda_core_bound_ms=c3_times["eval"]["cuda_core_bound"][0])
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": smi, "e2e_ms": e2e, "kernels": kernels,
                    "conv3x3_sites": per_site, "conv3x3_eval_f32": k2_f32,

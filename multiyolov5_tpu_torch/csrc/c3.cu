@@ -26,27 +26,54 @@
 // 3 + 2n stages (cv1, cv2, each bottleneck's 1x1 and 3x3, cv3) each run as a
 // small GEMM over a rectangle of the slab against that stage's weights,
 // which cp.async copies into shared memory ([c_out][taps * c_in], zero
-// padded) while the stage before computes, where two weight buffers fit:
-//   * bfloat16: each warp takes 16-pixel row tiles and 32-channel column
-//     chunks; ldmatrix feeds mma.sync m16n8k16 (bf16 in, fp32 accumulate);
-//     the 3x3 is nine shifted row sets of the same buffer.  c_ is padded to
-//     a multiple of 16 with zero weights and biases, so the pad channels
-//     hold SiLU(0) = 0.  Row pitches are odd multiples of 16 bytes, so the
-//     eight rows of an ldmatrix fall in different banks;
-//   * float32: each thread a 4x4 register tile on the CUDA cores, no TF32.
+// padded) while the step before computes, where two weight buffers fit.  A
+// float32 plan may run each stage in passes of 16 or 32 output channels,
+// each over its own rows of weights: pspv5m's 3x3 (c_ 48) weights alone
+// take 84 KB in float32, and passes of 32 let it take an 8x16 tile.
+// ops/kernels/c3.py plan picks the tile, buffers and pass rows.
+// Both types share one warp tiling: a warp's work item is a 16-pixel row
+// tile by a chunk of output channels (32 for bf16 in a CTA of 8 warps, 16
+// for float32 in a CTA of 16); ldmatrix feeds mma.sync, 32 bytes of K a
+// step; the 3x3 is nine shifted row sets of the same buffer.  Row pitches
+// are odd multiples of 16 bytes (a row plus 16 bytes), so the eight rows of
+// an ldmatrix fall in different banks, and every copy moves 16-byte chunks.
+// The bottleneck 1x1's output shares x's rows where it fits (c_ <= c1): x
+// is read for the last time by cv2.
+//   * bfloat16 (c3_bf16): mma.sync m16n8k16, bf16 in, fp32 accumulate.  c_
+//     is padded to a multiple of 16 with zero weights and biases, so the
+//     pad channels hold SiLU(0) = 0;
+//   * float32 (c3_tf32): 3xTF32 on mma.sync m16n8k8.  Each float32 operand
+//     splits in registers after its ldmatrix into x = hi + lo, hi =
+//     tf32_rna(x), lo = tf32_rna(x - hi) (common.cuh), and a * w is summed
+//     as a_lo w_hi + a_hi w_lo + a_hi w_hi (a_lo w_lo, ~2^-22 of it,
+//     dropped).  x and every intermediate are float32, so every product
+//     takes three.  The tensor core truncates each mma's sum toward zero, so
+//     each k8 step sums into a fresh accumulator that the float32 sum takes
+//     by FADD, rounded to nearest (as K1's stem_tf32).  c_ is padded to a
+//     multiple of 8 (the k8 step), weight rows to 16 (a B ldmatrix loads
+//     two n8 tiles).  The 16-warp CTA and the 16x16 tile, against 8 warps
+//     and 8x16, took eval's shape from 0.51 to 0.32 ms (PERF.md): with one
+//     CTA an SM, the stages' barriers and epilogues left 8 warps idle.
 //
 // What bounds it on an H100: at pspv5s's bs8 1024x1024 serving shape
 // (8, 256, 256, 64), c_ 32, the function reads and writes 134 MB (0.040 ms
 // at 3.35 TB/s) and does 19.3 GFLOP (0.0195 ms on the bf16 tensor cores):
-// bytes-bound.  This form recomputes a 1.4x halo, synchronises the CTA
-// between stages and runs mma.sync rather than wgmma, so it sits well
-// above that bound; TMA, wgmma and a persistent pipelined CTA are later work.
+// bytes-bound.  At eval's float32 (4, 128, 256, 64) it moves 67.1 MB
+// (0.0200 ms) and does 4.83 GFLOP, three TF32 products a MAC: 0.0293 ms at
+// 495 TFLOP/s, operations-bound (0.0721 ms as float32 on the CUDA cores).
+// This form recomputes the halo (1.27x on a 16x16 tile at n = 1),
+// synchronises the CTA between steps, runs mma.sync rather than wgmma and,
+// in float32, splits every fragment and flushes every k8 step on the CUDA
+// cores, so it sits well above those bounds; TMA, wgmma and a persistent
+// pipelined CTA are later work.
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 256;
-constexpr int NWARPS = NT / 32;
+// Threads of a CTA and output channels of a warp's work item, by type
+template <typename T> struct Form;
+template <> struct Form<__nv_bfloat16> { static constexpr int NT = 256, NCH = 32; };
+template <> struct Form<float> { static constexpr int NT = 512, NCH = 16; };
 constexpr int MAXNB = 4;
 constexpr int SMEM_MAX = 227 * 1024;   // the most dynamic shared memory a CTA may have
 
@@ -55,33 +82,40 @@ struct C3Args {
   const float* b[3 + 2 * MAXNB];
   const void* x;
   void* y;
-  int B, H, W, c1, ch, c2, nb, shortcut, th, tw, nbuf, tiles_x;
+  int B, H, W, c1, ch, c2, nb, shortcut, th, tw, nbuf, rows, tiles_x;
 };
 
 __host__ __device__ inline int round8(int v) { return (v + 7) / 8 * 8; }
 __host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
 
-// Shared-memory layout in elements; the host and the device compute it the same way.
+// Shared-memory layout in elements of `es` bytes (2 bf16, 4 float32); the
+// host, the device and ops/kernels/c3.py smem_bytes compute it the same way.
+// A weight buffer holds `rows` rows of a stage (0: all of them).
 struct Layout {
   int Sh, Sw, S, cp, pX, pA, offA, offB, offB2, offW, wsize, total;
 };
 
+__host__ __device__ inline int min_rows(int n, int rows) { return rows > 0 && rows < n ? rows : n; }
+
 __host__ __device__ inline Layout make_layout(int c1, int ch, int c2, int nb, int th,
-                                              int tw, int nbuf, int pad) {
+                                              int tw, int nbuf, int rows, int es) {
+  const int pad = 16 / es;
   Layout L;
   L.Sh = th + 2 * nb;
   L.Sw = tw + 2 * nb;
   L.S = L.Sh * L.Sw;
-  L.cp = round16(ch);
+  L.cp = es == 2 ? round16(ch) : round8(ch);
   L.pX = c1 + pad;
   L.pA = L.cp + pad;
-  int w_max = L.cp * (c1 + pad);
-  const int w3 = round16(c2) * (2 * L.cp + pad), w33 = L.cp * (9 * L.cp + pad);
+  const int r = min_rows(round16(L.cp), rows);   // weight rows of a c_-output stage
+  int w_max = r * (c1 + pad);
+  const int w3 = min_rows(round16(c2), rows) * (2 * L.cp + pad), w33 = r * (9 * L.cp + pad);
   w_max = w3 > w_max ? w3 : w_max;
   w_max = w33 > w_max ? w33 : w_max;
   L.offA = round8(L.S * L.pX);
-  L.offB = L.offA + round8(L.S * L.pA);
-  L.offB2 = L.offB + round8(L.S * L.pA);
+  const int sA = round8(L.S * L.pA);
+  L.offB = L.cp <= c1 ? 0 : L.offA + sA;
+  L.offB2 = L.offA + (L.cp <= c1 ? 1 : 2) * sA;
   L.offW = L.offB2 + round8(th * tw * L.pA);
   L.wsize = round8(w_max);
   L.total = L.offW + nbuf * L.wsize;
@@ -89,23 +123,18 @@ __host__ __device__ inline Layout make_layout(int c1, int ch, int c2, int nb, in
 }
 
 // ----------------------------------------------------------- async copies
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  // zero-fills when `valid` is false (src-size 0 reads nothing)
+// 16 bytes, zero-filled when `valid` is false (src-size 0 reads nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
 // One stage's weights: global [n_real][taps][cK] -> shared
-// [n_rows][taps * cKp + pad], zero where n >= n_real or k >= cK.  bfloat16
-// moves 16-byte chunks (cK % 8 == 0), float32 single values.
+// [n_rows][taps * cKp + pad], zero where n >= n_real or k >= cK, in 16-byte
+// chunks (cK and cKp are multiples of 8).
 template <typename T>
 struct WDesc {
   const T* g;
@@ -114,31 +143,29 @@ struct WDesc {
 
 template <typename T>
 __device__ void copy_w(T* Ws, int pad, const WDesc<T>& d) {
-  constexpr int VEC = sizeof(T) == 2 ? 8 : 1;
+  constexpr int VEC = 16 / sizeof(T);
   const int pW = d.taps * d.cKp + pad;
   const int per = d.taps * d.cKp / VEC;
-  for (int i = threadIdx.x; i < d.n_rows * per; i += NT) {
+  for (int i = threadIdx.x; i < d.n_rows * per; i += Form<T>::NT) {
     const int n = i / per, r = (i - n * per) * VEC;
     const int t = r / d.cKp, k = r - t * d.cKp;
     const bool ok = n < d.n_real && k < d.cK;
-    cp_async<VEC * sizeof(T)>(Ws + n * pW + r,
-                              ok ? d.g + ((size_t)n * d.taps + t) * d.cK + k : d.g, ok);
+    cp_async16(Ws + n * pW + r, ok ? d.g + ((size_t)n * d.taps + t) * d.cK + k : d.g, ok);
   }
 }
 
-// The input tile: bfloat16 in 16-byte chunks, float32 single values (the
-// float32 row pitch c1 + 1 is not a multiple of 16 bytes).
+// The input tile, in 16-byte chunks (c1 % 16 == 0).
 template <typename T>
 __device__ void copy_x(T* Xs, const C3Args& a, const Layout& L, int b, int gy0, int gx0) {
-  constexpr int VEC = sizeof(T) == 2 ? 8 : 1;
+  constexpr int VEC = 16 / sizeof(T);
   const int nv = a.c1 / VEC;
   const T* x = static_cast<const T*>(a.x);
-  for (int i = threadIdx.x; i < L.S * nv; i += NT) {
+  for (int i = threadIdx.x; i < L.S * nv; i += Form<T>::NT) {
     const int pix = i / nv, cv = (i - pix * nv) * VEC;
     const int gy = gy0 + pix / L.Sw, gx = gx0 + pix % L.Sw;
     const bool ok = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
-    cp_async<VEC * sizeof(T)>(Xs + pix * L.pX + cv,
-                              ok ? x + (((size_t)b * a.H + gy) * a.W + gx) * a.c1 + cv : x, ok);
+    cp_async16(Xs + pix * L.pX + cv,
+               ok ? x + (((size_t)b * a.H + gy) * a.W + gx) * a.c1 + cv : x, ok);
   }
 }
 
@@ -186,19 +213,41 @@ __device__ __forceinline__ unsigned saddr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// A stage over the rectangle (r0, c0, rh, rw) of the slab with N output
-// channels: out[m][n] = sum over sources and taps of A[row(m) + off(t)][k] *
-// W[n][kw0 + t K + k].  epi(p, m, gp, n, v0, v1) gets two neighbouring
-// channels of row m (slab pixel p, image pixel gp or -1).
-template <int NSRC, int TAPS, class Epi>
-__device__ __forceinline__ void run_stage(const __nv_bfloat16* Ws, int pW,
-                                          const Src<__nv_bfloat16> (&src)[NSRC], const Geo& G,
-                                          int r0, int c0, int rh, int rw, int N, Epi epi) {
+// acc += a * b on one n8 tile in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi
+// b_hi, the large term last, in a fresh tensor-core accumulator (it
+// truncates its sums toward zero) that acc takes by FADD.
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[4], const uint32_t (&a)[4],
+                                           const uint32_t (&alo)[4], uint32_t b0, uint32_t b1,
+                                           uint32_t l0, uint32_t l1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mk::mma1688_tf32(t, alo, b0, b1);
+  mk::mma1688_tf32(t, a, l0, l1);
+  mk::mma1688_tf32(t, a, b0, b1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q] += t[q];
+}
+
+// A stage's output channels nlo .. nhi - 1 over the rectangle (r0, c0, rh,
+// rw) of the slab: out[m][n] = bias[n] + sum over sources and taps of
+// A[row(m) + off(t)][k] * W[n - nlo][kw0 + t K + k] (bias 0 past nreal).
+// epi(p, m, gp, n, v0, v1) gets two neighbouring channels of row m (slab
+// pixel p, image pixel gp or -1).  A K step is 32 bytes of a row: 16 bf16
+// values (m16n8k16) or 8 float32 (m16n8k8), so the ldmatrix addressing is
+// the same in bytes for both types; an ldmatrix of float32 rows gives tf32
+// fragments (common.cuh mk::ldsm_x4).
+template <typename T, int NSRC, int TAPS, class Epi>
+__device__ __forceinline__ void run_stage(const T* Ws, int pW, const Src<T> (&src)[NSRC],
+                                          const Geo& G, int r0, int c0, int rh, int rw, int nlo,
+                                          int nhi, const float* bias, int nreal, Epi epi) {
+  constexpr int ES = sizeof(T), V = 16 / ES;   // bytes an element; elements in 16 bytes
+  constexpr int NCH = Form<T>::NCH, NWARPS = Form<T>::NT / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q = (lane % 4) * 2, g = lane / 4;
-  const int M = rh * rw, nmt = (M + 15) / 16;
+  const int M = rh * rw, nmt = (M + 15) / 16, N = nhi - nlo, nnc = (N + NCH - 1) / NCH;
   auto pix = [&](int m) { return (r0 + m / rw) * G.Sw + c0 + m % rw; };
-  for (int mt = warp; mt < nmt; mt += NWARPS) {
+  // work items: a 16-row tile x NCH channels
+  for (int it = warp; it < nmt * nnc; it += NWARPS) {
+    const int mt = it / nnc, n0 = (it - mt * nnc) * NCH;
     // ldmatrix rows: lane % 16 of the tile (rows past M read row 0)
     int ml = mt * 16 + lane % 16;
     ml = ml < M ? ml : 0;
@@ -206,97 +255,60 @@ __device__ __forceinline__ void run_stage(const __nv_bfloat16* Ws, int pW,
     const int m_lo = mt * 16 + g, m_hi = m_lo + 8;
     const int p_lo = m_lo < M ? pix(m_lo) : 0, p_hi = m_hi < M ? pix(m_hi) : 0;
     const int gp_lo = G.gpix(p_lo), gp_hi = G.gpix(p_hi);
-    for (int n0 = 0; n0 < N; n0 += 32) {
-      float acc[4][4];
+    float acc[NCH / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NCH / 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 #pragma unroll
-      for (int s = 0; s < NSRC; ++s) {
-        const Src<__nv_bfloat16>& S = src[s];
-        const unsigned a_base = saddr(S.A + (S.use_m ? ml : pl) * S.pA + (lane / 16) * 8);
-        const unsigned b_base = saddr(Ws + (n0 + (lane / 16) * 8 + lane % 8) * pW + S.kw0 +
-                                      ((lane / 8) % 2) * 8);
+    for (int s = 0; s < NSRC; ++s) {
+      const Src<T>& S = src[s];
+      const unsigned a_base = saddr(S.A + (S.use_m ? ml : pl) * S.pA + (lane / 16) * V);
+      const unsigned b_base = saddr(Ws + (n0 + (lane / 16) * 8 + lane % 8) * pW + S.kw0 +
+                                    ((lane / 8) % 2) * V);
 #pragma unroll
-        for (int t = 0; t < TAPS; ++t) {
-          const unsigned a_t = a_base + tap_off<TAPS>(t, G.Sw) * S.pA * 2;
-          const unsigned b_t = b_base + t * S.K * 2;
-          for (int k0 = 0; k0 < S.K; k0 += 16) {
-            uint32_t a[4];
-            ldsm_x4(a, a_t + k0 * 2);
+      for (int t = 0; t < TAPS; ++t) {
+        const unsigned a_t = a_base + tap_off<TAPS>(t, G.Sw) * S.pA * ES;
+        const unsigned b_t = b_base + t * S.K * ES;
+        for (int k0 = 0; k0 < S.K; k0 += 2 * V) {
+          uint32_t a[4];
+          ldsm_x4(a, a_t + k0 * ES);
+          if constexpr (ES == 2) {
 #pragma unroll
-            for (int np = 0; np < 2; ++np) {
+            for (int np = 0; np < NCH / 16; ++np) {
               if (n0 + np * 16 < N) {
                 uint32_t bf[4];
-                ldsm_x4(bf, b_t + np * 16 * pW * 2 + k0 * 2);
+                ldsm_x4(bf, b_t + np * 16 * pW * ES + k0 * ES);
                 mma_bf16(acc[2 * np], a, bf[0], bf[1]);
                 if (n0 + np * 16 + 8 < N) mma_bf16(acc[2 * np + 1], a, bf[2], bf[3]);
+              }
+            }
+          } else {
+            uint32_t alo[4];
+            mk::tf32_split(a, alo);
+#pragma unroll
+            for (int np = 0; np < NCH / 16; ++np) {
+              if (n0 + np * 16 < N) {
+                uint32_t bf[4], blo[4];
+                ldsm_x4(bf, b_t + np * 16 * pW * ES + k0 * ES);
+                mk::tf32_split(bf, blo);
+                mma_3xtf32(acc[2 * np], a, alo, bf[0], bf[1], blo[0], blo[1]);
+                if (n0 + np * 16 + 8 < N)
+                  mma_3xtf32(acc[2 * np + 1], a, alo, bf[2], bf[3], blo[2], blo[3]);
               }
             }
           }
         }
       }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = n0 + nt * 8 + q;
-        if (n0 + nt * 8 >= N) continue;
-        if (m_lo < M) epi(p_lo, m_lo, gp_lo, n, acc[nt][0], acc[nt][1]);
-        if (m_hi < M) epi(p_hi, m_hi, gp_hi, n, acc[nt][2], acc[nt][3]);
-      }
-    }
-  }
-}
-
-// The same stage in float32: each thread a 4-row x 4-channel register tile.
-template <int NSRC, int TAPS, class Epi>
-__device__ __forceinline__ void run_stage(const float* Ws, int pW,
-                                          const Src<float> (&src)[NSRC], const Geo& G,
-                                          int r0, int c0, int rh, int rw, int N, Epi epi) {
-  const int M = rh * rw, nmb = (M + 3) / 4, nnb = N / 4;
-  for (int it = threadIdx.x; it < nmb * nnb; it += NT) {
-    const int mb = it / nnb, n0 = (it - mb * nnb) * 4;
-    int m[4], p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      m[i] = mb * 4 + i;
-      const int mc = m[i] < M ? m[i] : 0;
-      p[i] = (r0 + mc / rw) * G.Sw + c0 + mc % rw;
-    }
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll
-    for (int s = 0; s < NSRC; ++s) {
-      const Src<float>& S = src[s];
-#pragma unroll
-      for (int t = 0; t < TAPS; ++t) {
-        const float* ar[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          ar[i] = S.A + ((S.use_m ? (m[i] < M ? m[i] : 0) : p[i]) + tap_off<TAPS>(t, G.Sw)) * S.pA;
-        const float* wr = Ws + n0 * pW + S.kw0 + t * S.K;
-        for (int k = 0; k < S.K; ++k) {
-          float av[4], wv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) av[i] = ar[i][k];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wv[j] = wr[j * pW + k];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-        }
-      }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (m[i] >= M) continue;
-      const int gp = G.gpix(p[i]);
-      epi(p[i], m[i], gp, n0, acc[i][0], acc[i][1]);
-      epi(p[i], m[i], gp, n0 + 2, acc[i][2], acc[i][3]);
+    for (int nt = 0; nt < NCH / 8; ++nt) {
+      const int n = nlo + n0 + nt * 8 + q;
+      if (n0 + nt * 8 >= N) continue;
+      const float b0 = n < nreal ? __ldg(bias + n) : 0.f;
+      const float b1 = n + 1 < nreal ? __ldg(bias + n + 1) : 0.f;
+      if (m_lo < M) epi(p_lo, m_lo, gp_lo, n, acc[nt][0] + b0, acc[nt][1] + b1);
+      if (m_hi < M) epi(p_hi, m_hi, gp_hi, n, acc[nt][2] + b0, acc[nt][3] + b1);
     }
   }
 }
@@ -305,8 +317,7 @@ template <typename T>
 __device__ __forceinline__ void store2(T* dst, float v0, float v1);
 template <>
 __device__ __forceinline__ void store2<float>(float* dst, float v0, float v1) {
-  dst[0] = v0;
-  dst[1] = v1;
+  *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
 }
 template <>
 __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst, float v0, float v1) {
@@ -314,15 +325,24 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst, float 
 }
 
 // SiLU with the fast exponential (ex2.approx): within a few float32 ulps
-// of expf's, far inside the kernel's bounds against its plain version.
-__device__ __forceinline__ float silu_fast(float v) { return v / (1.0f + __expf(-v)); }
-
+// of expf's, far inside the kernel's bounds against its plain version.  The
+// float32 form also divides by the fast reciprocal (__fdividef, 2 ulps; it
+// gives 0 where 1 + e^-v passes 2^126, SiLU's limit there): the IEEE
+// division's slow-path branches held a fifth of its time (PERF.md).
 template <typename T>
-__global__ void __launch_bounds__(NT) c3_kernel(C3Args a) {
-  constexpr int PAD = sizeof(T) == 2 ? 8 : 1;
+__device__ __forceinline__ float silu_fast(float v) { return v / (1.0f + __expf(-v)); }
+template <>
+__device__ __forceinline__ float silu_fast<float>(float v) {
+  return __fdividef(v, 1.0f + __expf(-v));
+}
+
+template <typename T, bool PASSES>
+__device__ __forceinline__ void c3_body(const C3Args& a) {
+  constexpr int PAD = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const Layout L = make_layout(a.c1, a.ch, a.c2, a.nb, a.th, a.tw, a.nbuf, PAD);
+  const int R = PASSES ? a.rows : 0;   // weight rows a pass (0: a pass is a whole stage)
+  const Layout L = make_layout(a.c1, a.ch, a.c2, a.nb, a.th, a.tw, a.nbuf, R, sizeof(T));
   T* Xs = sm;
   T* As = sm + L.offA;
   T* Bs = sm + L.offB;
@@ -334,104 +354,155 @@ __global__ void __launch_bounds__(NT) c3_kernel(C3Args a) {
   const T* const* w = reinterpret_cast<const T* const*>(a.w);
   const float* const* bias = a.b;
 
-  // the stages' weights, in stage order: cv1, cv2, (1x1, 3x3) per bottleneck, cv3
+  // the stages' weights, in stage order: cv1, cv2, (1x1, 3x3) per
+  // bottleneck, cv3.  A stage runs in passes of R output channels (all of
+  // them where R is 0), each over its own rows of weights: a step is one
+  // pass of one stage.  Without PASSES this folds away at compile time.
   const int nst = 3 + 2 * nb;
   auto desc = [&](int s) -> WDesc<T> {
-    if (s < 2) return {w[s], ch, cp, 1, a.c1, a.c1};
+    const int rows = round16(cp);
+    if (s < 2) return {w[s], ch, rows, 1, a.c1, a.c1};
     if (s == nst - 1) return {w[2], c2, round16(c2), 2, ch, cp};
-    return (s % 2 == 0) ? WDesc<T>{w[s + 1], ch, cp, 1, ch, cp}
-                        : WDesc<T>{w[s + 1], ch, cp, 9, ch, cp};
+    return (s % 2 == 0) ? WDesc<T>{w[s + 1], ch, rows, 1, ch, cp}
+                        : WDesc<T>{w[s + 1], ch, rows, 9, ch, cp};
   };
-  auto wbuf = [&](int s) { return sm + L.offW + (a.nbuf == 2 ? (s & 1) * L.wsize : 0); };
-  int stage = 0;
-  // waits for this stage's weights (and the last stage's outputs), then
-  // starts copying the next stage's weights into the other buffer
+  auto npass = [&](int s) {
+    const int r = round16(s == nst - 1 ? c2 : cp);
+    return R > 0 ? (r + R - 1) / R : 1;
+  };
+  auto step_desc = [&](int s, int p) {
+    WDesc<T> d = desc(s);
+    const int r0 = p * R;
+    if (r0 > 0) {
+      d.g += (size_t)r0 * d.taps * d.cK;
+      d.n_real = d.n_real > r0 ? d.n_real - r0 : 0;
+      d.n_rows -= r0;
+    }
+    d.n_real = min_rows(d.n_real, R);
+    d.n_rows = min_rows(d.n_rows, R);
+    return d;
+  };
+  auto wbuf = [&](int k) { return sm + L.offW + (a.nbuf == 2 ? (k & 1) * L.wsize : 0); };
+  int step = 0, st = 0, ps = 0;   // this step, its stage and pass
+  auto next = [&](int& s, int& p) {
+    if (++p == npass(s)) {
+      p = 0;
+      ++s;
+    }
+  };
+  // waits for this step's weights (and the last step's outputs), then
+  // starts copying the next step's weights into the other buffer
   auto begin = [&]() -> T* {
     cp_async_wait_all();
     __syncthreads();
-    if (a.nbuf == 2 && stage + 1 < nst) {
-      copy_w(wbuf(stage + 1), PAD, desc(stage + 1));
+    int s = st, p = ps;
+    next(s, p);
+    if (a.nbuf == 2 && s < nst) {
+      copy_w(wbuf(step + 1), PAD, step_desc(s, p));
       cp_async_commit();
     }
-    return wbuf(stage);
+    return wbuf(step);
   };
-  // with one buffer, the next stage's weights are copied once this one is done
+  // with one buffer, the next step's weights are copied once this one is done
   auto end = [&]() {
-    if (a.nbuf == 1 && stage + 1 < nst) {
+    int s = st, p = ps;
+    next(s, p);
+    if (a.nbuf == 1 && s < nst) {
       __syncthreads();
-      copy_w(wbuf(stage + 1), PAD, desc(stage + 1));
+      copy_w(wbuf(step + 1), PAD, step_desc(s, p));
       cp_async_commit();
     }
-    ++stage;
+    ++step;
+    st = s;
+    ps = p;
   };
-  auto act = [&](float v, int bi, int n, int nreal) {   // SiLU(v + bias), 0 on pad channels
-    return n < nreal ? silu_fast(v + bias[bi][n]) : 0.f;
+  // runs stage st's passes: body(Ws, nlo, nhi) for output channels nlo .. nhi - 1
+  auto passes = [&](int N, auto body) {
+    for (int p = 0, np = npass(st); p < np; ++p) {
+      const int nlo = p * R;
+      body(begin(), nlo, R > 0 && nlo + R < N ? nlo + R : N);
+      end();
+    }
+  };
+  auto act = [&](float v, int n, int nreal) {   // SiLU(v), 0 on pad channels
+    return n < nreal ? silu_fast<T>(v) : 0.f;
   };
 
   copy_x(Xs, a, L, b, G.gy0, G.gx0);
-  copy_w(wbuf(0), PAD, desc(0));
+  copy_w(wbuf(0), PAD, step_desc(0, 0));
   cp_async_commit();
 
   // cv1 over the whole slab -> A, masked outside the image
   {
-    const T* Ws = begin();
     const Src<T> src[1] = {{Xs, L.pX, 0, 0, a.c1}};
-    run_stage<1, 1>(Ws, a.c1 + PAD, src, G, 0, 0, Sh, Sw, cp,
-                    [&](int p, int, int gp, int n, float v0, float v1) {
-      store2(As + p * L.pA + n, gp >= 0 ? act(v0, 0, n, ch) : 0.f,
-             gp >= 0 ? act(v1, 0, n + 1, ch) : 0.f);
+    passes(cp, [&](const T* Ws, int nlo, int nhi) {
+      run_stage<T, 1, 1>(Ws, a.c1 + PAD, src, G, 0, 0, Sh, Sw, nlo, nhi, bias[0], ch,
+                         [&](int p, int, int gp, int n, float v0, float v1) {
+        store2(As + p * L.pA + n, gp >= 0 ? act(v0, n, ch) : 0.f,
+               gp >= 0 ? act(v1, n + 1, ch) : 0.f);
+      });
     });
-    end();
   }
   // cv2 over the tile -> B2 (rows in tile order)
   {
-    const T* Ws = begin();
     const Src<T> src[1] = {{Xs, L.pX, 0, 0, a.c1}};
-    run_stage<1, 1>(Ws, a.c1 + PAD, src, G, nb, nb, a.th, a.tw, cp,
-                    [&](int, int m, int, int n, float v0, float v1) {
-      store2(B2s + m * L.pA + n, act(v0, 1, n, ch), act(v1, 1, n + 1, ch));
+    passes(cp, [&](const T* Ws, int nlo, int nhi) {
+      run_stage<T, 1, 1>(Ws, a.c1 + PAD, src, G, nb, nb, a.th, a.tw, nlo, nhi, bias[1], ch,
+                         [&](int, int m, int, int n, float v0, float v1) {
+        store2(B2s + m * L.pA + n, act(v0, n, ch), act(v1, n + 1, ch));
+      });
     });
-    end();
   }
   // the bottlenecks; bottleneck j reads A on the slab less j pixels a side
   const bool add = a.shortcut != 0;
   for (int j = 0; j < nb; ++j) {
     {
-      const T* Ws = begin();
       const Src<T> src[1] = {{As, L.pA, 0, 0, cp}};
-      run_stage<1, 1>(Ws, cp + PAD, src, G, j, j, Sh - 2 * j, Sw - 2 * j, cp,
-                      [&](int p, int, int gp, int n, float v0, float v1) {
-        store2(Bs + p * L.pA + n, gp >= 0 ? act(v0, 3 + 2 * j, n, ch) : 0.f,
-               gp >= 0 ? act(v1, 3 + 2 * j, n + 1, ch) : 0.f);
+      passes(cp, [&](const T* Ws, int nlo, int nhi) {
+        run_stage<T, 1, 1>(Ws, cp + PAD, src, G, j, j, Sh - 2 * j, Sw - 2 * j, nlo, nhi,
+                           bias[3 + 2 * j], ch,
+                           [&](int p, int, int gp, int n, float v0, float v1) {
+          store2(Bs + p * L.pA + n, gp >= 0 ? act(v0, n, ch) : 0.f,
+                 gp >= 0 ? act(v1, n + 1, ch) : 0.f);
+        });
       });
-      end();
     }
     {
-      const T* Ws = begin();
       const Src<T> src[1] = {{Bs, L.pA, 0, 0, cp}};
-      // each (pixel, channel) of A is read and rewritten by one thread only
-      run_stage<1, 9>(Ws, 9 * cp + PAD, src, G, j + 1, j + 1, Sh - 2 * j - 2,
-                      Sw - 2 * j - 2, cp, [&](int p, int, int gp, int n, float v0, float v1) {
-        T* dst = As + p * L.pA + n;
-        const int bi = 4 + 2 * j;
-        // pad channels: act gives 0 and A holds 0 there
-        store2(dst, gp >= 0 ? act(v0, bi, n, ch) + (add ? to_f(dst[0]) : 0.f) : 0.f,
-               gp >= 0 ? act(v1, bi, n + 1, ch) + (add ? to_f(dst[1]) : 0.f) : 0.f);
+      passes(cp, [&](const T* Ws, int nlo, int nhi) {
+        // each (pixel, channel) of A is read and rewritten by one thread only
+        run_stage<T, 1, 9>(Ws, 9 * cp + PAD, src, G, j + 1, j + 1, Sh - 2 * j - 2,
+                           Sw - 2 * j - 2, nlo, nhi, bias[4 + 2 * j], ch,
+                           [&](int p, int, int gp, int n, float v0, float v1) {
+          T* dst = As + p * L.pA + n;
+          // pad channels: act gives 0 and A holds 0 there
+          store2(dst, gp >= 0 ? act(v0, n, ch) + (add ? to_f(dst[0]) : 0.f) : 0.f,
+                 gp >= 0 ? act(v1, n + 1, ch) + (add ? to_f(dst[1]) : 0.f) : 0.f);
+        });
       });
-      end();
     }
   }
   // cv3 as two split products: A (tile pixels) and cv2(x)
   {
-    const T* Ws = begin();
     const Src<T> src[2] = {{As, L.pA, 0, 0, cp}, {B2s, L.pA, 1, cp, cp}};
     T* y = static_cast<T*>(a.y) + (size_t)b * a.H * a.W * c2;
-    run_stage<2, 1>(Ws, 2 * cp + PAD, src, G, nb, nb, a.th, a.tw, c2,
-                    [&](int, int, int gp, int n, float v0, float v1) {
-      if (gp >= 0) store2(y + (size_t)gp * c2 + n, act(v0, 2, n, c2), act(v1, 2, n + 1, c2));
+    passes(c2, [&](const T* Ws, int nlo, int nhi) {
+      run_stage<T, 2, 1>(Ws, 2 * cp + PAD, src, G, nb, nb, a.th, a.tw, nlo, nhi, bias[2], c2,
+                         [&](int, int, int gp, int n, float v0, float v1) {
+        if (gp >= 0) store2(y + (size_t)gp * c2 + n, act(v0, n, c2), act(v1, n + 1, c2));
+      });
     });
-    end();
   }
+}
+
+// The two forms, each under a symbol of its own; the float32 form with and
+// without passes (the step logic costs the pass-free plans 2-3%, PERF.md).
+__global__ void __launch_bounds__(Form<__nv_bfloat16>::NT) c3_bf16(C3Args a) {
+  c3_body<__nv_bfloat16, false>(a);
+}
+template <bool PASSES>
+__global__ void __launch_bounds__(Form<float>::NT) c3_tf32(C3Args a) {
+  c3_body<float, PASSES>(a);
 }
 
 }  // namespace
@@ -439,10 +510,9 @@ __global__ void __launch_bounds__(NT) c3_kernel(C3Args a) {
 // Dynamic shared memory (bytes) of one CTA for these widths, tile and
 // number of weight buffers (2: the next stage's weights load during this one).
 extern "C" int mk_c3_smem_bytes(int c1, int ch, int c2, int nb, int th, int tw,
-                                int nbuf, int dtype) {
-  const bool bf = dtype == DT_BF16;
-  const Layout L = make_layout(c1, ch, c2, nb, th, tw, nbuf, bf ? 8 : 1);
-  return L.total * (bf ? 2 : 4);
+                                int nbuf, int rows, int dtype) {
+  const int es = dtype == DT_BF16 ? 2 : 4;
+  return make_layout(c1, ch, c2, nb, th, tw, nbuf, rows, es).total * es;
 }
 
 // x: (B, H, W, c1) NHWC; y: (B, H, W, c2); w: 3 + 2 * nb OHWI weights of
@@ -453,9 +523,10 @@ extern "C" int mk_c3_smem_bytes(int c1, int ch, int c2, int nb, int th, int tw,
 // shared-memory size.
 extern "C" int mk_c3(const void* x, void* y, const void* const* w,
                      const float* const* b, int B, int H, int W, int c1, int ch,
-                     int c2, int nb, int shortcut, int th, int tw, int nbuf, int dtype,
-                     void* stream) {
-  if (nb < 1 || nb > MAXNB || (nbuf != 1 && nbuf != 2))
+                     int c2, int nb, int shortcut, int th, int tw, int nbuf, int rows,
+                     int dtype, void* stream) {
+  if (nb < 1 || nb > MAXNB || (nbuf != 1 && nbuf != 2) || rows < 0 || rows % 16 ||
+      (dtype == DT_BF16 && rows != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   C3Args a;
   for (int i = 0; i < 3 + 2 * nb; ++i) {
@@ -475,28 +546,35 @@ extern "C" int mk_c3(const void* x, void* y, const void* const* w,
   a.th = th;
   a.tw = tw;
   a.nbuf = nbuf;
+  a.rows = rows;
   a.tiles_x = (W + tw - 1) / tw;
   const int tiles_y = (H + th - 1) / th;
-  const int smem = mk_c3_smem_bytes(c1, ch, c2, nb, th, tw, nbuf, dtype);
+  const int smem = mk_c3_smem_bytes(c1, ch, c2, nb, th, tw, nbuf, rows, dtype);
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  // raise the dynamic shared-memory cap once per type, at the first launch
-  // (outside any CUDA-graph capture that later launches may run under)
-  static bool cap_set[2] = {false, false};
-  const int ti = dtype == DT_BF16 ? 1 : 0;
-  if (!cap_set[ti]) {
-    const cudaError_t err =
-        ti ? cudaFuncSetAttribute(c3_kernel<__nv_bfloat16>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX)
-           : cudaFuncSetAttribute(c3_kernel<float>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  // raise the dynamic shared-memory cap once per kernel, at the first launch
+  // (outside any CUDA-graph capture that later launches may run under); the
+  // float32 form also asks for the largest shared-memory carveout
+  static bool cap_set[3] = {false, false, false};
+  const int ki = dtype == DT_BF16 ? 0 : rows > 0 ? 2 : 1;
+  const void* kern = ki == 0 ? reinterpret_cast<const void*>(c3_bf16)
+                     : ki == 1 ? reinterpret_cast<const void*>(c3_tf32<false>)
+                               : reinterpret_cast<const void*>(c3_tf32<true>);
+  if (!cap_set[ki]) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err == cudaSuccess && ki > 0)
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
-    cap_set[ti] = true;
+    cap_set[ki] = true;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid(a.tiles_x * tiles_y, B);
-  if (ti)
-    c3_kernel<__nv_bfloat16><<<grid, NT, smem, s>>>(a);
+  if (ki == 0)
+    c3_bf16<<<grid, Form<__nv_bfloat16>::NT, smem, s>>>(a);
+  else if (ki == 1)
+    c3_tf32<false><<<grid, Form<float>::NT, smem, s>>>(a);
   else
-    c3_kernel<float><<<grid, NT, smem, s>>>(a);
+    c3_tf32<true><<<grid, Form<float>::NT, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

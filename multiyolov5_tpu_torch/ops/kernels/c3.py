@@ -2,9 +2,16 @@
 
 Counterpart of ``c3_packed_pallas`` and ``c3_packed_pallas_hwbc``
 (multiyolov5_tpu/ops/pallas/c3_kernel.py:391, :315), whose outputs are
-equal.  The kernel is ``csrc/c3.cu``; its design notes are there.  The
-plain version is the C3 module's own conv sequence on NHWC tensors, the
-counterpart of ``_xla_c3`` in tests/test_c3_kernel.py.
+equal.  The kernel is ``csrc/c3.cu``; its design notes are there.  Both
+types run on the tensor cores with one warp tiling: bfloat16 as bf16
+products (``c3_bf16``), float32 as 3xTF32 (``c3_tf32``: three TF32
+products a multiply-add, float32 sums).  The plain version is the C3
+module's own conv sequence on NHWC tensors, the counterpart of ``_xla_c3``
+in tests/test_c3_kernel.py.
+
+:func:`plan` picks a launch's tile, weight buffers and weight rows a pass
+on the host from :func:`smem_bytes`, the kernel's shared-memory layout in
+Python.
 
 Weights are OHWI, of the input's dtype; biases float32, BN folded:
 ``wcv1``/``wcv2`` (c_, 1, 1, c1), ``wcv3`` (c2, 1, 1, 2 c_), and ``mws`` a
@@ -15,7 +22,7 @@ bottleneck.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,12 +31,79 @@ from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_void_p)] * 2
-             + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 13 + [ctypes.c_void_p])
 MAX_BOTTLENECKS = 4
 SMEM_LIMIT = 227 * 1024
-# (tile rows, tile cols, weight buffers), tried in order until one fits in
-# shared memory; two buffers let a stage's weights load during the stage before
-PLANS = ((8, 16, 2), (8, 16, 1), (8, 8, 2), (8, 8, 1), (4, 8, 1))
+# (tile rows, tile cols, weight buffers, weight rows), tried in order until
+# one fits in shared memory.  Two buffers let a step's weights load during
+# the step before; a stage runs in passes of `weight rows` output channels,
+# each over its own rows of weights (0: one pass).  The float32 order is
+# the fastest first at eval's and pspv5m's shapes on an H100 (PERF.md,
+# prof_c3_torch.py --sweep).  A 16x16 tile has 8x32's work on a smaller
+# slab (and 8x8 has 4x16's), so the wider tile of each pair is never picked.
+PLANS = {torch.bfloat16: ((8, 16, 2, 0), (8, 16, 1, 0), (8, 8, 2, 0), (8, 8, 1, 0),
+                          (4, 8, 1, 0)),
+         torch.float32: ((16, 16, 1, 0), (8, 16, 2, 0), (8, 16, 1, 32), (8, 16, 1, 16),
+                         (8, 8, 1, 0), (4, 8, 1, 0), (4, 8, 1, 16))}
+
+
+class Plan(NamedTuple):
+    """One K7 launch: a CTA a ``th`` x ``tw`` output tile of one image,
+    ``nbuf`` weight buffers of ``rows`` rows (0: a whole stage's), ``smem``
+    bytes of dynamic shared memory."""
+    th: int
+    tw: int
+    nbuf: int
+    rows: int
+    smem: int
+    ctas: int
+
+
+def _up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def smem_bytes(c1: int, ch: int, c2: int, nb: int, th: int, tw: int, nbuf: int, rows: int,
+               dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one CTA, as csrc/c3.cu make_layout counts
+    it: x's slab (rows of c1 + 16 bytes), A's slab, the bottleneck 1x1's
+    output on A's slab (in x's rows where c_ <= c1), cv2's output on the
+    tile, and ``nbuf`` buffers of the largest step's weights (a stage's
+    rows padded to 16, at most ``rows`` of them unless 0, each row 16 bytes
+    longer than its taps x c_in)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    pad = 16 // es
+    s = (th + 2 * nb) * (tw + 2 * nb)
+    cp = _up(ch, 16 if es == 2 else 8)
+
+    def r(n):
+        return min(_up(n, 16), rows) if rows else _up(n, 16)
+
+    wsize = _up(max(r(cp) * (c1 + pad), r(c2) * (2 * cp + pad), r(cp) * (9 * cp + pad)), 8)
+    slab_a = _up(s * (cp + pad), 8)
+    off_b2 = _up(s * (c1 + pad), 8) + (1 if cp <= c1 else 2) * slab_a
+    return (off_b2 + _up(th * tw * (cp + pad), 8) + nbuf * wsize) * es
+
+
+def plan(bsz: int, h: int, w: int, c1: int, ch: int, c2: int, nb: int,
+         dtype: torch.dtype) -> Plan:
+    """The first of ``PLANS[dtype]`` whose layout fits in shared memory, for
+    a (bsz, h, w, c1) input.  Raises ValueError on a shape the kernel does
+    not take."""
+    if dtype not in PLANS:
+        raise ValueError(f"c3: dtype {dtype}")
+    if c1 % 16 or ch % 8 or c2 % 8 or min(bsz, h, w, c1, ch, c2) < 1:
+        raise ValueError(f"c3: needs c1 % 16 == 0, c_ % 8 == 0 and c2 % 8 == 0, "
+                         f"got {c1}, {ch}, {c2}")
+    if not 1 <= nb <= MAX_BOTTLENECKS:
+        raise ValueError(f"c3: {nb} bottlenecks")
+    for th, tw, nbuf, rows in PLANS[dtype]:
+        smem = smem_bytes(c1, ch, c2, nb, th, tw, nbuf, rows, dtype)
+        if smem <= SMEM_LIMIT:
+            return Plan(th, tw, nbuf, rows, smem, bsz * -(-h // th) * -(-w // tw))
+    raise ValueError(f"c3: widths {c1}, {ch}, {c2} with {nb} bottlenecks do not fit in "
+                     "shared memory")
+
 
 Bottleneck = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -68,9 +142,7 @@ def c3(x: torch.Tensor, wcv1: torch.Tensor, bcv1: torch.Tensor,
                   f"c3: x must be contiguous NHWC float32 or bfloat16, got {x.dtype}")
     bsz, h, w, c1 = x.shape
     ch, c2, nb = wcv1.shape[0], wcv3.shape[0], len(mws)
-    build.require(c1 % 16 == 0 and ch % 8 == 0 and c2 % 8 == 0,
-                  f"c3: needs c1 % 16 == 0, c_ % 8 == 0 and c2 % 8 == 0, got {c1}, {ch}, {c2}")
-    build.require(1 <= nb <= MAX_BOTTLENECKS, f"c3: {nb} bottlenecks")
+    p = plan(bsz, h, w, c1, ch, c2, nb, x.dtype)
     build.require(x.data_ptr() % 16 == 0, "c3: x is not 16-byte aligned")
     weights = [(wcv1, (ch, 1, 1, c1)), (wcv2, (ch, 1, 1, c1)), (wcv3, (c2, 1, 1, 2 * ch))]
     biases = [(bcv1, ch), (bcv2, ch), (bcv3, c2)]
@@ -86,18 +158,14 @@ def c3(x: torch.Tensor, wcv1: torch.Tensor, bcv1: torch.Tensor,
         build.require(tuple(t.shape) == (n,) and t.dtype == torch.float32
                       and t.is_contiguous() and t.device == x.device,
                       f"c3: bias {tuple(t.shape)} {t.dtype}, want ({n},) float32")
-    dt = _DTYPES[x.dtype]
     with torch.cuda.device(x.device):
-        smem = build.function("mk_c3_smem_bytes", [ctypes.c_int] * 8)
-        plan = next((p for p in PLANS if smem(c1, ch, c2, nb, *p, dt) <= SMEM_LIMIT), None)
-        build.require(plan is not None, f"c3: widths {c1}, {ch}, {c2} with {nb} "
-                      "bottlenecks do not fit in shared memory")
         y = torch.empty((bsz, h, w, c2), dtype=x.dtype, device=x.device)
         wp = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t, _ in weights))
         bp = (ctypes.c_void_p * len(biases))(*(t.data_ptr() for t, _ in biases))
         fn = build.function("mk_c3", _ARGTYPES)
         err = fn(build.ptr(x), build.ptr(y), wp, bp, bsz, h, w, c1, ch, c2, nb,
-                 int(shortcut), *plan, dt, build.stream_of(x))
+                 int(shortcut), p.th, p.tw, p.nbuf, p.rows, _DTYPES[x.dtype],
+                 build.stream_of(x))
     build.check(err, "c3")
     c3.launches += 1
     return y

@@ -18,6 +18,11 @@ in float32.
   weights are tests/test_torch_engine.py's ``slice_pair`` weights, with BN
   folded for the JAX side, and its tolerances: 1e-4 absolute on pixel
   boxes and seg logits, 1e-5 on the obj/cls probabilities.
+* K7's launch planner (pure Python): every K7 site of every zoo entry
+  (recorded from a bs2 forward) gets a plan in both dtypes at bs4 1024x512,
+  bs8 1024x1024 and bs2 1024x1024; ``smem_bytes`` counts the kernel's
+  layout as csrc/c3.cu does (hand-counted cases); shapes the kernel does
+  not take raise.
 """
 
 import jax.numpy as jnp
@@ -31,10 +36,11 @@ from multiyolov5_tpu.models.model import init_model
 from multiyolov5_tpu.ops.nn import fuse_conv_bn
 from multiyolov5_tpu.ops.pallas import c3_kernel as jax_c3
 from multiyolov5_tpu_torch.engine import Engine
-from multiyolov5_tpu_torch.models import blocks
+from multiyolov5_tpu_torch.models import blocks, zoo
 from multiyolov5_tpu_torch.models.config import load_spec
 from multiyolov5_tpu_torch.models.model import Model
 from multiyolov5_tpu_torch.ops.kernels import c3, c3_plain
+from multiyolov5_tpu_torch.ops.kernels.c3 import PLANS, SMEM_LIMIT, plan, smem_bytes
 from multiyolov5_tpu_torch.utils.checkpoint import from_jax_params
 
 
@@ -145,3 +151,79 @@ def test_fused_bs2_forward_matches_jax_with_c3_kernel(monkeypatch):
     np.testing.assert_allclose(z_p[:, :4].numpy(), z_j[:, :4], rtol=0, atol=1e-4)
     np.testing.assert_allclose(z_p[:, 4:].numpy(), z_j[:, 4:], rtol=0, atol=1e-5)
     np.testing.assert_allclose(seg_p.numpy(), np.asarray(seg_j), rtol=0, atol=1e-4)
+
+
+def _k7_sites(cfg):
+    """(input stride, c1, c_, c2, bottlenecks) of each K7 call of a fused
+    eval ``cfg`` forward at bs2, recorded at 64x128 on the CPU."""
+    with torch.device("meta"):
+        n_k7 = sum(isinstance(m, blocks.C3) and m.c3_kernel
+                   for m in Model(load_spec(cfg), fused=True).modules())
+    if not n_k7:
+        return []
+    sites = []
+
+    def rec(x, wcv1, bcv1, wcv2, bcv2, wcv3, bcv3, mws, shortcut):
+        sites.append((64 // x.shape[1], x.shape[3], wcv1.shape[0], wcv3.shape[0], len(mws)))
+        return c3_plain(x, wcv1, bcv1, wcv2, bcv2, wcv3, bcv3, mws, shortcut)
+
+    model = Model(load_spec(cfg), fused=True).eval()
+    real = blocks.c3
+    blocks.c3 = rec
+    try:
+        with torch.no_grad():
+            model(torch.zeros(2, 3, 64, 128))
+    finally:
+        blocks.c3 = real
+    assert len(sites) == n_k7
+    return sites
+
+
+@pytest.mark.parametrize("cfg", zoo.available())
+def test_k7_plan_every_zoo_site(cfg):
+    sites = _k7_sites(cfg)
+    # row 2 of the s and m models (c_ 32, 48) takes K7; l and x are past its width gate
+    assert bool(sites) == any(k in cfg for k in ("yolov5s", "yolov5m"))
+    for s_in, c1, ch, c2, nb in sites:
+        for bsz, (h, w) in ((4, (512, 1024)), (8, (1024, 1024)), (2, (1024, 1024))):
+            hs, ws = h // s_in, w // s_in
+            for dt in (torch.float32, torch.bfloat16):
+                p = plan(bsz, hs, ws, c1, ch, c2, nb, dt)
+                assert (p.th, p.tw, p.nbuf, p.rows) in PLANS[dt]
+                assert p.smem == smem_bytes(c1, ch, c2, nb, p.th, p.tw, p.nbuf, p.rows,
+                                            dt) <= SMEM_LIMIT
+                assert p.ctas == bsz * -(-hs // p.th) * -(-ws // p.tw)
+
+
+# hand-counted layouts, in elements: x's slab (th + 2n) x (tw + 2n) rows of
+# c1 + pad (pad: 16 bytes), A's slab of c_p + pad, B (the bottleneck 1x1's
+# output) in x's rows when c_p <= c1, else its own slab, cv2's tile, and
+# nbuf buffers of the largest step's weights (a stage's rows 16-row padded,
+# at most `rows` of them unless 0; rows of taps x c_p + pad)
+@pytest.mark.parametrize("args,dtype,elems", [
+    # eval's float32 pspv5s C3: 180 x 68 + 180 x 36 + 128 x 36 + 2 x 32 x 292
+    ((64, 32, 64, 1, 8, 16, 2, 0), torch.float32, 12240 + 6480 + 4608 + 2 * 9344),
+    # the same in bf16: 180 x 72 + 180 x 40 + 128 x 40 + 2 x 32 x 296
+    ((64, 32, 64, 1, 8, 16, 2, 0), torch.bfloat16, 12960 + 7200 + 5120 + 2 * 9472),
+    # pspv5m (c_ 48, 2 bottlenecks), 8x8 tile: 144 x 100 + 144 x 52 + 64 x 52 + 48 x 436
+    ((96, 48, 96, 2, 8, 8, 1, 0), torch.float32, 14400 + 7488 + 3328 + 20928),
+    # the same on an 8x16 tile in passes of 16 channels: 240 x 100 + 240 x 52
+    # + 128 x 52 + 2 x 16 x 436
+    ((96, 48, 96, 2, 8, 16, 2, 16), torch.float32, 24000 + 12480 + 6656 + 2 * 6976),
+    # passes of 32: the 3x3's 32 rows (32 x 436) outweigh cv3's 32 (32 x 100)
+    ((96, 48, 96, 2, 8, 16, 1, 32), torch.float32, 24000 + 12480 + 6656 + 13952),
+    # c_p 24 > c1 16, so B has its own slab: 100 x 20 + 2 x 100 x 28 + 64 x 28,
+    # and the 3x3's weights, 24 rows padded to 32, of 9 x 24 + 4: 32 x 220
+    ((16, 24, 24, 1, 8, 8, 1, 0), torch.float32, 2000 + 2 * 2800 + 1792 + 32 * 220),
+])
+def test_k7_smem_bytes_layout(args, dtype, elems):
+    assert smem_bytes(*args, dtype) == elems * (4 if dtype == torch.float32 else 2)
+
+
+@pytest.mark.parametrize("c1,ch,c2,nb,dtype", [
+    (24, 32, 64, 1, torch.float32), (64, 12, 64, 1, torch.float32), (64, 32, 60, 1, torch.bfloat16),
+    (64, 32, 64, 0, torch.float32), (64, 32, 64, 5, torch.bfloat16), (64, 32, 64, 1, torch.float16),
+    (1024, 256, 1024, 1, torch.float32)])
+def test_k7_plan_raises_on_shapes_without_a_kernel(c1, ch, c2, nb, dtype):
+    with pytest.raises(ValueError):
+        plan(2, 32, 64, c1, ch, c2, nb, dtype)

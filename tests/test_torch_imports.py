@@ -1,5 +1,6 @@
 """The port stands without JAX: in a fresh interpreter where importing
-``jax`` or ``multiyolov5_tpu`` raises, every module of the port imports, a
+``jax`` or ``multiyolov5_tpu`` raises, every module of the port imports (and
+so do chip_smoke.py and the ``prof_*_torch.py`` scripts), a
 tiny seeded Engine serves one frame on the CPU, so does each other model
 family (the Base, BiSe and Lab seg heads, detection-only, P6; narrowed) on
 a float frame, the eval path (multi-label
@@ -34,6 +35,9 @@ _SCRIPT = textwrap.dedent("""
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    for script in ("chip_smoke", "prof_c3_torch", "prof_stem_torch", "prof_eval_torch",
+                   "prof_serving_torch", "prof_train_torch"):
+        importlib.import_module(script)
     from multiyolov5_tpu_torch.engine import Engine
     eng = Engine(cfg="yolov5s_city_seg", device="cpu", half=False, seed=1)
     frame = (np.random.RandomState(0).rand(64, 128, 3) * 255).astype(np.uint8)

@@ -9,9 +9,11 @@ the conv input), NMS keep masks and greedy picks equal, class-map mismatch
 share <= 1e-4.  K6 (seg_ce): the loss within 1e-4 relative (float32 sums
 in another order; its bf16 input is the same for both), dz within 1e-4
 (float32) or 1e-2 (bf16: one rounding of each side's float32 value) of
-max |dz|; all-ignored labels give exactly 0 and a zero gradient.  K7 (c3):
-the float32 and bf16 bounds above, at pspv5s's and pspv5m's C3 widths, an
-odd H x W that is not a multiple of the tile, and no shortcut.  K1's float
+max |dz|; all-ignored labels give exactly 0 and a zero gradient.  K7 (c3,
+bf16 products for bf16, 3xTF32 for float32): the float32 and bf16 bounds
+above, at pspv5s's and pspv5m's C3 widths, c_ 8, 16 and 24, four
+bottlenecks, c2 != c1, c1 128, a 1 x 1 image, H x W that are no multiple of
+any tile, and no shortcut; both forms in turns on the same weights.  K1's float
 mode: float32 and bfloat16 frames in [0, 1] at s and x width (c_mid 128,
 320), the bounds above.  K2 in bf16 at c_in 48 (SegMaskLab's detail conv,
 the BK = 16 path).  K2's planned launches: a 6-way cluster split at
@@ -246,24 +248,63 @@ def test_seg_ce_kernel_all_ignored(dev):
     assert loss.item() == 0.0 and z.grad.abs().max().item() == 0.0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 20, 36, 64, 32, 1, True), (1, 13, 29, 64, 32, 1, True),
-                                   (2, 16, 24, 96, 48, 2, True), (2, 9, 17, 64, 32, 1, False)])
-def test_c3_kernel(dev, dtype, shape):
-    b, h, w, c1, ch, n, shortcut = shape
-    g = torch.Generator().manual_seed(h * w + n)
-
+def _c3_args(g, dev, dtype, c1, ch, c2, n):
+    """Seeded fan-in scaled OHWI weights of ``dtype`` and float32 biases of
+    one C3, in K7's argument order after x (shortcut excluded)."""
     def wt(*s):
         return (torch.randn(*s, generator=g) / np.sqrt(np.prod(s[1:]))).to(dev, dtype)
 
     def bias(c):
         return (torch.randn(c, generator=g) * 0.1).to(dev)
 
-    x = torch.randn(b, h, w, c1, generator=g).to(dev, dtype)
-    args = [wt(ch, 1, 1, c1), bias(ch), wt(ch, 1, 1, c1), bias(ch), wt(c1, 1, 1, 2 * ch), bias(c1)]
+    args = [wt(ch, 1, 1, c1), bias(ch), wt(ch, 1, 1, c1), bias(ch), wt(c2, 1, 1, 2 * ch), bias(c2)]
     mws = [(wt(ch, 1, 1, ch), bias(ch), wt(ch, 3, 3, ch), bias(ch)) for _ in range(n)]
+    return args, mws
+
+
+# (B, H, W, c1, c_, bottlenecks, shortcut, c2): pspv5s's and pspv5m's
+# widths, odd H x W, no shortcut; then c_ 8, 16 and 24 (no multiple of 16),
+# four bottlenecks, c2 != c1, c1 128, a 1 x 1 image and an H x W that is no
+# multiple of any tile, with two and three bottlenecks, and c2 40 on a
+# float32 plan in passes of 32 channels (cv3's second pass half padding)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 20, 36, 64, 32, 1, True, 64), (1, 13, 29, 64, 32, 1, True, 64),
+    (2, 16, 24, 96, 48, 2, True, 96), (2, 9, 17, 64, 32, 1, False, 64),
+    (2, 12, 20, 16, 8, 1, True, 16), (2, 15, 21, 32, 16, 1, True, 32),
+    (2, 18, 22, 64, 32, 4, True, 64), (2, 14, 26, 64, 24, 1, True, 40),
+    (1, 16, 32, 128, 64, 1, True, 128), (3, 1, 1, 64, 32, 1, True, 64),
+    (2, 7, 11, 64, 32, 2, True, 64), (2, 7, 11, 32, 16, 3, False, 48),
+    (2, 10, 18, 96, 48, 1, True, 40)])
+def test_c3_kernel(dev, dtype, shape):
+    b, h, w, c1, ch, n, shortcut, c2 = shape
+    g = torch.Generator().manual_seed(h * w + n)
+    x = torch.randn(b, h, w, c1, generator=g).to(dev, dtype)
+    args, mws = _c3_args(g, dev, dtype, c1, ch, c2, n)
     launches = K.c3.launches
     got = K.c3(x, *args, mws, shortcut)
     torch.cuda.synchronize()
-    assert K.c3.launches == launches + 1 and got.shape == (b, h, w, c1)
+    assert K.c3.launches == launches + 1 and got.shape == (b, h, w, c2)
     _close(got, K.c3_plain(x, *args, mws, shortcut), dtype)
+
+
+def test_c3_kernel_alternating_forms(dev):
+    """The float32 (3xTF32) and bfloat16 forms in turns on the same weight
+    tensors (float32 and their bf16 casts), as the eval and serving paths
+    call them in one process: each call is right, and each repeat gives
+    its form's first output bit for bit."""
+    g = torch.Generator().manual_seed(11)
+    x32 = torch.randn(2, 20, 36, 64, generator=g).to(dev)
+    args32, mws32 = _c3_args(g, dev, torch.float32, 64, 32, 64, 1)
+    cast = lambda t: t.to(torch.bfloat16) if t.dim() == 4 else t   # noqa: E731
+    forms = {torch.float32: (x32, args32, mws32),
+             torch.bfloat16: (x32.to(torch.bfloat16), [cast(t) for t in args32],
+                              [tuple(cast(t) for t in m) for m in mws32])}
+    first = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float32, torch.bfloat16):
+        x, args, mws = forms[dtype]
+        got = K.c3(x, *args, mws)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        _close(got, K.c3_plain(x, *args, mws), dtype)
+        assert torch.equal(got, first.setdefault(dtype, got))
