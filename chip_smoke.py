@@ -35,7 +35,13 @@ instructions in K1's and K7's two forms each (bf16 and 3xTF32) and K2's
 bf16 kernel (cuobjdump of the built library); [2] prints K2's launch plan
 (tile, cluster split, CTAs) at each pspv5s site and requires one CTA an SM
 at each, and K7's plan at each case, whose layout's byte count
-ops/kernels/c3.py must give as the kernel does.  Any failure raises and
+ops/kernels/c3.py must give as the kernel does.  K5 (greedy NMS, a
+thread-block cluster an image) prints its plan at every list shape it is
+held at (the eval path's lists, synthetic lists of 1025-262144 rows and a
+batch of eight 30000-row lists in [5], the bs8 server's lists in [8]),
+where ops/kernels/nms_greedy.py's shared-memory count must equal the
+kernel's, and [6] times it at eval's (4, 30000) lists, (4, 1024), (8,
+1024) and the one-list serving case.  Any failure raises and
 exits non-zero.  The last line of stdout is the JSON ``{"ok": true,
 "device": {...}}``; the line before it the card's name and power limit,
 the one before that the kernels' JSON.  Longer records go to
@@ -773,16 +779,41 @@ def hold_eval_kernels(rec):
     check(f"upsample_argmax at seg_validation's {shapes} mismatched pixel share",
           share, MASK_SHARE)
     errs["upsample_argmax"] = share
+    errs["nms_greedy"] = float(hold_k5(rec["nms_greedy"], "the eval path's lists"))
+    return errs
+
+
+def k5_plan_text(bsz: int, n: int) -> str:
+    from multiyolov5_tpu_torch.ops.kernels.nms_greedy import plan
+    p = plan(bsz, n)
+    return (f"plan: {p.cluster} CTA{'s' if p.cluster > 1 else ''} an image, "
+            f"{p.rows} rows a CTA, {p.smem} B shared, boxes in "
+            f"{'shared' if p.resident else 'device'} memory")
+
+
+def hold_k5(calls, what: str) -> int:
+    """K5 against its plain version on each call's arguments, its plan
+    printed at each list shape; fails unless every pick is equal."""
+    import ctypes
+
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops.kernels import build
+    from multiyolov5_tpu_torch.ops.kernels.nms_greedy import plan
     diff = 0
-    for args, kw in rec["nms_greedy"]:
+    for args, kw in calls:
         idx, valid = K.nms_greedy(*args, **kw)
         torch.cuda.synchronize()
         want_idx, want_valid = K.nms_greedy_plain(*args, **kw)
         diff += int((idx != want_idx).sum()) + int((valid != want_valid).sum())
-    shapes = [tuple(a[1].shape) for a, _ in rec["nms_greedy"]]
-    check(f"nms_greedy picks differing from plain at the eval path's lists {shapes}", diff, 0)
-    errs["nms_greedy"] = float(diff)
-    return errs
+    shapes = [tuple(a[1].shape) for a, _ in calls]
+    smem_c = build.function("mk_nms_greedy_smem_bytes", [ctypes.c_int] * 2)
+    for shape in sorted(set(shapes)):
+        p = plan(*shape)
+        log(f"  nms_greedy {shape} {k5_plan_text(*shape)}")
+        check(f"nms_greedy {shape}: plan's shared memory - the kernel's",
+              abs(p.smem - smem_c(p.rows, int(p.resident))), 0)
+    check(f"nms_greedy picks differing from plain at {what} {shapes}", diff, 0)
+    return diff
 
 
 def greedy_tests(boxes, scores, idx, valid, iou):
@@ -886,27 +917,46 @@ def phase_eval(eng32, eng16, cpu_eng):
     check(f"network fp32 card vs CPU at {frame.shape[1:3]}: seg logits max|diff|/max(max|ref|,1)",
           diffs(card_out[1].cpu(), cpu_out[1])[1], NET_REL)
 
-    # K5 against its plain version on synthetic lists
+    # K5 against its plain version on synthetic lists: one list each of
+    # 1025, 4224 and 30000 rows, eight of 30000 (more 16-CTA clusters than
+    # the card places at once) and one of 262144 (boxes in device memory)
     rng = np.random.RandomState(SEED + 6)
-    diff, shapes = 0, []
-    for n in (1025, 4224, 30000):
-        xy = rng.rand(1, n, 2) * 600
-        wh = rng.rand(1, n, 2) * 60 + 30
-        off = rng.randint(0, 10, (1, n, 1)) * 4096.0
+    calls = []
+    for bsz, n in ((1, 1025), (1, 4224), (1, 30000), (8, 30000), (1, 262144)):
+        xy = rng.rand(bsz, n, 2) * 600
+        wh = rng.rand(bsz, n, 2) * 60 + 30
+        off = rng.randint(0, 10, (bsz, n, 1)) * 4096.0
         boxes = torch.from_numpy(np.concatenate([xy - wh / 2 + off, xy + wh / 2 + off], 2)
                                  .astype(np.float32)).to(DEVICE)
-        scores = torch.from_numpy(np.sort(rng.randint(1, 200, (1, n)).astype(np.float32) / 200,
-                                          1)[:, ::-1].copy()).to(DEVICE)
-        idx, valid = K.nms_greedy(boxes, scores, EVAL_IOU, 300)
-        torch.cuda.synchronize()
-        want_idx, want_valid = K.nms_greedy_plain(boxes, scores, EVAL_IOU, 300)
-        diff += int((idx != want_idx).sum()) + int((valid != want_valid).sum())
-        shapes.append(tuple(scores.shape))
-    check(f"nms_greedy picks differing from plain, synthetic lists {shapes}", diff, 0)
+        scores = torch.from_numpy(np.sort(rng.randint(1, 200, (bsz, n)).astype(np.float32)
+                                          / 200, 1)[:, ::-1].copy()).to(DEVICE)
+        calls.append(((boxes, scores, EVAL_IOU, 300), {}))
+    hold_k5(calls, "synthetic lists")
+    del calls
     return {"launches": launches, "errs": errs, "rec": card, "det_b": det_b, "n": n_valid,
             "metrics": {"fp32": {"card": list(det[:4]) + list(seg),
                                  "cpu": list(det_cpu[:4]) + list(seg_cpu)},
                         "bf16_card": list(det16[:4]) + list(seg16)}}
+
+
+def k5_reading(boxes, scores, iou, max_det) -> dict:
+    """K5's device ms on these lists, its plan, picks, ms a pick (a pick is
+    a step of every image at once), the IoU tests the data needs and the
+    bound from them; logged."""
+    from multiyolov5_tpu_torch.ops import kernels as K
+    bsz, n = scores.shape
+    ms = graph_ms(lambda: K.nms_greedy(boxes, scores, iou, max_det), iters=5, replays=3)
+    idx, valid = K.nms_greedy(boxes, scores, iou, max_det)
+    tests = greedy_tests(boxes, scores, idx, valid, iou)
+    bound, by = bound_ms(20 * scores.numel() + 5 * idx.numel(), K5_OPS_PER_TEST * tests,
+                         FP32_FLOP_S)
+    steps = int(valid.sum(1).max())
+    r = {"shape": [bsz, n], "plan": k5_plan_text(bsz, n), "ms": ms, "picks": int(valid.sum()),
+         "ms_per_pick": ms / max(steps, 1), "tests": tests, "bound_ms": bound, "bound_by": by}
+    log(f"  nms_greedy {tuple(scores.shape)} iou {iou}: {ms:.4f} ms, {r['picks']} picks "
+        f"({r['ms_per_pick'] * 1e3:.2f} us a step of {steps}), {tests} IoU tests, bound "
+        f"{bound:.5f} ms ({by}); {r['plan']}")
+    return r
 
 
 def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
@@ -1071,14 +1121,10 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
 
     # K5 at the eval path's candidate lists (the first batch's launch)
     (boxes, scores, iou, max_det), _ = ev["rec"]["nms_greedy"][0]
-    times["nms_greedy"] = (
-        graph_ms(lambda: K.nms_greedy(boxes, scores, iou, max_det), iters=5, replays=3),
-        cuda_ms(lambda: K.nms_greedy_plain(boxes, scores, iou, max_det), iters=1, warmup=1))
-    idx, valid = K.nms_greedy(boxes, scores, iou, max_det)
-    tests = greedy_tests(boxes, scores, idx, valid, iou)
-    bounds["nms_greedy"] = bound_ms(20 * scores.numel() + 5 * idx.numel(),
-                                    K5_OPS_PER_TEST * tests, FP32_FLOP_S)
-    log(f"  nms_greedy at the eval path's lists {tuple(scores.shape)}: {tests} IoU tests")
+    k5 = {"eval": k5_reading(boxes, scores, iou, max_det)}
+    times["nms_greedy"] = (k5["eval"]["ms"], cuda_ms(
+        lambda: K.nms_greedy_plain(boxes, scores, iou, max_det), iters=1, warmup=1))
+    bounds["nms_greedy"] = (k5["eval"]["bound_ms"], k5["eval"]["bound_by"])
 
     # Short lists: the first 1024 rows of each image's list, through K3 (one
     # launch an image, keep masks packed) and through one K5 launch, as a
@@ -1088,10 +1134,11 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
     sb, ss = boxes[:, :1024].contiguous(), scores[:, :1024].contiguous()
     cut = scores.clone()
     cut[:, 1024:] = 0.0
+    k5["short"] = k5_reading(sb, ss, iou, max_det)
     short = {
         "k3_x4_ms": graph_ms(lambda: [pack_keep(K.nms(sb[i], ss[i], iou), max_det)
                                       for i in range(sb.shape[0])]),
-        "k5_1024_ms": graph_ms(lambda: K.nms_greedy(sb, ss, iou, max_det)),
+        "k5_1024_ms": k5["short"]["ms"],
         "k5_30000_ms": graph_ms(lambda: K.nms_greedy(boxes, cut, iou, max_det)),
     }
     k3_idx = torch.stack([pack_keep(K.nms(sb[i], ss[i], iou), max_det)[0]
@@ -1102,7 +1149,14 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
     # and at bs1 on the serving path's list, where nms_planar runs K3
     b1, s1, iou1 = nms_in[0]
     short["serving_k3_ms"] = graph_ms(lambda: pack_keep(K.nms(b1, s1, iou1), 300))
-    short["serving_k5_ms"] = graph_ms(lambda: K.nms_greedy(b1[None], s1[None], iou1, 300))
+    k5["serving"] = k5_reading(b1[None].contiguous(), s1[None].contiguous(), iou1, 300)
+    short["serving_k5_ms"] = k5["serving"]["ms"]
+    # K5 at eight 1024-row lists (both eval batches' first rows: a bs8
+    # batch's shape on eval's rows; [8] reads the bs8 server's own lists)
+    (b2, s2, _, _), _ = ev["rec"]["nms_greedy"][1]
+    k5["eval_rows_x8"] = k5_reading(torch.cat([sb, b2[:, :1024]]).contiguous(),
+                           torch.cat([ss, s2[:, :1024]]).contiguous(), iou, max_det)
+    short["k5"] = k5
     log(f"  serving list {tuple(s1.shape)}: K3 + pack_keep {short['serving_k3_ms']:.4f} ms, "
         f"K5 {short['serving_k5_ms']:.4f} ms")
     log(f"  short lists {tuple(ss.shape)}: K3 x{sb.shape[0]} + pack_keep "
@@ -1254,8 +1308,10 @@ def phase_serving(eng32, eng16, cpu_eng):
               for _ in range(n_main + SERVE_TAIL)]
     res = {}
 
-    # bf16 server; every engine call recorded with its batch and outputs
-    calls = []
+    # bf16 server; every engine call recorded with its batch and outputs,
+    # and K5's arguments
+    from multiyolov5_tpu_torch.ops import nms as nms_mod
+    calls, k5_calls = [], []
     real_call = Engine.__call__
 
     def recorded(self, x, *a, **kw):
@@ -1269,7 +1325,8 @@ def phase_serving(eng32, eng16, cpu_eng):
         server.warmup(ORIG_HW)
         torch.cuda.synchronize()
         K.reset_launches()
-        with replaced(Engine, "__call__", recorded):
+        with replaced(Engine, "__call__", recorded), \
+                spied(nms_mod, "nms_greedy", before=recorder(k5_calls)):
             got = serve(server, frames[:n_main], SERVE_CLIENTS)
             got += serve(server, frames[n_main:])
         torch.cuda.synchronize()
@@ -1314,6 +1371,12 @@ def phase_serving(eng32, eng16, cpu_eng):
         if not (np.isfinite(d).all() and d.shape[1] == 6 and m.shape == ORIG_HW
                 and m.dtype == np.uint8):
             raise AssertionError("malformed server output")
+    # K5 against its plain version on the server's batched lists, and its
+    # time on the first full batch's
+    hold_k5(k5_calls, "the bs8 server's lists")
+    full = [a for a, _ in k5_calls if a[1].shape[0] == SERVE_BS]
+    res["k5"] = k5_reading(*full[0]) if full else None
+    del k5_calls, full
     res.update(batches=sizes, padded=padded, launches=launches, stats=server.stats(),
                dets_per_frame=[len(d) for d, _ in got])
 
@@ -2173,6 +2236,14 @@ def main() -> int:
                       fp32_library_ms=su["library_ms"], fp32_bound_ms=su["bound_ms"],
                       fp32_cuda_core_bound_ms=su["cuda_core_bound_ms"],
                       fp32_frame=su["frame"])
+    # K5's plan at eval's lists and its readings at the short lists ([6]),
+    # and at the bs8 server's first full batch ([8])
+    k5 = dict(short["k5"], serving_bs8=sv["k5"])
+    kk["nms_greedy"].update(plan=k5["eval"]["plan"], ms_per_pick=k5["eval"]["ms_per_pick"],
+                            short_lists={k: {f: k5[k][f] for f in ("shape", "plan", "ms",
+                                                                   "bound_ms", "picks")}
+                                         for k in ("short", "eval_rows_x8", "serving",
+                                                   "serving_bs8") if k5[k]})
     # K7's float32 form (3xTF32) at eval's shape: its bound beside the CUDA
     # cores' float32 bound
     kk["c3"].update(serving_batches=n_batched, eval_ms=c3_times["eval"]["ms"],

@@ -9,12 +9,13 @@ offset ``MAX_WH``; the first ``max_det`` kept candidates in score order.
 Both ``nms_planar`` (serving) and ``nms_batched`` (eval) run the greedy
 NMS through :func:`nms_fixed`, which routes on the static shape of the
 candidate lists: one list of at most 1024 rows to K3 (ops/kernels/nms.py),
-anything else to one K5 launch for the batch (ops/kernels/nms_greedy.py).
-On an H100 80GB HBM3 at 700 W (chip_smoke.py [6]): one 1024-row list took
-0.219 ms on K3 with its keep mask packed and 0.351 ms on K5; four such
-lists took 0.874 ms on K3 and 0.355 ms in one K5 launch.  K5 finds each
-image's last valid row itself.  Shapes are static ((B, max_det, 6) plus a
-validity mask), and neither route waits for the device.
+anything else to one K5 launch for the batch (ops/kernels/nms_greedy.py,
+a thread-block cluster an image).  On an H100 80GB HBM3 at 700 W
+(chip_smoke.py [6]): one 1024-row list took 0.216 ms on K3 with its keep
+mask packed and 0.261 ms on K5; four such lists took 0.865 ms on K3 and
+0.269 ms in one K5 launch; the eval path's four 30000-row lists 0.488 ms
+in one K5 launch.  Shapes are static ((B, max_det, 6) plus a validity
+mask), and neither route waits for the device.
 """
 
 from __future__ import annotations

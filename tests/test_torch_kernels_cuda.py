@@ -22,7 +22,16 @@ pspv5s's 1/32-res site, odd H x W, stride 2 at odd sizes, dilation 3, c_out
 float32 output) at c_mid 32, 128, 192 and 320 on uint8 and float32
 frames, at B = 3 with H/4 and W/4 that are no multiple of their 8x16
 tile, held to the bounds above against ``stem_plain`` (which rounds as the
-bf16 form does), and both forms in turns on the same weight tensors."""
+bf16 form does), and both forms in turns on the same weight tensors.  K5
+(greedy NMS over a thread-block cluster an image), picks equal to
+``nms_greedy_plain``'s: each cluster size (1-16) and CTA size through the C
+entry with an explicit plan, boxes in shared and in device memory; ties
+straddling slice edges with picks in several slices; n no multiple of 32
+or of the slice; an all-invalid image beside full ones, picks that run out
+before max_det, max_det 1; eight 30000-row lists; one list long enough for
+the device-memory form."""
+
+import importlib
 
 import numpy as np
 import pytest
@@ -210,6 +219,105 @@ def test_nms_greedy_kernel(dev, bsz, n, n_valid):
     want_idx, want_valid = K.nms_greedy_plain(boxes, scores, 0.6, 300)
     assert torch.equal(idx, want_idx) and torch.equal(valid, want_valid)
     assert valid.sum(1).min() > 250 and idx.max() > 900   # deep suppression
+
+
+_K5 = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.nms_greedy")
+
+
+def _k5_lists(dev, seed, bsz, n, n_valid=None, levels=50, spread=100.0):
+    """Seeded sorted lists: scores from ``levels`` levels (ties across slice
+    edges), crowded boxes in four class-offset groups, rows past each
+    image's ``n_valid`` invalid."""
+    rng = np.random.RandomState(seed)
+    xy = rng.rand(bsz, n, 2) * spread
+    wh = rng.rand(bsz, n, 2) * 20 + 40
+    off = rng.randint(0, 4, (bsz, n, 1)) * 4096.0
+    boxes = torch.from_numpy(np.concatenate([xy - wh / 2 + off, xy + wh / 2 + off], 2)
+                             .astype(np.float32)).to(dev)
+    scores = np.sort(rng.randint(1, levels + 1, (bsz, n)).astype(np.float32) / levels,
+                     1)[:, ::-1].copy()
+    for b, v in enumerate(n_valid or ()):
+        scores[b, v:] = 0
+    return boxes, torch.from_numpy(scores).to(dev)
+
+
+def _k5_equal(boxes, scores, iou, max_det, p=None):
+    """K5 (default plan, or ``p`` through the C entry) against the plain
+    version: every pick equal; returns (idx, valid)."""
+    if p is None:
+        idx, valid = K.nms_greedy(boxes, scores, iou, max_det)
+    else:
+        idx, valid = _K5.launch(boxes, scores, iou, max_det, p)
+    torch.cuda.synchronize()
+    want_idx, want_valid = K.nms_greedy_plain(boxes, scores, iou, max_det)
+    assert int((idx != want_idx).sum()) == 0 and int((valid != want_valid).sum()) == 0
+    return idx, valid
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_nms_greedy_kernel_each_cluster(dev, cluster):
+    """Each cluster size, with boxes in shared memory (where a slice's fit:
+    4 CTAs and more) and in device memory, through the C entry with an
+    explicit plan; picks equal."""
+    boxes, scores = _k5_lists(dev, 11, 2, 30000, (30000, 17000))
+    for res in (True, False) if cluster >= 4 else (False,):
+        p = _K5.plan(2, 30000, cluster=cluster, resident=res)
+        assert p.cluster == cluster and p.resident == res
+        idx, valid = _k5_equal(boxes, scores, 0.6, 300, p)
+        assert valid.sum(1).min() > 250
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+def test_nms_greedy_kernel_across_slices(dev, cluster):
+    """Three score levels and heavily overlapping boxes, so runs of equal
+    scores straddle every slice edge and each pick suppresses rows in
+    later slices; picks land in several slices."""
+    n = 4096
+    boxes, scores = _k5_lists(dev, 12, 1, n, levels=3, spread=30.0)
+    p = _K5.plan(1, n, cluster=cluster)
+    edges = scores[0, p.rows - 1:(p.cluster - 1) * p.rows:p.rows]
+    assert bool((edges == scores[0, p.rows::p.rows][:len(edges)]).any())   # a tie at an edge
+    idx, valid = _k5_equal(boxes, scores, 0.5, 300, p)
+    owners = set((idx[0][valid[0]] // p.rows).tolist())
+    assert len(owners) > 1
+
+
+@pytest.mark.parametrize("n", [33, 1000, 4097, 30001])
+def test_nms_greedy_kernel_ragged(dev, n):
+    """n no multiple of 32 or of the slice, at the default plan and at 16
+    CTAs (whose last slice is short)."""
+    boxes, scores = _k5_lists(dev, n, 3, n)
+    _k5_equal(boxes, scores, 0.6, 300)
+    _k5_equal(boxes, scores, 0.6, 300, _K5.plan(3, n, cluster=16))
+
+
+def test_nms_greedy_kernel_invalid_and_short(dev):
+    """An all-invalid image beside a full one and one of 40 valid rows (its
+    picks run out before max_det); max_det 1."""
+    boxes, scores = _k5_lists(dev, 13, 3, 30000, (30000, 0, 40))
+    idx, valid = _k5_equal(boxes, scores, 0.6, 300)
+    assert not valid[1].any() and (idx[1] == -1).all()
+    assert 0 < int(valid[2].sum()) <= 40 and (idx[2, int(valid[2].sum()):] == -1).all()
+    idx, valid = _k5_equal(boxes, scores, 0.6, 1)
+    assert idx.shape == (3, 1) and valid[:, 0].tolist() == [True, False, True]
+
+
+def test_nms_greedy_kernel_batch8_waves(dev):
+    """Eight 30000-row lists: more clusters than the card places at once."""
+    boxes, scores = _k5_lists(dev, 14, 8, 30000)
+    idx, valid = _k5_equal(boxes, scores, 0.6, 300)
+    assert valid.sum(1).min() > 250
+
+
+def test_nms_greedy_kernel_device_memory_form(dev):
+    """One list too long for shared memory at 16 CTAs: its plan reads the
+    boxes from device memory."""
+    n = 262144
+    p = _K5.plan(1, n)
+    assert not p.resident
+    boxes, scores = _k5_lists(dev, 15, 1, n)
+    idx, valid = _k5_equal(boxes, scores, 0.6, 300)
+    assert int(valid.sum()) == 300 and idx.max() > 1000
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

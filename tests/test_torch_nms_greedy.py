@@ -12,6 +12,8 @@
   as the scan does.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from multiyolov5_tpu.ops.pallas.nms_kernel import nms_pallas
 from multiyolov5_tpu_torch.ops import nms as port_nms
 from multiyolov5_tpu_torch.ops.kernels import nms_greedy, nms_greedy_plain
 
+nms_greedy_mod = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.nms_greedy")
 MAX_WH = 4096.0
 
 
@@ -129,3 +132,52 @@ def test_non_max_suppression_labels_and_classes():
             assert g.shape[1] == 6 and len(g) > 0
             np.testing.assert_array_equal(g, w)
     assert (got[0][:, 5] != 1).all()
+
+
+# K5's launch plan (pure Python): every list shape the port's paths give,
+# each slice and shared-memory boundary, and the domain's ends.
+_EVAL = [(b, 30000) for b in range(1, 9)]
+_SERVING = [(8, 1024), (4, 1024), (2, 1024)]
+_ONE = [(1, n) for n in (1, 31, 32, 33, 1025, 30000, 512, 513, 2048, 2049, 182784, 182785,
+                         nms_greedy_mod.MAX_N)]
+
+
+@pytest.mark.parametrize("bsz,n", _EVAL + _SERVING + _ONE)
+def test_nms_greedy_plan_covers_each_row_once(bsz, n):
+    p = nms_greedy_mod.plan(bsz, n)
+    assert 1 <= p.cluster <= nms_greedy_mod.MAX_CLUSTER
+    assert p.rows >= 32 and p.rows % 32 == 0
+    owner = np.full(n, -1)
+    for r in range(p.cluster):
+        lo, hi = r * p.rows, min((r + 1) * p.rows, n)
+        assert lo < hi                              # no slice is empty
+        assert (owner[lo:hi] == -1).all()
+        owner[lo:hi] = r
+    assert (owner >= 0).all()
+    fits = 20 * p.rows + p.rows // 8 <= nms_greedy_mod.SMEM_LIMIT
+    assert p.resident == fits
+    assert p.smem == nms_greedy_mod.smem_bytes(p.rows, p.resident) <= nms_greedy_mod.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("bsz,n,cluster,want", [
+    # boxes 16 B + area 4 B a row, and a bit a row
+    (4, 30000, 16, (16, 1888, 1888 * 16 + 1888 * 4 + 1888 // 8, True)),
+    (8, 1024, 1, (1, 1024, 16384 + 4096 + 128, True)),
+    (1, 513, 16, (9, 64, 64 * 20 + 8, True)),        # 33 rows a CTA round up to 64
+    (1, 182784, 16, (16, 11424, 11424 * 20 + 1428, True)),   # the last that fits
+    (1, 182785, 16, (16, 11456, 1432, False)),       # boxes in device memory
+    (1, nms_greedy_mod.MAX_N, 16, (16, 112640, 14080, False)),
+    (1, nms_greedy_mod.MAX_N, 1, (1, nms_greedy_mod.MAX_N, 225280, False)),
+])
+def test_nms_greedy_plan_smem_by_hand(bsz, n, cluster, want):
+    p = nms_greedy_mod.plan(bsz, n, cluster=cluster)
+    assert (p.cluster, p.rows, p.smem, p.resident) == want
+
+
+def test_nms_greedy_plan_raises():
+    for bsz, n in ((1, 0), (1, nms_greedy_mod.MAX_N + 1), (0, 1024)):
+        with pytest.raises(ValueError):
+            nms_greedy_mod.plan(bsz, n)
+    for kw in (dict(cluster=17), dict(cluster=0), dict(resident=True, cluster=1)):
+        with pytest.raises(ValueError):
+            nms_greedy_mod.plan(1, 200000, **kw)
