@@ -31,8 +31,8 @@ It checks that every kernel ran on its path, holds each kernel against its
 plain version on the arguments its path gave it, and times the paths and
 each kernel beside its bound and, where one PyTorch call computes the same
 function, that call in the same dtype.  [1] counts the tensor-core (HMMA)
-instructions in K1's and K7's two forms each (bf16 and 3xTF32) and K2's
-bf16 kernel (cuobjdump of the built library); [2] prints K2's launch plan
+instructions in K1's, K2's and K7's two forms each (bf16 and 3xTF32)
+(cuobjdump of the built library); [2] prints K2's launch plan
 (tile, cluster split, CTAs) at each pspv5s site and requires one CTA an SM
 at each, and K7's plan at each case, whose layout's byte count
 ops/kernels/c3.py must give as the kernel does.  K5 (greedy NMS, a
@@ -41,7 +41,9 @@ held at (the eval path's lists, synthetic lists of 1025-262144 rows and a
 batch of eight 30000-row lists in [5], the bs8 server's lists in [8]),
 where ops/kernels/nms_greedy.py's shared-memory count must equal the
 kernel's, and [6] times it at eval's (4, 30000) lists, (4, 1024), (8,
-1024) and the one-list serving case.  Any failure raises and
+1024) and the one-list serving case; it times K2's float32 form at eval's
+10 bs4 sites and pspv5x's 22 bs1 sites beside cuDNN float32 (TF32 off),
+its 3xTF32 bound and the CUDA cores' float32 bound.  Any failure raises and
 exits non-zero.  The last line of stdout is the JSON ``{"ok": true,
 "device": {...}}``; the line before it the card's name and power limit,
 the one before that the kernels' JSON.  Longer records go to
@@ -75,6 +77,7 @@ DEVICE = "cuda"
 SERVE_IMG, SERVE_BS, SERVE_WAIT_MS = 1024, 8, 100
 SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_TAIL = 4, 4, 3
 M_CFG = "yolov5m_city_seg"
+X_CFG = "yolov5x_city_seg"     # pspv5x: [6] times K2's float32 form at its 22 bs1 sites
 
 # bounds, each stated with its reason
 F32_REL = 1e-4     # float32 vs float32: summation order only (TF32 off)
@@ -143,7 +146,7 @@ TRAIN_UPDATE_REL = 5e-2  # of each tensor's own change, + 2 float32 ulps of its 
 
 # the other model families [9], each at full width and depth, bs1
 FAMILY_CFGS = ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
-               "yolov5x_city_seg", "yolov5s", "yolov5s6")
+               X_CFG, "yolov5s", "yolov5s6")
 BISE_CFG, DET_CFG, L_CFG = "yolov5s_city_seg_bise", "yolov5s", "yolov5l_city_seg"
 FAMILY_REPS, FAMILY_ITERS = 5, 10
 # [9] holds each network's float32 output against the same network in
@@ -295,7 +298,7 @@ def phase_card():
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as fh:
         fh.write(nvcc_log)
     mma = tensor_core_ops(path)
-    for name in ("stem_tc", "stem_tf32", "conv3x3_tma", "c3_bf16", "c3_tf32"):
+    for name in ("stem_tc", "stem_tf32", "conv3x3_tma", "conv3x3_tf32", "c3_bf16", "c3_tf32"):
         n = sum(v for k, v in mma.items() if name in k)
         log(f"  HMMA/HGMMA instructions in the SASS of {name} (all instantiations): {n}")
         if n == 0:
@@ -386,6 +389,57 @@ def c3_bound(x, args, cuda_cores: bool = False):
         nbytes, 3 * flops, TF32_FLOP_S)
 
 
+def conv_bound(x, co: int, stride: int, cuda_cores: bool = False):
+    """(least ms, "bytes" or "operations") of K2 on ``x`` -> ``co`` channels
+    at ``stride``: x, the OHWI weight and the output in x's type and the
+    float32 bias each moved once; 2 flops a MAC at the arithmetic of x's
+    form: bf16 on the bf16 tensor cores; float32 as 3xTF32, three TF32
+    products a MAC at the TF32 peak, or with ``cuda_cores`` one float32 FMA
+    a MAC at the CUDA cores' peak (the first form's arithmetic)."""
+    bsz, h, w, ci = x.shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    nbytes = x.element_size() * (x.numel() + co * 9 * ci + bsz * ho * wo * co) + 4 * co
+    flops = 2 * bsz * ho * wo * co * 9 * ci
+    if x.dtype == torch.bfloat16:
+        return bound_ms(nbytes, flops, BF16_FLOP_S)
+    return bound_ms(nbytes, flops, FP32_FLOP_S) if cuda_cores else bound_ms(
+        nbytes, 3 * flops, TF32_FLOP_S)
+
+
+def time_k2_f32(calls):
+    """K2's float32 form at each ``(x, w, b, stride, dilation, act)`` of
+    ``calls`` beside cuDNN float32 (TF32 off) and both bounds; returns
+    (rows, sums)."""
+    import torch.nn.functional as F
+
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops.kernels.conv3x3 import plan as conv_plan
+    rows = []
+    for x, wt, b, s, d, act in calls:
+        xc, wc = x.permute(0, 3, 1, 2), wt.permute(0, 3, 1, 2)
+        bsz, hh, ww, ci = x.shape
+        co = wt.shape[0]
+        ho, wo = (hh - 1) // s + 1, (ww - 1) // s + 1
+        rows.append({
+            "x": list(x.shape), "c_out": co, "stride": s, "dilation": d,
+            "plan": plan_text(conv_plan(bsz, ho, wo, ci, co, x.dtype, s, d)),
+            "ms": graph_ms(lambda: K.conv3x3(x, wt, b, s, d, act)),
+            # few repetitions: cuDNN fp32 without TF32 takes ~75 ms at FFM's site
+            "plain_ms": graph_ms(lambda: K.conv3x3_plain(x, wt, b, s, d, act), iters=3,
+                                 replays=2),
+            "library_ms": graph_ms(lambda: F.conv2d(xc, wc, b, s, d, d), iters=3, replays=2),
+            "bound_ms": conv_bound(x, co, s)[0],
+            "cuda_core_bound_ms": conv_bound(x, co, s, cuda_cores=True)[0]})
+    sums = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "cuda_core_bound_ms")}
+    for r in rows:
+        log(f"    {tuple(r['x'])} -> {r['c_out']} s{r['stride']} d{r['dilation']} "
+            f"{r['plan']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN fp32 "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} (3xTF32; CUDA-core fp32 "
+            f"{r['cuda_core_bound_ms']:.5f})")
+    return rows, sums
+
+
 def c3_module(args):
     """A fused eval ``C3`` module on the card (channels_last) holding K7's
     arguments as its conv weights: the unfused sequence the model runs off
@@ -470,10 +524,9 @@ def hold_c3(eng32, eng16):
     return out
 
 
-def plan_text(p, dtype) -> str:
+def plan_text(p) -> str:
     """A K2 launch plan (ops/kernels/conv3x3.py plan) in words."""
-    px = f"8x{p.bm // 8}" if dtype == torch.bfloat16 else f"{p.bm}"
-    return (f"tile {px} px x {p.bn} ch, BK {p.bk}, split {p.split}, {p.tiles} tiles, "
+    return (f"tile 8x{p.bm // 8} px x {p.bn} ch, BK {p.bk}, split {p.split}, {p.tiles} tiles, "
             f"{p.ctas} CTAs, {p.k_steps} K steps a CTA")
 
 
@@ -517,19 +570,22 @@ def phase_kernels(eng32, eng16, frames):
         for shape, co, s, d, act, wt, b in sites:
             ho, wo = (shape[1] - 1) // s + 1, (shape[2] - 1) // s + 1
             p = conv_plan(shape[0], ho, wo, shape[3], co, dt, s, d)
-            log(f"    {str(dt)[6:]} {shape} -> {co} s{s} d{d}: {plan_text(p, dt)}")
+            log(f"    {str(dt)[6:]} {shape} -> {co} s{s} d{d}: {plan_text(p)}")
             check(f"conv3x3 {str(dt)[6:]} {shape} -> {co} s{s}: SMs without a CTA",
                   max(0, SMS - p.ctas), 0)
-    # bf16 at c_in 48, the BK = 16 path: SegMaskLab's detail conv at 1/8 res
+    # c_in 48, the BK = 16 path: SegMaskLab's detail conv at 1/8 res
     x = torch.randn((1, IN_HW[0] // 8, IN_HW[1] // 8, 48), generator=g, device=dev)
     wt = (torch.randn((48, 3, 3, 48), generator=g, device=dev) / np.sqrt(9 * 48))
     b = torch.randn(48, generator=g, device=dev) * 0.1
-    x, wt = x.to(torch.bfloat16), wt.to(torch.bfloat16)
-    got = K.conv3x3(x, wt, b)
-    torch.cuda.synchronize()
-    d, rel = diffs(got, K.conv3x3_plain(x, wt, b))
-    log(f"  conv3x3 bf16 c_in 48 {tuple(x.shape)}: max|diff| {d:.3e}")
-    check("conv3x3 bf16 c_in 48 max|diff|/max(max|ref|,1)", rel, BF16_REL)
+    for dt, bound in ((torch.float32, F32_REL), (torch.bfloat16, BF16_REL)):
+        xd, wd = x.to(dt), wt.to(dt)
+        got = K.conv3x3(xd, wd, b)
+        torch.cuda.synchronize()
+        d, rel = diffs(got, K.conv3x3_plain(xd, wd, b))
+        p = conv_plan(*xd.shape, 48, dt)
+        log(f"  conv3x3 {str(dt)[6:]} c_in 48 {tuple(x.shape)} {plan_text(p)}: "
+            f"max|diff| {d:.3e}")
+        check(f"conv3x3 {str(dt)[6:]} c_in 48 max|diff|/max(max|ref|,1)", rel, bound)
 
     # K3 on seeded overlapping box sets at N = 1024, and on the path's input
     rng = np.random.RandomState(SEED)
@@ -1045,8 +1101,8 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
         flops = 2 * bsz * ho * wo * co * 9 * ci
         bm, _ = bound_ms(nbytes, flops, BF16_FLOP_S)
         per_site.append({"x": list(shape), "c_out": co, "stride": s, "dilation": d,
-                         "plan": plan_text(conv_plan(bsz, ho, wo, ci, co, torch.bfloat16, s, d),
-                                           torch.bfloat16),
+                         "plan": plan_text(conv_plan(bsz, ho, wo, ci, co, torch.bfloat16, s,
+                                                     d)),
                          "ms": km, "plain_ms": pm, "library_ms": lm, "bound_ms": bm})
         k_ms, p_ms, l_ms, b_ms = k_ms + km, p_ms + pm, l_ms + lm, b_ms + bm
         t_bytes, t_ops = t_bytes + nbytes / HBM_BYTES_S, t_ops + flops / BF16_FLOP_S
@@ -1059,35 +1115,28 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
             f"{r['plan']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN "
             f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f}")
     # K2 in float32 at the eval path's sites (the first bs4 forward's 10
-    # calls), beside cuDNN in float32 (TF32 off) per site
-    f32_sites = []
-    for (x, wt, b), kw in ev["rec"]["conv3x3"][:len(sites16)]:
-        s, d, act = kw.get("stride", 1), kw.get("dilation", 1), kw.get("act", True)
-        xc, wc = x.permute(0, 3, 1, 2), wt.permute(0, 3, 1, 2)
-        bsz, hh, ww, ci = x.shape
-        co = wt.shape[0]
-        ho, wo = (hh - 1) // s + 1, (ww - 1) // s + 1
-        bm, _ = bound_ms(4 * (x.numel() + wt.numel() + bsz * ho * wo * co + co),
-                         2 * bsz * ho * wo * co * 9 * ci, FP32_FLOP_S)
-        f32_sites.append({
-            "x": list(x.shape), "c_out": co, "stride": s, "dilation": d,
-            "plan": plan_text(conv_plan(bsz, ho, wo, ci, co, x.dtype, s, d), x.dtype),
-            "ms": graph_ms(lambda: K.conv3x3(x, wt, b, s, d, act)),
-            # few repetitions: cuDNN fp32 without TF32 takes ~75 ms at FFM's site
-            "plain_ms": graph_ms(lambda: K.conv3x3_plain(x, wt, b, s, d, act), iters=3,
-                                 replays=2),
-            "library_ms": graph_ms(lambda: F.conv2d(xc, wc, b, s, d, d), iters=3, replays=2),
-            "bound_ms": bm})
-    k2_f32 = {k: sum(r[k] for r in f32_sites) for k in ("ms", "plain_ms", "library_ms",
-                                                         "bound_ms")}
-    log(f"  conv3x3 float32 at the eval path's {len(f32_sites)} bs{EVAL_BS} sites: kernel "
-        f"{k2_f32['ms']:.4f} ms, plain {k2_f32['plain_ms']:.4f}, cuDNN fp32 "
-        f"{k2_f32['library_ms']:.4f}, bound {k2_f32['bound_ms']:.5f} (sums)")
-    for r in f32_sites:
-        log(f"    {tuple(r['x'])} -> {r['c_out']} s{r['stride']} d{r['dilation']} "
-            f"{r['plan']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN "
-            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f}")
+    # calls) and at pspv5x's bs1 sites (seeded weights and inputs), each
+    # beside cuDNN in float32 (TF32 off) and both bounds
+    log(f"  conv3x3 float32 at the eval path's {len(sites16)} bs{EVAL_BS} sites:")
+    f32_sites, k2_f32 = time_k2_f32([(x, wt, b, kw.get("stride", 1), kw.get("dilation", 1),
+                                      kw.get("act", True))
+                                     for (x, wt, b), kw in ev["rec"]["conv3x3"][:len(sites16)]])
+    log(f"  conv3x3 float32 eval sums: kernel {k2_f32['ms']:.4f} ms, plain "
+        f"{k2_f32['plain_ms']:.4f}, cuDNN fp32 {k2_f32['library_ms']:.4f}, bound "
+        f"{k2_f32['bound_ms']:.5f} (3xTF32; CUDA-core fp32 {k2_f32['cuda_core_bound_ms']:.5f})")
     k2_f32["sites"] = f32_sites
+    from multiyolov5_tpu_torch.engine import Engine
+    ex = Engine(cfg=X_CFG, device=DEVICE, half=False, seed=SEED)
+    x_calls = [(torch.randn(shape, generator=g, device=dev), wt, b, s, d, act)
+               for shape, co, s, d, act, wt, b in record_path_inputs(ex, frames[0])[0]]
+    log(f"  conv3x3 float32 at {X_CFG}'s {len(x_calls)} bs1 sites:")
+    x_sites, k2_x = time_k2_f32(x_calls)
+    del ex, x_calls
+    log(f"  conv3x3 float32 {X_CFG} sums: kernel {k2_x['ms']:.4f} ms, cuDNN fp32 "
+        f"{k2_x['library_ms']:.4f}, bound {k2_x['bound_ms']:.5f} (3xTF32; CUDA-core fp32 "
+        f"{k2_x['cuda_core_bound_ms']:.5f})")
+    k2_x["sites"] = x_sites
+    k2_f32[X_CFG] = k2_x
     k2_sweep = sweep_k2_plans(sites16)
 
     boxes, scores, iou = nms_in[0]
@@ -2232,6 +2281,11 @@ def main() -> int:
                         bwd_launches=train_counts["seg_ce_bwd"])
     # the float32 form (3xTF32) beside the CUDA cores' float32 bound
     kk["stem_float"].update(cuda_core_bound_ms=sf["cuda_core_bound_ms"])
+    # K2's float32 form (3xTF32), summed over eval's 10 bs4 sites
+    kk["conv3x3"].update(fp32_ms=k2_f32["ms"], fp32_plain_ms=k2_f32["plain_ms"],
+                         fp32_library_ms=k2_f32["library_ms"], fp32_bound_ms=k2_f32["bound_ms"],
+                         fp32_cuda_core_bound_ms=k2_f32["cuda_core_bound_ms"],
+                         fp32_sites=len(k2_f32["sites"]))
     kk["stem"].update(fp32_ms=su["ms"], fp32_plain_ms=su["plain_ms"],
                       fp32_library_ms=su["library_ms"], fp32_bound_ms=su["bound_ms"],
                       fp32_cuda_core_bound_ms=su["cuda_core_bound_ms"],

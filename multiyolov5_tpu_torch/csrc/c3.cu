@@ -213,20 +213,6 @@ __device__ __forceinline__ unsigned saddr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// acc += a * b on one n8 tile in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi
-// b_hi, the large term last, in a fresh tensor-core accumulator (it
-// truncates its sums toward zero) that acc takes by FADD.
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[4], const uint32_t (&a)[4],
-                                           const uint32_t (&alo)[4], uint32_t b0, uint32_t b1,
-                                           uint32_t l0, uint32_t l1) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mk::mma1688_tf32(t, alo, b0, b1);
-  mk::mma1688_tf32(t, a, l0, l1);
-  mk::mma1688_tf32(t, a, b0, b1);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) acc[q] += t[q];
-}
-
 // A stage's output channels nlo .. nhi - 1 over the rectangle (r0, c0, rh,
 // rw) of the slab: out[m][n] = bias[n] + sum over sources and taps of
 // A[row(m) + off(t)][k] * W[n - nlo][kw0 + t K + k] (bias 0 past nreal).
@@ -292,9 +278,9 @@ __device__ __forceinline__ void run_stage(const T* Ws, int pW, const Src<T> (&sr
                 uint32_t bf[4], blo[4];
                 ldsm_x4(bf, b_t + np * 16 * pW * ES + k0 * ES);
                 mk::tf32_split(bf, blo);
-                mma_3xtf32(acc[2 * np], a, alo, bf[0], bf[1], blo[0], blo[1]);
+                mk::mma_3xtf32(acc[2 * np], a, alo, bf[0], bf[1], blo[0], blo[1]);
                 if (n0 + np * 16 + 8 < N)
-                  mma_3xtf32(acc[2 * np + 1], a, alo, bf[2], bf[3], blo[2], blo[3]);
+                  mk::mma_3xtf32(acc[2 * np + 1], a, alo, bf[2], bf[3], blo[2], blo[3]);
               }
             }
           }

@@ -28,7 +28,7 @@ __device__ __forceinline__ float silu_f(float v) { return v / (1.0f + expf(-v));
 enum { DT_F32 = 0, DT_BF16 = 1, DT_U8 = 2 };
 
 // Tensor-core building blocks of the redesigned kernels (K1's bf16 and
-// 3xTF32 forms, K2), in their own namespace so that no kernel file's local
+// 3xTF32 forms, K2's, K7's), in their own namespace so that no kernel file's local
 // helpers of the same name collide with them.
 namespace mk {
 
@@ -71,6 +71,20 @@ __device__ __forceinline__ void tf32_split(uint32_t (&a)[4], uint32_t (&lo)[4]) 
     a[q] = tf32_rna(x);
     lo[q] = tf32_rna(x - __uint_as_float(a[q]));
   }
+}
+
+// acc += a * b on one n8 tile in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi
+// b_hi, the large term last, in a fresh tensor-core accumulator (it
+// truncates its sums toward zero) that acc takes by FADD.
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[4], const uint32_t (&a)[4],
+                                           const uint32_t (&alo)[4], uint32_t b0, uint32_t b1,
+                                           uint32_t l0, uint32_t l1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma1688_tf32(t, alo, b0, b1);
+  mma1688_tf32(t, a, l0, l1);
+  mma1688_tf32(t, a, b0, b1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q] += t[q];
 }
 
 // Four 8x8 bf16 matrices from shared memory; lane l gives the row address

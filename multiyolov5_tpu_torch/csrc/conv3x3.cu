@@ -23,40 +23,53 @@
 //     a cluster barrier every CTA sums one share of the tile over the
 //     cluster's shared memories (distributed shared memory) and writes it
 //     with the fused epilogue.  No second pass, no atomics, no workspace.
-//     The host planner (ops/kernels/conv3x3.py plan()) picks the tile, BK
+//     The tile has its own shared memory beside the TMA ring: parked on the
+//     ring's slots, it was at times read by the other CTAs as the K step's
+//     input that the last copy into those slots had brought (float32
+//     splits of 8, two CTAs an SM; PERF.md);
+//   * the host planner (ops/kernels/conv3x3.py plan()) picks the tile, BK
 //     and the split so that the grid reaches at least one CTA an SM;
-//   * bfloat16: a CTA owns an 8 x TW (8 or 16) tile of output pixels of
-//     one image.  A K step's input is then a box of the NHWC input: BK
-//     channels x TW x 8 pixels at the tap's offset, traversed with the
-//     conv's stride.  One thread issues it, and the step's [BN][BK] weight
-//     tile, as two TMA copies (cp.async.bulk.tensor) that complete on the
-//     stage's mbarrier; coordinates outside the input zero-fill, which is
-//     the conv's padding.  A 4-stage ring keeps three steps in flight.  The
-//     copies use the 32/64/128-byte swizzle of a BK-channel row, and the
-//     ldmatrix addresses apply the same XOR, so the eight rows of an
-//     ldmatrix fall in eight bank groups.  mma.sync m16n8k16 (bf16 in, fp32
-//     accumulate), two warp groups a CTA, fragments double-buffered in
-//     registers across the 16-wide k slices.  Needs c_in % 16 == 0 and
-//     c_out % 8 == 0;
-//   * float32: the same planner and cluster split over 64 consecutive
-//     output pixels; 256 threads, each a 4x4 register micro-tile on the
-//     fp32 CUDA cores, BK 16, no TF32, so it matches a float32 reference
-//     closely.
+//   * a CTA owns an 8 x TW (8 or 16) tile of output pixels of one image.  A
+//     K step's input is then a box of the NHWC input: BK channels x TW x 8
+//     pixels at the tap's offset, traversed with the conv's stride.  One
+//     thread issues it, and the step's [BN][BK] weight tile, as two TMA
+//     copies (cp.async.bulk.tensor) that complete on the stage's mbarrier;
+//     coordinates outside the input zero-fill, which is the conv's padding.
+//     A 3-stage ring keeps two steps in flight.  The copies use the
+//     32/64/128-byte swizzle of a BK-channel row, and the ldmatrix addresses
+//     apply the same XOR, so the eight rows of an ldmatrix fall in eight
+//     bank groups.  Two warp groups a CTA, fragments double-buffered in
+//     registers across the 32-byte k slices of a row;
+//   * bfloat16 (conv3x3_tma): mma.sync m16n8k16, bf16 in, fp32 accumulate,
+//     BK 64, 32 or 16;
+//   * float32 (conv3x3_tf32): the same skeleton on float32 rows, BK 32
+//     (128-byte rows) or 16.  An ldmatrix of float32 rows gives m16n8k8
+//     tf32 fragments; each is split in registers into tf32 hi and lo
+//     (common.cuh), and each k8 slice takes three products (lo.hi, hi.lo,
+//     hi.hi) into a fresh tensor-core accumulator that the float32 sum takes
+//     by FADD: the tensor core truncates its sums, and one accumulator over
+//     the whole K loop would drift past the float32 reference (K1, K7).
+//     Needs c_in % 16 == 0 and c_out % 8 == 0, as bf16 does.
 //
 // What bounds it on an H100: at the path's shapes (K = 576..2304,
-// N = 64..256, M = 512..8192) the bf16 work is 0.6 GFLOP a site (4.8 at
-// FFM): 0.6-4.9 us on the tensor cores, 1-3 us of bytes.  A launch's fixed
-// cost and the chain of dependent K steps of each CTA dominate (PERF.md).
+// N = 64..256, M = 512..32768) the work is operations: 0.6 GFLOP a bs1
+// site in bf16 (0.6-4.9 us on the tensor cores, 1-3 us of bytes), and 2.4
+// GFLOP (19.3 at FFM) a bs4 eval site in float32, three TF32 products a
+// MAC (15-117 us at 495 TFLOP/s).  bf16: a launch's fixed cost and the
+// chain of dependent K steps of each CTA dominate; float32: the mma.sync
+// issue rate and the splits beside it (PERF.md).
 #include <cooperative_groups.h>
 #include <cuda.h>
+
+#include <map>
+#include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int BM = 64;
 
 // The conv's geometry: input (B, H, W, Ci), output (B, Ho, Wo, Co).
 struct Geo {
@@ -100,129 +113,30 @@ __device__ void cluster_reduce_store(float* red, int bm, int ldr, int bn, int nt
   cluster.sync();                       // no CTA leaves while others read its tile
 }
 
-// ---------------------------------------------------------------- float32
-namespace f32k {
-
-constexpr int BN = 64, BK = 16, NT = 256;
-constexpr int LDA = BM + 4, LDB = BN + 1, LDR = BN + 4;
-constexpr int SMEM = BM * LDR * 4;      // the reduction tile; the K tiles fit inside
-
-__global__ void __launch_bounds__(NT)
-conv3x3_f32(const float* __restrict__ x, const float* __restrict__ w,
-            const float* __restrict__ bias, float* __restrict__ y, Geo g) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                     // [BK][LDA]
-  float* Bs = smem + BK * LDA;          // [BK][LDB]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int M = g.B * g.Ho * g.Wo;
-  const int K = 9 * g.Ci;
-  const int nk = K / BK;
-  const int kb = blockIdx.z * nk / gridDim.z, ke = (blockIdx.z + 1) * nk / gridDim.z;
-
-  // The input rows this thread gathers: tile rows ty + 16*i, channel tx.
-  int a_base[4], a_iy[4], a_ix[4];
-  bool a_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    a_ok[i] = m < M;
-    const int mm = a_ok[i] ? m : 0;
-    const int b = mm / (g.Ho * g.Wo);
-    const int r = mm - b * g.Ho * g.Wo;
-    a_base[i] = b * g.H;
-    a_iy[i] = (r / g.Wo) * g.stride - g.dil;
-    a_ix[i] = (r % g.Wo) * g.stride - g.dil;
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int kt = kb; kt < ke; ++kt) {
-    const int k0 = kt * BK;
-    const int tap = k0 / g.Ci;
-    const int ci = k0 - tap * g.Ci + tx;
-    const int dy = tap / 3, dx = tap % 3;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int iy = a_iy[i] + dy * g.dil, ix = a_ix[i] + dx * g.dil;
-      float v = 0.f;
-      if (a_ok[i] && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W)
-        v = x[((size_t)(a_base[i] + iy) * g.W + ix) * g.Ci + ci];
-      As[tx * LDA + ty + 16 * i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {       // weight tile, coalesced along K
-      const int n = n0 + ty + 16 * i;
-      Bs[tx * LDB + ty + 16 * i] = n < g.Co ? w[(size_t)n * K + k0 + tx] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk * LDA + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk * LDB + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bv[j];
-    }
-    __syncthreads();
-  }
-
-  if (gridDim.z == 1) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + ty + 16 * i;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (n >= g.Co) continue;
-        const float v = acc[i][j] + bias[n];
-        y[(size_t)m * g.Co + n] = g.act ? silu_f(v) : v;
-      }
-    }
-    return;
-  }
-  float* red = smem;                    // the K tiles are dead (synced above)
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[(ty + 16 * i) * LDR + tx + 16 * j] = acc[i][j];
-  cluster_reduce_store<float>(red, BM, LDR, BN, NT, bias, y,
-                              [&](int row) { return m0 + row < M ? m0 + row : -1; }, n0,
-                              g.Co, g.act);
-}
-
-}  // namespace f32k
-
-// --------------------------------------------------------------- bfloat16
+// ----------------------------------------------------------- the kernels
 namespace tmak {
 
 constexpr int TH = 8;        // output rows a tile
 constexpr int NT = 256;      // 8 warps
-constexpr int STAGES = 4;    // TMA ring: three steps in flight while one computes
 
-// BK channels a K step, TW output columns a tile, BN output channels.
-template <int BK, int TW, int BN>
+// T the element type, BK channels a K step, TW output columns a tile, BN
+// output channels.
+template <typename T, int BK, int TW, int BN>
 struct Cfg {
   static constexpr int TM = TH * TW;           // output pixels a tile (64 or 128)
   static constexpr int WMW = TM / 32;          // 8 warps: TM/32 along M ...
   static constexpr int WN = BN / (8 / WMW);    // ... each 32 rows x WN columns
-  static constexpr int ROW = BK * 2;           // bytes a smem row = the swizzle span
+  // bytes a smem row = the swizzle span
+  static constexpr int ROW = BK * static_cast<int>(sizeof(T));
+  static constexpr int SLICES = ROW / 32;      // mma k slices a step: 16 bf16 or 8 float32
   static constexpr int A_BYTES = TM * ROW, B_BYTES = BN * ROW;
   static constexpr int STAGE = A_BYTES + B_BYTES;
   static constexpr int LDR = BN + 4;
   static constexpr int RED = TM * LDR * 4;
-  static constexpr int SMEM = 1024 + (STAGES * STAGE > RED ? STAGES * STAGE : RED);
+  // the TMA ring (two steps in flight while one computes), then the
+  // reduction tile of a split, apart from the ring (see the body)
+  static constexpr int STAGES = 3;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + RED;
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -271,20 +185,23 @@ __device__ __forceinline__ int swz(int r, int j) {
   return r * ROW + ((j ^ ((r * ROW / 128) & (ROW / 16 - 1))) << 4);
 }
 
-// xmap: the input (Ci, W, H, B) with box (BK, TW * stride, 8 * stride, 1)
-// traversed with the conv's stride; wmap: the weights (9 * Ci, Co) with
-// box (BK, BN).  tiles_y, tiles_x: tiles an image.
-template <int BK, int TW, int BN>
-__global__ void __launch_bounds__(NT)
-conv3x3_tma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
-            const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, Geo g,
-            int tiles_y, int tiles_x) {
-  using C = Cfg<BK, TW, BN>;
+// The kernel body of both types.  xmap: the input (Ci, W, H, B) with box
+// (BK, TW * stride, 8 * stride, 1) traversed with the conv's stride; wmap:
+// the weights (9 * Ci, Co) with box (BK, BN).  tiles_y, tiles_x: tiles an
+// image.
+template <typename T, int BK, int TW, int BN>
+__device__ __forceinline__ void conv3x3_body(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                                             const float* __restrict__ bias,
+                                             T* __restrict__ y, const Geo& g, int tiles_y,
+                                             int tiles_x) {
+  using C = Cfg<T, BK, TW, BN>;
   constexpr int ROW = C::ROW, WN = C::WN, NT8 = WN / 8;
+  constexpr bool TF32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the ring to it
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  constexpr int STAGES = C::STAGES;
   __shared__ __align__(8) uint64_t full[STAGES];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tx = blockIdx.x % tiles_x, rest = blockIdx.x / tiles_x;
@@ -319,8 +236,9 @@ conv3x3_tma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
   }
 
   // warp tile: 32 output pixels x WN channels; ldmatrix rows: A, tile row
-  // wm + mt*16 + lane%16, k half lane/16; B, weight row wn + np*16 +
-  // (lane/16)*8 + lane%8, k half (lane/8)%2
+  // wm + mt*16 + lane%16, 16-byte chunk lane/16 of the slice; B, weight row
+  // wn + np*16 + (lane/16)*8 + lane%8, chunk (lane/8)%2.  A slice is 32
+  // bytes of a row in both types, so the addresses are the same in bytes.
   const int wm = (warp / (BN / WN)) * 32, wn = (warp % (BN / WN)) * WN;
   const int a_row = wm + lane % 16, a_half = lane / 16;
   const int b_row = wn + (lane / 16) * 8 + lane % 8, b_half = (lane / 8) % 2;
@@ -338,10 +256,10 @@ conv3x3_tma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
     mbar_wait(&full[slot], (step / STAGES) & 1);
     const unsigned char* as = ring + slot * C::STAGE;
     const unsigned char* bs = as + C::A_BYTES;
-    // fragments double-buffered in registers across the 16-wide k slices
+    // fragments double-buffered in registers across the k slices
     uint32_t a[2][2][4], bf[2][NT8][2];
-    auto load_frags = [&](int buf, int kk) {
-      const int j = kk / 8;
+    auto load_frags = [&](int buf, int i) {
+      const int j = 2 * i;
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
         mk::ldsm_x4(a[buf][mt], as + swz<ROW>(a_row + mt * 16, j + a_half));
@@ -357,13 +275,33 @@ conv3x3_tma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
     };
     load_frags(0, 0);
 #pragma unroll
-    for (int i = 0; i < BK / 16; ++i) {
-      if (i + 1 < BK / 16) load_frags((i + 1) & 1, (i + 1) * 16);
+    for (int i = 0; i < C::SLICES; ++i) {
+      if (i + 1 < C::SLICES) load_frags((i + 1) & 1, i + 1);
+      const int c = i & 1;
+      if constexpr (TF32) {
+        uint32_t alo[2][4];
 #pragma unroll
-      for (int nt = 0; nt < NT8; ++nt)
+        for (int mt = 0; mt < 2; ++mt) mk::tf32_split(a[c][mt], alo[mt]);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          mk::mma16816(acc[mt][nt], a[i & 1][mt], bf[i & 1][nt][0], bf[i & 1][nt][1]);
+        for (int np = 0; np < NT8 / 2; ++np) {
+          uint32_t bh[4] = {bf[c][2 * np][0], bf[c][2 * np][1], bf[c][2 * np + 1][0],
+                            bf[c][2 * np + 1][1]};
+          uint32_t bl[4];
+          mk::tf32_split(bh, bl);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mk::mma_3xtf32(acc[mt][2 * np], a[c][mt], alo[mt], bh[0], bh[1], bl[0], bl[1]);
+            mk::mma_3xtf32(acc[mt][2 * np + 1], a[c][mt], alo[mt], bh[2], bh[3], bl[2],
+                           bl[3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mk::mma16816(acc[mt][nt], a[c][mt], bf[c][nt][0], bf[c][nt][1]);
+      }
     }
     __syncthreads();                   // every warp is done with this slot
     if (tid == 0 && step + STAGES < steps) issue(step + STAGES);
@@ -390,13 +328,16 @@ conv3x3_tma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
             v0 = silu_f(v0);
             v1 = silu_f(v1);
           }
-          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * g.Co + n) =
-              __floats2bfloat162_rn(v0, v1);
+          if constexpr (TF32)
+            *reinterpret_cast<float2*>(y + (size_t)m * g.Co + n) = make_float2(v0, v1);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * g.Co + n) =
+                __floats2bfloat162_rn(v0, v1);
         }
       }
     return;
   }
-  float* red = reinterpret_cast<float*>(ring);   // the ring is dead (synced above)
+  float* red = reinterpret_cast<float*>(ring + STAGES * C::STAGE);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -408,33 +349,27 @@ conv3x3_tma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         *reinterpret_cast<float2*>(red + r * C::LDR + c) =
             make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
       }
-  cluster_reduce_store<__nv_bfloat16>(red, C::TM, C::LDR, BN, NT, bias, y, row_m, n0,
-                                      g.Co, g.act);
+  cluster_reduce_store<T>(red, C::TM, C::LDR, BN, NT, bias, y, row_m, n0, g.Co, g.act);
+}
+
+// The two kernels, one a type, so that SASS dumps and profiles name them.
+template <int BK, int TW, int BN>
+__global__ void __launch_bounds__(NT)
+conv3x3_tma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+            const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, Geo g,
+            int tiles_y, int tiles_x) {
+  conv3x3_body<__nv_bfloat16, BK, TW, BN>(xmap, wmap, bias, y, g, tiles_y, tiles_x);
+}
+
+template <int BK, int TW, int BN>
+__global__ void __launch_bounds__(NT)
+conv3x3_tf32(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+             const float* __restrict__ bias, float* __restrict__ y, Geo g, int tiles_y,
+             int tiles_x) {
+  conv3x3_body<float, BK, TW, BN>(xmap, wmap, bias, y, g, tiles_y, tiles_x);
 }
 
 }  // namespace tmak
-
-template <typename KernelT, typename... Args>
-int launch(KernelT kernel, dim3 grid, int nt, int smem, int split, cudaStream_t s,
-           Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(nt);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = split;
-  cfg.attrs = attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;     // no cluster without a split
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (no
 // link against libcuda).
@@ -454,49 +389,86 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <int BK, int TW, int BN>
+template <typename T, int BK, int TW, int BN>
 int launch_tma(const void* x, const void* w, const float* bias, void* y, Geo g, int split,
                cudaStream_t s) {
-  using C = tmak::Cfg<BK, TW, BN>;
+  using C = tmak::Cfg<T, BK, TW, BN>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  const auto kernel = [] {
+    if constexpr (F32) return &tmak::conv3x3_tf32<BK, TW, BN>;
+    else return &tmak::conv3x3_tma<BK, TW, BN>;
+  }();
+  // The shared-memory cap is set once per kernel and device, at its first
+  // launch (outside any CUDA-graph capture that later launches may run
+  // under): eval and serving, which launch K2, are host-bound.
+  static std::mutex mu;
+  static std::map<int, bool> cap_set;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!cap_set[dev]) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      cap_set[dev] = true;
+    }
+  }
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const CUtensorMapSwizzle swizzle = BK == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : BK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapDataType type =
+      F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle swizzle = C::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : C::ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  constexpr cuuint64_t ES = sizeof(T);
   CUtensorMap xmap, wmap;
   const cuuint64_t xdim[4] = {(cuuint64_t)g.Ci, (cuuint64_t)g.W, (cuuint64_t)g.H,
                               (cuuint64_t)g.B};
-  const cuuint64_t xstride[3] = {(cuuint64_t)g.Ci * 2, (cuuint64_t)g.W * g.Ci * 2,
-                                 (cuuint64_t)g.H * g.W * g.Ci * 2};
+  const cuuint64_t xstride[3] = {(cuuint64_t)g.Ci * ES, (cuuint64_t)g.W * g.Ci * ES,
+                                 (cuuint64_t)g.H * g.W * g.Ci * ES};
   const cuuint32_t xbox[4] = {(cuuint32_t)BK, (cuuint32_t)(TW * g.stride),
                               (cuuint32_t)(tmak::TH * g.stride), 1};
   const cuuint32_t xelem[4] = {1, (cuuint32_t)g.stride, (cuuint32_t)g.stride, 1};
-  CUresult r = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), xdim,
-                      xstride, xbox, xelem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  CUresult r = encode(&xmap, type, 4, const_cast<void*>(x), xdim, xstride, xbox, xelem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t wdim[2] = {(cuuint64_t)9 * g.Ci, (cuuint64_t)g.Co};
-  const cuuint64_t wstride[1] = {(cuuint64_t)9 * g.Ci * 2};
+  const cuuint64_t wstride[1] = {(cuuint64_t)9 * g.Ci * ES};
   const cuuint32_t wbox[2] = {(cuuint32_t)BK, (cuuint32_t)BN};
   const cuuint32_t welem[2] = {1, 1};
-  r = encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), wdim, wstride,
-             wbox, welem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  r = encode(&wmap, type, 2, const_cast<void*>(w), wdim, wstride, wbox, welem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_y = (g.Ho + tmak::TH - 1) / tmak::TH, tiles_x = (g.Wo + TW - 1) / TW;
-  dim3 grid(g.B * tiles_y * tiles_x, (g.Co + BN - 1) / BN, split);
-  return launch(&tmak::conv3x3_tma<BK, TW, BN>, grid, tmak::NT, C::SMEM, split, s, xmap, wmap,
-                bias, static_cast<__nv_bfloat16*>(y), g, tiles_y, tiles_x);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.B * tiles_y * tiles_x, (g.Co + BN - 1) / BN, split);
+  cfg.blockDim = dim3(tmak::NT);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;     // no cluster without a split
+  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, bias, static_cast<T*>(y), g, tiles_y,
+                         tiles_x);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// float32: x (B, H, W, Ci) NHWC; w (Co, 3, 3, Ci) OHWI; bias (Co,);
-// y (B, Ho, Wo, Co) NHWC; the plan's split.  bfloat16: the same arrays in
-// bf16 (bias float32) and the plan's tile (bm = 8 x TW output pixels), bn
-// and bk.  The plan comes from ops/kernels/conv3x3.py plan(), which checks
-// c_in % 16 == 0 and, for bfloat16, c_out % 8 == 0; a plan this file has no
-// kernel for returns cudaErrorInvalidValue.
+// x (B, H, W, Ci) NHWC; w (Co, 3, 3, Ci) OHWI, both float32 or both
+// bfloat16; bias (Co,) float32; y (B, Ho, Wo, Co) NHWC in x's type; the
+// plan's tile (bm = 8 x TW output pixels), bn, bk and split.  The plan
+// comes from ops/kernels/conv3x3.py plan(), which checks c_in % 16 == 0
+// and c_out % 8 == 0; a plan this file has no kernel for returns
+// cudaErrorInvalidValue.
 extern "C" int mk_conv3x3(const void* x, const void* w, const float* bias, void* y,
                           int B, int H, int W, int Ci, int Ho, int Wo, int Co,
                           int stride, int dil, int act, int dtype, int bm, int bn, int bk,
@@ -504,21 +476,20 @@ extern "C" int mk_conv3x3(const void* x, const void* w, const float* bias, void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo g{B, H, W, Ci, Ho, Wo, Co, stride, dil, act};
   if (split < 1 || split > 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == DT_BF16) {
-#define MK_TMA(BK, TM, BN)                                     \
+#define MK_TMA(T, BK, TM, BN)                                  \
   if (bk == BK && bm == TM && bn == BN)                        \
-    return launch_tma<BK, TM / tmak::TH, BN>(x, w, bias, y, g, split, s);
-    MK_TMA(64, 64, 64) MK_TMA(64, 128, 64) MK_TMA(64, 64, 128) MK_TMA(64, 128, 128)
-    MK_TMA(32, 64, 64) MK_TMA(32, 128, 64) MK_TMA(32, 64, 128) MK_TMA(32, 128, 128)
-    MK_TMA(16, 64, 64) MK_TMA(16, 128, 64) MK_TMA(16, 64, 128) MK_TMA(16, 128, 128)
-#undef MK_TMA
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tma<T, BK, TM / tmak::TH, BN>(x, w, bias, y, g, split, s);
+  if (dtype == DT_BF16) {
+    MK_TMA(__nv_bfloat16, 64, 64, 64) MK_TMA(__nv_bfloat16, 64, 128, 64)
+    MK_TMA(__nv_bfloat16, 64, 64, 128) MK_TMA(__nv_bfloat16, 64, 128, 128)
+    MK_TMA(__nv_bfloat16, 32, 64, 64) MK_TMA(__nv_bfloat16, 32, 128, 64)
+    MK_TMA(__nv_bfloat16, 32, 64, 128) MK_TMA(__nv_bfloat16, 32, 128, 128)
+    MK_TMA(__nv_bfloat16, 16, 64, 64) MK_TMA(__nv_bfloat16, 16, 128, 64)
+    MK_TMA(__nv_bfloat16, 16, 64, 128) MK_TMA(__nv_bfloat16, 16, 128, 128)
+  } else if (dtype == DT_F32) {
+    MK_TMA(float, 32, 64, 64) MK_TMA(float, 32, 128, 64) MK_TMA(float, 32, 64, 128)
+    MK_TMA(float, 16, 64, 64) MK_TMA(float, 16, 128, 64) MK_TMA(float, 16, 64, 128)
   }
-  if (bm != BM || bn != f32k::BN || bk != f32k::BK)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int M = B * Ho * Wo;
-  dim3 grid((M + BM - 1) / BM, (Co + f32k::BN - 1) / f32k::BN, split);
-  return launch(&f32k::conv3x3_f32, grid, f32k::NT, f32k::SMEM, split, s,
-                static_cast<const float*>(x), static_cast<const float*>(w), bias,
-                static_cast<float*>(y), g);
+#undef MK_TMA
+  return static_cast<int>(cudaErrorInvalidValue);
 }

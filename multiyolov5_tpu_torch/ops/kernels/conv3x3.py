@@ -23,15 +23,17 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 
 SMS = 132           # streaming multiprocessors of an H100 SXM
 MAX_SPLIT = 8       # CTAs a portable thread-block cluster may hold
+# float32 splits K until the grid holds this many CTAs an SM: its 8x16 px x
+# 64 ch and 8x8 px x 128 ch tiles fit two an SM (PERF.md)
+F32_FILL = 1.75
 
 
 class Plan(NamedTuple):
     """One K2 launch: a CTA computes a ``bm`` x ``bn`` output tile over
     ``k_steps`` (or one fewer) of the conv's ``9 * c_in / bk`` K steps; the
     ``split`` CTAs of a cluster share the K steps and sum their partial
-    tiles through distributed shared memory.  bfloat16: the ``bm`` pixels
-    are an 8 x ``bm / 8`` rectangle of one image; float32: ``bm``
-    consecutive output pixels."""
+    tiles through distributed shared memory.  The ``bm`` pixels are an 8 x
+    ``bm / 8`` rectangle of one image."""
     bm: int
     bn: int
     bk: int
@@ -46,51 +48,64 @@ def plan(bsz: int, ho: int, wo: int, c_in: int, c_out: int, dtype: torch.dtype,
     """The tile and split of K2 for a (bsz, ho, wo, c_out) output of a
     ``c_in``-channel input in ``dtype``.
 
-    bfloat16: BK 64 where c_in allows (else 32, else 16).  A 128-pixel
-    tile (8x16) with 128 channels, or else 64, where those tiles alone give
-    one CTA an SM; otherwise a 64-pixel tile (8x8), with 128 channels where
-    c_out is a multiple of 128 and that gives one CTA per two SMs, else 64.
-    float32: 64 px x 64 ch, BK 16.  Where the tiles are fewer than the SMs,
-    K is split over the CTAs of a cluster until the grid reaches one CTA an
-    SM: the least split that does or, where the grid stays within two CTAs
-    an SM, the next that divides the K steps evenly; at most 8 and at least
-    two K steps a CTA.  On the H100 these were the fastest plans that fill
-    the card at pspv5s's ten bs1 sites (PERF.md).  Raises ValueError on a
-    shape the kernel does not take."""
+    BK: 128-byte rows where c_in allows (bf16 64 channels, float32 32),
+    else the next that divides c_in (down to 16 channels).
+
+    bfloat16: a 128-pixel tile (8x16) with 128 channels, or else 64, where
+    those tiles alone give one CTA an SM; otherwise a 64-pixel tile (8x8),
+    with 128 channels where c_out is a multiple of 128 and that gives one
+    CTA per two SMs, else 64.  Where the tiles are fewer than the SMs, K is
+    split over the CTAs of a cluster until the grid reaches one CTA an SM:
+    the least split that does or, where the grid stays within two CTAs an
+    SM, the next that divides the K steps evenly.
+
+    float32: 8x8 pixels x 128 channels where c_out is a multiple of 128,
+    else 8x16 x 64 (8x8 x 64 where even the largest split of those leaves
+    SMs without a CTA), and the least split of 1, 2, 4 or 8 whose grid
+    holds ``F32_FILL`` CTAs an SM, else the largest.
+
+    Splits are at most 8 and leave at least two K steps a CTA.  On the H100
+    these were the fastest plans that fill the card at pspv5s's ten bs1
+    sites in bf16, and at eval's bs4 and pspv5x's bs1 sites in float32
+    (PERF.md).  Raises ValueError on a shape the kernel does not take."""
     if min(bsz, ho, wo, c_out) < 1:
         raise ValueError(f"conv3x3: empty output {(bsz, ho, wo, c_out)}")
-    if c_in % 16:
-        raise ValueError(f"conv3x3: c_in {c_in} is not a multiple of 16")
+    if dtype not in _DTYPES:
+        raise ValueError(f"conv3x3: dtype {dtype}")
+    if c_in % 16 or c_out % 8:
+        raise ValueError(f"conv3x3: needs c_in % 16 == 0 and c_out % 8 == 0, "
+                         f"got {c_in}, {c_out}")
     if stride not in (1, 2) or dilation not in (1, 2, 3):
         raise ValueError(f"conv3x3: stride {stride}, dilation {dilation}")
-    if dtype == torch.bfloat16:
-        if c_out % 8:
-            raise ValueError(f"conv3x3: bf16 needs c_out % 8 == 0, got {c_out}")
-        bk = 64 if c_in % 64 == 0 else 32 if c_in % 32 == 0 else 16
-        wide = c_out % 128 == 0
+    row = 128 // dtype.itemsize             # channels in a 128-byte row
+    bk = next(k for k in (row, row // 2, row // 4) if c_in % k == 0)
+    wide = c_out % 128 == 0
+    nk = 9 * c_in // bk
+    cap = max(1, min(MAX_SPLIT, nk // 2))
 
-        def tiles(bm, bn):      # an 8 x bm/8 rectangle of one image x bn channels
-            return (bsz * math.ceil(ho / 8) * math.ceil(wo / (bm // 8))
-                    * math.ceil(c_out / bn))
+    def tiles(bm, bn):          # an 8 x bm/8 rectangle of one image x bn channels
+        return bsz * math.ceil(ho / 8) * math.ceil(wo / (bm // 8)) * math.ceil(c_out / bn)
 
+    if dtype == torch.float32:
+        top = 1 << (cap.bit_length() - 1)   # the largest power-of-two split
+        bm, bn = (64, 128) if wide else (128, 64)
+        if tiles(bm, bn) * top < SMS:
+            bm, bn = 64, 64
+        n_tiles = tiles(bm, bn)
+        split = next((s for s in (1, 2, 4, 8) if s <= top and n_tiles * s >= F32_FILL * SMS),
+                     top)
+    else:
         bm, bn = 64, 128 if wide and tiles(64, 128) >= SMS / 2 else 64
         for big in ((128, 128), (128, 64)):
             if (big[1] == 64 or wide) and tiles(*big) >= SMS:
                 bm, bn = big
                 break
         n_tiles = tiles(bm, bn)
-    elif dtype == torch.float32:
-        bk, bm, bn = 16, 64, 64
-        n_tiles = math.ceil(bsz * ho * wo / bm) * math.ceil(c_out / bn)
-    else:
-        raise ValueError(f"conv3x3: dtype {dtype}")
-    nk = 9 * c_in // bk
-    cap = max(1, min(MAX_SPLIT, nk // 2))
-    split = 1
-    if n_tiles < SMS:
-        least = min(cap, math.ceil(SMS / n_tiles))
-        split = next((s for s in range(least, cap + 1)
-                      if nk % s == 0 and n_tiles * s <= 2 * SMS), least)
+        split = 1
+        if n_tiles < SMS:
+            least = min(cap, math.ceil(SMS / n_tiles))
+            split = next((s for s in range(least, cap + 1)
+                          if nk % s == 0 and n_tiles * s <= 2 * SMS), least)
     return Plan(bm, bn, bk, split, n_tiles, n_tiles * split, math.ceil(nk / split))
 
 
@@ -111,8 +126,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """K2 on a CUDA tensor, :func:`conv3x3_plain` on a CPU tensor.
 
     Kernel inputs: x contiguous NHWC float32 or bfloat16 with Ci % 16 == 0
-    (bfloat16 also Co % 8 == 0), w contiguous OHWI of x's dtype, b
-    contiguous float32; :func:`plan` raises on any other shape."""
+    and Co % 8 == 0, w contiguous OHWI of x's dtype, b contiguous float32;
+    :func:`plan` raises on any other shape."""
     if not build.on_device(x, "conv3x3"):
         return conv3x3_plain(x, w, b, stride, dilation, act)
     build.require(x.dim() == 4 and x.is_contiguous(), "conv3x3: x must be contiguous NHWC")

@@ -16,9 +16,15 @@ bottlenecks, c2 != c1, c1 128, a 1 x 1 image, H x W that are no multiple of
 any tile, and no shortcut; both forms in turns on the same weights.  K1's float
 mode: float32 and bfloat16 frames in [0, 1] at s and x width (c_mid 128,
 320), the bounds above.  K2 in bf16 at c_in 48 (SegMaskLab's detail conv,
-the BK = 16 path).  K2's planned launches: a 6-way cluster split at
-pspv5s's 1/32-res site, odd H x W, stride 2 at odd sizes, dilation 3, c_out
-8 and 24, in both dtypes.  K1's two forms (bfloat16 output, and the 3xTF32
+the BK = 16 path).  K2's planned launches: a 6-way (bf16) or 8-way (float32)
+cluster split at pspv5s's 1/32-res site, odd H x W, stride 2 at odd sizes,
+dilation 3, c_out 8 and 24, in both dtypes.  K2's float32 form (3xTF32):
+c_in 48 (BK 16), pspv5x's c_in 640 -> 640 at stride 1 and 2, FFM's (4, 64,
+128, 256) -> 128, H x W that are no multiple of the 8x16 tile, each split
+1-8 through the C entry with an explicit plan, a float32 launch between two
+bf16 launches on the same weights (bf16 outputs bitwise equal), and,
+against float64 at eval's site shapes, no more than twice cuDNN float32's
+(TF32 off) max error.  K1's two forms (bfloat16 output, and the 3xTF32
 float32 output) at c_mid 32, 128, 192 and 320 on uint8 and float32
 frames, at B = 3 with H/4 and W/4 that are no multiple of their 8x16
 tile, held to the bounds above against ``stem_plain`` (which rounds as the
@@ -116,7 +122,7 @@ def test_conv3x3_kernel_bf16_c_in_16(dev, ci, co):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,co,stride,dil", [
-    ((1, 16, 32, 256), 256, 1, 1),     # pspv5s 1/32 res: a 6-way split
+    ((1, 16, 32, 256), 256, 1, 1),     # pspv5s 1/32 res: a 6- (bf16) or 8-way split
     ((2, 37, 23, 64), 64, 1, 1),       # odd H x W
     ((1, 33, 47, 128), 128, 2, 1),     # stride 2, odd sizes
     ((1, 24, 40, 64), 64, 1, 3),       # dilation 3
@@ -131,11 +137,80 @@ def test_conv3x3_kernel_planned(dev, dtype, shape, co, stride, dil):
     b = (torch.randn(co, generator=g) * 0.1).to(dev)
     ho, wo = (shape[1] - 1) // stride + 1, (shape[2] - 1) // stride + 1
     p = plan(shape[0], ho, wo, shape[-1], co, dtype, stride, dil)
-    if shape == (1, 16, 32, 256):
-        assert p.split == 6 and p.ctas >= 132
+    if shape == (1, 16, 32, 256):       # bf16: 6 (divides its 36 K steps); float32: 8
+        assert p.split == (6 if dtype == torch.bfloat16 else 8) and p.ctas >= 132
     got = K.conv3x3(x, w, b, stride, dil, True)
     torch.cuda.synchronize()
     _close(got, K.conv3x3_plain(x, w, b, stride, dil, True), dtype)
+
+
+def _conv_case(seed, shape, co, dev, dtype=torch.float32):
+    """Seeded x (unit normal) and OHWI w scaled to unit-variance outputs."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*shape, generator=g)
+    w = torch.randn(co, 3, 3, shape[-1], generator=g) / (9 * shape[-1]) ** 0.5
+    b = torch.randn(co, generator=g) * 0.1
+    return x.to(dev, dtype), w.to(dev, dtype), b.to(dev)
+
+
+@pytest.mark.parametrize("shape,co,stride", [
+    ((1, 32, 64, 48), 48, 1),          # SegMaskLab's detail conv: BK 16
+    ((2, 19, 21, 48), 24, 2),
+    ((1, 16, 32, 640), 640, 1),        # pspv5x's 1/32-res sites
+    ((1, 32, 64, 640), 640, 2),
+    ((4, 64, 128, 256), 128, 1),       # FFM at eval's bs4
+    ((3, 45, 70, 64), 64, 1),          # H x W no multiple of 8x16 (or 8x8)
+    ((2, 29, 51, 128), 128, 2),
+])
+def test_conv3x3_kernel_f32_sites(dev, shape, co, stride):
+    x, w, b = _conv_case(co + stride, shape, co, dev)
+    got = K.conv3x3(x, w, b, stride)
+    torch.cuda.synchronize()
+    _close(got, K.conv3x3_plain(x, w, b, stride), torch.float32)
+
+
+@pytest.mark.parametrize("split", list(range(1, 9)))
+@pytest.mark.parametrize("bm,bn", [(64, 64), (128, 64), (64, 128)])
+def test_conv3x3_kernel_f32_each_split(dev, split, bm, bn):
+    """Every cluster split through the C entry with an explicit plan."""
+    kmod = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.conv3x3")
+    shape, co = (1, 20, 36, 128), 128
+    x, w, b = _conv_case(split, shape, co, dev)
+    tiles = -(-20 // 8) * -(-36 // (bm // 8)) * -(-co // bn)
+    nk = 9 * shape[-1] // 32
+    p = kmod.Plan(bm, bn, 32, split, tiles, tiles * split, -(-nk // split))
+    got = kmod._launch(x, w, b, 1, 1, True, p)
+    torch.cuda.synchronize()
+    _close(got, K.conv3x3_plain(x, w, b), torch.float32)
+
+
+def test_conv3x3_kernel_f32_between_bf16(dev):
+    """A float32 launch between two bf16 launches on the same weights: the
+    bf16 outputs are bitwise equal, the float32 one within its bound."""
+    x, w, b = _conv_case(7, (2, 32, 64, 128), 128, dev)
+    x16, w16 = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    first = K.conv3x3(x16, w16, b)
+    got = K.conv3x3(x, w, b)
+    again = K.conv3x3(x16, w16, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), again.view(torch.int16))
+    _close(got, K.conv3x3_plain(x, w, b), torch.float32)
+    _close(first, K.conv3x3_plain(x16, w16, b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,co,stride,dil", [
+    ((4, 32, 64, 128), 128, 1, 1), ((4, 64, 128, 64), 64, 1, 3),
+    ((4, 64, 128, 128), 128, 2, 1), ((4, 32, 64, 256), 256, 2, 1),
+    ((4, 16, 32, 256), 256, 1, 1), ((4, 64, 128, 256), 128, 1, 1),
+])
+def test_conv3x3_kernel_f32_against_float64(dev, shape, co, stride, dil):
+    """At eval's site shapes the 3xTF32 form errs against float64 by no more
+    than twice what cuDNN float32 (TF32 off) does."""
+    x, w, b = _conv_case(co * stride + dil, shape, co, dev)
+    ref = K.conv3x3_plain(x.double(), w.double(), b.double(), stride, dil)
+    err_k2 = (K.conv3x3(x, w, b, stride, dil).double() - ref).abs().max().item()
+    err_cudnn = (K.conv3x3_plain(x, w, b, stride, dil).double() - ref).abs().max().item()
+    assert err_k2 <= 2 * err_cudnn, (err_k2, err_cudnn)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
