@@ -18,7 +18,11 @@ unless named), on the card and, for reference, on the CPU:
   on two seeded bs4 batches letterboxed from 2048x1024;
 * training: the dual-task train step (det bs8 832x832 + seg bs8 512x1024,
   SGD, EMA; K6 forward and backward), one float32 step against the CPU's,
-  a scheduled 20-step bf16 run whose EMA checkpoint ``Engine`` serves.
+  a scheduled 20-step bf16 run whose EMA checkpoint ``Engine`` serves;
+  K6 prints its plan, whose byte counts ops/kernels/seg_ce.py must give as
+  the kernels do, and on the steps' own arguments must give bitwise equal
+  dz from two backward launches and bitwise equal loss and dz from planar
+  and channels-last logits.
 * the other model families [9]: K1's float mode (B1c) against its plain
   version at s and x width; ``Engine`` at bs1 for the Base, BiSe and Lab
   seg heads, pspv5x (``yolov5x_city_seg``), detection-only ``yolov5s`` and
@@ -1978,6 +1982,71 @@ def change_errors(got: dict, want: dict, init: dict):
     return bad, max(rel), float(np.median(rel))
 
 
+def k6_bound(z, y):
+    """(K6's least ms forward + backward on an H100, "bytes" or
+    "operations") for logits z against labels y: two exps a (label pixel,
+    class) at the SFU rate beside their float32 operations; z read three
+    times and dz written once, labels and weights read by both passes."""
+    b, c = z.shape[:2]
+    n = b * c * y.shape[1] * y.shape[2]
+    zb = z.numel() * z.element_size()
+    nbytes = 3 * zb + 2 * (4 * y.numel() + 4 * c) + 4
+    t_ops = max(2 * n / SFU_OP_S, K6_OPS_PER_PIXEL_CLASS * n / FP32_FLOP_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k6_plan_text(p) -> str:
+    """K6's launch plan (ops/kernels/seg_ce.py plan) in words."""
+    f, b = p.fwd, p.bwd
+    return (f"forward {f.ti}x{f.tj}-cell tiles, {f.ctas} CTAs of {f.threads} threads, "
+            f"{f.cb} classes a thread, {f.smem} B shared; backward {b.ti}x{b.tj} tiles of dz, "
+            f"{b.ctas} CTAs of {b.threads} threads ({b.groups} groups of {b.cb} classes x "
+            f"{b.cols} label columns), {b.smem} B shared")
+
+
+def hold_k6_plan(z, y):
+    """Print K6's plan for the step's (z, y) and require ops/kernels/seg_ce.py's
+    shared-memory counts to equal the kernel's (mk_seg_ce_smem_bytes)."""
+    import ctypes
+    import importlib
+
+    from multiyolov5_tpu_torch.ops.kernels import build
+    mod = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.seg_ce")
+    p = mod.plan(*z.shape, *y.shape[1:], z.dtype)
+    smem_c = build.function("mk_seg_ce_smem_bytes", [ctypes.c_int] * 5)
+    for q, backward in ((p.fwd, False), (p.bwd, True)):
+        cp = q.cb * q.groups          # the classes padded as the kernel stages them
+        check(f"seg_ce {'backward' if backward else 'forward'} plan's shared memory - "
+              "the kernel's", abs(q.smem - smem_c(int(backward), cp, q.ti, q.tj, q.cols)), 0)
+    return p
+
+
+def hold_k6_bitwise(z, y, w, upstream: float):
+    """On one call's arguments: two backward launches give bitwise equal dz,
+    and planar and channels-last logits bitwise equal loss and dz."""
+    from multiyolov5_tpu_torch.ops import kernels as K
+    zc = z.contiguous(memory_format=torch.channels_last)
+    y32 = y.to(torch.int32)
+    wv = (torch.ones(z.shape[1], dtype=torch.float32, device=z.device) if w is None
+          else w.to(z.device, torch.float32))
+    stats, lse = K.seg_ce_forward(zc, y32, wv)
+    g = torch.full((1,), upstream, dtype=torch.float32, device=z.device)
+    d1 = K.seg_ce_backward(zc, y32, wv, lse, stats, g)
+    d2 = K.seg_ce_backward(zc, y32, wv, lse, stats, g)
+    out = []
+    for zz in (zc, z.contiguous()):
+        zz = zz.detach().clone().requires_grad_(True)
+        loss = K.seg_ce(zz, y, w)
+        (loss * upstream).backward()
+        out.append((loss.detach(), zz.grad.contiguous()))
+    torch.cuda.synchronize()
+    check("seg_ce two backward launches: dz elements not bitwise equal",
+          int((d1 != d2).sum().item()), 0)
+    check("seg_ce planar vs channels-last: loss and dz elements not bitwise equal",
+          int((out[0][0] != out[1][0]).sum().item() + (out[0][1] != out[1][1]).sum().item()), 0)
+
+
 def k6_against_plain(z, y, w, upstream: float):
     """K6 and its plain version, forward and backward, on one call's
     arguments: (|loss diff|, max |dz diff|, max |dz diff| / max |plain dz|)."""
@@ -2053,7 +2122,11 @@ def phase_train():
             f"dz max|diff| {dabs:.3e}")
         check(f"seg_ce {name} loss |diff|/|plain|", dl, SEG_CE_LOSS_REL)
         check(f"seg_ce {name} dz max|diff|/max|plain dz|", drel, SEG_CE_DZ_REL[dt])
-        res["k6"][name] = {"loss_rel": dl, "dz_max_abs": dabs, "dz_rel": drel}
+        cl = z.is_contiguous(memory_format=torch.channels_last)
+        plan = k6_plan_text(hold_k6_plan(z, y))
+        log(f"  seg_ce {name}: the step's logits {'channels-last' if cl else 'planar'}; {plan}")
+        hold_k6_bitwise(z, y, w, upstream)
+        res["k6"][name] = {"loss_rel": dl, "dz_max_abs": dabs, "dz_rel": drel, "plan": plan}
 
     # the counted float32 step against the same step on the CPU
     t_cpu = time.perf_counter()
@@ -2147,7 +2220,7 @@ def phase_train():
     res["k6_times"] = {}
     for name in ("bf16", "fp32"):
         z, y, w = rec[name][0]
-        z = z.contiguous()        # as the wrapper hands the head's channels_last logits on
+        z = z.contiguous(memory_format=torch.channels_last)   # the head's, as the kernels read it
         y32 = y.to(torch.int32)
         wv = torch.ones(z.shape[1], dtype=torch.float32, device=z.device)
         stats, lse = K.seg_ce_forward(z, y32, wv)
@@ -2166,14 +2239,7 @@ def phase_train():
              "bwd_ms": graph_ms(lambda: K.seg_ce_backward(z, y32, wv, lse, stats, g)),
              "plain_ms": cuda_ms(plain, iters=10, warmup=2),
              "library_ms": cuda_ms(library, iters=10, warmup=2)}
-        b, c = z.shape[:2]
-        n = b * c * y.shape[1] * y.shape[2]
-        zb = z.numel() * z.element_size()
-        nbytes = 3 * zb + 2 * (4 * y.numel() + 4 * c) + 4
-        t_ops = max(2 * n / SFU_OP_S, K6_OPS_PER_PIXEL_CLASS * n / FP32_FLOP_S) * 1e3
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t["bound_ms"], t["bound_by"] = max(t_ops, t_bytes), (
-            "operations" if t_ops >= t_bytes else "bytes")
+        t["bound_ms"], t["bound_by"] = k6_bound(z, y)
         res["k6_times"][name] = t
         log(f"  seg_ce {name} {tuple(z.shape)} -> {tuple(y.shape[1:])}: forward "
             f"{t['fwd_ms']:.4f} ms, backward {t['bwd_ms']:.4f} ms; plain fwd+bwd "
@@ -2278,7 +2344,7 @@ def main() -> int:
     kk = {k["name"]: k for k in kernels}
     kk["seg_ce"].update(fwd_ms=k6["fwd_ms"], bwd_ms=k6["bwd_ms"],
                         fwd_launches=train_counts["seg_ce"],
-                        bwd_launches=train_counts["seg_ce_bwd"])
+                        bwd_launches=train_counts["seg_ce_bwd"], plan=tr["k6"]["bf16"]["plan"])
     # the float32 form (3xTF32) beside the CUDA cores' float32 bound
     kk["stem_float"].update(cuda_core_bound_ms=sf["cuda_core_bound_ms"])
     # K2's float32 form (3xTF32), summed over eval's 10 bs4 sites

@@ -9,7 +9,13 @@ the conv input), NMS keep masks and greedy picks equal, class-map mismatch
 share <= 1e-4.  K6 (seg_ce): the loss within 1e-4 relative (float32 sums
 in another order; its bf16 input is the same for both), dz within 1e-4
 (float32) or 1e-2 (bf16: one rounding of each side's float32 value) of
-max |dz|; all-ignored labels give exactly 0 and a zero gradient.  K7 (c3,
+max |dz|; all-ignored labels give exactly 0 and a zero gradient; at the
+train step's shape with 20% and 90% ignored labels and class weights,
+labels >= C (as ignored: bitwise the same as -1), resizes at ratios other
+than 8 and sizes no multiple of any tile; planar and channels-last logits
+give bitwise equal loss and dz, two calls bitwise equal dz, and every tile
+of ``FWD_PLANS`` and ``BWD_PLANS`` through the C entry the plain version's
+loss and dz (dz bitwise the same under every plan).  K7 (c3,
 bf16 products for bf16, 3xTF32 for float32): the float32 and bf16 bounds
 above, at pspv5s's and pspv5m's C3 widths, c_ 8, 16 and 24, four
 bottlenecks, c2 != c1, c1 128, a 1 x 1 image, H x W that are no multiple of
@@ -429,6 +435,111 @@ def test_seg_ce_kernel_all_ignored(dev):
     assert (K.seg_ce_forward.launches, K.seg_ce_backward.launches) == (
         launches[0] + 1, launches[1] + 1)
     assert loss.item() == 0.0 and z.grad.abs().max().item() == 0.0
+
+
+def _k6_inputs(dev, dtype, shape, hw, ignore_frac=0.2, seed=0, label_hi=None):
+    """Seeded channels-last logits (b, c, h, w), int64 labels (b, H, W) in
+    [0, label_hi or c) with ``ignore_frac`` of them -1, and class weights."""
+    b, c, h, w = shape
+    rng = np.random.RandomState(seed)
+    z = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(dev, dtype)
+    y = rng.randint(0, label_hi or c, (b, *hw))
+    y = torch.from_numpy(np.where(rng.rand(*y.shape) < ignore_frac, -1, y)).to(dev)
+    wv = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5).to(dev)
+    return z.contiguous(memory_format=torch.channels_last), y, wv
+
+
+def _k6_run(fn, z, y, wv, upstream=3.5):
+    zz = z.detach().clone().requires_grad_(True)
+    loss = fn(zz, y, wv)
+    (loss * upstream).backward()
+    torch.cuda.synchronize()
+    return loss.detach(), zz.grad
+
+
+def _k6_close(z, y, wv, got):
+    """K6's (loss, dz) against the plain version's, with test_seg_ce_kernel's bounds."""
+    lp, gp = _k6_run(K.seg_ce_plain, z, y, wv)
+    lk, gk = got
+    assert gk.dtype == z.dtype and gk.shape == z.shape
+    assert abs(lk.item() - lp.item()) <= 1e-4 * abs(lp.item())
+    bound = (1e-4 if z.dtype == torch.float32 else 1e-2) * gp.float().abs().max().item()
+    assert (gk.float() - gp.float()).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ignore_frac", [0.2, 0.9])
+def test_seg_ce_kernel_step_shape_weighted(dev, dtype, ignore_frac):
+    z, y, wv = _k6_inputs(dev, dtype, (8, 19, 64, 128), (512, 1024), ignore_frac, seed=1)
+    _k6_close(z, y, wv, _k6_run(K.seg_ce, z, y, wv))
+
+
+def test_seg_ce_kernel_labels_past_classes(dev):
+    """Labels >= C count as ignored, as in the JAX kernel: bitwise the same
+    loss and dz as with those labels set to -1."""
+    z, y, wv = _k6_inputs(dev, torch.float32, (2, 5, 8, 16), (64, 128), seed=2, label_hi=9)
+    assert (y >= 5).any()
+    got = _k6_run(K.seg_ce, z, y, wv)
+    y_ign = torch.where(y >= 5, -1, y)
+    want = _k6_run(K.seg_ce, z, y_ign, wv)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _k6_close(z, y_ign, wv, got)
+
+
+# (b, c, h, w, H, W): ratios other than 8, and sizes no multiple of any tile
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 4, 6, 17, 50, 136), (2, 19, 17, 6, 136, 50),
+                                   (1, 3, 13, 21, 104, 168), (2, 19, 9, 35, 72, 280)])
+def test_seg_ce_kernel_other_ratios_and_ragged_tiles(dev, dtype, shape):
+    b, c, h, w, H, W = shape
+    z, y, wv = _k6_inputs(dev, dtype, (b, c, h, w), (H, W), seed=h * w)
+    _k6_close(z, y, wv, _k6_run(K.seg_ce, z, y, wv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_ce_kernel_layouts_and_repeats_bitwise(dev, dtype):
+    """Planar and channels-last logits give bitwise equal loss and dz (dz in
+    the input's layout); two calls give bitwise equal dz."""
+    z, y, wv = _k6_inputs(dev, dtype, (8, 19, 64, 128), (512, 1024), seed=3)
+    cl = _k6_run(K.seg_ce, z, y, wv)
+    planar = _k6_run(K.seg_ce, z.contiguous(), y, wv)
+    again = _k6_run(K.seg_ce, z, y, wv)
+    assert cl[1].is_contiguous(memory_format=torch.channels_last)
+    assert planar[1].is_contiguous()
+    assert torch.equal(cl[0], planar[0]) and torch.equal(cl[1], planar[1])
+    assert torch.equal(cl[0], again[0]) and torch.equal(cl[1], again[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_ce_kernel_every_plan(dev, dtype):
+    """Every forward and backward tile of the sweep, through the C entry with
+    an explicit plan: the plain version's loss and dz; the logsumexps
+    bitwise the default plan's under every forward tile, and dz under every
+    backward tile (a pixel's and an element's sums run in the same order in
+    any tile; only the loss's sum order moves with the forward's tile)."""
+    mod = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.seg_ce")
+    z, y, wv = _k6_inputs(dev, dtype, (2, 19, 16, 40), (128, 320), seed=4)
+    y32 = y.to(torch.int32)
+    g = torch.full((1,), 3.5, dtype=torch.float32, device=dev)
+    base = mod.plan(2, 19, 16, 40, 128, 320, dtype)
+    lp, gp = _k6_run(K.seg_ce_plain, z, y, wv)
+    bound = (1e-4 if dtype == torch.float32 else 1e-2) * gp.float().abs().max().item()
+    stats0, lse0 = K.seg_ce_forward(z, y32, wv, p=base)
+    want = K.seg_ce_backward(z, y32, wv, lse0, stats0, g, p=base)
+    for t in mod.FWD_PLANS:
+        p = mod.plan(2, 19, 16, 40, 128, 320, dtype, fwd=t)
+        stats, lse = K.seg_ce_forward(z, y32, wv, p=p)
+        dz = K.seg_ce_backward(z, y32, wv, lse, stats, g, p=p)
+        torch.cuda.synchronize()
+        assert abs(stats[0].item() - lp.item()) <= 1e-4 * abs(lp.item()), p
+        assert (dz.float() - gp.float()).abs().max().item() <= bound, p
+        assert torch.equal(lse, lse0), p
+    for t in mod.BWD_PLANS:
+        p = mod.plan(2, 19, 16, 40, 128, 320, dtype, bwd=t)
+        dz = K.seg_ce_backward(z, y32, wv, lse0, stats0, g, p=p)
+        torch.cuda.synchronize()
+        assert (dz.float() - gp.float()).abs().max().item() <= bound, p
+        assert torch.equal(dz, want), p
 
 
 def _c3_args(g, dev, dtype, c1, ch, c2, n):
