@@ -47,7 +47,13 @@ where ops/kernels/nms_greedy.py's shared-memory count must equal the
 kernel's, and [6] times it at eval's (4, 30000) lists, (4, 1024), (8,
 1024) and the one-list serving case; it times K2's float32 form at eval's
 10 bs4 sites and pspv5x's 22 bs1 sites beside cuDNN float32 (TF32 off),
-its 3xTF32 bound and the CUDA cores' float32 bound.  Any failure raises and
+its 3xTF32 bound and the CUDA cores' float32 bound.  [5] also holds K3's
+keep mask and packed output bit for bit on seeded, chained, all-invalid
+and ragged lists (n 1, 33, 1000, 1024), and K4's class map at bs1, eval's
+bs4, the bs8 server's shape and a ragged geometry in both dtypes, bitwise
+the same on a second launch and under every tile; [6] times K3 with and
+without its pack and K4 at those shapes, and [8] K4 on the server's own
+bs8 logits.  Any failure raises and
 exits non-zero.  The last line of stdout is the JSON ``{"ok": true,
 "device": {...}}``; the line before it the card's name and power limit,
 the one before that the kernels' JSON.  Longer records go to
@@ -334,21 +340,21 @@ def record_path_inputs(eng, frame):
     from multiyolov5_tpu_torch.models import blocks
     from multiyolov5_tpu_torch.ops import nms as nms_mod
     sites, nms_inputs = [], []
-    real_conv, real_nms = blocks.conv3x3, nms_mod.nms
+    real_conv, real_nms = blocks.conv3x3, nms_mod.nms_packed
 
     def conv_rec(x, w, b, stride=1, dilation=1, act=True):
         sites.append((tuple(x.shape), w.shape[0], stride, dilation, act, w, b))
         return real_conv(x, w, b, stride, dilation, act)
 
-    def nms_rec(boxes, scores, iou):
+    def nms_rec(boxes, scores, iou, max_det):
         nms_inputs.append((boxes.clone(), scores.clone(), iou))
-        return real_nms(boxes, scores, iou)
+        return real_nms(boxes, scores, iou, max_det)
 
-    blocks.conv3x3, nms_mod.nms = conv_rec, nms_rec
+    blocks.conv3x3, nms_mod.nms_packed = conv_rec, nms_rec
     try:
         eng(frame, ORIG_HW, conf=CONF)
     finally:
-        blocks.conv3x3, nms_mod.nms = real_conv, real_nms
+        blocks.conv3x3, nms_mod.nms_packed = real_conv, real_nms
     return sites, nms_inputs
 
 
@@ -606,11 +612,14 @@ def phase_kernels(eng32, eng16, frames):
     cases += nms_in
     for boxes, scores, iou in cases:
         got = K.nms(boxes, scores, iou)
+        idx, valid = K.nms_packed(boxes, scores, iou, 300)
         torch.cuda.synchronize()
         want = K.nms_plain(boxes, scores, iou)
-        diff += int((got != want).sum().item())
-    check(f"nms keep-mask entries differing, {len(cases)} sets of N={len(cases[0][1])}",
-          diff, 0)
+        want_idx, want_valid = K.nms_packed_plain(boxes, scores, iou, 300)
+        diff += int((got != want).sum().item() + (idx != want_idx).sum().item()
+                    + (valid != want_valid).sum().item())
+    check(f"nms keep-mask and packed entries differing, {len(cases)} sets of "
+          f"N={len(cases[0][1])}", diff, 0)
     res["nms"] = float(diff)
 
     # K4 on seeded logits of the head's shape
@@ -896,6 +905,149 @@ def greedy_tests(boxes, scores, idx, valid, iou):
     return total
 
 
+def k3_lists():
+    """(name, boxes, scores, iou) on the card: K3's seeded sets of [2] (N
+    1024, 10 class offsets, images of 300, 800 and 2000 px, 900 valid), the
+    deepest chain (unit boxes a quarter apart: each overlaps the next only,
+    every other row kept), a list with every row invalid, and lists of 1,
+    33 and 1000 rows (n no multiple of 32)."""
+    rng = np.random.RandomState(SEED)
+    out = []
+    for img, n in ((300, 1024), (800, 1024), (2000, 1024), (300, 1), (300, 33), (800, 1000)):
+        xy = rng.rand(n, 2) * img
+        wh = rng.rand(n, 2) * 150 + 4
+        cls = rng.randint(0, 10, (n, 1)) * 4096.0
+        boxes = np.concatenate([xy - wh / 2 + cls, xy + wh / 2 + cls], 1).astype(np.float32)
+        scores = np.sort(rng.rand(n).astype(np.float32))[::-1].copy()
+        scores[max(n * 900 // 1024, 1):] = 0
+        out.append((f"seeded {img} px n {n}", boxes, scores))
+    x = np.arange(1024, dtype=np.float32) * 0.25
+    out.append(("chain n 1024", np.stack([x, 0 * x, x + 1, 0 * x + 1], 1),
+                np.linspace(1.0, 0.5, 1024).astype(np.float32)))
+    out.append(("all invalid n 1024", out[0][1], np.zeros(1024, np.float32)))
+    return [(name, torch.from_numpy(b).to(DEVICE), torch.from_numpy(sc).to(DEVICE), 0.45)
+            for name, b, sc in out]
+
+
+def k3_plan_text(n: int) -> str:
+    from multiyolov5_tpu_torch.ops.kernels.nms import plan
+    p = plan(n)
+    return (f"plan: a cluster of {p.ctas} CTA{'s' if p.ctas > 1 else ''} builds the mask, "
+            f"CTA 0 sweeps ({p.smem} B shared)")
+
+
+def hold_k3():
+    """[5] K3's keep mask and packed output against the plain versions on
+    ``k3_lists``, max_det 300 and below the kept count; the plan's shared
+    memory against the kernel's.  Returns the entries differing (0)."""
+    import ctypes
+
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops.kernels import build
+    from multiyolov5_tpu_torch.ops.kernels.nms import plan
+    smem_c = build.function("mk_nms_smem_bytes", [ctypes.c_int])
+    diff = 0
+    for name, boxes, scores, iou in k3_lists():
+        n = boxes.shape[0]
+        want = K.nms_plain(boxes, scores, iou)
+        got = K.nms(boxes, scores, iou)
+        d = int((got != want).sum())
+        kept = int(want.sum())
+        for max_det in sorted({300, max(kept // 2, 1)}):
+            idx, valid = K.nms_packed(boxes, scores, iou, max_det)
+            want_idx, want_valid = K.nms_packed_plain(boxes, scores, iou, max_det)
+            d += int((idx != want_idx).sum()) + int((valid != want_valid).sum())
+        torch.cuda.synchronize()
+        p = plan(n)
+        log(f"  nms {name}: {kept} kept, keep and packed entries differing {d}; "
+            f"{k3_plan_text(n)}")
+        check(f"nms {name}: plan's shared memory - the kernel's",
+              abs(p.smem - smem_c(n)), 0)
+        diff += d
+    check("nms keep-mask and packed entries differing from plain on K3's lists", diff, 0)
+    return diff
+
+
+def k4_plan_text(p) -> str:
+    rows = p.threads * p.run // p.tc
+    return (f"plan: {p.tr}x{p.tc} px tiles in passes of {rows} rows, runs of {p.run} over "
+            f"{p.span} columns, {p.cb} classes a chunk, window {p.wr}x{p.wx}, {p.smem} B "
+            f"shared, {p.ctas} CTAs of {p.threads} threads")
+
+
+def k4_bound(x, out_hw, via_hw):
+    """K4's least time on an H100: the logits read once and the class map
+    written once, or the separable work in float32 on the CUDA cores: per
+    image and class the W pass on h rows (2 tw h W0), the H pass (2 th H0
+    W0) and one compare a pixel."""
+    from multiyolov5_tpu_torch.ops.kernels.upsample_argmax import band_tables
+    bsz, c, h, w = x.shape
+    h0, w0 = out_hw
+    th = band_tables(h, h0, via_hw[0])[1].shape[1]
+    tw = band_tables(w, w0, via_hw[1])[1].shape[1]
+    ops = bsz * c * (2 * tw * h * w0 + 2 * th * h0 * w0 + h0 * w0)
+    return bound_ms(x.element_size() * x.numel() + bsz * h0 * w0, ops, FP32_FLOP_S)
+
+
+def k4_cases():
+    """(name, logits, out_hw, via_hw) on the card, seeded: bs1 serving's,
+    seg_validation's bs4, the bs8 server's (letterboxed square frames) and a
+    ragged geometry whose tiles straddle both frame edges."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    seg_hw = (IN_HW[0] // 8, IN_HW[1] // 8)
+    out = []
+    for name, shape, out_hw, via_hw in (
+            ("bs1", (1, 19, *seg_hw), ORIG_HW, IN_HW),
+            (f"bs{EVAL_BS}", (EVAL_BS, 19, *seg_hw), ORIG_HW, IN_HW),
+            (f"bs{SERVE_BS}", (SERVE_BS, 19, SERVE_IMG // 8, SERVE_IMG // 8), ORIG_HW,
+             (SERVE_IMG, SERVE_IMG)),
+            ("ragged", (2, 19, 37, 61), (301, 517), (296, 488))):
+        x = torch.randn(shape, generator=g, device=DEVICE)
+        for dt in (torch.float32, torch.bfloat16):
+            out.append((f"{name} {str(dt)[6:]}", x.to(dt), out_hw, via_hw))
+    return out
+
+
+def hold_k4():
+    """[5] K4 against its plain version on ``k4_cases``: the mismatched
+    pixel share within MASK_SHARE, the class map bitwise the same on a
+    second launch and under every tile of ``TILES`` that takes the
+    geometry, the plan's shared memory the kernel's.  Returns the worst
+    share."""
+    import ctypes
+
+    import importlib
+
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops.kernels import build
+    k4 = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.upsample_argmax")
+    smem_c = build.function("mk_upsample_argmax_smem_bytes", [ctypes.c_int] * 5)
+    worst = 0.0
+    for name, x, out_hw, via_hw in k4_cases():
+        p = k4.plan(x.shape[0], x.shape[1], *x.shape[2:], out_hw, via_hw)
+        th = k4.band_tables(x.shape[2], out_hw[0], via_hw[0])[1].shape[1]
+        check(f"upsample_argmax {name}: plan's shared memory - the kernel's",
+              abs(p.smem - smem_c(p.tr, th, p.cb, p.wr, p.wx)), 0)
+        got = K.upsample_argmax(x, out_hw, via_hw)
+        again = K.upsample_argmax(x, out_hw, via_hw)
+        share = (got != K.upsample_argmax_plain(x, out_hw, via_hw)).float().mean().item()
+        plans = differ = 0
+        for tile in k4.TILES:
+            try:
+                q = k4.plan(x.shape[0], x.shape[1], *x.shape[2:], out_hw, via_hw, tile=tile)
+            except ValueError:
+                continue
+            plans += 1
+            differ += int((k4.launch(x, out_hw, via_hw, q) != got).sum())
+        torch.cuda.synchronize()
+        log(f"  upsample_argmax {name} {tuple(x.shape)} -> {out_hw}: {k4_plan_text(p)}")
+        check(f"upsample_argmax {name} mismatched pixel share", share, MASK_SHARE)
+        check(f"upsample_argmax {name}: pixels differing on a second launch and under "
+              f"{plans} plans", int((got != again).sum()) + differ, 0)
+        worst = max(worst, share)
+    return worst
+
+
 def phase_eval(eng32, eng16, cpu_eng):
     """[5] the eval path on the card against the CPU, each kernel against
     its plain version on the arguments the path gave it, and K5 on
@@ -993,6 +1145,10 @@ def phase_eval(eng32, eng16, cpu_eng):
         calls.append(((boxes, scores, EVAL_IOU, 300), {}))
     hold_k5(calls, "synthetic lists")
     del calls
+    # K3 and K4 beyond the paths' own arguments: chains, invalid and ragged
+    # lists, the batched and ragged class maps, every K4 plan
+    errs["nms_lists"] = hold_k3()
+    errs["upsample_argmax_cases"] = hold_k4()
     return {"launches": launches, "errs": errs, "rec": card, "det_b": det_b, "n": n_valid,
             "metrics": {"fp32": {"card": list(det[:4]) + list(seg),
                                  "cpu": list(det_cpu[:4]) + list(seg_cpu)},
@@ -1027,7 +1183,6 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
 
     from multiyolov5_tpu_torch.ops import kernels as K
     from multiyolov5_tpu_torch.ops.kernels.conv3x3 import plan as conv_plan
-    from multiyolov5_tpu_torch.ops.kernels.upsample_argmax import band_tables
     dev = torch.device(DEVICE)
     log("[6] timing: kernels on the card's clock (CUDA graph replay, no host gaps); "
         "Engine and the eval entry points on the host clock around synchronised calls")
@@ -1149,28 +1304,49 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
                     cuda_ms(lambda: K.nms_plain(boxes, scores, iou), iters=5, warmup=1))
     n = boxes.shape[0]
     bounds["nms"] = bound_ms(21 * n, K3_OPS_PER_TEST * n * (n - 1) / 2 + 3 * n, FP32_FLOP_S)
+    # K3 with its pack (nms_packed, the serving path's call), and the keep
+    # mask alone on the deepest chain and on an all-invalid list
+    k3 = {"plan": k3_plan_text(n), "mask_ms": times["nms"][0],
+          "packed_ms": graph_ms(lambda: K.nms_packed(boxes, scores, iou, 300)),
+          "packed_plain_ms": cuda_ms(lambda: K.nms_packed_plain(boxes, scores, iou, 300),
+                                     iters=5, warmup=1),
+          "packed_bound_ms": bound_ms(21 * n + 9 * 300, K3_OPS_PER_TEST * n * (n - 1) / 2
+                                      + 3 * n, FP32_FLOP_S)[0],
+          "kept": int(K.nms_plain(boxes, scores, iou).sum())}
+    for name, b, sc, t in k3_lists()[-2:]:
+        k3[name.split(" n ")[0].replace(" ", "_") + "_ms"] = graph_ms(lambda: K.nms(b, sc, t))
+    log(f"  nms (K3) on the serving list ({n} rows, {k3['kept']} kept): mask "
+        f"{k3['mask_ms']:.4f} ms, with its pack {k3['packed_ms']:.4f} ms (plain "
+        f"{k3['packed_plain_ms']:.4f}); chain {k3['chain_ms']:.4f} ms, all invalid "
+        f"{k3['all_invalid_ms']:.4f} ms; {k3['plan']}")
 
     seg = torch.randn((1, 19, IN_HW[0] // 8, IN_HW[1] // 8), generator=g,
                       device=dev).to(torch.bfloat16)
     times["upsample_argmax"] = (
         graph_ms(lambda: K.upsample_argmax(seg, ORIG_HW, via_hw=IN_HW)),
         graph_ms(lambda: K.upsample_argmax_plain(seg, ORIG_HW, via_hw=IN_HW)))
-    _, th = band_tables(seg.shape[2], ORIG_HW[0], IN_HW[0])
-    _, tw = band_tables(seg.shape[3], ORIG_HW[1], IN_HW[1])
-    c, h0, w0 = seg.shape[1], ORIG_HW[0], ORIG_HW[1]
-    # per image: the W pass on h rows, the H pass, one compare a class and pixel
-    k4_ops = c * (2 * tw.shape[1] * seg.shape[2] * w0 + 2 * th.shape[1] * h0 * w0 + h0 * w0)
-    bounds["upsample_argmax"] = bound_ms(2 * seg.numel() + h0 * w0, k4_ops, FP32_FLOP_S)
+    bounds["upsample_argmax"] = k4_bound(seg, ORIG_HW, IN_HW)
 
-    # K4 as seg_validation launched it (the B5b row): bs4 float32 logits
+    # K4 as seg_validation launched it (the B5b row): bs4 float32 logits,
+    # and at the bs8 server's shape (bf16, square letterboxed frames)
+    from multiyolov5_tpu_torch.ops.kernels.upsample_argmax import plan as k4_plan
     (seg, out_hw), kw = ev["rec"]["upsample_argmax"][0]
-    k4_eval = {"ms": graph_ms(lambda: K.upsample_argmax(seg, out_hw, **kw)),
-               "plain_ms": graph_ms(lambda: K.upsample_argmax_plain(seg, out_hw, **kw)),
-               "bound": bound_ms(4 * seg.numel() + EVAL_BS * h0 * w0, EVAL_BS * k4_ops,
-                                 FP32_FLOP_S)}
-    log(f"  upsample_argmax at seg_validation's {tuple(seg.shape)} float32: kernel "
-        f"{k4_eval['ms']:.4f} ms, plain {k4_eval['plain_ms']:.4f} ms, bound "
-        f"{k4_eval['bound'][0]:.5f} ms ({k4_eval['bound'][1]})")
+    seg8 = torch.randn((SERVE_BS, 19, SERVE_IMG // 8, SERVE_IMG // 8), generator=g,
+                       device=dev).to(torch.bfloat16)
+    k4_eval = {}
+    for name, x, o_hw, v_hw in (("eval", seg, out_hw, kw["via_hw"]),
+                                ("bs8", seg8, ORIG_HW, (SERVE_IMG, SERVE_IMG))):
+        k4_eval[name] = {
+            "x": list(x.shape), "dtype": str(x.dtype)[6:],
+            "plan": k4_plan_text(k4_plan(x.shape[0], x.shape[1], *x.shape[2:], tuple(o_hw),
+                                         tuple(v_hw))),
+            "ms": graph_ms(lambda: K.upsample_argmax(x, o_hw, via_hw=v_hw)),
+            "plain_ms": graph_ms(lambda: K.upsample_argmax_plain(x, o_hw, via_hw=v_hw)),
+            "bound": k4_bound(x, o_hw, v_hw)}
+        r = k4_eval[name]
+        log(f"  upsample_argmax {tuple(x.shape)} {r['dtype']} -> {tuple(o_hw)}: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+            f"({r['bound'][1]}); {r['plan']}")
 
     # K5 at the eval path's candidate lists (the first batch's launch)
     (boxes, scores, iou, max_det), _ = ev["rec"]["nms_greedy"][0]
@@ -1180,28 +1356,29 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
     bounds["nms_greedy"] = (k5["eval"]["bound_ms"], k5["eval"]["bound_by"])
 
     # Short lists: the first 1024 rows of each image's list, through K3 (one
-    # launch an image, keep masks packed) and through one K5 launch, as a
-    # (4, 1024) list and inside the (4, 30000) list with the rows past 1024
-    # invalid (what an eval image with <= 1024 candidates above conf gives)
-    from multiyolov5_tpu_torch.ops.nms import pack_keep
+    # call an image, keep masks packed by the kernel) and through one K5
+    # launch, as a (4, 1024) list and inside the (4, 30000) list with the
+    # rows past 1024 invalid (what an eval image with <= 1024 candidates
+    # above conf gives)
     sb, ss = boxes[:, :1024].contiguous(), scores[:, :1024].contiguous()
     cut = scores.clone()
     cut[:, 1024:] = 0.0
     k5["short"] = k5_reading(sb, ss, iou, max_det)
     short = {
-        "k3_x4_ms": graph_ms(lambda: [pack_keep(K.nms(sb[i], ss[i], iou), max_det)
+        "k3_x4_ms": graph_ms(lambda: [K.nms_packed(sb[i], ss[i], iou, max_det)
                                       for i in range(sb.shape[0])]),
         "k5_1024_ms": k5["short"]["ms"],
         "k5_30000_ms": graph_ms(lambda: K.nms_greedy(boxes, cut, iou, max_det)),
     }
-    k3_idx = torch.stack([pack_keep(K.nms(sb[i], ss[i], iou), max_det)[0]
+    k3_idx = torch.stack([K.nms_packed(sb[i], ss[i], iou, max_det)[0]
                           for i in range(sb.shape[0])])
     k5_idx = K.nms_greedy(boxes, cut, iou, max_det)[0]
     short["picks_differing_k3_k5"] = int((k3_idx != k5_idx.long()).sum())
     short["picks"] = int((k5_idx >= 0).sum())
     # and at bs1 on the serving path's list, where nms_planar runs K3
     b1, s1, iou1 = nms_in[0]
-    short["serving_k3_ms"] = graph_ms(lambda: pack_keep(K.nms(b1, s1, iou1), 300))
+    short["serving_k3_ms"] = graph_ms(lambda: K.nms_packed(b1, s1, iou1, 300))
+    short["k3"] = k3
     k5["serving"] = k5_reading(b1[None].contiguous(), s1[None].contiguous(), iou1, 300)
     short["serving_k5_ms"] = k5["serving"]["ms"]
     # K5 at eight 1024-row lists (both eval batches' first rows: a bs8
@@ -1210,9 +1387,9 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
     k5["eval_rows_x8"] = k5_reading(torch.cat([sb, b2[:, :1024]]).contiguous(),
                            torch.cat([ss, s2[:, :1024]]).contiguous(), iou, max_det)
     short["k5"] = k5
-    log(f"  serving list {tuple(s1.shape)}: K3 + pack_keep {short['serving_k3_ms']:.4f} ms, "
+    log(f"  serving list {tuple(s1.shape)}: K3 with its pack {short['serving_k3_ms']:.4f} ms, "
         f"K5 {short['serving_k5_ms']:.4f} ms")
-    log(f"  short lists {tuple(ss.shape)}: K3 x{sb.shape[0]} + pack_keep "
+    log(f"  short lists {tuple(ss.shape)}: K3 (packed) x{sb.shape[0]} "
         f"{short['k3_x4_ms']:.4f} ms, K5 (4, 1024) {short['k5_1024_ms']:.4f} ms, K5 "
         f"{tuple(scores.shape)} with 1024 valid {short['k5_30000_ms']:.4f} ms; picks "
         f"{short['picks']}, differing K3 vs K5 {short['picks_differing_k3_k5']} (reported)")
@@ -1362,9 +1539,10 @@ def phase_serving(eng32, eng16, cpu_eng):
     res = {}
 
     # bf16 server; every engine call recorded with its batch and outputs,
-    # and K5's arguments
+    # and K5's and K4's arguments
+    from multiyolov5_tpu_torch import engine as engine_mod
     from multiyolov5_tpu_torch.ops import nms as nms_mod
-    calls, k5_calls = [], []
+    calls, k5_calls, k4_calls = [], [], []
     real_call = Engine.__call__
 
     def recorded(self, x, *a, **kw):
@@ -1379,7 +1557,8 @@ def phase_serving(eng32, eng16, cpu_eng):
         torch.cuda.synchronize()
         K.reset_launches()
         with replaced(Engine, "__call__", recorded), \
-                spied(nms_mod, "nms_greedy", before=recorder(k5_calls)):
+                spied(nms_mod, "nms_greedy", before=recorder(k5_calls)), \
+                spied(engine_mod, "upsample_argmax", before=recorder(k4_calls)):
             got = serve(server, frames[:n_main], SERVE_CLIENTS)
             got += serve(server, frames[n_main:])
         torch.cuda.synchronize()
@@ -1430,6 +1609,26 @@ def phase_serving(eng32, eng16, cpu_eng):
     full = [a for a, _ in k5_calls if a[1].shape[0] == SERVE_BS]
     res["k5"] = k5_reading(*full[0]) if full else None
     del k5_calls, full
+    # K4 against its plain version on the server's launches, and its time on
+    # the first full batch's logits
+    share = 0.0
+    for (x, out_hw), kw in k4_calls:
+        cmap = K.upsample_argmax(x, out_hw, **kw)
+        share = max(share, (cmap != K.upsample_argmax_plain(x, out_hw, **kw)).float().mean()
+                    .item())
+    check(f"upsample_argmax at the server's {sorted({tuple(a[0].shape) for a, _ in k4_calls})} "
+          f"mismatched pixel share", share, MASK_SHARE)
+    full = [(a, kw) for a, kw in k4_calls if a[0].shape[0] == SERVE_BS]
+    res["k4"] = None
+    if full:
+        (x, out_hw), kw = full[0]
+        res["k4"] = {"x": list(x.shape), "dtype": str(x.dtype)[6:], "share": share,
+                     "ms": graph_ms(lambda: K.upsample_argmax(x, out_hw, **kw)),
+                     "bound_ms": k4_bound(x, out_hw, kw["via_hw"])[0]}
+        log(f"  upsample_argmax on the server's {tuple(x.shape)} {res['k4']['dtype']} "
+            f"logits: {res['k4']['ms']:.4f} ms (bound {res['k4']['bound_ms']:.5f}), "
+            f"mismatched share {share:.2e}")
+    del k4_calls, full
     res.update(batches=sizes, padded=padded, launches=launches, stats=server.stats(),
                dets_per_frame=[len(d) for d, _ in got])
 
@@ -2356,6 +2555,19 @@ def main() -> int:
                       fp32_library_ms=su["library_ms"], fp32_bound_ms=su["bound_ms"],
                       fp32_cuda_core_bound_ms=su["cuda_core_bound_ms"],
                       fp32_frame=su["frame"])
+    # K3 with its pack on the serving list, and on the chain and an
+    # all-invalid list ([6]); K4 at seg_validation's bs4 float32 batch and
+    # the bs8 server's shape ([6]) and on the server's own bs8 launch ([8])
+    k3 = short["k3"]
+    kk["nms"].update(plan=k3["plan"], packed_ms=k3["packed_ms"],
+                     packed_plain_ms=k3["packed_plain_ms"],
+                     packed_bound_ms=k3["packed_bound_ms"], chain_ms=k3["chain_ms"],
+                     all_invalid_ms=k3["all_invalid_ms"])
+    kk["upsample_argmax"].update(
+        eval_ms=k4_eval["eval"]["ms"], eval_plain_ms=k4_eval["eval"]["plain_ms"],
+        eval_bound_ms=k4_eval["eval"]["bound"][0], bs8_ms=k4_eval["bs8"]["ms"],
+        bs8_plain_ms=k4_eval["bs8"]["plain_ms"], bs8_bound_ms=k4_eval["bs8"]["bound"][0],
+        serving_bs8=sv["k4"])
     # K5's plan at eval's lists and its readings at the short lists ([6]),
     # and at the bs8 server's first full batch ([8])
     k5 = dict(short["k5"], serving_bs8=sv["k5"])

@@ -9,7 +9,7 @@ wrapper counts its launches in a plain integer attribute, ``launches``.
 
 from .c3 import c3, c3_plain
 from .conv3x3 import conv3x3, conv3x3_plain
-from .nms import nms, nms_plain
+from .nms import nms, nms_packed, nms_packed_plain, nms_plain
 from .nms_greedy import nms_greedy, nms_greedy_plain
 from .seg_ce import seg_ce, seg_ce_backward, seg_ce_forward, seg_ce_plain
 from .stem import stem, stem_float, stem_plain

@@ -8,14 +8,14 @@ offset ``MAX_WH``; the first ``max_det`` kept candidates in score order.
 
 Both ``nms_planar`` (serving) and ``nms_batched`` (eval) run the greedy
 NMS through :func:`nms_fixed`, which routes on the static shape of the
-candidate lists: one list of at most 1024 rows to K3 (ops/kernels/nms.py),
-anything else to one K5 launch for the batch (ops/kernels/nms_greedy.py,
-a thread-block cluster an image).  On an H100 80GB HBM3 at 700 W
-(chip_smoke.py [6]): one 1024-row list took 0.216 ms on K3 with its keep
-mask packed and 0.261 ms on K5; four such lists took 0.865 ms on K3 and
-0.269 ms in one K5 launch; the eval path's four 30000-row lists 0.488 ms
-in one K5 launch.  Shapes are static ((B, max_det, 6) plus a validity
-mask), and neither route waits for the device.
+candidate lists: one list of at most 1024 rows to K3 (ops/kernels/nms.py,
+one launch that also packs the kept rows), anything else to one K5 launch
+for the batch (ops/kernels/nms_greedy.py, a thread-block cluster an
+image).  On an H100 80GB HBM3 at 700 W (chip_smoke.py [6],
+prof_nms_torch.py): one 1024-row list took 0.018 ms on K3 with its pack
+and 0.26 ms on K5; the eval path's four 30000-row lists 0.488 ms in one
+K5 launch.  Shapes are static ((B, max_det, 6) plus a validity mask), and
+neither route waits for the device.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..utils.boxes import xywh2xyxy
-from .kernels import nms, nms_greedy
+from .kernels import nms_greedy, nms_packed
 from .kernels.nms import MAX_N as K3_MAX_N
 
 MAX_WH = 4096.0   # class-offset magnitude (reference utils/general.py:434)
@@ -40,34 +40,18 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def pack_keep(keep: torch.Tensor, max_det: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N,) bool keep mask -> (idx (max_det,), valid (max_det,)): the kept
-    rows in index order (rows are score-ordered), padded with -1
-    (multiyolov5_tpu/ops/nms.py:79-90)."""
-    n = keep.shape[0]
-    key = torch.where(keep, torch.arange(n, 0, -1, device=keep.device), 0)
-    vals, idx = torch.topk(key, min(max_det, n))
-    valid = vals > 0
-    idx = torch.where(valid, idx, -1)
-    pad = max_det - idx.shape[0]
-    if pad:
-        idx = torch.cat([idx, idx.new_full((pad,), -1)])
-        valid = torch.cat([valid, valid.new_zeros((pad,))])
-    return idx, valid
-
-
 def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
               max_det: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy NMS over (B, K, 4) class-offset xyxy boxes and (B, K) scores,
     each row sorted descending with <= 0 marking invalid rows
     (multiyolov5_tpu/ops/nms.py:93-151).
 
-    B = 1 and K <= 1024: K3, its keep mask packed; otherwise one K5
-    launch.  Returns (idx (B, max_det) int64, -1 padded; valid (B, max_det)
+    B = 1 and K <= 1024: one K3 call, which packs its keep mask itself;
+    otherwise one K5 launch.  Returns (idx (B, max_det) int64, -1 padded; valid (B, max_det)
     bool), indices into each image's rows."""
     bsz, k = scores.shape
     if bsz == 1 and k <= K3_MAX_N:
-        idx, valid = pack_keep(nms(boxes[0], scores[0], iou_thres), max_det)
+        idx, valid = nms_packed(boxes[0], scores[0], iou_thres, max_det)
         return idx[None], valid[None]
     idx, valid = nms_greedy(boxes, scores, iou_thres, max_det)
     return idx.long(), valid

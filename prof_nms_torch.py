@@ -1,6 +1,7 @@
-"""Time K5 (greedy NMS, ``multiyolov5_tpu_torch/csrc/nms_greedy.cu``) at the
-paths' candidate-list shapes on one NVIDIA GPU, optionally against another
-checkout.
+"""Time K5 (greedy NMS, ``multiyolov5_tpu_torch/csrc/nms_greedy.cu``) and K3
+(the <= 1024-row NMS of bs1 serving, ``multiyolov5_tpu_torch/csrc/nms.cu``)
+at the paths' candidate-list shapes on one NVIDIA GPU, optionally against
+another checkout.
 
     python3 prof_nms_torch.py                   # this checkout
     python3 prof_nms_torch.py --against DIR     # DIR, this, this, DIR
@@ -23,7 +24,20 @@ own ``build/kernels``), so both are timed on the same card within one
 call, and the picks must be bitwise equal.  ``--sweep`` times every
 cluster size (1, 2, 4, 8, 16) and residence (boxes in shared or device
 memory) at each case, and requires every
-plan's picks to equal the default plan's.  Writes
+plan's picks to equal the default plan's.
+
+K3 (``K3_CASES``, iou 0.45, max_det 300): the serving case's 1024-row list,
+the deepest chain (unit boxes a quarter apart, each overlapping the next
+only) and a list with every row invalid.  A JSON line a case: the keep
+mask's device ms, the ms of the serving path's call with its pack (one
+``nms_packed`` call where the tree has it, else ``pack_keep`` of the mask),
+the SHA-256 of the mask and of the packed output, and the device
+operations (kernels, copies, memsets) that one ``nms_fixed`` call on the
+list issues, counted with torch.profiler; for this checkout also the plan,
+the entries differing from the plain versions (must be 0) and the bound.
+With ``--against`` the masks and packed outputs must be bitwise equal
+across trees.  ``--sweep`` times K3 at every cluster size (1-16) at each
+case and requires the default's outputs.  Writes
 ``chiprun_out/prof_nms.json`` (``prof_nms_sweep.json``).
 """
 
@@ -48,6 +62,7 @@ CASES = [("eval", 4, 30000, (30000, 29000, 24000, 20257), 0.6, 300),
 SWEEP_CASES = CASES + [("eval_bs8", 8, 30000, None, 0.6, 300),
                        ("long", 1, 262144, None, 0.6, 300)]
 CLUSTERS = (1, 2, 4, 8, 16)
+K3_CASES = ("serving", "chain", "invalid")
 
 
 def _smoke():
@@ -74,6 +89,80 @@ def lists(seed: int, bsz: int, n: int, n_valid, device="cuda"):
     return (torch.from_numpy(boxes).to(device), torch.from_numpy(scores).to(device))
 
 
+def k3_list(kind: str, device="cuda"):
+    """K3's (1024,) list: the serving case's seeded list, the deepest chain
+    or the serving list with every row invalid."""
+    import torch
+    if kind == "chain":
+        x = np.arange(1024, dtype=np.float32) * 0.25
+        boxes = torch.from_numpy(np.stack([x, 0 * x, x + 1, 0 * x + 1], 1)).to(device)
+        return boxes, torch.linspace(1.0, 0.5, 1024, device=device)
+    boxes, scores = lists(len(CASES) - 1, 1, 1024, None, device)
+    return boxes[0], scores[0] if kind == "serving" else torch.zeros_like(scores[0])
+
+
+def device_ops(torch, fn) -> int:
+    """Device operations (kernels, copies, memsets) one call of ``fn`` issues."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def run_k3(torch, smoke, label: str, full: bool) -> None:
+    """K3 of the checkout on sys.path at ``K3_CASES``; a JSON line a case."""
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops import nms as nms_mod
+    packed = getattr(K, "nms_packed", None) or (
+        lambda b, s, t, m: nms_mod.pack_keep(K.nms(b, s, t), m))
+    for kind in K3_CASES:
+        boxes, scores = k3_list(kind)
+        keep = K.nms(boxes, scores, 0.45)
+        idx, valid = packed(boxes, scores, 0.45, 300)
+        torch.cuda.synchronize()
+        row = {"tree": label, "case": f"k3_{kind}", "shape": [1024], "kept": int(keep.sum()),
+               "sha256": _sha(keep, idx.long(), valid),
+               "ms": smoke.graph_ms(lambda: K.nms(boxes, scores, 0.45), iters=10),
+               "packed_ms": smoke.graph_ms(lambda: packed(boxes, scores, 0.45, 300), iters=10),
+               "nms_fixed_device_ops": device_ops(torch, lambda: nms_mod.nms_fixed(
+                   boxes[None], scores[None], 0.45, 300))}
+        if full:
+            from multiyolov5_tpu_torch.ops.kernels.nms import plan
+            want_idx, want_valid = K.nms_packed_plain(boxes, scores, 0.45, 300)
+            n = boxes.shape[0]
+            row.update(plan=plan(n)._asdict(),
+                       picks_differing_plain=int(
+                           (keep != K.nms_plain(boxes, scores, 0.45)).sum()
+                           + (idx != want_idx).sum() + (valid != want_valid).sum()),
+                       bound_ms=smoke.bound_ms(21 * n + 9 * 300, smoke.K3_OPS_PER_TEST * n
+                                               * (n - 1) / 2 + 3 * n, smoke.FP32_FLOP_S)[0])
+        print(json.dumps(row), flush=True)
+
+
+def sweep_k3(torch, smoke) -> None:
+    """K3 at every cluster size at each of ``K3_CASES``."""
+    import importlib
+    k3 = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.nms")
+    for kind in K3_CASES:
+        boxes, scores = k3_list(kind)
+        want = k3.launch(boxes, scores, 0.45, 300)
+        for c in CLUSTERS:
+            p = k3.plan(1024, ctas=c)
+            got = k3.launch(boxes, scores, 0.45, 300, p=p)
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "case": f"k3_{kind}", "shape": [1024], "plan": p._asdict(),
+                "default": p == k3.plan(1024),
+                "picks_differing": sum(int((a != b).sum()) for a, b in zip(got, want)),
+                "ms": smoke.graph_ms(lambda: k3.launch(boxes, scores, 0.45, 300,
+                                                       keep=False, p=p), iters=10)}),
+                flush=True)
+
+
 def _setup(tree: str):
     import torch
     if not torch.cuda.is_available():
@@ -82,9 +171,8 @@ def _setup(tree: str):
     return torch, _smoke()
 
 
-def _sha(idx, valid) -> str:
-    return hashlib.sha256(idx.cpu().numpy().tobytes() + valid.cpu().numpy().tobytes()
-                          ).hexdigest()
+def _sha(*ts) -> str:
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()
 
 
 def run(tree: str, label: str, full: bool) -> None:
@@ -111,6 +199,7 @@ def run(tree: str, label: str, full: bool) -> None:
                                                smoke.FP32_FLOP_S)[0])
             row["ms_per_pick"] = row["ms"] / max(row["picks"] / bsz, 1)
         print(json.dumps(row), flush=True)
+    run_k3(torch, smoke, label, full)
 
 
 def sweep(tree: str) -> None:
@@ -149,6 +238,7 @@ def sweep(tree: str) -> None:
                                lambda: mod.launch(boxes, scores, iou, max_det, p),
                                iters=10))
                 print(json.dumps(row), flush=True)
+    sweep_k3(torch, smoke)
 
 
 def main() -> int:

@@ -118,7 +118,7 @@ def test_evaluate_detection_matches_jax(slice_pair, det_loader, monkeypatch, con
         return real_greedy(boxes, scores, iou_thres, max_det)
 
     monkeypatch.setattr(port_nms, "nms_greedy", greedy_spy)
-    monkeypatch.setattr(port_nms, "nms", lambda *a: pytest.fail("a list went to K3"))
+    monkeypatch.setattr(port_nms, "nms_packed", lambda *a: pytest.fail("a list went to K3"))
     want, want_maps, _ = jax_eval.evaluate_detection(
         spec, params, state, det_loader, conf_thres=conf, iou_thres=0.6, fused=True)
     got, got_maps, (_, _, seen) = port_eval.evaluate_detection(

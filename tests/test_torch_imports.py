@@ -37,7 +37,7 @@ _SCRIPT = textwrap.dedent("""
         importlib.import_module(name)
     for script in ("chip_smoke", "prof_c3_torch", "prof_stem_torch", "prof_eval_torch",
                    "prof_serving_torch", "prof_train_torch", "prof_nms_torch",
-                   "prof_conv3x3_torch", "prof_seg_ce_torch"):
+                   "prof_conv3x3_torch", "prof_seg_ce_torch", "prof_mask_torch"):
         importlib.import_module(script)
     from multiyolov5_tpu_torch.engine import Engine
     eng = Engine(cfg="yolov5s_city_seg", device="cpu", half=False, seed=1)

@@ -24,7 +24,14 @@ mode: float32 and bfloat16 frames in [0, 1] at s and x width (c_mid 128,
 320), the bounds above.  K2 in bf16 at c_in 48 (SegMaskLab's detail conv,
 the BK = 16 path).  K2's planned launches: a 6-way (bf16) or 8-way (float32)
 cluster split at pspv5s's 1/32-res site, odd H x W, stride 2 at odd sizes,
-dilation 3, c_out 8 and 24, in both dtypes.  K2's float32 form (3xTF32):
+dilation 3, c_out 8 and 24, in both dtypes.  K3: keep mask and packed
+output equal to the plain versions at n 1, 31, 33 and 1024 on crowded
+lists, the deepest chain and all-invalid lists, max_det below and above
+the kept count, under every cluster size.  K4: every tile of its
+``TILES`` at C 1, 19 and 256 in both dtypes, bs1 serving's bands, ragged
+frames and bands of 1 and 8 taps: the same class map bit for bit under
+every tile and on a second launch.
+K2's float32 form (3xTF32):
 c_in 48 (BK 16), pspv5x's c_in 640 -> 640 at stride 1 and 2, FFM's (4, 64,
 128, 256) -> 128, H x W that are no multiple of the 8x16 tile, each split
 1-8 through the C entry with an explicit plan, a float32 launch between two
@@ -280,6 +287,90 @@ def test_upsample_argmax_kernel(dev, dtype):
     torch.cuda.synchronize()
     want = K.upsample_argmax_plain(x, (256, 512), via_hw=(128, 256))
     assert (got != want).float().mean().item() <= 1e-4
+
+
+_K3 = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.nms")
+_K4 = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.upsample_argmax")
+
+
+def _k3_list(dev, n, kind):
+    """A seeded sorted list of n rows: crowded boxes in two class-offset
+    groups with an invalid quarter, the deepest chain (unit boxes a quarter
+    apart: each overlaps the next only), or every row invalid."""
+    rng = np.random.RandomState(n)
+    if kind == "chain":
+        x = np.arange(n, dtype=np.float32) * 0.25
+        boxes = np.stack([x, np.zeros_like(x), x + 1, np.ones_like(x)], 1)
+        scores = np.linspace(1.0, 0.5, n).astype(np.float32)
+    else:
+        xy = rng.rand(n, 2) * 200
+        wh = rng.rand(n, 2) * 80 + 4
+        off = rng.randint(0, 2, (n, 1)) * 4096.0
+        boxes = np.concatenate([xy - wh / 2 + off, xy + wh / 2 + off], 1).astype(np.float32)
+        scores = np.sort(rng.rand(n).astype(np.float32))[::-1].copy()
+        scores[n * 3 // 4:] = 0
+        if kind == "invalid":
+            scores[:] = 0
+    return torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1024])
+@pytest.mark.parametrize("kind", ["crowded", "chain", "invalid"])
+def test_nms_kernel_packed(dev, n, kind):
+    """K3's keep mask and packed output bit-equal to the plain versions,
+    max_det below and above the kept count, under every cluster size; one
+    call for the pack."""
+    boxes, scores = _k3_list(dev, n, kind)
+    want = K.nms_plain(boxes, scores, 0.45)
+    kept = int(want.sum())
+    for max_det in sorted({1, max(kept // 2, 1), kept + 5, 300}):
+        want_idx, want_valid = K.nms_packed_plain(boxes, scores, 0.45, max_det)
+        for ctas in (1, 2, 4, 8, 16):
+            p = _K3.plan(n, ctas=ctas)
+            keep, idx, valid = _K3.launch(boxes, scores, 0.45, max_det, p=p)
+            torch.cuda.synchronize()
+            assert torch.equal(keep, want), p
+            assert torch.equal(idx, want_idx) and torch.equal(valid, want_valid), p
+        K.reset_launches()
+        idx, valid = K.nms_packed(boxes, scores, 0.45, max_det)
+        assert K.nms.launches == 1
+        assert torch.equal(idx, want_idx) and torch.equal(valid, want_valid)
+
+
+# (shape, out_hw, via_hw): bs1 serving's bands (3 x 3 taps), ragged frames,
+# rows of 1 tap (identity) and of 8 (a downsample through a 2-wide via)
+_K4_CASES = [((1, 19, 64, 128), (1024, 2048), (512, 1024)),
+             ((2, 19, 8, 16), (100, 150), (64, 128)),
+             ((1, 19, 8, 16), (8, 150), (8, 128)),
+             ((1, 19, 8, 16), (3, 100), (2, 128)),
+             ((1, 19, 16, 32), (257, 333), (128, 256))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 19, 256])
+@pytest.mark.parametrize("case", range(len(_K4_CASES)))
+def test_upsample_argmax_kernel_every_plan(dev, dtype, c, case):
+    """K4 under every tile of ``TILES`` that takes the geometry: the same
+    class map bit for bit, twice, and within the mismatch share of the
+    plain version."""
+    shape, out_hw, via_hw = _K4_CASES[case]
+    g = torch.Generator().manual_seed(c + case)
+    x = torch.randn(shape[0], c, *shape[2:], generator=g).to(dev, dtype)
+    want = K.upsample_argmax_plain(x, out_hw, via_hw)
+    first = None
+    for tile in _K4.TILES:
+        try:
+            p = _K4.plan(x.shape[0], c, *x.shape[2:], out_hw, via_hw, tile=tile)
+        except ValueError:
+            continue
+        got = _K4.launch(x, out_hw, via_hw, p)
+        again = _K4.launch(x, out_hw, via_hw, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), p
+        first = got if first is None else first
+        assert torch.equal(got, first), p
+        assert (got != want).float().mean().item() <= 1e-4, p
+    assert first is not None
 
 
 @pytest.mark.parametrize("bsz,n,n_valid", [(1, 1025, 1025), (3, 4224, 4000), (2, 30000, 29000)])

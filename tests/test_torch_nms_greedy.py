@@ -94,19 +94,19 @@ def test_nms_batched_matches_jax(multi_label, masked, n, conf):
     want_det, want_valid = jax_nms_batched(
         jnp.asarray(p), class_mask=None if cmask is None else jnp.asarray(cmask), **kw)
     seen = []
-    real_greedy, real_k3 = port_nms.nms_greedy, port_nms.nms
+    real_greedy, real_k3 = port_nms.nms_greedy, port_nms.nms_packed
 
     def spy(boxes, scores, iou_thres, max_det):
         seen.append(scores.shape)
         return real_greedy(boxes, scores, iou_thres, max_det)
 
-    port_nms.nms_greedy, port_nms.nms = spy, None    # K3 is not on this path
+    port_nms.nms_greedy, port_nms.nms_packed = spy, None    # K3 is not on this path
     try:
         got_det, got_valid = port_nms.nms_batched(
             torch.from_numpy(p), class_mask=None if cmask is None else torch.from_numpy(cmask),
             **kw)
     finally:
-        port_nms.nms_greedy, port_nms.nms = real_greedy, real_k3
+        port_nms.nms_greedy, port_nms.nms_packed = real_greedy, real_k3
     assert seen == [(2, n * nc if multi_label else n)]
     np.testing.assert_array_equal(got_valid.numpy(), np.asarray(want_valid))
     assert got_valid.sum() > 20
