@@ -36,10 +36,13 @@ plain version on the arguments its path gave it, and times the paths and
 each kernel beside its bound and, where one PyTorch call computes the same
 function, that call in the same dtype.  [1] counts the tensor-core (HMMA)
 instructions in K1's, K2's and K7's two forms each (bf16 and 3xTF32)
-(cuobjdump of the built library); [2] prints K2's launch plan
-(tile, cluster split, CTAs) at each pspv5s site and requires one CTA an SM
-at each, and K7's plan at each case, whose layout's byte count
-ops/kernels/c3.py must give as the kernel does.  K5 (greedy NMS, a
+(cuobjdump of the built library) and the TMA loads (UTMALDG) of K2's
+two forms and K7's bf16 form; [2] prints K2's launch plan (tile, cluster
+split, CTAs) at each pspv5s site and requires one CTA an SM at each, and
+K7's plan at each case (pspv5s bs8, pspv5m bs2 and bs8, no shortcut, odd
+H x W), whose layout's byte count ops/kernels/c3.py must give as the
+kernel does, and whose bf16 grid of persistent CTAs must not exceed its
+tiles; [6] times K7 bf16 at pspv5s's and pspv5m's bs8 shapes.  K5 (greedy NMS, a
 thread-block cluster an image) prints its plan at every list shape it is
 held at (the eval path's lists, synthetic lists of 1025-262144 rows and a
 batch of eight 30000-row lists in [5], the bs8 server's lists in [8]),
@@ -307,31 +310,39 @@ def phase_card():
         f"({os.path.relpath(path, ROOT)})")
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as fh:
         fh.write(nvcc_log)
-    mma = tensor_core_ops(path)
+    mma, tma = tensor_core_ops(path)
     for name in ("stem_tc", "stem_tf32", "conv3x3_tma", "conv3x3_tf32", "c3_bf16", "c3_tf32"):
         n = sum(v for k, v in mma.items() if name in k)
         log(f"  HMMA/HGMMA instructions in the SASS of {name} (all instantiations): {n}")
         if n == 0:
             raise AssertionError(f"{name} has no tensor-core instruction")
+    # the kernels that load their input by TMA
+    for name in ("conv3x3_tma", "conv3x3_tf32", "c3_bf16"):
+        n = sum(v for k, v in tma.items() if name in k)
+        log(f"  UTMALDG instructions in the SASS of {name}: {n}")
+        if n == 0:
+            raise AssertionError(f"{name} has no TMA load")
     return smi
 
 
-def tensor_core_ops(lib) -> dict:
-    """{kernel symbol: HMMA/HGMMA instructions} in ``cuobjdump -sass`` of the
-    built library."""
+def tensor_core_ops(lib):
+    """({kernel symbol: HMMA/HGMMA instructions}, {kernel symbol: UTMALDG
+    instructions}) in ``cuobjdump -sass`` of the built library."""
     exe = next((c for c in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump")
                 if c and os.path.exists(c)), None)
     if exe is None:
         raise RuntimeError("cuobjdump not found")
     sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    counts, fn = {}, None
+    counts, tma, fn = {}, {}, None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
         elif fn and ("HMMA" in line or "HGMMA" in line):
             counts[fn] = counts.get(fn, 0) + 1
-    return counts
+        elif fn and "UTMALDG" in line:
+            tma[fn] = tma.get(fn, 0) + 1
+    return counts, tma
 
 
 def record_path_inputs(eng, frame):
@@ -491,11 +502,12 @@ def c3_row(eng):
 
 def hold_c3(eng32, eng16):
     """K7 against c3_plain at the batched paths' shapes: pspv5s row 2 at bs8
-    1024x1024 (the engines' weights), pspv5m row 2 at bs2 (c_ 48, two
-    bottlenecks), no shortcut, and an H x W that is no multiple of the tile;
-    at each, ops/kernels/c3.py's layout count must equal the kernel's
-    (mk_c3_smem_bytes) at every plan.  Returns the float32 max |diff| at
-    the pspv5s serving shape."""
+    1024x1024 (the engines' weights), pspv5m row 2 at bs2 and bs8 (c_ 48,
+    two bottlenecks), no shortcut, and an H x W that is no multiple of the
+    tile; at each, ops/kernels/c3.py's layout count must equal the kernel's
+    (mk_c3_smem_bytes) at every plan, and the bf16 form's grid (persistent
+    CTAs) must be no larger than its tiles.  Returns the float32 max |diff|
+    at the pspv5s serving shape."""
     import ctypes
 
     from multiyolov5_tpu_torch.ops import kernels as K
@@ -510,6 +522,7 @@ def hold_c3(eng32, eng16):
         cases = [("pspv5s row 2", torch.randn((SERVE_BS, side, side, args[0].shape[-1]),
                                               generator=g, device=DEVICE).to(dt), args),
                  ("pspv5m row 2", *c3_case(g, (2, side, side, 96), 48, 2, dt)),
+                 ("pspv5m row 2 bs8", *c3_case(g, (SERVE_BS, side, side, 96), 48, 2, dt)),
                  ("no shortcut", *c3_case(g, (2, 64, 128, 64), 32, 1, dt, False)),
                  ("odd H x W", *c3_case(g, (3, 37, 53, 64), 32, 1, dt))]
         for name, x, a in cases:
@@ -523,10 +536,17 @@ def hold_c3(eng32, eng16):
             got = K.c3(x, *a)
             torch.cuda.synchronize()
             d, rel = diffs(got, K.c3_plain(x, *a))
-            p = plan(*x.shape, *widths[1:], dt)
+            p = plan(*x.shape, *widths[1:], dt, *([torch.cuda.get_device_properties(
+                x.device).multi_processor_count] if x.is_cuda else []))
+            tiles = x.shape[0] * -(-x.shape[1] // p.th) * -(-x.shape[2] // p.tw)
+            if p.ctas > tiles:
+                raise AssertionError(f"c3 {tuple(x.shape)} {dt}: grid {p.ctas} > {tiles} tiles")
+            what = (f"weights resident, {p.smem} B, grid of {p.ctas} persistent CTAs over "
+                    f"{tiles} tiles" if dt == torch.bfloat16 else
+                    f"{p.nbuf} weight buffer(s) of {p.rows or 'all'} rows, {p.smem} B, "
+                    f"{p.ctas} CTAs")
             log(f"  c3 {str(dt)[6:]} {name} {tuple(x.shape)} c_ {a[0].shape[0]} n {len(a[6])}: "
-                f"max|diff| {d:.3e}; plan {p.th}x{p.tw} tile, {p.nbuf} weight buffer(s) of "
-                f"{p.rows or 'all'} rows, {p.smem} B, {p.ctas} CTAs (layout bytes = "
+                f"max|diff| {d:.3e}; plan {p.th}x{p.tw} tile, {what} (layout bytes = "
                 "mk_c3_smem_bytes at every plan)")
             check(f"c3 {str(dt)[6:]} {name} max|diff|/max(max|ref|,1)", rel, bound)
             if out is None:
@@ -1394,18 +1414,21 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
         f"{tuple(scores.shape)} with 1024 valid {short['k5_30000_ms']:.4f} ms; picks "
         f"{short['picks']}, differing K3 vs K5 {short['picks_differing_k3_k5']} (reported)")
     # K7 at bs8 1024x1024 serving's row-2 C3 (bf16), at the eval path's
-    # (float32, the counted eval run's own arguments) and at pspv5m's
-    # (float32, c_ 48, two bottlenecks, bs2 1024x1024, seeded weights);
+    # (float32, the counted eval run's own arguments), at pspv5m's
+    # (float32, c_ 48, two bottlenecks, bs2 1024x1024, seeded weights) and
+    # at pspv5m's bs8 1024x1024 (bf16, seeded weights);
     # "library" is the unfused sequence the module runs otherwise (5 cuDNN
     # convs, cat, add; TF32 off): no single PyTorch call computes a C3
     c3_times = {}
     side = SERVE_IMG // 4
     (x_ev, *a_ev), _ = ev["rec"]["c3"][0]
     x_m, a_m = c3_case(g, (2, side, side, 96), 48, 2, torch.float32)
+    x_m16, a_m16 = c3_case(g, (SERVE_BS, side, side, 96), 48, 2, torch.bfloat16)
     for name, mod, x, args in (
             ("serving", c3_row(eng16), None, None),
             ("eval", c3_row(eng32), x_ev, tuple(a_ev)),
-            ("pspv5m", c3_module(a_m), x_m, a_m)):
+            ("pspv5m", c3_module(a_m), x_m, a_m),
+            ("pspv5m_bs8_bf16", c3_module(a_m16), x_m16, a_m16)):
         args = args or mod.kernel_args()
         if x is None:
             x = torch.randn((SERVE_BS, side, side, args[0].shape[-1]), generator=g,
@@ -2576,8 +2599,11 @@ def main() -> int:
                                                                    "bound_ms", "picks")}
                                          for k in ("short", "eval_rows_x8", "serving",
                                                    "serving_bs8") if k5[k]})
-    # K7's float32 form (3xTF32) at eval's shape: its bound beside the CUDA
-    # cores' float32 bound
+    # K7's bf16 form at pspv5m's bs8 shape; its float32 form (3xTF32) at
+    # eval's shape, its bound beside the CUDA cores' float32 bound
+    mb = c3_times["pspv5m_bs8_bf16"]
+    kk["c3"].update(pspv5m_bs8_ms=mb["ms"], pspv5m_bs8_plain_ms=mb["plain_ms"],
+                    pspv5m_bs8_library_ms=mb["library_ms"], pspv5m_bs8_bound_ms=mb["bound"][0])
     kk["c3"].update(serving_batches=n_batched, eval_ms=c3_times["eval"]["ms"],
                     eval_plain_ms=c3_times["eval"]["plain_ms"],
                     eval_library_ms=c3_times["eval"]["library_ms"],

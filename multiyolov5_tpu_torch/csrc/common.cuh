@@ -1,6 +1,7 @@
 // Helpers shared by the kernels of this directory.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,9 +28,9 @@ __device__ __forceinline__ float silu_f(float v) { return v / (1.0f + expf(-v));
 // Dtype codes passed from Python: 0 = float32, 1 = bfloat16, 2 = uint8.
 enum { DT_F32 = 0, DT_BF16 = 1, DT_U8 = 2 };
 
-// Tensor-core building blocks of the redesigned kernels (K1's bf16 and
-// 3xTF32 forms, K2's, K7's), in their own namespace so that no kernel file's local
-// helpers of the same name collide with them.
+// Tensor-core, TMA and mbarrier building blocks of the redesigned kernels
+// (K1's bf16 and 3xTF32 forms, K2's, K7's), in their own namespace so that
+// no kernel file's local helpers of the same name collide with them.
 namespace mk {
 
 // mma.sync m16n8k16, bf16 in, fp32 accumulate: c += a * b.  Not volatile:
@@ -94,6 +95,79 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// ------------------------------------------------ TMA and mbarriers (K2, K7)
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// Wait for a stage's copies.  A copy that never completes (a box the
+// tensor map does not describe) traps after ~2^22 polls rather than hang.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  for (unsigned n = 0; !done; ++n) {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (n == (1u << 22)) __trap();
+  }
+}
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                       int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_u32(bar)) : "memory");
+}
+
+// Byte offset of 16-byte chunk j of smem row r under the TMA swizzle of a
+// ROW-byte row (ROW = 32, 64 or 128: CU_TENSOR_MAP_SWIZZLE_32B/64B/128B),
+// from a 1024-byte aligned base.
+template <int ROW>
+__device__ __forceinline__ int swz(int r, int j) {
+  return r * ROW + ((j ^ ((r * ROW / 128) & (ROW / 16 - 1))) << 4);
+}
+
+// The TMA swizzle that spans a row of `row_bytes` (32, 64 or 128).
+inline CUtensorMapSwizzle swizzle_of(int row_bytes) {
+  return row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (no
+// link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 }  // namespace mk

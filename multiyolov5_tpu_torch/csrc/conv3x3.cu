@@ -139,51 +139,12 @@ struct Cfg {
   static constexpr int SMEM = 1024 + STAGES * STAGE + RED;
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// Wait for a stage's copies.  A copy that never completes (a box the
-// tensor map does not describe) traps after ~2^22 polls rather than hang.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  for (unsigned n = 0; !done; ++n) {
-    asm volatile("{\n .reg .pred p;\n"
-                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 " selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (n == (1u << 22)) __trap();
-  }
-}
-__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                       int c2, int c3, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3), "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(smem_u32(bar)) : "memory");
-}
-
-// Byte offset of 16-byte chunk j of smem row r under the TMA swizzle of a
-// ROW-byte row (ROW = 32, 64 or 128: CU_TENSOR_MAP_SWIZZLE_32B/64B/128B).
-template <int ROW>
-__device__ __forceinline__ int swz(int r, int j) {
-  return r * ROW + ((j ^ ((r * ROW / 128) & (ROW / 16 - 1))) << 4);
-}
+using mk::mbar_expect_tx;
+using mk::mbar_init;
+using mk::mbar_wait;
+using mk::swz;
+using mk::tma_2d;
+using mk::tma_4d;
 
 // The kernel body of both types.  xmap: the input (Ci, W, H, B) with box
 // (BK, TW * stride, 8 * stride, 1) traversed with the conv's stride; wmap:
@@ -371,24 +332,6 @@ conv3x3_tf32(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
 
 }  // namespace tmak
 
-// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (no
-// link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 template <typename T, int BK, int TW, int BN>
 int launch_tma(const void* x, const void* w, const float* bias, void* y, Geo g, int split,
                cudaStream_t s) {
@@ -414,13 +357,11 @@ int launch_tma(const void* x, const void* w, const float* bias, void* y, Geo g, 
       cap_set[dev] = true;
     }
   }
-  EncodeTiled encode = encode_tiled();
+  mk::EncodeTiled encode = mk::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const CUtensorMapDataType type =
       F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUtensorMapSwizzle swizzle = C::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : C::ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swizzle = mk::swizzle_of(C::ROW);
   constexpr cuuint64_t ES = sizeof(T);
   CUtensorMap xmap, wmap;
   const cuuint64_t xdim[4] = {(cuuint64_t)g.Ci, (cuuint64_t)g.W, (cuuint64_t)g.H,

@@ -16,11 +16,12 @@ input.  Each run prints one JSON line a site: K2's float32 device ms (CUDA
 graph replay), its plan and its max |diff| / max(max |ref|, 1) against
 ``conv3x3_plain``; for this checkout also cuDNN float32 (TF32 off) and
 ``chip_smoke.conv_bound``'s bounds (3xTF32, and float32 on the CUDA cores).
-A line a set gives the sums, and the SHA-256 of K2's bf16 outputs at
-pspv5s's 10 bs1 sites.  With ``--against``, the two trees run in turns in
-separate processes (each builds its own kernels into its own
-``build/kernels``), so both are timed on the same card within one call,
-and the bf16 outputs must be bitwise equal.  ``--sweep`` times every
+A line a set gives the sums and the SHA-256 of its float32 outputs, and
+one the SHA-256 of K2's bf16 outputs at pspv5s's 10 bs1 sites.  With
+``--against``, the two trees run in turns in separate processes (each
+builds its own kernels into its own ``build/kernels``), so both are timed
+on the same card within one call, and the float32 and bf16 outputs must
+be bitwise equal.  ``--sweep`` times every
 float32 launch plan (tile, channels, split) at each distinct site and
 holds each to ``chip_smoke.F32_REL`` (the failures raised together at
 the end).  ``--accuracy`` holds each site's
@@ -100,10 +101,12 @@ def run(tree: str, label: str, full: bool) -> None:
     from multiyolov5_tpu_torch.ops import kernels as K
     for name, cfg, bsz in SETS:
         total = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "cuda_core_bound_ms": 0.0}
+        h32 = hashlib.sha256()
         sites = _sites(torch, smoke, cfg, bsz)
         for i, (x, w, b, s, d, act) in enumerate(sites):
             got = K.conv3x3(x, w, b, s, d, act)
             torch.cuda.synchronize()
+            h32.update(got.cpu().numpy().tobytes())
             p = _plan(x, w, s, d)
             row = {"tree": label, "set": name, "site": i, "x": list(x.shape),
                    "c_out": w.shape[0], "stride": s, "dilation": d,
@@ -121,7 +124,8 @@ def run(tree: str, label: str, full: bool) -> None:
                 total[k] += row.get(k, 0.0)
             print(json.dumps(row), flush=True)
         del sites
-        print(json.dumps({"tree": label, "set": name, "sites": i + 1, "sum": total}), flush=True)
+        print(json.dumps({"tree": label, "set": name, "sites": i + 1, "sum": total,
+                          "f32_sha256": h32.hexdigest()}), flush=True)
     # the bf16 form is not redesigned: its outputs at pspv5s's bs1 sites
     h = hashlib.sha256()
     for x, w, b, s, d, act in _sites(torch, smoke, "yolov5s_city_seg", 1, half=True):
@@ -246,10 +250,16 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", name), "w") as fh:
         json.dump({"card": smi, "rows": rows}, fh, indent=1)
     if args.against and not args.accuracy:
-        # the bf16 form is not redesigned: its outputs must be the other tree's, bit for bit
+        # neither form is redesigned: their outputs must be the other tree's, bit for bit
         sha = {r["bf16_sha256"] for r in rows if "bf16_sha256" in r}
-        print(f"bf16 outputs bitwise equal across trees: {len(sha) == 1}", flush=True)
-        if len(sha) != 1:
+        sha32 = {}
+        for r in rows:
+            if "f32_sha256" in r:
+                sha32.setdefault(r["set"], set()).add(r["f32_sha256"])
+        same32 = all(len(v) == 1 for v in sha32.values())
+        print(f"bf16 outputs bitwise equal across trees: {len(sha) == 1}; float32 outputs: "
+              f"{same32}", flush=True)
+        if len(sha) != 1 or not same32:
             return 1
     return 0
 

@@ -20,7 +20,8 @@ in float32.
   boxes and seg logits, 1e-5 on the obj/cls probabilities.
 * K7's launch planner (pure Python): every K7 site of every zoo entry
   (recorded from a bs2 forward) gets a plan in both dtypes at bs4 1024x512,
-  bs8 1024x1024 and bs2 1024x1024; ``smem_bytes`` counts the kernel's
+  bs8 1024x1024 and bs2 1024x1024, the bf16 form a grid of persistent
+  CTAs no larger than its tiles; ``smem_bytes`` counts the kernel's
   layout as csrc/c3.cu does (hand-counted cases); shapes the kernel does
   not take raise.
 """
@@ -40,7 +41,7 @@ from multiyolov5_tpu_torch.models import blocks, zoo
 from multiyolov5_tpu_torch.models.config import load_spec
 from multiyolov5_tpu_torch.models.model import Model
 from multiyolov5_tpu_torch.ops.kernels import c3, c3_plain
-from multiyolov5_tpu_torch.ops.kernels.c3 import PLANS, SMEM_LIMIT, plan, smem_bytes
+from multiyolov5_tpu_torch.ops.kernels.c3 import PLANS, SMEM_LIMIT, SMS, plan, smem_bytes
 from multiyolov5_tpu_torch.utils.checkpoint import from_jax_params
 
 
@@ -192,19 +193,45 @@ def test_k7_plan_every_zoo_site(cfg):
                 assert (p.th, p.tw, p.nbuf, p.rows) in PLANS[dt]
                 assert p.smem == smem_bytes(c1, ch, c2, nb, p.th, p.tw, p.nbuf, p.rows,
                                             dt) <= SMEM_LIMIT
-                assert p.ctas == bsz * -(-hs // p.th) * -(-ws // p.tw)
+                tiles = bsz * -(-hs // p.th) * -(-ws // p.tw)
+                if dt == torch.bfloat16:   # persistent CTAs, one an SM
+                    assert (p.nbuf, p.rows) == (1, 0) and p.ctas == min(tiles, SMS)
+                else:
+                    assert p.ctas == tiles
 
 
-# hand-counted layouts, in elements: x's slab (th + 2n) x (tw + 2n) rows of
-# c1 + pad (pad: 16 bytes), A's slab of c_p + pad, B (the bottleneck 1x1's
-# output) in x's rows when c_p <= c1, else its own slab, cv2's tile, and
-# nbuf buffers of the largest step's weights (a stage's rows 16-row padded,
-# at most `rows` of them unless 0; rows of taps x c_p + pad)
+# hand-counted layouts, in elements.  float32: x's slab (th + 2n) x
+# (tw + 2n) rows of c1 + pad (pad: 16 bytes), A's slab of c_p + pad, B (the
+# bottleneck 1x1's output) in x's rows when c_p <= c1, else its own slab,
+# cv2's tile, and nbuf buffers of the largest step's weights (a stage's
+# rows 16-row padded, at most `rows` of them unless 0; rows of taps x c_p +
+# pad).  bfloat16: 512 to align to, x's slab (c1 / KC chunks of the
+# slab's rows of KC = 64, 32 or 16 channels, each rounded up to 512), A's
+# slab (rows of c_p + 8), the larger of B's slab and y's staging tile (th x
+# tw rows of c2 + 8), cv2's tile, and every stage's weights: cv1 and cv2
+# c_p x (c1 + 8), cv3 c2 (16-row padded) x (2 c_p + 8), each bottleneck's
+# 1x1 c_p x (c_p + 8) and 3x3 c_p x (9 c_p + 8)
 @pytest.mark.parametrize("args,dtype,elems", [
     # eval's float32 pspv5s C3: 180 x 68 + 180 x 36 + 128 x 36 + 2 x 32 x 292
     ((64, 32, 64, 1, 8, 16, 2, 0), torch.float32, 12240 + 6480 + 4608 + 2 * 9344),
-    # the same in bf16: 180 x 72 + 180 x 40 + 128 x 40 + 2 x 32 x 296
-    ((64, 32, 64, 1, 8, 16, 2, 0), torch.bfloat16, 12960 + 7200 + 5120 + 2 * 9472),
+    # the same in bf16: 11776 (180 x 64 -> 11776) + 180 x 40 + 128 x 72 +
+    # 128 x 40 + 2 x 32 x 72 + 64 x 72 + 32 x 40 + 32 x 296
+    ((64, 32, 64, 1, 8, 16, 1, 0), torch.bfloat16,
+     512 + 11776 + 7200 + 9216 + 5120 + 2 * 2304 + 4608 + 1280 + 9472),
+    # bs8 serving's bf16 16x16 tile: 324 x 64 -> 20992; y's tile 256 x 72
+    # outweighs B's slab 324 x 40
+    ((64, 32, 64, 1, 16, 16, 1, 0), torch.bfloat16,
+     512 + 20992 + 12960 + 18432 + 10240 + 2 * 2304 + 4608 + 1280 + 9472),
+    # pspv5m in bf16 on an 8x8 tile: three boxes of 32 channels of 144
+    # pixels; A's and B's slabs 144 x 56 outweigh y's 64 x 104; cv2's 64 x
+    # 56; weights 2 x 48 x 104 + 96 x 104 + 2 x (48 x 56 + 48 x 440)
+    ((96, 48, 96, 2, 8, 8, 1, 0), torch.bfloat16,
+     512 + 3 * 4608 + 2 * 8064 + 3584 + 2 * 4992 + 9984 + 2 * (2688 + 21120)),
+    # c1 16 (boxes of 16 channels: 100 x 16 -> 2048), c_ 8 padded to 16:
+    # 100 x 24 twice (y's 64 x 24 is smaller), 64 x 24, 2 x 16 x 24 + 16 x
+    # 40 + 16 x 24 + 16 x 152
+    ((16, 8, 16, 1, 8, 8, 1, 0), torch.bfloat16,
+     512 + 2048 + 2 * 2400 + 1536 + 2 * 384 + 640 + 384 + 2432),
     # pspv5m (c_ 48, 2 bottlenecks), 8x8 tile: 144 x 100 + 144 x 52 + 64 x 52 + 48 x 436
     ((96, 48, 96, 2, 8, 8, 1, 0), torch.float32, 14400 + 7488 + 3328 + 20928),
     # the same on an 8x16 tile in passes of 16 channels: 240 x 100 + 240 x 52
@@ -223,7 +250,28 @@ def test_k7_smem_bytes_layout(args, dtype, elems):
 @pytest.mark.parametrize("c1,ch,c2,nb,dtype", [
     (24, 32, 64, 1, torch.float32), (64, 12, 64, 1, torch.float32), (64, 32, 60, 1, torch.bfloat16),
     (64, 32, 64, 0, torch.float32), (64, 32, 64, 5, torch.bfloat16), (64, 32, 64, 1, torch.float16),
-    (1024, 256, 1024, 1, torch.float32)])
+    (1024, 256, 1024, 1, torch.float32),
+    # the bf16 form keeps every stage's weights: c_ 48 with 3 or 4
+    # bottlenecks and c_ 64 (c1 128) with 2 do not fit beside a 4x8 tile
+    (96, 48, 96, 3, torch.bfloat16), (96, 48, 96, 4, torch.bfloat16),
+    (128, 64, 128, 2, torch.bfloat16)])
 def test_k7_plan_raises_on_shapes_without_a_kernel(c1, ch, c2, nb, dtype):
     with pytest.raises(ValueError):
         plan(2, 32, 64, c1, ch, c2, nb, dtype)
+
+
+@pytest.mark.parametrize("nbuf,rows", [(1, 16), (2, 0)])
+def test_k7_bf16_layout_has_one_slab_and_resident_weights(nbuf, rows):
+    """The bf16 form has one x slab and no weight passes: any other buffer
+    or row count raises."""
+    with pytest.raises(ValueError):
+        smem_bytes(64, 32, 64, 1, 8, 16, nbuf, rows, torch.bfloat16)
+
+
+@pytest.mark.parametrize("bsz,h,w,c1,ch,c2,nb,sms", [
+    (8, 256, 256, 64, 32, 64, 1, 132), (8, 256, 256, 96, 48, 96, 2, 132),
+    (2, 256, 256, 96, 48, 96, 2, 132), (3, 37, 53, 64, 32, 64, 1, 2), (1, 1, 1, 64, 32, 64, 1, 132)])
+def test_k7_bf16_grid(bsz, h, w, c1, ch, c2, nb, sms):
+    """The bf16 grid: a persistent CTA an SM, never more than the tiles."""
+    p = plan(bsz, h, w, c1, ch, c2, nb, torch.bfloat16, sms)
+    assert p.ctas == min(bsz * -(-h // p.th) * -(-w // p.tw), sms)

@@ -19,7 +19,10 @@ loss and dz (dz bitwise the same under every plan).  K7 (c3,
 bf16 products for bf16, 3xTF32 for float32): the float32 and bf16 bounds
 above, at pspv5s's and pspv5m's C3 widths, c_ 8, 16 and 24, four
 bottlenecks, c2 != c1, c1 128, a 1 x 1 image, H x W that are no multiple of
-any tile, and no shortcut; both forms in turns on the same weights.  K1's float
+any tile, and no shortcut; both forms in turns on the same weights; the
+bf16 form's persistent grid with fewer CTAs than tiles, batch 1, one to
+four bottlenecks, c_ 8 to 48, c1 96 and 128, each bitwise the same on a
+second launch.  K1's float
 mode: float32 and bfloat16 frames in [0, 1] at s and x width (c_mid 128,
 320), the bounds above.  K2 in bf16 at c_in 48 (SegMaskLab's detail conv,
 the BK = 16 path).  K2's planned launches: a 6-way (bf16) or 8-way (float32)
@@ -671,6 +674,41 @@ def test_c3_kernel(dev, dtype, shape):
     torch.cuda.synchronize()
     assert K.c3.launches == launches + 1 and got.shape == (b, h, w, c2)
     _close(got, K.c3_plain(x, *args, mws, shortcut), dtype)
+
+
+# The bf16 form's persistent grid, (B, H, W, c1, c_, bottlenecks, shortcut,
+# c2, SMs the plan is given): more tiles than CTAs with a ragged last tile
+# (a card of 2 SMs: 2-4 CTAs walk 36 tiles); batch 1; one to four
+# bottlenecks; c_ 8, 16, 24 and 48 on c1 64; c1 96 (three TMA boxes of 32
+# channels) and 128 (two of 64); no shortcut
+@pytest.mark.parametrize("shape", [
+    (3, 37, 53, 64, 32, 1, True, 64, 2), (1, 40, 56, 64, 32, 1, True, 64, None),
+    (2, 20, 24, 64, 32, 1, True, 64, None), (2, 20, 24, 64, 32, 2, True, 64, None),
+    (2, 20, 24, 64, 32, 3, True, 64, None), (2, 20, 24, 64, 32, 4, True, 64, None),
+    (2, 19, 23, 64, 8, 1, True, 64, None), (2, 19, 23, 64, 16, 1, True, 64, None),
+    (2, 19, 23, 64, 24, 1, True, 64, None), (2, 19, 23, 64, 48, 2, True, 64, None),
+    (2, 19, 23, 96, 32, 1, True, 96, None), (2, 19, 23, 128, 32, 1, True, 128, None),
+    (2, 21, 27, 64, 32, 2, False, 64, None)])
+def test_c3_bf16_persistent(dev, monkeypatch, shape):
+    """Each case within the bf16 bound of ``c3_plain``, and a second launch
+    bitwise equal to the first."""
+    b, h, w, c1, ch, n, shortcut, c2, sms = shape
+    mod = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.c3")
+    if sms is not None:
+        real = mod.plan
+        monkeypatch.setattr(mod, "plan", lambda *a, **k: real(*a[:8], sms=sms))
+        p = mod.plan(b, h, w, c1, ch, c2, n, torch.bfloat16)
+        assert p.ctas < b * -(-h // p.th) * -(-w // p.tw)
+    g = torch.Generator().manual_seed(h * w + n + c1)
+    x = torch.randn(b, h, w, c1, generator=g).to(dev, torch.bfloat16)
+    args, mws = _c3_args(g, dev, torch.bfloat16, c1, ch, c2, n)
+    launches = K.c3.launches
+    got = K.c3(x, *args, mws, shortcut)
+    again = K.c3(x, *args, mws, shortcut)
+    torch.cuda.synchronize()
+    assert K.c3.launches == launches + 2 and got.shape == (b, h, w, c2)
+    _close(got, K.c3_plain(x, *args, mws, shortcut), torch.bfloat16)
+    assert torch.equal(got, again)
 
 
 def test_c3_kernel_alternating_forms(dev):
