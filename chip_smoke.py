@@ -4,7 +4,7 @@
 
 Builds the seven Hopper kernels of ``multiyolov5_tpu_torch/csrc`` (K1 in two
 modes), holds each against its plain PyTorch version at the shapes of the
-paths, and drives five paths with seeded random weights (yolov5s_city_seg
+paths, and drives six paths with seeded random weights (yolov5s_city_seg
 unless named), on the card and, for reference, on the CPU:
 
 * serving: ``Engine`` on three frames (K1-K4);
@@ -30,6 +30,15 @@ unless named), on the card and, for reference, on the CPU:
   BiSe on float batches off the k/255 lattice (K1's float mode, K4); an
   ``InferenceServer`` on ``yolov5s``; ``yolov5l_city_seg`` at bs2, where K7
   must not launch (c_ 64).
+* the detect app [10]: ``cli.detect.main`` (bf16, ``--img-size 1024
+  --save-txt --save-conf``, with and without ``--submit``) on two seeded
+  2048x1024 PNG frames and the smoke's weights saved as ``.npz``; every
+  artifact read back with the port's PNG codec, the txt lines, ``_mask``
+  and ``_pred.png`` held equal to ``Engine`` on the same frames, the app's
+  ms/frame read; and each ``Engine`` argument of the app's path, card
+  (fp32) against CPU under [3]'s bounds: ``classes``, ``agnostic``,
+  ``multi_label`` (K3 at bs1), ``max_det`` 50, ``augment`` (TTA, K1's
+  float mode) and a two-checkpoint ensemble (one K5 launch).
 
 It checks that every kernel ran on its path, holds each kernel against its
 plain version on the arguments its path gave it, and times the paths and
@@ -89,6 +98,8 @@ DEVICE = "cuda"
 # square 1024x1024 letterboxed frames as the JAX server serves them
 SERVE_IMG, SERVE_BS, SERVE_WAIT_MS = 1024, 8, 100
 SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_TAIL = 4, 4, 3
+# the detect app [10]: cli/detect.py at full width on 2048x1024 PNG frames
+APP_FRAMES, APP_IMG, APP_MAX_DET = 2, 1024, 50
 M_CFG = "yolov5m_city_seg"
 X_CFG = "yolov5x_city_seg"     # pspv5x: [6] times K2's float32 form at its 22 bs1 sites
 
@@ -1759,6 +1770,182 @@ def phase_serving(eng32, eng16, cpu_eng):
     return res
 
 
+def app_lines(det, im0_shape, save_conf: bool = True):
+    """The ``--save-txt`` lines ``cli/detect.py`` writes for ``det``."""
+    from multiyolov5_tpu_torch.utils.boxes import xyxy2xywh
+    gn = np.array(im0_shape)[[1, 0, 1, 0]]
+    out = []
+    for *xyxy, conf, cls in reversed(det):
+        xywh = (xyxy2xywh(np.array(xyxy)[None]) / gn).ravel().tolist()
+        line = (cls, *xywh, conf) if save_conf else (cls, *xywh)
+        out.append(("%g " * len(line)).rstrip() % line)
+    return out
+
+
+def run_app(argv):
+    """``cli.detect.main(argv)`` with its output kept; returns (save dir,
+    the loop's seconds as the app prints them)."""
+    from multiyolov5_tpu_torch.cli.detect import main as detect_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = detect_main(argv)
+    return out, float(buf.getvalue().strip().splitlines()[-1].split("(")[1].rstrip("s)"))
+
+
+def app_stages(argv) -> dict:
+    """One more app run with its stages timed on the host clock (each
+    function wrapped where the app looks it up): ms a frame in each, and
+    in the rest of the app's loop."""
+    import multiyolov5_tpu_torch.cli.detect as app
+    import multiyolov5_tpu_torch.data.sources as sources
+    from multiyolov5_tpu_torch.data import png
+    from multiyolov5_tpu_torch.engine import Engine
+    spent = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    stages = (("read (png.imread)", png, "imread"), ("letterbox", sources, "letterbox"),
+              ("Engine.__call__", Engine, "__call__"),
+              ("draw (plot_one_box)", app, "plot_one_box"), ("mask colours", app, "label2image"),
+              ("overlay (add_weighted)", app, "add_weighted"),
+              ("write (png.imwrite)", png, "imwrite"))
+    with contextlib.ExitStack() as stack:
+        for name, owner, attr in stages:
+            stack.enter_context(replaced(owner, attr, timed(name, getattr(owner, attr))))
+        _, loop_s = run_app(argv)
+    out = {name: spent.get(name, 0.0) * 1e3 / APP_FRAMES for name, _, _ in stages}
+    out["rest of the loop"] = loop_s * 1e3 / APP_FRAMES - sum(out.values())
+    return out
+
+
+def phase_app(eng32, eng16, cpu_eng, frames, card: str):
+    """[10] the detect app on the card (pspv5s, bf16, --img-size 1024, on
+    seeded 2048x1024 PNG frames), its artifacts read back with the port's
+    PNG codec and held against ``Engine`` on the same frames; and each
+    ``Engine`` argument of the app's path (classes, agnostic, multi-label,
+    max_det, TTA, a 2-checkpoint ensemble) card against CPU."""
+    from multiyolov5_tpu_torch.data import png
+    from multiyolov5_tpu_torch.data.cityscapes import CITYSCAPES_COLORMAP, id2trainid, label2image
+    from multiyolov5_tpu_torch.data.sources import LoadImages
+    from multiyolov5_tpu_torch.engine import Engine
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.utils.checkpoint import save_npz, to_jax_params
+    log(f"[10] the detect app: cli.detect.main on {APP_FRAMES} seeded BGR {ORIG_HW} PNG frames, "
+        f"{CFG} seed {SEED} bf16, --img-size {APP_IMG} --save-txt --save-conf, with and "
+        f"without --submit")
+    work = os.path.join(ROOT, "build", "chip_smoke_app")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "src"))
+    spec = load_spec(CFG)
+    weights = []
+    for seed in (SEED, SEED + 1):
+        params, state = to_jax_params(seeded_state_dict(spec, seed))
+        weights.append(os.path.join(work, f"w{seed}.npz"))
+        save_npz(weights[-1], {"params": params, "state": state,
+                               "spec_yaml": json.dumps(spec.yaml)})
+    rng = np.random.RandomState(SEED + 23)
+    for i in range(APP_FRAMES):
+        png.imwrite(os.path.join(work, "src", f"frame{i}.png"),
+                    rng.randint(0, 256, (*ORIG_HW, 3)).astype(np.uint8))
+    src = os.path.join(work, "src")
+    res = {"frames": APP_FRAMES, "img_size": APP_IMG}
+    for submit in (False, True):
+        tag = "submit" if submit else "plain"
+        argv = ["--weights", weights[0], "--source", src, "--img-size", str(APP_IMG),
+                "--save-txt", "--save-conf", "--project", work, "--name", tag, "--exist-ok",
+                "--device", "" if DEVICE == "cuda" else DEVICE]      # "": the app's default, the card
+        argv += ["--submit"] if submit else []
+        run_app(argv)                   # the geometry's first call (allocator, cuDNN)
+        shutil.rmtree(os.path.join(work, tag))
+        K.reset_launches()
+        out, loop_s = run_app(argv)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        want = {"stem": APP_FRAMES, "stem_float": 0, "conv3x3": 10 * APP_FRAMES,
+                "nms": APP_FRAMES, "upsample_argmax": APP_FRAMES, "nms_greedy": 0, "c3": 0}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"app launches {launches}, want {want}")
+        n_det, n_files = 0, 0
+        for path, img, im0, _ in LoadImages(src, APP_IMG, eng16.stride, auto=not submit):
+            dets, maps = eng16(img[None], im0.shape[:2])
+            stem = os.path.splitext(os.path.basename(path))[0]
+            arts = {"annotated": f"{stem}.png", "mask": f"{stem}_mask.png",
+                    "dst": f"{stem}_dst.png"}
+            if submit:
+                arts["pred"] = f"results/{stem}_pred.png"
+            decoded = {k: png.imread(os.path.join(out, v)) for k, v in arts.items()}
+            n_files += len(arts)
+            if any(v.shape != im0.shape for v in decoded.values()):
+                raise AssertionError(f"{tag}: an artifact of {stem} is not {im0.shape}")
+            if not np.array_equal(decoded["mask"], label2image(maps[0], CITYSCAPES_COLORMAP)[..., ::-1]):
+                raise AssertionError(f"{tag}: {stem}_mask.png is not Engine's class map")
+            if submit and not np.array_equal(id2trainid(decoded["pred"][..., 0]), maps[0]):
+                raise AssertionError(f"{tag}: {stem}_pred.png trainIds are not Engine's class map")
+            with open(os.path.join(out, "labels", f"{stem}.txt")) as fh:
+                lines = fh.read().splitlines()
+            if lines != app_lines(dets[0], im0.shape):
+                raise AssertionError(f"{tag}: labels/{stem}.txt is not Engine's detections")
+            n_det += len(lines)
+        res[tag] = {"letterbox": list(img.shape[:2]), "launches": launches,
+                    "detections": n_det, "artifacts": n_files,
+                    "ms_per_frame": loop_s * 1e3 / APP_FRAMES}
+        log(f"  --submit {submit}: letterbox {img.shape[:2]}, {n_det} detections, {n_files} "
+            f"images read back; txt, _mask{' and _pred' if submit else ''} equal Engine's; "
+            f"launches {launches}")
+        log(f"  app ms/frame (read, letterbox, Engine, draw, write {len(arts)} PNGs): "
+            f"{res[tag]['ms_per_frame']:.1f} on {card}")
+        stages = app_stages(argv)
+        res[tag]["stages_ms_per_frame"] = stages
+        log("  its stages, ms/frame (another run): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in stages.items()))
+
+    log(f"  Engine's arguments, fp32 card vs CPU on a {IN_HW} frame -> {ORIG_HW}, conf {CONF}")
+    frame = frames[0]
+    ens_card = Engine(weights, device=DEVICE, half=False)
+    ens_cpu = Engine(weights, device="cpu", half=False)
+    cases = (("classes [0, 2, 5]", eng32, cpu_eng, dict(classes=[0, 2, 5]),
+              {"nms": 1, "nms_greedy": 0}),
+             ("agnostic", eng32, cpu_eng, dict(agnostic=True), {"nms": 1}),
+             ("multi_label", eng32, cpu_eng, dict(multi_label=True),
+              {"nms": 1, "nms_greedy": 0}),
+             (f"max_det {APP_MAX_DET}", eng32, cpu_eng, dict(max_det=APP_MAX_DET), {"nms": 1}),
+             ("augment", eng32, cpu_eng, dict(augment=True),
+              {"stem": 1, "stem_float": 2, "conv3x3": 30, "nms": 1, "upsample_argmax": 1}),
+             ("ensemble of 2", ens_card, ens_cpu, {},
+              {"stem": 2, "conv3x3": 20, "nms": 0, "nms_greedy": 1, "upsample_argmax": 1}))
+    res["args"] = {}
+    for name, card_eng, ref_eng, kw, want in cases:
+        K.reset_launches()
+        card = card_eng(frame, ORIG_HW, conf=CONF, **kw)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        t0 = time.perf_counter()
+        ref = ref_eng(frame, ORIG_HW, conf=CONF, **kw)
+        cpu_s = time.perf_counter() - t0
+        if "classes" in kw and not set(card[0][0][:, 5].astype(int)) <= set(kw["classes"]):
+            raise AssertionError(f"{name}: a class outside the filter")
+        if "max_det" in kw and len(card[0][0]) != kw["max_det"]:
+            raise AssertionError(f"{name}: {len(card[0][0])} detections, want {kw['max_det']}")
+        log(f"  {name}: launches {launches} (the CPU call took {cpu_s:.1f} s)")
+        compare_runs(f"{name} fp32 card vs CPU", card, ref, E2E_MATCH_SHARE, BOX_PX,
+                     E2E_SCORE_ABS, E2E_MASK_SHARE)
+        res["args"][name] = {"launches": launches, "detections": len(card[0][0]),
+                             "cpu_detections": len(ref[0][0])}
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def stem_bound(frame, w, out_dtype, cuda_cores: bool = False):
     """(least ms, "bytes" or "operations") of K1 on ``frame`` at the
     arithmetic its form does: the frame read once, the weights once, the
@@ -2501,6 +2688,7 @@ def main() -> int:
     sv = phase_serving(eng32, eng16, cpu_eng)
     n_batched = sum(b[0] > 1 for b in sv["batches"])
     launches["c3"] = sv["launches"]["c3"]
+    app = phase_app(eng32, eng16, cpu_eng, frames, smi)
     fam = phase_families(eng32, frames)
     del eng32, eng16, cpu_eng
     tr = phase_train()
@@ -2617,7 +2805,7 @@ def main() -> int:
                    "nms_short_lists": short,
                    "eval_candidates_per_image": eval_n,
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
-                   "serving_bs8": sv, "families": fam}, fh, indent=1)
+                   "serving_bs8": sv, "families": fam, "app": app}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,7 @@ class ModelSpec:
     seg_index: Optional[int] = None
     yaml: Dict[str, Any] = field(default_factory=dict)
     ch_in: int = 3
+    names: List[str] = field(default_factory=list)
 
     @property
     def na(self) -> int:
@@ -170,6 +171,7 @@ def compile_spec(d: Dict[str, Any], ch_in: int = 3) -> ModelSpec:
         anchors=d["anchors"],
         strides=det_strides, save=save,
         detect_index=detect_index, seg_index=seg_index, yaml=d, ch_in=ch_in,
+        names=[str(j) for j in range(nc_)],
     )
     _check_anchor_order(spec)
     return spec

@@ -68,11 +68,14 @@ def _gather_dets(cand: torch.Tensor, scores: torch.Tensor, ci: torch.Tensor,
 
 
 def nms_planar(z: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
-               agnostic: bool = False, max_nms: int = 1024,
+               agnostic: bool = False, class_mask: Optional[torch.Tensor] = None,
+               max_nms: int = 1024,
                max_det: int = 300) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-label serving NMS (counterpart of ``nms_planar``).
+    """Single-label serving NMS (counterpart of ``nms_planar``); the same
+    selection as ``nms_batched(multi_label=False)``.
 
-    z: (B, no, N) planar decoded candidates (models/heads.Detect).  Returns
+    z: (B, no, N) planar decoded candidates (models/heads.Detect).
+    class_mask: optional (nc,) float mask (1 keep / 0 drop).  Returns
     det (B, max_det, 6) [x1, y1, x2, y2, conf, cls] and valid (B, max_det)
     bool; invalid rows are zero."""
     k = min(max_nms, z.shape[2])
@@ -82,6 +85,10 @@ def nms_planar(z: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.4
     conf = cls_conf.amax(1)
     ci_all = cls_conf.argmax(1)
     keep = (obj > conf_thres) & (conf > conf_thres)
+    if class_mask is not None:
+        # argmax over all classes first, then drop disallowed winners
+        # (multiyolov5_tpu/ops/nms.py:262-265)
+        keep = keep & (class_mask[ci_all] > 0)
     scores, bi = top_k(torch.where(keep, conf, 0.0), k)
     ci = ci_all.gather(1, bi).float()
     cand = xywh2xyxy(p[:, :4].gather(2, bi[:, None].expand(-1, 4, -1)).transpose(1, 2))

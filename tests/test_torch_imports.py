@@ -1,5 +1,6 @@
 """The port stands without JAX: in a fresh interpreter where importing
-``jax`` or ``multiyolov5_tpu`` raises, every module of the port imports (and
+``jax``, ``multiyolov5_tpu``, ``cv2``, ``PIL`` or ``torchvision`` raises
+(the card's machine has none of them), every module of the port imports (and
 so do chip_smoke.py and the ``prof_*_torch.py`` scripts), a
 tiny seeded Engine serves one frame on the CPU, so does each other model
 family (the Base, BiSe and Lab seg heads, detection-only, P6; narrowed) on
@@ -8,7 +9,9 @@ NMS over more than K3's 1024 rows, mAP, mIoU) runs on one batch, and the
 dual-task train step of the TINY spec (tests/test_torch_train_step.py)
 takes one update on the CPU, and an ``InferenceServer`` on the TINY spec
 serves two frames in one batch (through the K7 route of its backbone C3s)
-and closes."""
+and closes, and the detect app (``cli/detect.py``) on the TINY spec
+(``--submit --save-txt``) reads two PNGs written by ``data/png.py`` and
+writes every artifact, each of which decodes."""
 
 import json
 import os
@@ -25,7 +28,8 @@ _SCRIPT = textwrap.dedent("""
 
     class Block:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "multiyolov5_tpu"):
+            if name.split(".")[0] in ("jax", "jaxlib", "multiyolov5_tpu", "cv2", "PIL",
+                                      "torchvision"):
                 raise ImportError("blocked: " + name)
             return None
 
@@ -47,7 +51,8 @@ _SCRIPT = textwrap.dedent("""
     assert masks[0].shape == (64, 128) and masks[0].dtype == np.uint8
     new = {"evaluation", "ops.kernels.nms_greedy", "utils.metrics", "utils.boxes",
            "train.trainer", "train.losses", "train.optim", "data.hyps", "ops.kernels.seg_ce",
-           "serving", "data.letterbox", "ops.kernels.c3"}
+           "serving", "data.letterbox", "ops.kernels.c3", "data.png", "data.sources",
+           "data.cityscapes", "utils.general", "utils.plots", "cli.detect"}
     assert {pkg.__name__ + "." + m for m in new} <= set(names)
     from multiyolov5_tpu_torch.models import zoo
     for name in ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
@@ -102,7 +107,31 @@ _SCRIPT = textwrap.dedent("""
     server.close()
     assert all(d.shape[1] == 6 and mk.shape == (64, 128) for d, mk in outs)
     assert server.stats()["batches"] == 1 and k7 and all(s[0] == 2 for s in k7)
-    assert not any(m.split(".")[0] in ("jax", "multiyolov5_tpu") for m in sys.modules)
+
+    import tempfile
+    from multiyolov5_tpu_torch.cli.detect import main as detect_main
+    from multiyolov5_tpu_torch.data import png
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    from multiyolov5_tpu_torch.utils.checkpoint import save_npz, to_jax_params
+    tmp = tempfile.mkdtemp()
+    params, state = to_jax_params(seeded_state_dict(spec, 0))
+    save_npz(tmp + "/w.npz", {"params": params, "state": state,
+                              "spec_yaml": os.environ["TINY_SPEC"]})
+    os.makedirs(tmp + "/src")
+    frames = [(rng.rand(48, 96, 3) * 255).astype(np.uint8) for _ in range(2)]
+    for i, f in enumerate(frames):
+        png.imwrite(f"{tmp}/src/f{i}.png", f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = detect_main(["--weights", tmp + "/w.npz", "--source", tmp + "/src",
+                           "--img-size", "64", "--device", "cpu", "--no-half", "--save-txt",
+                           "--save-conf", "--submit", "--conf-thres", "0.001",
+                           "--project", tmp + "/runs"])
+    for i, f in enumerate(frames):
+        for art in (f"f{i}.png", f"f{i}_mask.png", f"f{i}_dst.png", f"results/f{i}_pred.png"):
+            assert png.imread(f"{out}/{art}").shape == f.shape, art
+        assert len(open(f"{out}/labels/f{i}.txt").read().splitlines()) > 0
+    assert not any(m.split(".")[0] in ("jax", "multiyolov5_tpu", "cv2", "PIL", "torchvision")
+                   for m in sys.modules)
     print("OK", len(names))
 """)
 
