@@ -4,7 +4,7 @@
 
 Builds the seven Hopper kernels of ``multiyolov5_tpu_torch/csrc`` (K1 in two
 modes), holds each against its plain PyTorch version at the shapes of the
-paths, and drives six paths with seeded random weights (yolov5s_city_seg
+paths, and drives eight paths with seeded random weights (yolov5s_city_seg
 unless named), on the card and, for reference, on the CPU:
 
 * serving: ``Engine`` on three frames (K1-K4);
@@ -39,6 +39,25 @@ unless named), on the card and, for reference, on the CPU:
   (fp32) against CPU under [3]'s bounds: ``classes``, ``agnostic``,
   ``multi_label`` (K3 at bs1), ``max_det`` 50, ``augment`` (TTA, K1's
   float mode) and a two-checkpoint ensemble (one K5 launch).
+* the eval CLI [11]: ``cli.test.main`` (fp32, ``--img-size 1024
+  --base-size 1024 --batch-size 8``) on seeded PNG trees in the Cityscapes
+  layout: 8 detection frames at 2048x1024 and 2 at 1920x1080 (rect
+  batches 8x544x1056 and 2x608x1056; cv2's ``INTER_AREA`` at 2 and at a
+  fractional factor) with labels from the model's jittered detections on
+  the CLI's own rect inputs (mAP@.5 must land inside (0.05, 0.95)), 4
+  seg frames with labelId masks from its class map (testval: 512x1024
+  float batches, masks at 1024x2048); K1 in both modes, K2, K7, K5 and K4
+  must launch and are held against their plain versions on the arguments
+  the CLI gave them; P, R, mAP, pixAcc and mIoU card against the same CLI
+  on the CPU; the loaders' host ms an image beside the forward's and
+  NMS's, and each loader stage's host ms on one thread.
+* hub [12]: ``hub.yolov5s_city_seg`` ``AutoShape`` (fp32 and the default
+  bf16) at size 1024 on a PNG path, two same-size HWC frames, a CHW and a
+  gray array: K1 4, K2 40, K7 1, K3 3, K5 1, K4 4 launches in each
+  dtype, each kernel held against its plain version on the arguments
+  each counted call gave it; boxes and class maps (fp32) card against the
+  CPU under [3]'s bounds, the bf16 network against the fp32 one under
+  [3]'s bf16 bounds.
 
 It checks that every kernel ran on its path, holds each kernel against its
 plain version on the arguments its path gave it, and times the paths and
@@ -77,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -100,6 +120,16 @@ SERVE_IMG, SERVE_BS, SERVE_WAIT_MS = 1024, 8, 100
 SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_TAIL = 4, 4, 3
 # the detect app [10]: cli/detect.py at full width on 2048x1024 PNG frames
 APP_FRAMES, APP_IMG, APP_MAX_DET = 2, 1024, 50
+# the eval CLI [11]: cli/test.py at full width (--img-size / --base-size 1024,
+# --batch-size 8: detection batches of 8 and 2, seg batches of 1) on a
+# seeded Cityscapes layout: 8 detection frames at 2048x1024 (INTER_AREA's
+# shrink by 2) and 2 at 1920x1080 (its fractional path, a second rect bin),
+# 4 seg frames at 2048x1024 with labelId masks
+CLI_FRAMES, CLI_OTHER_HW, CLI_OTHER, CLI_SEG_FRAMES, CLI_BS = 8, (1080, 1920), 2, 4, 8
+CLI_IMG = 1024
+# hub [12]: AutoShape at size 1024 on a PNG path (1920x1080), two HWC
+# 2048x1024 frames (one batched call), a CHW 1280x720 and a gray 1024x768 one
+HUB_SIZE = 1024
 M_CFG = "yolov5m_city_seg"
 X_CFG = "yolov5x_city_seg"     # pspv5x: [6] times K2's float32 form at its 22 bs1 sites
 
@@ -695,7 +725,9 @@ def match_dets(a: np.ndarray, r: np.ndarray, box_px: float = BOX_PX):
 
 
 def compare_runs(name, got, ref, match_share, box_px, score_abs, mask_share,
-                 match_px=BOX_PX):
+                 match_px=BOX_PX, mask_hws=None):
+    """(dets, class maps) against the reference run's; the class maps are
+    ORIG_HW, or each its ``mask_hws`` entry."""
     n_got = sum(len(d) for d in got[0])
     n_ref = sum(len(d) for d in ref[0])
     shares, boxes, scores = zip(*(match_dets(a, r, match_px)
@@ -705,9 +737,10 @@ def compare_runs(name, got, ref, match_share, box_px, score_abs, mask_share,
     mism = float(np.mean([(a != r).mean() if a is not None else 0.0
                           for a, r in zip(got[1], ref[1])]))
     log(f"  {name}: detections {n_got} vs {n_ref}")
-    for d, m in zip(*got):
+    for i, (d, m) in enumerate(zip(*got)):
+        hw = ORIG_HW if mask_hws is None else tuple(mask_hws[i])
         if not (np.isfinite(d).all() and d.shape[1] == 6
-                and (m is None or (m.shape == ORIG_HW and m.dtype == np.uint8))):
+                and (m is None or (m.shape == hw and m.dtype == np.uint8))):
             raise AssertionError(f"{name}: malformed output")
     if match_share is None:
         log(f"  {name} detections matched within {match_px:g} px: "
@@ -849,16 +882,22 @@ def run_eval(eng, det_b, seg_b, kernels: bool):
     return det, seg, rec
 
 
-def hold_eval_kernels(rec):
-    """Each kernel against its plain version on the arguments the counted
-    eval run gave it; returns the float32 max |diff| (K1 in each mode, K2,
-    K7), the mismatched pixel share (K4) and the picks differing (K5)."""
+def hold_path_kernels(rec, what: str = "eval", bound: float = F32_REL):
+    """Each kernel against its plain version on the arguments a counted run
+    of a path gave it (``rec`` as ``run_eval`` records it, with K3's
+    ``nms_packed`` calls under "nms" where the path reaches K3): K1 in each
+    mode, K2 and K7 within ``bound`` of max(max|ref|, 1), K4's mismatched
+    pixel share within MASK_SHARE, K5's picks and K3's packed entries equal.
+    Returns the max |diff| (K1, K2, K7), the share (K4) and the entries
+    differing (K5, K3) of each kernel the path reached."""
     from multiyolov5_tpu_torch.ops import kernels as K
     errs = {}
     calls = dict(rec, stem=[c for c in rec["stem"] if not c[0][0].is_floating_point()],
                  stem_float=[c for c in rec["stem"] if c[0][0].is_floating_point()])
     for name, plain in (("stem", K.stem_plain), ("stem_float", K.stem_plain),
                         ("conv3x3", K.conv3x3_plain), ("c3", K.c3_plain)):
+        if not calls[name]:
+            continue
         worst_abs = worst_rel = 0.0
         for args, kw in calls[name]:
             got = getattr(K, name)(*args, **kw)
@@ -866,20 +905,32 @@ def hold_eval_kernels(rec):
             da, dr = diffs(got, plain(*args, **kw))
             worst_abs, worst_rel = max(worst_abs, da), max(worst_rel, dr)
         shapes = sorted({tuple(a[0].shape) for a, _ in calls[name]})
-        log(f"  {name} float32 at the eval path's {len(calls[name])} calls {shapes}: "
+        log(f"  {name} at {what}'s {len(calls[name])} calls {shapes}: "
             f"max|diff| {worst_abs:.3e}")
-        check(f"{name} eval max|diff|/max(max|ref|,1)", worst_rel, F32_REL)
+        check(f"{name} {what} max|diff|/max(max|ref|,1)", worst_rel, bound)
         errs[name] = worst_abs
-    share = 0.0
-    for args, kw in rec["upsample_argmax"]:
-        got = K.upsample_argmax(*args, **kw)
-        torch.cuda.synchronize()
-        share = max(share, (got != K.upsample_argmax_plain(*args, **kw)).float().mean().item())
-    shapes = [(tuple(a[0].shape), a[1]) for a, _ in rec["upsample_argmax"]]
-    check(f"upsample_argmax at seg_validation's {shapes} mismatched pixel share",
-          share, MASK_SHARE)
-    errs["upsample_argmax"] = share
-    errs["nms_greedy"] = float(hold_k5(rec["nms_greedy"], "the eval path's lists"))
+    if rec["upsample_argmax"]:
+        share = 0.0
+        for args, kw in rec["upsample_argmax"]:
+            got = K.upsample_argmax(*args, **kw)
+            torch.cuda.synchronize()
+            share = max(share,
+                        (got != K.upsample_argmax_plain(*args, **kw)).float().mean().item())
+        shapes = [(tuple(a[0].shape), tuple(a[1])) for a, _ in rec["upsample_argmax"]]
+        check(f"upsample_argmax at {what}'s {shapes} mismatched pixel share", share, MASK_SHARE)
+        errs["upsample_argmax"] = share
+    if rec["nms_greedy"]:
+        errs["nms_greedy"] = float(hold_k5(rec["nms_greedy"], f"{what}'s lists"))
+    if rec.get("nms"):
+        diff = 0
+        for args, kw in rec["nms"]:
+            idx, valid = K.nms_packed(*args, **kw)
+            torch.cuda.synchronize()
+            want_idx, want_valid = K.nms_packed_plain(*args, **kw)
+            diff += int((idx != want_idx).sum()) + int((valid != want_valid).sum())
+        shapes = [tuple(a[1].shape) for a, _ in rec["nms"]]
+        check(f"nms packed entries differing from plain at {what}'s lists {shapes}", diff, 0)
+        errs["nms"] = float(diff)
     return errs
 
 
@@ -1103,7 +1154,7 @@ def phase_eval(eng32, eng16, cpu_eng):
     if launches["c3"] != len(card["net"]):
         raise AssertionError(f"K7 launched {launches['c3']} times in {len(card['net'])} "
                              f"bs{EVAL_BS} eval forwards, not once each")
-    errs = hold_eval_kernels(card)
+    errs = hold_path_kernels(card)
 
     (det_cpu, _, _), seg_cpu, cpu = run_eval(cpu_eng, det_b, seg_b, kernels=False)
     for (z_card, seg_card), (z_cpu, seg_cpu_l) in zip(card["net"], cpu["net"]):
@@ -1946,6 +1997,379 @@ def phase_app(eng32, eng16, cpu_eng, frames, card: str):
     return res
 
 
+def smoke_weights(work: str, seed: int = SEED) -> str:
+    """The smoke's seeded pspv5s weights as a native ``.npz`` under ``work``."""
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    from multiyolov5_tpu_torch.utils.checkpoint import save_npz, to_jax_params
+    spec = load_spec(CFG)
+    params, state = to_jax_params(seeded_state_dict(spec, seed))
+    path = os.path.join(work, f"w{seed}.npz")
+    save_npz(path, {"params": params, "state": state, "spec_yaml": json.dumps(spec.yaml)})
+    return path
+
+
+def cli_tree(eng, work: str, rng) -> str:
+    """[11]'s seeded PNG trees under ``work``: ``det/images/val`` +
+    ``det/labels/val`` and the Cityscapes ``leftImg8bit/val/<city>`` +
+    ``gtFine/val`` labelIds (``eng``'s class map, 30% random classes, 10%
+    255).  The detection labels are made from the CLI's own inputs: each
+    frame's rect letterbox from the CLI's ``DetectionDataset``, through
+    ``eng`` and eval's NMS, unmapped with the item's ``shapes``; of the 90
+    best detections of at least 16x16 px, 30 moved by 2 px (sd) on each
+    edge, plus 6 boxes none covers, so mAP@.5 is neither 0 nor 1.  Returns
+    the dataset file (JSON, which the CLI reads without PyYAML)."""
+    from multiyolov5_tpu_torch.data import png
+    from multiyolov5_tpu_torch.data.cityscapes import CITYSCAPES_IDMAP
+    from multiyolov5_tpu_torch.data.detection import CACHE_SUFFIX, DetectionDataset
+    from multiyolov5_tpu_torch.data.letterbox import letterbox
+    from multiyolov5_tpu_torch.ops.nms import non_max_suppression
+    from multiyolov5_tpu_torch.utils.boxes import scale_coords
+    img_dir, lbl_dir = (os.path.join(work, "det", d, "val") for d in ("images", "labels"))
+    os.makedirs(img_dir)
+    os.makedirs(lbl_dir)
+    nc = eng.spec.nc
+    for i, (h, w) in enumerate([ORIG_HW] * CLI_FRAMES + [CLI_OTHER_HW] * CLI_OTHER):
+        png.imwrite(os.path.join(img_dir, f"frankfurt_{i:06d}.png"),
+                    rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+    # cli/test.py's detection dataset, before any label exists
+    ds = quiet(DetectionDataset, img_dir, img_size=CLI_IMG, batch_size=CLI_BS, rect=True,
+               stride=eng.stride, pad=0.5)
+    for i in range(len(ds)):
+        img, _, path, ((h, w), ratio_pad) = ds[i]
+        z, _ = eng.forward(torch.from_numpy(img[None]).to(DEVICE))
+        d = non_max_suppression(z.transpose(1, 2), EVAL_CONF, EVAL_IOU, multi_label=True,
+                                max_nms=EVAL_MAX_NMS)[0]
+        d[:, :4] = np.clip(np.asarray(scale_coords(img.shape[:2], d[:, :4], (h, w),
+                                                   ratio_pad))[:, :4], 0, [w, h, w, h])
+        d = d[(d[:, 2] - d[:, 0] >= 16) & (d[:, 3] - d[:, 1] >= 16)][:90]
+        pick = d[rng.choice(len(d), min(30, len(d)), replace=False)]
+        xyxy = pick[:, :4] + rng.randn(len(pick), 4) * 2
+        extra = rng.rand(6, 2) * [w - 160, h - 160]
+        xyxy = np.clip(np.concatenate([xyxy, np.concatenate([extra, extra + 160], 1)]), 0,
+                       [w, h, w, h])
+        cls = np.concatenate([pick[:, 5], rng.randint(0, nc, 6)])
+        stem = os.path.splitext(os.path.basename(path))[0]
+        with open(os.path.join(lbl_dir, f"{stem}.txt"), "w") as fh:
+            for c, (x0, y0, x1, y1) in zip(cls, xyxy):
+                fh.write("%d %.6f %.6f %.6f %.6f\n" % (c, (x0 + x1) / 2 / w, (y0 + y1) / 2 / h,
+                                                       (x1 - x0) / w, (y1 - y0) / h))
+    os.remove(lbl_dir + CACHE_SUFFIX)     # the label cache made before the labels
+    seg_root = os.path.join(work, "citys")
+    for i in range(CLI_SEG_FRAMES):
+        city = ("frankfurt", "lindau")[i % 2]
+        stem = f"{city}_{i:06d}_000019"
+        idir = os.path.join(seg_root, "leftImg8bit", "val", city)
+        mdir = os.path.join(seg_root, "gtFine", "val", city)
+        os.makedirs(idir, exist_ok=True)
+        os.makedirs(mdir, exist_ok=True)
+        bgr = rng.randint(0, 256, (*ORIG_HW, 3)).astype(np.uint8)
+        png.imwrite(os.path.join(idir, f"{stem}_leftImg8bit.png"), bgr)
+        x = letterbox(bgr[..., ::-1].copy(), IN_HW, auto=False, device=DEVICE)[0]
+        cmap = eng(x, ORIG_HW)[1][0]
+        ids = CITYSCAPES_IDMAP[np.where(rng.rand(*ORIG_HW) < 0.3,
+                                        rng.randint(0, eng.spec.n_segcls, ORIG_HW), cmap)]
+        ids[rng.rand(*ORIG_HW) < 0.1] = 255
+        png.imwrite(os.path.join(mdir, f"{stem}_gtFine_labelIds.png"), ids)
+    data = os.path.join(work, "data.json")
+    with open(data, "w") as fh:
+        json.dump({"val": img_dir, "segval": seg_root, "nc": nc, "names": eng.names}, fh)
+    return data
+
+
+def run_cli(argv, kernels: bool):
+    """``cli.test.main(argv)`` with its output kept; returns (metrics, the
+    recorded arguments (as ``run_eval``'s), evaluate_detection's (t_inf,
+    t_nms, seen), host seconds in the loaders' items by kind, items by
+    kind, the run's seconds)."""
+    import threading
+
+    from multiyolov5_tpu_torch import engine as engine_mod
+    from multiyolov5_tpu_torch import evaluation as E
+    from multiyolov5_tpu_torch.cli import test as cli
+    from multiyolov5_tpu_torch.data.detection import DetectionDataset
+    from multiyolov5_tpu_torch.data.segmentation import CitySegmentation
+    from multiyolov5_tpu_torch.models import blocks
+    from multiyolov5_tpu_torch.ops import nms as nms_mod
+    rec = {k: [] for k in ("net", "dets", "stem", "conv3x3", "c3", "nms_greedy",
+                           "upsample_argmax", "eval")}
+    spent, count, lock = {"det": 0.0, "seg": 0.0}, {"det": 0, "seg": 0}, threading.Lock()
+
+    def timed(kind, fn):
+        def wrapper(self, index):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, index)
+            finally:
+                with lock:
+                    spent[kind] += time.perf_counter() - t0
+                    count[kind] += 1
+        return wrapper
+
+    spies = [spied(cli, "evaluate_detection", after=rec["eval"].append),
+             replaced(DetectionDataset, "__getitem__",
+                      timed("det", DetectionDataset.__getitem__)),
+             replaced(CitySegmentation, "__getitem__",
+                      timed("seg", CitySegmentation.__getitem__))]
+    if kernels:
+        spies += [spied(engine_mod.Engine, "forward", after=rec["net"].append),
+                  spied(E, "non_max_suppression", after=rec["dets"].extend),
+                  spied(engine_mod, "stem", before=recorder(rec["stem"])),
+                  spied(blocks, "conv3x3", before=recorder(rec["conv3x3"])),
+                  spied(blocks, "c3", before=recorder(rec["c3"])),
+                  spied(nms_mod, "nms_greedy", before=recorder(rec["nms_greedy"])),
+                  spied(E, "upsample_argmax", before=recorder(rec["upsample_argmax"]))]
+    with contextlib.ExitStack() as stack:
+        for sp in spies:
+            stack.enter_context(sp)
+        t0 = time.perf_counter()
+        res = quiet(cli.main, argv)
+        wall = time.perf_counter() - t0
+    return res, rec, rec["eval"][0][2], spent, count, wall
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host ms of ``fn()`` over ``reps`` calls, one thread."""
+    t = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(t))
+
+
+def loader_stages(work: str) -> dict:
+    """Host ms of each stage of the loaders' items on one thread, on [11]'s
+    first frame of each kind: the PNG reads (frame and mask), cv2's ``INTER_AREA`` by 2 and
+    at 1920x1080 -> 1024x576 (``data/resize.py``), the letterbox, PIL's
+    ``BILINEAR`` 2048x1024 -> 1024x512.  Beside each resampler, the
+    library's own call on the same image where it imports (timed here and
+    used nowhere in the port), else None."""
+    from multiyolov5_tpu_torch.data import png
+    from multiyolov5_tpu_torch.data.letterbox import letterbox
+    from multiyolov5_tpu_torch.data.resize import resize_area, resize_bilinear_pil
+    det = png.imread(os.path.join(work, "det", "images", "val", "frankfurt_000000.png"))
+    other = png.imread(os.path.join(work, "det", "images", "val",
+                                    f"frankfurt_{CLI_FRAMES:06d}.png"))
+    city = os.path.join(work, "citys", "leftImg8bit", "val", "frankfurt")
+    seg_path = os.path.join(city, sorted(os.listdir(city))[0])
+    seg = png.read_rgb(seg_path)
+    masks = os.path.join(work, "citys", "gtFine", "val", "frankfurt")
+    mask_path = os.path.join(masks, sorted(os.listdir(masks))[0])
+    half = (det.shape[1] // 2, det.shape[0] // 2)
+    frac = (CLI_IMG, other.shape[0] * CLI_IMG // other.shape[1])
+    small = resize_area(det, half)
+    out = {"png_imread_2048x1024": host_ms(lambda: png.imread(seg_path)),
+           "resize_area_by_2": host_ms(lambda: resize_area(det, half)),
+           "resize_area_fractional": host_ms(lambda: resize_area(other, frac)),
+           "letterbox_to_544x1056": host_ms(lambda: letterbox(
+               small, (math.ceil(CLI_IMG / 64 + 0.5) * 32, math.ceil(CLI_IMG / 32 + 0.5) * 32),
+               auto=False, scaleup=False)),
+           "png_read_rgb_2048x1024": host_ms(lambda: png.read_rgb(seg_path)),
+           "resize_bilinear_pil_to_1024x512": host_ms(lambda: resize_bilinear_pil(seg, half)),
+           "png_read_samples_mask": host_ms(lambda: png.read_samples(mask_path)),
+           "cv2_inter_area_by_2": None, "cv2_inter_area_fractional": None,
+           "pil_bilinear_to_1024x512": None}
+    try:
+        import cv2
+        out["cv2_inter_area_by_2"] = host_ms(
+            lambda: cv2.resize(det, half, interpolation=cv2.INTER_AREA))
+        out["cv2_inter_area_fractional"] = host_ms(
+            lambda: cv2.resize(other, frac, interpolation=cv2.INTER_AREA))
+    except ImportError:
+        pass
+    try:
+        from PIL import Image
+        im = Image.fromarray(seg)
+        out["pil_bilinear_to_1024x512"] = host_ms(lambda: im.resize(half, Image.BILINEAR))
+    except ImportError:
+        pass
+    return out
+
+
+def phase_eval_cli(eng32, card: str):
+    """[11] the eval CLI at full width on the card, against the same CLI on
+    the CPU; each kernel of its path held against its plain version on the
+    arguments the path gave it; the loaders' host time beside the
+    forward's and the NMS's."""
+    from multiyolov5_tpu_torch.ops import kernels as K
+    log(f"[11] the eval CLI: cli.test.main, {CFG} seed {SEED} fp32, --img-size {CLI_IMG} "
+        f"--base-size {CLI_IMG} --batch-size {CLI_BS}, on {CLI_FRAMES} seeded {ORIG_HW} and "
+        f"{CLI_OTHER} {CLI_OTHER_HW} detection PNG frames and {CLI_SEG_FRAMES} {ORIG_HW} "
+        f"Cityscapes frames with labelId masks")
+    work = os.path.join(ROOT, "build", "chip_smoke_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    weights = smoke_weights(work)
+    data = cli_tree(eng32, work, np.random.RandomState(SEED + 31))
+    log(f"  trees written in {time.perf_counter() - t0:.1f} s")
+    argv = ["--weights", weights, "--data", data, "--img-size", str(CLI_IMG), "--base-size",
+            str(CLI_IMG), "--batch-size", str(CLI_BS), "--save-dir", os.path.join(work, "out")]
+    card_argv = argv + ["--device", "" if DEVICE == "cuda" else DEVICE]  # "": the card
+
+    K.reset_launches()
+    got, rec, _, _, _, _ = run_cli(card_argv, kernels=True)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    log(f"  launches on the CLI's path: {launches}")
+    det_shapes = sorted({tuple(a[0].shape) for a, _ in rec["stem"]
+                         if not a[0].is_floating_point()})
+    seg_shapes = sorted({tuple(a[0].shape) for a, _ in rec["stem"] if a[0].is_floating_point()})
+    k4_shapes = sorted({(tuple(a[0].shape), tuple(a[1])) for a, _ in rec["upsample_argmax"]})
+    log(f"  detection batches {det_shapes}, seg batches {seg_shapes}, K4 {k4_shapes}")
+    for k in ("stem", "stem_float", "conv3x3", "c3", "nms_greedy", "upsample_argmax"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the eval CLI's path")
+    # the 2:1 bin's letterbox (data/detection.py): ceil(0.5 * 1024 / 32 + 0.5)
+    # * 32 x ceil(1024 / 32 + 0.5) * 32 = 544 x 1056
+    rect = (CLI_BS, math.ceil(CLI_IMG / 64 + 0.5) * 32, math.ceil(CLI_IMG / 32 + 0.5) * 32, 3)
+    if rect not in det_shapes or launches["c3"] != len(det_shapes) or launches["nms"]:
+        raise AssertionError(f"the CLI's detection batches {det_shapes}, K7 {launches['c3']}, "
+                             f"K3 {launches['nms']}: want {rect} among them, K7 once a "
+                             "batched forward, no K3")
+    errs = hold_path_kernels(rec, "the eval CLI")
+    del rec
+
+    got, _, (t_inf, t_nms, seen), spent, count, wall = run_cli(card_argv, kernels=False)
+    t0 = time.perf_counter()
+    ref, _, _, _, _, cpu_wall = run_cli(argv + ["--device", "cpu"], kernels=False)
+    for k in ("P", "R", "mAP50", "mAP", "pixAcc", "mIoU"):
+        bound = SEG_METRIC_ABS if k in ("pixAcc", "mIoU") else EVAL_METRIC_ABS
+        log(f"  {k}: card {got[k]:.6f}, CPU {ref[k]:.6f}")
+        check(f"eval CLI fp32 card vs CPU: {k} |diff|", abs(got[k] - ref[k]), bound)
+    # labels from the model's own detections on the CLI's inputs
+    # (cli_tree): a sound path lands mAP@.5 well inside (0.05, 0.95)
+    if not (0.05 < got["mAP50"] < 0.95 and 0.0 < got["mIoU"] < 1.0):
+        raise AssertionError(f"degenerate metrics: {got}")
+    times = {"loader_det_host_ms_per_image": spent["det"] * 1e3 / max(count["det"], 1),
+             "loader_seg_host_ms_per_image": spent["seg"] * 1e3 / max(count["seg"], 1),
+             "forward_ms_per_image": t_inf * 1e3 / seen, "nms_ms_per_image": t_nms * 1e3 / seen,
+             "cli_s": wall, "cpu_cli_s": cpu_wall}
+    log(f"  on {card}: detection loader {times['loader_det_host_ms_per_image']:.1f} host "
+        f"ms an image (PNG read, INTER_AREA, letterbox, in each item, on the loader's 4 "
+        f"threads), seg loader {times['loader_seg_host_ms_per_image']:.1f} (PNG reads, PIL "
+        f"BILINEAR, labelIds); evaluate_detection forward "
+        f"{times['forward_ms_per_image']:.2f} ms/image, NMS {times['nms_ms_per_image']:.2f}; "
+        f"the CLI {wall:.2f} s (the CPU's {cpu_wall:.1f} s)")
+    stages = loader_stages(work)
+    log(f"  the loaders' stages on one host thread of {card}, ms (the libraries' own "
+        f"resamplers beside, used nowhere in the port): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stages.items() if v is not None))
+    shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "errs": errs, "det_batches": [list(s) for s in det_shapes],
+            "seg_batches": [list(s) for s in seg_shapes],
+            "metrics": {"card": got, "cpu": ref}, "times": times, "loader_stages": stages,
+            "card": card}
+
+
+def hub_inputs(work: str, rng):
+    """[12]'s mixed list: a PNG path, two same-size HWC frames (one batched
+    call), a CHW and a 2-D gray array; RGB, as a hub user passes them."""
+    from multiyolov5_tpu_torch.data import png
+    path = os.path.join(work, "street.png")
+    png.imwrite(path, rng.randint(0, 256, (*CLI_OTHER_HW, 3)).astype(np.uint8))
+    hwc = [rng.randint(0, 256, (*ORIG_HW, 3)).astype(np.uint8) for _ in range(2)]
+    chw = rng.randint(0, 256, (3, 720, 1280)).astype(np.uint8)
+    gray = rng.randint(0, 256, (768, 1024)).astype(np.uint8)
+    return [path, hwc[0], chw, gray, hwc[1]]
+
+
+def hub_call(shape, inputs, kernels: bool):
+    """One ``AutoShape`` call on ``inputs`` with the launch counts set to 0
+    just before it; with ``kernels``, the arguments of each kernel the call
+    reaches (as ``run_eval`` records them, K3's ``nms_packed`` under "nms")
+    and each network output ("net").  Returns (Detections, launches, the
+    records, ms)."""
+    from multiyolov5_tpu_torch import engine as engine_mod
+    from multiyolov5_tpu_torch.models import blocks
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops import nms as nms_mod
+    rec = {k: [] for k in ("net", "stem", "conv3x3", "c3", "nms", "nms_greedy",
+                           "upsample_argmax")}
+    spies = []
+    if kernels:
+        spies = [spied(engine_mod.Engine, "forward", after=rec["net"].append),
+                 spied(engine_mod, "stem", before=recorder(rec["stem"])),
+                 spied(blocks, "conv3x3", before=recorder(rec["conv3x3"])),
+                 spied(blocks, "c3", before=recorder(rec["c3"])),
+                 spied(nms_mod, "nms_packed", before=recorder(rec["nms"])),
+                 spied(nms_mod, "nms_greedy", before=recorder(rec["nms_greedy"])),
+                 spied(engine_mod, "upsample_argmax", before=recorder(rec["upsample_argmax"]))]
+    with contextlib.ExitStack() as stack:
+        for sp in spies:
+            stack.enter_context(sp)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = shape(inputs, size=HUB_SIZE)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = K.launch_counts()
+    return out, launches, rec, ms
+
+
+def phase_hub(card: str):
+    """[12] hub: ``yolov5s_city_seg``'s AutoShape, fp32 and bf16 (the hub's
+    default), on a mixed list: each kernel held against its plain version
+    on the arguments each counted call gave it, fp32 card against the CPU
+    under [3]'s bounds, the bf16 network against the fp32 one under [3]'s
+    bf16 bounds."""
+    from multiyolov5_tpu_torch import hub
+    log(f"[12] hub: yolov5s_city_seg(pretrained=<the smoke's weights>) AutoShape at size "
+        f"{HUB_SIZE} on a PNG path {CLI_OTHER_HW}, two HWC {ORIG_HW} frames, a CHW (720, 1280) "
+        f"and a gray (768, 1024) array")
+    work = os.path.join(ROOT, "build", "chip_smoke_hub")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    weights = smoke_weights(work)
+    inputs = hub_inputs(work, np.random.RandomState(SEED + 41))
+    shape32 = hub.yolov5s_city_seg(pretrained=weights, device=DEVICE, half=False)
+    shape16 = hub.yolov5s_city_seg(pretrained=weights, device=DEVICE)
+    ref_shape = hub.yolov5s_city_seg(pretrained=weights, device="cpu", half=False)
+    # four same-size groups: three single frames (K3) and one pair (K7, K5)
+    want = {"stem": 4, "stem_float": 0, "conv3x3": 40, "c3": 1, "nms": 3, "nms_greedy": 1,
+            "upsample_argmax": 4}
+    runs, errs = {}, {}
+    for dt, shape, bound in (("fp32", shape32, F32_REL), ("bf16", shape16, BF16_REL)):
+        shape(inputs, size=HUB_SIZE)            # the geometry's first call (allocator, cuDNN)
+        got, launches, rec, _ = hub_call(shape, inputs, kernels=True)
+        log(f"  launches ({dt}): {launches}")
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"hub {dt} launches {launches}, want {want}")
+        errs[dt] = hold_path_kernels(rec, f"hub {dt}", bound)
+        runs[dt] = got, rec["net"], launches
+        del rec
+    got, net32, launches = runs["fp32"]
+    half, net16, launches16 = runs["bf16"]
+    _, _, _, ms = hub_call(shape32, inputs, kernels=False)
+    log(f"  {ms:.1f} ms for the list (fp32) on {card}")
+    ref = ref_shape(inputs, size=HUB_SIZE)
+    hws = [im.shape[:2] for im in got.imgs]
+    if hws != [im.shape[:2] for im in ref.imgs] or got.files[0] != "street.png":
+        raise AssertionError(f"hub images {hws}, files {got.files}")
+    compare_runs("hub fp32 card vs CPU", (got.pred, got.masks), (ref.pred, ref.masks),
+                 E2E_MATCH_SHARE, BOX_PX, E2E_SCORE_ABS, E2E_MASK_SHARE, mask_hws=hws)
+    for (z16, seg16), (z32, seg32) in zip(net16, net32):
+        check(f"hub network bf16 vs fp32 card {tuple(z32.shape)}: seg logits "
+              "max|diff|/max(max|ref|,1)", diffs(seg16, seg32)[1], BF16_SEG_REL)
+        check(f"hub network bf16 vs fp32 card {tuple(z32.shape)}: obj/cls mean |diff|",
+              (z16[:, 4:].float() - z32[:, 4:]).abs().mean().item(), BF16_OBJCLS_MEAN)
+    # as in [3]: bf16 moves boxes by pixels and reorders near-tied scores at
+    # the top-k and NMS cuts, so the detections are reported, the class map
+    # bounded; each bf16 kernel was held on its own arguments above
+    compare_runs("hub bf16 card vs fp32 card", (half.pred, half.masks), (got.pred, got.masks),
+                 None, None, None, BF16_MASK_SHARE, match_px=16.0, mask_hws=hws)
+    part = got.tolist()[3]
+    quiet(part.save, os.path.join(work, "saved"))
+    from multiyolov5_tpu_torch.data import png
+    if not np.array_equal(png.read_rgb(os.path.join(work, "saved", "image3.png")),
+                          part.imgs[0]):
+        raise AssertionError("Detections.save did not write the rendered image")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "bf16_launches": launches16, "ms_fp32": ms,
+            "errs": errs, "detections": [len(p) for p in got.pred], "card": card}
+
+
 def stem_bound(frame, w, out_dtype, cuda_cores: bool = False):
     """(least ms, "bytes" or "operations") of K1 on ``frame`` at the
     arithmetic its form does: the frame read once, the weights once, the
@@ -2690,6 +3114,8 @@ def main() -> int:
     launches["c3"] = sv["launches"]["c3"]
     app = phase_app(eng32, eng16, cpu_eng, frames, smi)
     fam = phase_families(eng32, frames)
+    cli = phase_eval_cli(eng32, smi)
+    hb = phase_hub(smi)
     del eng32, eng16, cpu_eng
     tr = phase_train()
     k6 = tr["k6_times"]["bf16"]
@@ -2728,7 +3154,9 @@ def main() -> int:
     # on [9]'s seg_validation run, K5 on the eval path [5], K6
     # (forward + backward) in the counted bf16 train step [7], K7 in the
     # bf16 batched server's run [8] (serving_batches batched forwards);
-    # eval_launches and train_launches: every kernel on those paths.
+    # eval_launches, train_launches, eval_cli_launches ([11], the CLI's
+    # counted run) and hub_launches ([12], one fp32 AutoShape call on the
+    # mixed list): every kernel on those paths.
     # max_abs_err: the float32 comparison of [2] at the serving shapes; for
     # nms the keep entries that differ, for nms_greedy the picks that differ
     # on the eval path's lists, for upsample_argmax the mismatched pixel
@@ -2745,6 +3173,7 @@ def main() -> int:
                 "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                 "library_ms": library.get(k), "eval_launches": eval_launches[k],
                 "eval_max_abs_err": eval_errs.get(k),
+                "eval_cli_launches": cli["launches"][k], "hub_launches": hb["launches"][k],
                 "train_launches": train_counts[k] + (train_counts["seg_ce_bwd"]
                                                      if k == "seg_ce" else 0),
                 "err_dtype": "float32",
@@ -2805,7 +3234,8 @@ def main() -> int:
                    "nms_short_lists": short,
                    "eval_candidates_per_image": eval_n,
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
-                   "serving_bs8": sv, "families": fam, "app": app}, fh, indent=1)
+                   "serving_bs8": sv, "families": fam, "app": app, "eval_cli": cli,
+                   "hub": hb}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,18 @@ multiyolov5_tpu/cli/detect.py:132-138), so it needs no cv2 or PIL.
   dropped without blending, a palette expanded (its ``tRNS`` ignored).
 * :func:`imwrite` writes (H, W) or (H, W, 1) uint8 as 8-bit gray and
   (H, W, 3) uint8, taken as BGR, as 8-bit RGB.
+* :func:`read_samples` returns the stored samples, as
+  ``np.array(Image.open(path))`` does: gray (H, W), gray + alpha (H, W,
+  2), RGB (H, W, 3), RGBA (H, W, 4), and a palette file's indices (H, W),
+  not its colours.  The seg loaders read their masks with it.
+* :func:`read_rgb` returns ``np.asarray(Image.open(path).convert("RGB"))``:
+  (H, W, 3) uint8 RGB, gray replicated, a palette expanded, alpha dropped.
+* :func:`require_png` raises ``NotImplementedError`` naming the first
+  path of a list that is not a ``.png`` file: the loaders and hub check
+  their inputs with it before they read any.
+* :func:`size` reads the IHDR chunk only: ``(width, height)``, as PIL's
+  ``Image.open(path).size``.  An ``eXIf`` chunk's rotation, which the JAX
+  loader's ``exif_size`` applies through PIL, is not honoured.
 
 Anything else raises ``ValueError`` naming what is not supported:
 interlaced files, bit depths other than 8, other colour types, files that
@@ -20,7 +32,7 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -90,9 +102,9 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return rec[1:, 1:].reshape(h, -1).astype(np.uint8)
 
 
-def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """PNG bytes -> (H, W, C) uint8 samples as stored (C = 1 gray, 2 gray
-    + alpha, 3 RGB, 4 RGBA; a palette expanded to RGB)."""
+def _samples(data: bytes, path: str):
+    """PNG bytes -> ((H, W, C) uint8 samples as stored, the (256, 3)
+    palette of a palette file or None)."""
     chunks = _chunks(data, path)
     if not chunks or chunks[0][0] != b"IHDR":
         raise ValueError(f"{path}: PNG without IHDR")
@@ -110,6 +122,7 @@ def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
         raise ValueError(f"{path}: truncated PNG image data")
     px = _unfilter(raw[:h * (1 + w * ch)].reshape(h, 1 + w * ch), h, w * ch, ch)
     px = px.reshape(h, w, ch)
+    pal = None
     if ctype == 3:
         plte = [body for kind, body in chunks if kind == b"PLTE"]
         if not plte:
@@ -117,17 +130,64 @@ def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
         pal = np.zeros((256, 3), np.uint8)       # indices past the palette read black
         entries = np.frombuffer(plte[0], np.uint8).reshape(-1, 3)[:256]
         pal[:len(entries)] = entries
-        px = pal[px[..., 0]]
-    return px
+    return px, pal
+
+
+def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8 samples as stored (C = 1 gray, 2 gray
+    + alpha, 3 RGB, 4 RGBA; a palette expanded to RGB)."""
+    px, pal = _samples(data, path)
+    return px if pal is None else pal[px[..., 0]]
+
+
+def require_png(paths: Sequence, what: str) -> None:
+    """Raise ``NotImplementedError`` naming the first non-PNG image."""
+    for p in paths:
+        if not str(p).lower().endswith(".png"):
+            raise NotImplementedError(
+                f"{p}: the port reads PNG images only ({what}); other formats need a "
+                "decoder the port does not have")
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def _rgb(px: np.ndarray) -> np.ndarray:
+    """Decoded samples -> (H, W, 3) RGB: gray replicated, alpha dropped."""
+    if px.shape[2] <= 2:
+        return np.repeat(px[..., :1], 3, 2)
+    return px[..., :3]
 
 
 def imread(path: str) -> np.ndarray:
     """``cv2.imread(path)`` of a PNG: (H, W, 3) uint8 BGR."""
+    return np.ascontiguousarray(_rgb(decode(_read(path), path))[..., ::-1])
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """``np.asarray(Image.open(path).convert("RGB"))`` of a PNG: (H, W, 3)
+    uint8 RGB."""
+    return np.ascontiguousarray(_rgb(decode(_read(path), path)))
+
+
+def read_samples(path: str) -> np.ndarray:
+    """``np.array(Image.open(path))`` of a PNG: the stored samples, (H, W)
+    for gray and palette files (a palette file's indices), (H, W, C) for
+    gray + alpha, RGB and RGBA."""
+    px, _ = _samples(_read(path), path)
+    return px[..., 0] if px.shape[2] == 1 else px
+
+
+def size(path: str):
+    """(width, height) of a PNG from its IHDR chunk, the rest of the file
+    unread."""
     with open(path, "rb") as fh:
-        px = decode(fh.read(), path)
-    if px.shape[2] <= 2:                        # gray (+ alpha): replicated
-        px = np.repeat(px[..., :1], 3, 2)
-    return np.ascontiguousarray(px[..., 2::-1])  # RGB(A) -> BGR, alpha dropped
+        head = fh.read(33)
+    if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file (only PNG is supported)")
+    return struct.unpack(">II", head[16:24])
 
 
 def encode(img: np.ndarray) -> bytes:

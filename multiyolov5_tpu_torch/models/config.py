@@ -193,14 +193,17 @@ def _check_anchor_order(spec: ModelSpec) -> None:
             spec.rows[spec.detect_index].args[1] = flipped
 
 
-def load_spec(cfg: Union[str, Dict[str, Any]]) -> ModelSpec:
+def load_spec(cfg: Union[str, Dict[str, Any]], nc: Optional[int] = None) -> ModelSpec:
     """Accepts a dict, a path to a reference-format yaml, or a built-in name
-    from :mod:`multiyolov5_tpu_torch.models.zoo` (e.g. 'yolov5s_city_seg')."""
+    from :mod:`multiyolov5_tpu_torch.models.zoo` (e.g. 'yolov5s_city_seg');
+    ``nc`` overrides the config's number of detection classes."""
     if isinstance(cfg, dict):
-        return compile_spec(cfg)
-    if os.path.exists(cfg):
+        d = cfg
+    elif os.path.exists(cfg):
         import yaml
         with open(cfg) as fh:
-            return compile_spec(yaml.safe_load(fh))
-    from . import zoo
-    return compile_spec(zoo.get(cfg))
+            d = yaml.safe_load(fh)
+    else:
+        from . import zoo
+        d = zoo.get(cfg)
+    return compile_spec(d if nc is None else {**d, "nc": nc})

@@ -19,7 +19,7 @@ upsample the 1/8-res logits and take the plain losses.
 
 Not ported: ``pack_stem``, the ``det_hwna`` layout and the one-hot gather
 (TPU layout work); ``remat``, the mesh / DDP branch, ``autobalance`` and the
-BiSe aux losses (ROADMAP item 11).
+BiSe aux losses (ROADMAP.md, 'The rest of training').
 """
 
 from __future__ import annotations

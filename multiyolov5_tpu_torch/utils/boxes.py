@@ -30,6 +30,15 @@ def xywh2xyxy(x):
                          x[..., 0] + x[..., 2] / 2, x[..., 1] + x[..., 3] / 2], -1)
 
 
+def xywhn2xyxy(x, w=640, h=640, padw=0, padh=0):
+    """(..., 4) normalised center-size boxes to pixel corner boxes in a
+    ``w`` x ``h`` image placed at (``padw``, ``padh``)."""
+    return _xp(x).stack([w * (x[..., 0] - x[..., 2] / 2) + padw,
+                         h * (x[..., 1] - x[..., 3] / 2) + padh,
+                         w * (x[..., 0] + x[..., 2] / 2) + padw,
+                         h * (x[..., 1] + x[..., 3] / 2) + padh], -1)
+
+
 def clip_coords(boxes, img_shape):
     """Clip xyxy boxes to (h, w); returns a new array."""
     xp = _xp(boxes)

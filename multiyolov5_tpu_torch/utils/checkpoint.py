@@ -57,6 +57,20 @@ def to_jax_params(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, np.ndarray],
     return params, state
 
 
+def intersect_load(sd: Dict[str, Any], new: Dict[str, Any]) -> Tuple[Dict[str, Any], int]:
+    """Copy the entries of ``new`` whose name and shape match an entry of
+    ``sd`` over it; keep the rest (multiyolov5_tpu/utils/checkpoint.py:129,
+    reference utils/torch_utils.py:140-142 ``intersect_dicts``).  Returns
+    (the merged dict, the number copied)."""
+    out = dict(sd)
+    n = 0
+    for k, v in new.items():
+        if k in out and tuple(out[k].shape) == tuple(v.shape):
+            out[k] = v
+            n += 1
+    return out, n
+
+
 def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> Any:
     """Flatten nested dicts/lists/tuples of arrays into string keys; returns
     the JSON skeleton of the structure (the JAX package's format)."""

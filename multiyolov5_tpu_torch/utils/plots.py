@@ -13,8 +13,9 @@ fully covered pixels take the colour exactly; at the anti-aliased edges,
 where cv2 blends each stroke in turn with its own integer rounding, the
 result can differ from cv2's by a few levels, and more where a shape is
 clipped at the image's edge.  ``add_weighted`` is ``cv2.addWeighted`` on
-uint8 images.  Nothing else of the JAX ``plots.py`` is ported: the rest
-needs matplotlib.
+uint8 images.  ``color_list`` is the JAX package's ten base colours (the
+hub draws with them).  Nothing else of the JAX ``plots.py`` is ported: the
+rest needs matplotlib.
 """
 
 from __future__ import annotations
@@ -26,6 +27,14 @@ from typing import Optional, Sequence
 import numpy as np
 
 TEXT_COLOR = (225, 255, 255)
+
+
+def color_list():
+    """matplotlib's tab10 base colours as RGB tuples
+    (multiyolov5_tpu/utils/plots.py:17)."""
+    hexs = ("1f77b4", "ff7f0e", "2ca02c", "d62728", "9467bd", "8c564b",
+            "e377c2", "7f7f7f", "bcbd22", "17becf")
+    return [tuple(int(h[i:i + 2], 16) for i in (0, 2, 4)) for h in hexs]
 
 
 @functools.lru_cache(maxsize=1)

@@ -124,3 +124,25 @@ def test_ensemble_of_two_checkpoints_matches_jax(pair, tmp_path, augment):
     got = peng(img[:1], ORIG_HW, conf=CONF, augment=augment)
     assert len(got[0][0]) >= 10
     _assert_same_outputs(got, want)
+
+
+def test_missing_weights_take_the_seeded_init_as_jax(tmp_path, capsys):
+    """A weights path that does not exist: with a cfg, both engines warn
+    and build that cfg's seeded random init
+    (multiyolov5_tpu/engine.py:211-216); without one, both raise
+    ``FileNotFoundError``."""
+    missing = str(tmp_path / "missing.npz")
+    jeng = JaxEngine(missing, cfg="yolov5s_city_seg", half=False)
+    jax_out = capsys.readouterr().out
+    peng = Engine(missing, cfg="yolov5s_city_seg", device="cpu", half=False)
+    port_out = capsys.readouterr().out
+    for out in (jax_out, port_out):
+        assert "WARNING" in out and "missing.npz" in out and "yolov5s_city_seg" in out
+    assert peng.spec.nc == jeng.spec.nc and peng.names == jeng.names
+    seeded = Engine(cfg="yolov5s_city_seg", device="cpu", half=False)
+    got, want = peng.model.state_dict(), seeded.model.state_dict()
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in got)
+    for build in (lambda: JaxEngine(missing, half=False),
+                  lambda: Engine(missing, device="cpu", half=False)):
+        with pytest.raises(FileNotFoundError, match="missing.npz"):
+            build()

@@ -11,7 +11,12 @@ takes one update on the CPU, and an ``InferenceServer`` on the TINY spec
 serves two frames in one batch (through the K7 route of its backbone C3s)
 and closes, and the detect app (``cli/detect.py``) on the TINY spec
 (``--submit --save-txt``) reads two PNGs written by ``data/png.py`` and
-writes every artifact, each of which decodes."""
+writes every artifact, each of which decodes, and the eval CLI
+(``cli/test.py``) on the TINY spec reads a PNG detection split and a
+Cityscapes-layout seg split through the port's loaders (the dataset file
+in JSON, without PyYAML) and prints its metrics, and hub's ``AutoShape``
+serves a PNG path and a gray array.  PyYAML and pandas are blocked too:
+the card's machine need not have them."""
 
 import json
 import os
@@ -29,7 +34,7 @@ _SCRIPT = textwrap.dedent("""
     class Block:
         def find_spec(self, name, path=None, target=None):
             if name.split(".")[0] in ("jax", "jaxlib", "multiyolov5_tpu", "cv2", "PIL",
-                                      "torchvision"):
+                                      "torchvision", "yaml", "pandas"):
                 raise ImportError("blocked: " + name)
             return None
 
@@ -52,7 +57,8 @@ _SCRIPT = textwrap.dedent("""
     new = {"evaluation", "ops.kernels.nms_greedy", "utils.metrics", "utils.boxes",
            "train.trainer", "train.losses", "train.optim", "data.hyps", "ops.kernels.seg_ce",
            "serving", "data.letterbox", "ops.kernels.c3", "data.png", "data.sources",
-           "data.cityscapes", "utils.general", "utils.plots", "cli.detect"}
+           "data.cityscapes", "utils.general", "utils.plots", "cli.detect", "data.resize",
+           "data.detection", "data.segmentation", "cli.test", "hub"}
     assert {pkg.__name__ + "." + m for m in new} <= set(names)
     from multiyolov5_tpu_torch.models import zoo
     for name in ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
@@ -130,7 +136,39 @@ _SCRIPT = textwrap.dedent("""
         for art in (f"f{i}.png", f"f{i}_mask.png", f"f{i}_dst.png", f"results/f{i}_pred.png"):
             assert png.imread(f"{out}/{art}").shape == f.shape, art
         assert len(open(f"{out}/labels/f{i}.txt").read().splitlines()) > 0
-    assert not any(m.split(".")[0] in ("jax", "multiyolov5_tpu", "cv2", "PIL", "torchvision")
+
+    from multiyolov5_tpu_torch.cli.test import main as test_main
+    for sub in ("det/images/val", "det/labels/val", "citys/leftImg8bit/val/x",
+                "citys/gtFine/val/x"):
+        os.makedirs(f"{tmp}/{sub}")
+    for i, (h, w) in enumerate(((48, 96), (60, 120), (96, 48))):
+        png.imwrite(f"{tmp}/det/images/val/d{i}.png", (rng.rand(h, w, 3) * 255).astype(np.uint8))
+        with open(f"{tmp}/det/labels/val/d{i}.txt", "w") as fh:
+            fh.write("1 0.5 0.5 0.3 0.4\\n0 0.3 0.3 0.2 0.2\\n")
+        png.imwrite(f"{tmp}/citys/leftImg8bit/val/x/x_{i}_leftImg8bit.png",
+                    (rng.rand(64, 128, 3) * 255).astype(np.uint8))
+        png.imwrite(f"{tmp}/citys/gtFine/val/x/x_{i}_gtFine_labelIds.png",
+                    rng.randint(0, 34, (64, 128)).astype(np.uint8))
+    with open(tmp + "/data.json", "w") as fh:
+        json.dump({"val": tmp + "/det/images/val", "segval": tmp + "/citys"}, fh)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = test_main(["--weights", tmp + "/w.npz", "--data", tmp + "/data.json",
+                         "--img-size", "64", "--base-size", "64", "--batch-size", "8",
+                         "--device", "cpu", "--workers", "2"])
+    assert sorted(res) == ["P", "R", "mAP", "mAP50", "mIoU", "pixAcc"]
+    assert all(0 <= float(v) <= 1 for v in res.values())
+
+    from multiyolov5_tpu_torch.hub import AutoShape
+    shape = AutoShape(Engine(tmp + "/w.npz", device="cpu", half=False))
+    shape.conf = 0.001
+    out = shape([f"{tmp}/det/images/val/d0.png", rng.randint(0, 256, (40, 80)).astype(np.uint8)],
+                size=64)
+    assert len(out) == 2 and out.files[0] == "d0.png" and out.masks[1].shape == (40, 80)
+    with contextlib.redirect_stdout(io.StringIO()):
+        out.save(tmp + "/hub")
+    assert png.read_rgb(tmp + "/hub/d0.png").shape == (48, 96, 3)
+    assert not any(m.split(".")[0] in ("jax", "multiyolov5_tpu", "cv2", "PIL", "torchvision",
+                                       "yaml", "pandas")
                    for m in sys.modules)
     print("OK", len(names))
 """)

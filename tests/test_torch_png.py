@@ -139,3 +139,28 @@ def test_unsupported_files_raise(tmp_path):
         png.imwrite(str(tmp_path / "f.png"), img.astype(np.float32))
     with pytest.raises(ValueError, match=r"\(H, W\)"):
         png.imwrite(str(tmp_path / "rgba.png"), np.zeros((4, 4, 4), np.uint8))
+
+
+def test_pil_reads_match_pil(tmp_path):
+    """``read_samples`` equals ``np.array(Image.open(p))`` (a palette
+    file's indices, gray as (H, W), gray + alpha as (H, W, 2)),
+    ``read_rgb`` equals ``Image.open(p).convert("RGB")`` and ``size``
+    equals ``Image.open(p).size``, on the whole corpus: cv2's gray, BGR
+    and BGRA files and PIL's L, LA, RGB, RGBA and P files."""
+    files = _written(tmp_path, np.random.RandomState(4))
+    modes = set()
+    for p in files:
+        with Image.open(p) as im:
+            modes.add(im.mode)
+            assert png.size(p) == im.size, p
+            want = np.array(im)
+            want_rgb = np.asarray(im.convert("RGB"))
+        got = png.read_samples(p)
+        assert got.dtype == np.uint8 and got.shape == want.shape, p
+        np.testing.assert_array_equal(got, want, err_msg=p)
+        np.testing.assert_array_equal(png.read_rgb(p), want_rgb, err_msg=p)
+    assert {"L", "LA", "RGB", "RGBA", "P"} <= modes
+    jpg = str(tmp_path / "b.jpg")
+    cv2.imwrite(jpg, np.zeros((9, 9, 3), np.uint8))
+    with pytest.raises(ValueError, match="not a PNG"):
+        png.size(jpg)
