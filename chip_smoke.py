@@ -58,6 +58,19 @@ unless named), on the card and, for reference, on the CPU:
   each counted call gave it; boxes and class maps (fp32) card against the
   CPU under [3]'s bounds, the bf16 network against the fp32 one under
   [3]'s bf16 bounds.
+* profiling, export and ``.pt`` [13]: the port's FLOP count (pspv5s at
+  512x1024 must equal the JAX count plus the Focus conv's, which the JAX
+  counter leaves out) and the achieved bf16 TFLOP/s of a bare forward at
+  bs1 and bs8 (``profile_op`` and a graph replay); ``cli.profile.main`` at
+  bs1 (K2) and bs8 (K2, K7) with ``--layers --trace``: every forward it
+  runs launches the kernels, and the trace's report holds K2's and K7's
+  symbols as many times as the traced forwards launched them;
+  ``cli.export.main`` (TorchScript and torch.export, decoded and raw, bs1;
+  TorchScript bs2) reloaded against the live plain build and against
+  ``Engine``'s fp32 forward (K1's float mode, K2 fp32, K7 fp32 at bs2);
+  the smoke's weights as a reference-style ``.pt`` and a bare
+  ``state_dict`` through ``Engine`` (bitwise equal to their
+  ``convert_pt`` ``.npz``), ``cli.detect.main`` and ``cli.test.main``.
 
 It checks that every kernel ran on its path, holds each kernel against its
 plain version on the arguments its path gave it, and times the paths and
@@ -98,6 +111,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -132,6 +146,17 @@ CLI_IMG = 1024
 HUB_SIZE = 1024
 M_CFG = "yolov5m_city_seg"
 X_CFG = "yolov5x_city_seg"     # pspv5x: [6] times K2's float32 form at its 22 bs1 sites
+# [13] profiling, export and .pt: cli/profile.py at bs1 (K2) and bs8 (K7 too)
+PROFILE_BATCHES, PROFILE_ITERS = (1, 8), 30
+# the JAX package's estimate_gflops for pspv5s at 512x1024 (bench.py:273's
+# 28.79 GF/frame), which leaves out the Focus conv, and that conv's 2 x MACs
+# (3x3x12 -> 32 at 256x512); the port's counter must give their sum
+JAX_PSPV5S_FLOPS = 28_793_847_808
+FOCUS_FLOPS = 2 * 3 * 3 * 12 * 32 * 256 * 512
+FLOP_REL = 1e-9
+# an exported artifact against the live plain build on the same input: the
+# same cuDNN graph, so equal but for kernel choice (TF32 off)
+EXPORT_REL = 1e-6
 
 # bounds, each stated with its reason
 F32_REL = 1e-4     # float32 vs float32: summation order only (TF32 off)
@@ -2009,31 +2034,20 @@ def smoke_weights(work: str, seed: int = SEED) -> str:
     return path
 
 
-def cli_tree(eng, work: str, rng) -> str:
-    """[11]'s seeded PNG trees under ``work``: ``det/images/val`` +
-    ``det/labels/val`` and the Cityscapes ``leftImg8bit/val/<city>`` +
-    ``gtFine/val`` labelIds (``eng``'s class map, 30% random classes, 10%
-    255).  The detection labels are made from the CLI's own inputs: each
-    frame's rect letterbox from the CLI's ``DetectionDataset``, through
-    ``eng`` and eval's NMS, unmapped with the item's ``shapes``; of the 90
-    best detections of at least 16x16 px, 30 moved by 2 px (sd) on each
-    edge, plus 6 boxes none covers, so mAP@.5 is neither 0 nor 1.  Returns
-    the dataset file (JSON, which the CLI reads without PyYAML)."""
-    from multiyolov5_tpu_torch.data import png
-    from multiyolov5_tpu_torch.data.cityscapes import CITYSCAPES_IDMAP
+def label_split(eng, img_dir: str, lbl_dir: str, rng, img_size: int, batch_size: int):
+    """Labels for the PNG frames in ``img_dir``, made from what ``cli.test``
+    will evaluate: each frame's rect letterbox from the CLI's own
+    ``DetectionDataset`` (``img_size``, ``batch_size``), through ``eng`` and
+    eval's NMS, unmapped with the item's ``shapes``; of the 90 best
+    detections of at least 16x16 px, 30 moved by 2 px (sd) on each edge,
+    plus 6 boxes none covers, so mAP@.5 is neither 0 nor 1."""
     from multiyolov5_tpu_torch.data.detection import CACHE_SUFFIX, DetectionDataset
-    from multiyolov5_tpu_torch.data.letterbox import letterbox
     from multiyolov5_tpu_torch.ops.nms import non_max_suppression
     from multiyolov5_tpu_torch.utils.boxes import scale_coords
-    img_dir, lbl_dir = (os.path.join(work, "det", d, "val") for d in ("images", "labels"))
-    os.makedirs(img_dir)
-    os.makedirs(lbl_dir)
+    os.makedirs(lbl_dir, exist_ok=True)
     nc = eng.spec.nc
-    for i, (h, w) in enumerate([ORIG_HW] * CLI_FRAMES + [CLI_OTHER_HW] * CLI_OTHER):
-        png.imwrite(os.path.join(img_dir, f"frankfurt_{i:06d}.png"),
-                    rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
     # cli/test.py's detection dataset, before any label exists
-    ds = quiet(DetectionDataset, img_dir, img_size=CLI_IMG, batch_size=CLI_BS, rect=True,
+    ds = quiet(DetectionDataset, img_dir, img_size=img_size, batch_size=batch_size, rect=True,
                stride=eng.stride, pad=0.5)
     for i in range(len(ds)):
         img, _, path, ((h, w), ratio_pad) = ds[i]
@@ -2055,6 +2069,25 @@ def cli_tree(eng, work: str, rng) -> str:
                 fh.write("%d %.6f %.6f %.6f %.6f\n" % (c, (x0 + x1) / 2 / w, (y0 + y1) / 2 / h,
                                                        (x1 - x0) / w, (y1 - y0) / h))
     os.remove(lbl_dir + CACHE_SUFFIX)     # the label cache made before the labels
+
+
+def cli_tree(eng, work: str, rng) -> str:
+    """[11]'s seeded PNG trees under ``work``: ``det/images/val`` +
+    ``det/labels/val`` (labelled by :func:`label_split` at the CLI's
+    ``CLI_IMG`` and ``CLI_BS``) and the Cityscapes ``leftImg8bit/val/<city>``
+    + ``gtFine/val`` labelIds (``eng``'s class map, 30% random classes, 10%
+    255).  Returns the dataset file (JSON, which the CLI reads without
+    PyYAML)."""
+    from multiyolov5_tpu_torch.data import png
+    from multiyolov5_tpu_torch.data.cityscapes import CITYSCAPES_IDMAP
+    from multiyolov5_tpu_torch.data.letterbox import letterbox
+    img_dir, lbl_dir = (os.path.join(work, "det", d, "val") for d in ("images", "labels"))
+    os.makedirs(img_dir)
+    nc = eng.spec.nc
+    for i, (h, w) in enumerate([ORIG_HW] * CLI_FRAMES + [CLI_OTHER_HW] * CLI_OTHER):
+        png.imwrite(os.path.join(img_dir, f"frankfurt_{i:06d}.png"),
+                    rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+    label_split(eng, img_dir, lbl_dir, rng, CLI_IMG, CLI_BS)
     seg_root = os.path.join(work, "citys")
     for i in range(CLI_SEG_FRAMES):
         city = ("frankfurt", "lindau")[i % 2]
@@ -2368,6 +2401,259 @@ def phase_hub(card: str):
     shutil.rmtree(work, ignore_errors=True)
     return {"launches": launches, "bf16_launches": launches16, "ms_fp32": ms,
             "errs": errs, "detections": [len(p) for p in got.pred], "card": card}
+
+
+def profile_cli(eng16, work: str, bs: int) -> dict:
+    """One ``cli.profile.main`` run at bs ``bs`` with ``--layers --trace``:
+    the launches one bf16 forward from row 0 makes (the kernels' counters,
+    and [12]'s spies on ``blocks.conv3x3`` and ``blocks.c3``), the CLI's own
+    launches (every forward it runs), its rows, and the trace's report."""
+    from multiyolov5_tpu_torch.cli.profile import TRACE_FORWARDS
+    from multiyolov5_tpu_torch.cli.profile import main as profile_main
+    from multiyolov5_tpu_torch.models import blocks
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.tools import trace_report
+    x = torch.zeros(bs, *IN_HW, 3, dtype=torch.bfloat16, device=DEVICE).permute(0, 3, 1, 2)
+    calls = {"conv3x3": [], "c3": []}
+    with torch.inference_mode(), spied(blocks, "conv3x3", before=recorder(calls["conv3x3"])), \
+            spied(blocks, "c3", before=recorder(calls["c3"])):
+        eng16.model(x)                        # the geometry's first call (allocator, cuDNN)
+        for v in calls.values():
+            v.clear()
+        K.reset_launches()
+        eng16.model(x)
+        torch.cuda.synchronize()
+        per = K.launch_counts()
+    if {k: len(v) for k, v in calls.items()} != {k: per[k] for k in calls}:
+        raise AssertionError(f"bs{bs}: spied calls {[len(v) for v in calls.values()]}, "
+                             f"launches {per}")
+    want = {"conv3x3": 10, "c3": int(bs > 1)}
+    if {k: per[k] for k in want} != want:
+        raise AssertionError(f"bs{bs} forward launches {per}, want {want}")
+    trace_dir = os.path.join(work, f"trace_bs{bs}")
+    K.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = profile_main(["--cfg", CFG, "--img-size", *map(str, IN_HW), "--batch-size", str(bs),
+                            "--layers", "--trace", trace_dir, "--iters", str(PROFILE_ITERS)])
+    torch.cuda.synchronize()
+    cli = K.launch_counts()
+    # warm-up (3) + timed forwards, profile_layers' warm-up + repeats (1 + 10), the trace's
+    forwards = 3 + PROFILE_ITERS + 11 + TRACE_FORWARDS
+    if any(cli[k] != per[k] * forwards for k in per):
+        raise AssertionError(f"bs{bs}: the CLI launched {cli}, want {forwards} x {per}")
+    rows = out["layers"]
+    if [r[0] for r in rows] != list(range(len(eng16.spec.rows))) or min(r[3] for r in rows) < 0:
+        raise AssertionError(f"bs{bs}: profile_layers rows {rows}")
+    with contextlib.redirect_stdout(io.StringIO()) as rep:
+        dev_rows = trace_report.report(trace_report.load_trace(out["trace"]), top=15)
+    by_class = {}
+    for name, us, _ in dev_rows:
+        by_class[trace_report.classify(name)] = by_class.get(trace_report.classify(name), 0) + us
+    total = sum(us for _, us, _ in dev_rows)
+    if abs(sum(by_class.values()) - total) > 1e-6 * total:
+        raise AssertionError(f"bs{bs}: class totals {by_class} do not sum to {total}")
+    traced = {sym: sum(n for name, _, n in dev_rows
+                       if re.search(rf"(?<!\w){sym}(?!\w)", name))
+              for sym in ("conv3x3_tma", "c3_bf16")}
+    want_traced = {"conv3x3_tma": TRACE_FORWARDS * per["conv3x3"],
+                   "c3_bf16": TRACE_FORWARDS * per["c3"]}
+    log(f"  bs{bs}: one forward launches {({k: v for k, v in per.items() if v})}; the CLI "
+        f"{forwards} forwards; traced K2 {traced['conv3x3_tma']}, K7 {traced['c3_bf16']} "
+        f"(want {want_traced['conv3x3_tma']}, {want_traced['c3_bf16']}) of "
+        f"{sum(n for *_, n in dev_rows)} device ops, {total / TRACE_FORWARDS / 1e3:.3f} device "
+        f"ms a forward")
+    if traced != want_traced:
+        raise AssertionError(f"bs{bs}: traced {traced}, want {want_traced}")
+    with open(os.path.join(OUT_DIR, f"profile_bs{bs}.txt"), "w") as fh:
+        fh.write(buf.getvalue() + rep.getvalue())
+    return {"forward_ms": out["forward_s"] * 1e3, "layers_cum_ms": rows[-1][2],
+            "layers": rows, "launches_per_forward": per, "cli_launches": cli,
+            "traced": traced, "device_us_per_forward": total / TRACE_FORWARDS,
+            "device_classes_us": by_class, "model_info": out["info"]}
+
+
+def pt_tree(work: str, eng, frames) -> str:
+    """A detection split of two of the frames as PNG files, labelled by
+    :func:`label_split` at the ``--img-size`` IN_HW[1] and ``--batch-size`` 2
+    that [13] runs ``cli.test`` with, and its dataset file."""
+    from multiyolov5_tpu_torch.data import png
+    img_dir, lbl_dir = (os.path.join(work, "det", d, "val") for d in ("images", "labels"))
+    os.makedirs(img_dir, exist_ok=True)
+    for i, f in enumerate(frames[:2]):
+        png.imwrite(os.path.join(img_dir, f"f{i}.png"), np.ascontiguousarray(f[:, :, ::-1]))
+    label_split(eng, img_dir, lbl_dir, np.random.RandomState(SEED + 37), IN_HW[1], 2)
+    path = os.path.join(work, "data.json")
+    with open(path, "w") as fh:
+        json.dump({"val": img_dir}, fh)
+    return path
+
+
+def phase_profile_export(eng32, eng16, frames, card: str):
+    """[13] profiling, export and .pt checkpoints on pspv5s at full width:
+    the FLOP counter, ``cli.profile`` at bs1 and bs8 (K2; K7 at bs8) with its
+    per-row times and its trace's report, ``cli.export`` (TorchScript and
+    torch.export, decoded and raw) reloaded against the live plain build and
+    against ``Engine``'s fp32 kernel path, and ``.pt`` weights through
+    ``Engine``, ``convert_pt``, ``cli.detect`` and ``cli.test`` (on labels
+    from the model's own detections on the CLI's letterboxes, so mAP@.5 is
+    neither 0 nor 1)."""
+    from multiyolov5_tpu_torch.cli import export as export_cli
+    from multiyolov5_tpu_torch.cli.test import main as test_main
+    from multiyolov5_tpu_torch.engine import Engine
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops.resize import resize_bilinear
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    from multiyolov5_tpu_torch.tools.convert_pt import convert
+    from multiyolov5_tpu_torch.utils.profiling import estimate_gflops
+    log(f"[13] profiling, export and .pt: {CFG} seed {SEED}, {IN_HW}")
+    work = os.path.join(ROOT, "build", "chip_smoke_profile")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    res = {"card": card}
+
+    spec = load_spec(CFG)
+    flops = {f"{h}x{w}": estimate_gflops(spec, None, (h, w)) * 1e9
+             for h, w in (IN_HW, (1024, 1024))}
+    f512 = flops[f"{IN_HW[0]}x{IN_HW[1]}"]
+    log(f"  estimate_gflops: {flops} FLOPs a frame (JAX's {JAX_PSPV5S_FLOPS} + the Focus "
+        f"conv's {FOCUS_FLOPS} at 512x1024)")
+    check("FLOPs at 512x1024 against JAX's + the Focus conv's, relative",
+          abs(f512 / (JAX_PSPV5S_FLOPS + FOCUS_FLOPS) - 1), FLOP_REL)
+    res["flops"] = flops
+
+    res["profile"] = {}
+    for bs in PROFILE_BATCHES:
+        pr = profile_cli(eng16, work, bs)
+        x = torch.zeros(bs, *IN_HW, 3, dtype=torch.bfloat16, device=DEVICE).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            pr["graph_ms"] = graph_ms(lambda: eng16.model(x), iters=5, replays=3)
+        for key in ("forward_ms", "graph_ms"):
+            pr[key.replace("ms", "tflops")] = bs * f512 / (pr[key] * 1e-3) / 1e12
+        log(f"  bs{bs} bf16 forward: profile_op {pr['forward_ms']:.3f} ms "
+            f"({pr['forward_tflops']:.2f} TFLOP/s, {pr['forward_tflops'] / 989:.2%} of 989); "
+            f"graph replay {pr['graph_ms']:.3f} ms ({pr['graph_tflops']:.2f} TFLOP/s, "
+            f"{pr['graph_tflops'] / 989:.2%}); profile_layers' last cum "
+            f"{pr['layers_cum_ms']:.3f} ms; on {card}")
+        res["profile"][f"bs{bs}"] = pr
+
+    # export: the plain build, fp32, traced on the card
+    weights = smoke_weights(work)
+    exp_dir = os.path.join(work, "export")
+    made = {}
+    t0 = time.perf_counter()
+    for raw in (False, True):
+        made[raw] = quiet(export_cli.main, ["--weights", weights, "--img-size", *map(str, IN_HW),
+                                            "--include", "torchscript", "export",
+                                            "--output", os.path.join(exp_dir, str(raw))]
+                          + (["--raw"] if raw else []))
+    made["bs2"] = quiet(export_cli.main, ["--weights", weights, "--img-size", *map(str, IN_HW),
+                                          "--batch-size", "2", "--include", "torchscript",
+                                          "--output", os.path.join(exp_dir, "bs2")])
+    res["export_s"] = time.perf_counter() - t0
+    plain = export_cli.plain_model(Engine(weights, device=DEVICE, half=False))
+    xs = torch.from_numpy(np.stack(frames[:2])).to(DEVICE).float() / 255   # (2, H, W, 3)
+    errs = {}
+    for key, paths in made.items():
+        raw, x = key is True, xs[:2] if key == "bs2" else xs[:1]
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        with torch.no_grad():
+            live = export_cli.ExportModel(plain, raw=raw)(xn)
+            for path in paths:
+                net = (torch.jit.load(path) if path.endswith(".torchscript.pt")
+                       else torch.export.load(path).module())
+                got = net(xn)
+                if len(got) != len(live):
+                    raise AssertionError(f"{path}: {len(got)} outputs, want {len(live)}")
+                err = max(diffs(g, w)[1] for g, w in zip(got, live))
+                errs[os.path.relpath(path, work)] = err
+                check(f"{os.path.relpath(path, work)} against the live plain build, of scale",
+                      err, EXPORT_REL)
+        if raw:
+            continue
+        # the decoded output against Engine's fp32 forward: K1's float mode, K2
+        # fp32 and, at bs2, K7 fp32, against the exported cuDNN graph
+        K.reset_launches()
+        z, seg = eng32.forward(x)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        want = {"stem_float": 1, "conv3x3": 10, "c3": int(x.shape[0] > 1)}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"Engine fp32 bs{x.shape[0]} launches {launches}, want {want}")
+        zt = z.transpose(1, 2)
+        check(f"export bs{x.shape[0]} vs Engine fp32 (K1 float, K2, K7: {launches['c3']}): "
+              "boxes max|diff|/max(max|ref|,1)", diffs(live[0][..., :4], zt[..., :4])[1], NET_REL)
+        check(f"export bs{x.shape[0]} vs Engine fp32: obj/cls max|diff|",
+              diffs(live[0][..., 4:], zt[..., 4:])[0], NET_REL)
+        up = resize_bilinear(seg, (seg.shape[2] * 8, seg.shape[3] * 8))
+        check(f"export bs{x.shape[0]} vs Engine fp32: seg logits max|diff|/max(max|ref|,1)",
+              diffs(live[1], up)[1], NET_REL)
+    res["export_errs"] = errs
+    log(f"  export: {sum(len(v) for v in made.values())} artifacts in {res['export_s']:.1f} s")
+
+    # .pt weights: reference-style {model, ema} in fp16, and a bare state_dict
+    sd = seeded_state_dict(spec, SEED)          # the weights of smoke_weights
+    pts = {"ref_style": os.path.join(work, "ref_style.pt"),
+           "bare": os.path.join(work, "bare.pt")}
+    # the EMA told apart by +0.001 on every bias: on every tensor (running
+    # statistics, weights) it saturates these random weights (every score 1.0)
+    torch.save({"model": {k: v.half() for k, v in sd.items()},
+                "ema": {k: (v + 0.001 * k.endswith(".bias")).half() for k, v in sd.items()},
+                "epoch": 3}, pts["ref_style"])
+    torch.save(sd, pts["bare"])
+    res["pt"] = {}
+    for name, pt in pts.items():
+        npz = quiet(convert, pt, pt[:-3] + ".npz")
+        runs = []
+        for w in (pt, npz):
+            eng = Engine(w, cfg=CFG, device=DEVICE, half=True)
+            eng(frames[0], ORIG_HW, conf=CONF)
+            K.reset_launches()
+            runs.append(eng(frames[0], ORIG_HW, conf=CONF))
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+            want = {"stem": 1, "conv3x3": 10, "nms": 1, "upsample_argmax": 1}
+            if {k: launches[k] for k in want} != want:
+                raise AssertionError(f"Engine({os.path.basename(w)}) launches {launches}")
+        same = all(np.array_equal(a, b) for a, b in zip(runs[0][0] + runs[0][1],
+                                                         runs[1][0] + runs[1][1]))
+        log(f"  Engine({name}.pt) vs Engine(convert_pt): {len(runs[0][0][0])} detections, "
+            f"bitwise {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"{name}: .pt and its .npz differ")
+        res["pt"][name] = {"detections": len(runs[0][0][0]), "launches": launches}
+    pt = pts["ref_style"]
+    src = os.path.join(work, "src")
+    os.makedirs(src)
+    from multiyolov5_tpu_torch.data import png
+    png.imwrite(os.path.join(src, "f0.png"), np.ascontiguousarray(frames[0][:, :, ::-1]))
+    K.reset_launches()
+    out, _ = run_app(["--weights", pt, "--cfg", CFG, "--source", src, "--img-size",
+                      str(APP_IMG), "--save-txt", "--save-conf", "--project",
+                      os.path.join(work, "runs"), "--name", "pt"])
+    app_launches = K.launch_counts()
+    arts = ["f0.png", "f0_mask.png", "f0_dst.png", "labels/f0.txt"]
+    if not all(os.path.exists(os.path.join(out, a)) for a in arts):
+        raise AssertionError(f"cli.detect on .pt: missing artifacts in {os.listdir(out)}")
+    data = pt_tree(work, Engine(pt, cfg=CFG, device=DEVICE, half=False), frames)
+    metrics = []
+    for w in (pt, pt[:-3] + ".npz"):
+        K.reset_launches()
+        metrics.append(quiet(test_main, ["--weights", w, "--cfg", CFG, "--data", data,
+                                         "--img-size", str(IN_HW[1]), "--batch-size", "2"]))
+        metrics[-1] = {k: float(v) for k, v in metrics[-1].items()}
+        torch.cuda.synchronize()
+        test_launches = K.launch_counts()
+    log(f"  cli.detect on .pt: launches {app_launches}; cli.test on .pt and on its .npz: "
+        f"{metrics[0]} / {metrics[1]}, launches {test_launches}")
+    if (metrics[0] != metrics[1] or not 0.05 < metrics[0]["mAP50"] < 0.95
+            or test_launches["nms_greedy"] < 1):
+        raise AssertionError(f"cli.test on .pt {metrics[0]} vs .npz {metrics[1]}, "
+                             f"launches {test_launches}")
+    res.update(app_launches=app_launches, test_launches=test_launches, test_metrics=metrics[0])
+    shutil.rmtree(work, ignore_errors=True)
+    return res
 
 
 def stem_bound(frame, w, out_dtype, cuda_cores: bool = False):
@@ -3116,6 +3402,7 @@ def main() -> int:
     fam = phase_families(eng32, frames)
     cli = phase_eval_cli(eng32, smi)
     hb = phase_hub(smi)
+    pe = phase_profile_export(eng32, eng16, frames, smi)
     del eng32, eng16, cpu_eng
     tr = phase_train()
     k6 = tr["k6_times"]["bf16"]
@@ -3235,7 +3522,7 @@ def main() -> int:
                    "eval_candidates_per_image": eval_n,
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
                    "serving_bs8": sv, "families": fam, "app": app, "eval_cli": cli,
-                   "hub": hb}, fh, indent=1)
+                   "hub": hb, "profile_export": pe}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

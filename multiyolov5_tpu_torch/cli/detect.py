@@ -131,7 +131,7 @@ def detect(opt):
 def build_parser():
     parser = argparse.ArgumentParser()
     parser.add_argument("--weights", nargs="+", type=str, default="yolov5s.pt",
-                        help="model .npz path(s)")
+                        help="model .npz or .pt path(s)")
     parser.add_argument("--cfg", type=str, default=None,
                         help="model config (zoo name or yaml) if weights lack one")
     parser.add_argument("--source", type=str, default="data/images")

@@ -90,7 +90,7 @@ def run(opt):
 def build_parser():
     p = argparse.ArgumentParser()
     p.add_argument("--weights", nargs="+", type=str, default="yolov5s.pt",
-                   help="model .npz path")
+                   help="model .npz or .pt path")
     p.add_argument("--cfg", type=str, default=None)
     p.add_argument("--data", type=str, default="data/cityscapes_det.yaml")
     p.add_argument("--batch-size", type=int, default=32)

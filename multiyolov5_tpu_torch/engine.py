@@ -8,8 +8,9 @@ One call runs, on ``device``:
     -> letterbox unmap -> upsample + argmax class map (K4)
 and returns host arrays.  Every zoo entry runs: the four seg heads,
 detection-only models (no class map) and the 4-level P6 models (stride
-64).  Weights come from a JAX-package ``.npz`` checkpoint, from a
-``state_dict``, or from a seeded random init; BN is folded at build and
+64).  Weights come from a JAX-package ``.npz`` checkpoint, a reference
+``.pt`` (utils/checkpoint.load_pt: its config, when it carries one, wins
+over ``cfg``), a ``state_dict``, or a seeded random init; BN is folded at build and
 ``half=True`` then casts the parameters to bfloat16.  Decode and NMS stay
 float32.
 
@@ -69,8 +70,9 @@ class Engine:
     """Loads weights, folds BN and serves the fused pipeline.
 
     Args:
-      weights: path of a native ``.npz`` checkpoint, or None; a list of
-        paths builds an ensemble.
+      weights: path of a native ``.npz`` or a reference ``.pt`` checkpoint,
+        or None; a list of paths (``.npz`` and ``.pt`` mixed) builds an
+        ensemble.
       cfg: model config (zoo name, yaml path or dict) when the checkpoint
         does not carry one, or for a seeded random init.
       device: where the model runs: "cuda" (the default) launches the
@@ -94,9 +96,6 @@ class Engine:
         if spec is not None:
             sd = state_dict
         elif weights and os.path.exists(weights):
-            if str(weights).endswith(".pt"):
-                raise NotImplementedError(f"{weights}: the port reads native .npz "
-                                          "checkpoints only, not .pt")
             ck_cfg, sd = load_checkpoint(weights)
             spec = load_spec(ck_cfg or cfg)
         elif weights and cfg is None:

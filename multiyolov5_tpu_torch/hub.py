@@ -5,8 +5,8 @@ models/common.py:605-765 autoShape / Detections).
 ``create`` builds a zoo model (the ten factories below name it), on the
 card by default; ``classes`` other than 80 rebuilds the Detect head and
 copies in the ``pretrained`` tensors whose names and shapes match.
-Weights are the port's native ``.npz``; a ``.pt`` raises
-``NotImplementedError``, as ``Engine`` does.  ``AutoShape`` takes PNG
+Weights are the port's native ``.npz`` or a reference ``.pt``
+(utils/checkpoint.load_checkpoint).  ``AutoShape`` takes PNG
 paths (read by ``data/png.py``: another format raises
 ``NotImplementedError`` naming the file), numpy HWC, CHW and
 2-D gray arrays, and PIL images where PIL imports; it letterboxes every
@@ -33,7 +33,7 @@ from .engine import Engine
 from .models.config import load_spec
 from .models.model import seeded_state_dict
 from .utils.boxes import xyxy2xywh
-from .utils.checkpoint import from_jax_params, intersect_load, load_npz
+from .utils.checkpoint import intersect_load, load_checkpoint
 from .utils.general import increment_path
 from .utils.plots import color_list, plot_one_box
 
@@ -49,9 +49,6 @@ def create(name: str, pretrained: Optional[str] = None, channels: int = 3,
     shapes match."""
     if channels != 3:
         raise NotImplementedError("the port's stem kernel reads 3-channel frames only")
-    if pretrained and str(pretrained).endswith(".pt") and os.path.exists(pretrained):
-        raise NotImplementedError(f"{pretrained}: the port reads native .npz checkpoints only, "
-                                  "not .pt")
     if classes in (80, None):
         eng = Engine(pretrained if pretrained and os.path.exists(pretrained) else None,
                      cfg=name, device=device, half=half)
@@ -59,9 +56,7 @@ def create(name: str, pretrained: Optional[str] = None, channels: int = 3,
     spec = load_spec(name, nc=classes)
     sd = seeded_state_dict(spec, 0)
     if pretrained and os.path.exists(pretrained):
-        tree = load_npz(pretrained)
-        sd, _ = intersect_load(sd, from_jax_params(tree.get("ema_params") or tree["params"],
-                                                   tree.get("ema_state") or tree["state"]))
+        sd, _ = intersect_load(sd, load_checkpoint(pretrained)[1])
     eng = Engine(spec=spec, state_dict=sd, device=device, half=half)
     return AutoShape(eng) if autoshape else eng
 

@@ -28,8 +28,9 @@ class Detect(nn.Module):
     N) float32 with rows [x, y, w, h, obj, cls...] in input pixels and N
     ordered (scale, anchor, pixel) — the order of detect_decode_planar
     (multiyolov5_tpu/models/heads.py:75-138) that ops/nms.nms_planar's
-    lower-index-first top-k ties depend on.  In training mode it returns
-    the raw per-level maps (B, na, ny, nx, no) in the conv's dtype, the
+    lower-index-first top-k ties depend on.  In training mode, or with
+    ``decode=False`` (the reference's ``Detect.export``), it returns the
+    raw per-level maps (B, na, ny, nx, no) in the conv's dtype, the
     layout of detect_raw (multiyolov5_tpu/models/heads.py:53-72)."""
 
     def __init__(self, nc: int, anchors, ch: Sequence[int], strides: Sequence[int]):
@@ -52,8 +53,8 @@ class Detect(nn.Module):
                 b[:, 4] += math.log(8 / (640 / s) ** 2)
                 b[:, 5:] += math.log(0.6 / (self.nc - 0.99))
 
-    def forward(self, xs: List[torch.Tensor]):
-        if self.training:
+    def forward(self, xs: List[torch.Tensor], decode: bool = True):
+        if self.training or not decode:
             outs = []
             for conv, x in zip(self.m, xs):
                 y = conv(x)
@@ -67,8 +68,10 @@ class Detect(nn.Module):
             y = y.sigmoid().reshape(b, self.na, self.no, ny * nx)
             s = self.strides[i]
             gx = torch.arange(nx, dtype=torch.float32, device=y.device).repeat(ny)
+            # expand, not repeat_interleave: torch.jit.trace of that on the
+            # card puts its repeat count on the CPU (torch 2.11)
             gy = torch.arange(ny, dtype=torch.float32,
-                              device=y.device).repeat_interleave(nx)
+                              device=y.device)[:, None].expand(ny, nx).reshape(-1)
             anc = (self.anchors[i] * s)[None, :, :, None]  # (1, na, 2, 1)
             xy = (y[:, :, 0:2] * 2.0 - 0.5 + torch.stack([gx, gy])) * s
             wh = torch.square(y[:, :, 2:4] * 2.0) * anc

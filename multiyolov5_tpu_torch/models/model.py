@@ -58,23 +58,26 @@ class Model(nn.Module):
     ``fused=True`` builds BN-folded convs (load a ``fuse_conv_bn``'d
     state_dict); then the SiLU 3x3 convs from the neck on (rows past the
     backbone, the seg head included) run through kernel K2, the
-    sites where the JAX package routes its Pallas 3x3s at batch 1.
+    sites where the JAX package routes its Pallas 3x3s at batch 1, and the
+    narrow backbone C3s through K7 at batch > 1.  ``kernels=False`` builds
+    every conv on ``F.conv2d`` (the JAX ``forward(..., sever=False)``): the
+    network that ``torch.export``, TorchScript and the FLOP counter trace.
     ``forward`` returns (decoded candidates (B, no, N) float32 or None,
     1/8-res seg logits (B, n_segcls, h, w), or None for a detection-only
-    model); in training mode the
+    model); in training mode, or with ``decode=False``, the
     first is the list of raw per-level maps (B, na, ny, nx, no)
     (heads.Detect), the input of train/losses.DetectionLoss."""
 
-    def __init__(self, spec: ModelSpec, fused: bool = False):
+    def __init__(self, spec: ModelSpec, fused: bool = False, kernels: bool = True):
         super().__init__()
         self.spec = spec
         neck_start = len(spec.yaml.get("backbone", []))
         self.model = nn.ModuleList(
-            _build_row(spec, row, fused, kernel=row.i >= neck_start,
-                       c3_kernel=row.i < neck_start)
+            _build_row(spec, row, fused, kernel=kernels and row.i >= neck_start,
+                       c3_kernel=kernels and row.i < neck_start)
             for row in spec.rows)
 
-    def forward(self, x: torch.Tensor, start_layer: int = 0):
+    def forward(self, x: torch.Tensor, start_layer: int = 0, decode: bool = True):
         """x: (B, 3, H, W) image in [0, 1], or with ``start_layer=k`` the
         output of row k-1 (no skipped row may be in the save set)."""
         spec = self.spec
@@ -86,11 +89,12 @@ class Model(nn.Module):
                 inp = y if row.f == -1 else cache[row.f]
             else:
                 inp = [y if j == -1 else cache[j] for j in row.f]
-            y = self.model[row.i](inp)
+            if row.i == spec.detect_index:
+                y = det = self.model[row.i](inp, decode)
+            else:
+                y = self.model[row.i](inp)
             if row.i == spec.seg_index:
                 seg = y
-            if row.i == spec.detect_index:
-                det = y
             if row.i in spec.save:
                 cache[row.i] = y
         return det, seg

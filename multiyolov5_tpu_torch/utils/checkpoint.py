@@ -5,12 +5,26 @@ keys already are the torch ``state_dict`` names; only conv weights differ,
 HWIO there and OIHW here.  Its native ``.npz`` format (a JSON skeleton plus
 one array per leaf) is read and written here without JAX, so the JAX
 package loads what the port's training writes and the other way round.
+
+Reference ``.pt`` checkpoints (reference train.py:482-489: ``{'model',
+'ema', 'epoch', ...}``, the published pspv5s/pspv5m weights) load through
+:func:`load_pt`.  A bare ``state_dict`` or a dict of ``state_dict``s loads
+with ``torch.load(weights_only=True)``; a pickled whole ``nn.Module`` needs
+the reference's ``models``/``utils`` packages importable (a reference
+checkout: ``MULTIYOLOV5_REF``, ``./reference`` or ``./multiyolov5``), or a
+one-time ``tools/convert_pt.py`` to ``.npz`` where one is.
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
 import json
 import os
+import pickle
+import sys
+import types
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -124,12 +138,109 @@ def load_npz(path: str) -> Dict[str, Any]:
     return _unflatten(skel, arrays)
 
 
-def load_checkpoint(path: str) -> Tuple[Optional[Any], Dict[str, torch.Tensor]]:
-    """``(spec config or None, state_dict)`` from a native ``.npz``.
+# reference checkouts, where a pickled whole module's classes are looked up
+# (multiyolov5_tpu/utils/checkpoint.py:65-100), and the imports of the
+# reference's modules that unpickling does not need
+_REF_DIRS = ("./reference", "./multiyolov5")
+_REF_STUBS = ("onnx", "onnx.external_data_helper", "torchvision", "torchvision.ops",
+              "seaborn", "wandb")
 
-    EMA weights win when present, and then pair with the EMA BN statistics
-    (multiyolov5_tpu/engine.py:221-232): folding EMA gamma/beta against the
-    raw running moments would skew the folded weights."""
+
+@contextlib.contextmanager
+def _reference_importable(ref: str):
+    """``ref`` on ``sys.path`` and empty stand-ins for the reference's
+    heavy imports that are not installed, for the duration."""
+    tops = {n.split(".")[0] for n in _REF_STUBS}
+    missing = {t for t in tops if t not in sys.modules and importlib.util.find_spec(t) is None}
+    added = {n: types.ModuleType(n) for n in _REF_STUBS if n.split(".")[0] in missing}
+    sys.modules.update(added)
+    if "torchvision.ops" in added:
+        added["torchvision"].ops = added["torchvision.ops"]
+    sys.path.insert(0, ref)
+    try:
+        yield
+    finally:
+        sys.path.remove(ref)
+        for name in added:
+            sys.modules.pop(name, None)
+
+
+def _torch_load_reference(path: str, ref: Optional[str] = None):
+    """``torch.load`` of a reference checkpoint on the CPU.
+
+    ``weights_only=True`` first: tensors, dicts and numbers, which is all a
+    ``state_dict`` checkpoint holds.  A pickle of whole modules (or numpy
+    arrays) needs ``weights_only=False``; where the reference's classes do
+    not import, a reference checkout (``ref``, ``MULTIYOLOV5_REF``,
+    ``./reference``, ``./multiyolov5``) goes on ``sys.path`` and the load is
+    tried once more.  Unpickling runs the file's code, so that fallback
+    warns, naming the file: load only checkpoints you trust."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        pass
+    warnings.warn(f"{path} is not a weights-only checkpoint: loading it with "
+                  "weights_only=False runs the code it pickles; load only files you "
+                  "trust, or convert it once with multiyolov5_tpu_torch/tools/convert_pt.py",
+                  stacklevel=3)
+    try:
+        return torch.load(path, map_location="cpu", weights_only=False)
+    except ModuleNotFoundError as e:
+        candidates = (ref, os.environ.get("MULTIYOLOV5_REF")) + _REF_DIRS
+        found = next((c for c in candidates if c and os.path.isdir(c)), None)
+        if found is None:
+            raise ModuleNotFoundError(
+                f"{e}. {path} pickles the reference's modules: set MULTIYOLOV5_REF to a "
+                "reference checkout, or convert it once with "
+                "multiyolov5_tpu_torch/tools/convert_pt.py") from e
+        with _reference_importable(found):
+            return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_pt(path: str, prefer_ema: bool = True, ref: Optional[str] = None
+            ) -> Tuple[Optional[Any], Dict[str, torch.Tensor], Dict[str, Any]]:
+    """A reference ``.pt`` checkpoint -> ``(spec config or None, state_dict,
+    meta)`` (multiyolov5_tpu/utils/checkpoint.py:103-126, reference
+    ``attempt_load``).
+
+    Takes a bare ``state_dict``, a pickled module, or a dict with ``model``
+    and/or ``ema``, each a ``state_dict`` or a pickled module; ``ema`` wins
+    unless ``prefer_ema`` is false.  ``meta`` holds the dict's ``epoch``,
+    ``best_fitness`` and ``training_results`` and, from a module, its
+    ``yaml`` (the config returned first).  Tensors become float32 on the
+    CPU; ``num_batches_tracked`` is dropped.  The checkpoint's Detect
+    ``anchors`` and ``anchor_grid`` are kept, so an autoanchored model
+    decodes with its own anchors."""
+    ckpt = _torch_load_reference(path, ref)
+    meta: Dict[str, Any] = {}
+    if isinstance(ckpt, dict) and ("model" in ckpt or "ema" in ckpt):
+        meta = {k: ckpt[k] for k in ("epoch", "best_fitness", "training_results") if k in ckpt}
+        obj = ckpt["ema"] if prefer_ema and ckpt.get("ema") is not None else ckpt["model"]
+        for src in (obj, ckpt.get("model")):
+            if hasattr(src, "yaml"):       # the reference Model keeps its config dict
+                meta["yaml"] = src.yaml
+                break
+    else:
+        obj = ckpt
+        if hasattr(obj, "yaml"):
+            meta["yaml"] = obj.yaml
+    sd = obj.float().state_dict() if hasattr(obj, "state_dict") else obj
+    sd = {k: (v.float() if v.is_floating_point() else v).cpu() for k, v in sd.items()
+          if not k.endswith(".num_batches_tracked")}
+    return meta.get("yaml"), sd, meta
+
+
+def load_checkpoint(path: str) -> Tuple[Optional[Any], Dict[str, torch.Tensor]]:
+    """``(spec config or None, state_dict)`` from a reference ``.pt``
+    (:func:`load_pt`) or a native ``.npz``.
+
+    In a ``.npz``, EMA weights win when present, and then pair with the EMA
+    BN statistics (multiyolov5_tpu/engine.py:221-232): folding EMA
+    gamma/beta against the raw running moments would skew the folded
+    weights."""
+    if str(path).endswith(".pt"):
+        cfg, sd, _ = load_pt(path)
+        return cfg, sd
     tree = load_npz(path)
     ema = tree.get("ema_params")
     params = ema or tree["params"]

@@ -29,6 +29,7 @@ from multiyolov5_tpu.models.model import init_model
 from multiyolov5_tpu.utils import checkpoint as jax_ckpt
 from multiyolov5_tpu_torch.data import png
 from multiyolov5_tpu_torch.engine import Engine
+from multiyolov5_tpu_torch.utils.checkpoint import load_checkpoint
 from test_torch_engine_args import _weights
 
 SIZE = 256
@@ -144,9 +145,13 @@ def test_factories_and_create(staged):
     assert isinstance(shape, port_hub.AutoShape) and shape.names == [str(i) for i in range(10)]
     eng = port_hub.custom(ckpt, autoshape=False, device="cpu", half=False)
     assert isinstance(eng, Engine)
-    with pytest.raises(NotImplementedError, match=".pt"):
-        open(staged[0] / "w.pt", "wb").close()
-        port_hub.create("yolov5s_city_seg", pretrained=str(staged[0] / "w.pt"), device="cpu")
+    # a reference-style .pt of the same weights serves the same network
+    pt = staged[0] / "w.pt"
+    torch.save({"model": load_checkpoint(ckpt)[1], "epoch": 3}, pt)
+    eng_pt = port_hub.create("yolov5s_city_seg", pretrained=str(pt), autoshape=False,
+                             device="cpu", half=False)
+    for k, v in eng.model.state_dict().items():
+        assert torch.equal(eng_pt.model.state_dict()[k], v), k
     with pytest.raises(NotImplementedError, match="frame.jpg"):
         shape([inputs[1], str(staged[0] / "frame.jpg")])
 

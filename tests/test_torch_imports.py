@@ -39,6 +39,12 @@ _SCRIPT = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Block())
+    # absent also to importlib.util.find_spec, which torch's own probes call
+    # (torch._dynamo, reached by FlopCounterMode and torch.export): None, as
+    # on a machine without them, where the finder above would raise
+    for name in ("jax", "jaxlib", "multiyolov5_tpu", "cv2", "PIL", "torchvision", "yaml",
+                 "pandas"):
+        sys.modules[name] = None
     import numpy as np
     import multiyolov5_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -58,7 +64,8 @@ _SCRIPT = textwrap.dedent("""
            "train.trainer", "train.losses", "train.optim", "data.hyps", "ops.kernels.seg_ce",
            "serving", "data.letterbox", "ops.kernels.c3", "data.png", "data.sources",
            "data.cityscapes", "utils.general", "utils.plots", "cli.detect", "data.resize",
-           "data.detection", "data.segmentation", "cli.test", "hub"}
+           "data.detection", "data.segmentation", "cli.test", "hub", "utils.profiling",
+           "cli.profile", "cli.export", "tools.trace_report", "tools.convert_pt"}
     assert {pkg.__name__ + "." + m for m in new} <= set(names)
     from multiyolov5_tpu_torch.models import zoo
     for name in ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
@@ -167,16 +174,29 @@ _SCRIPT = textwrap.dedent("""
     with contextlib.redirect_stdout(io.StringIO()):
         out.save(tmp + "/hub")
     assert png.read_rgb(tmp + "/hub/d0.png").shape == (48, 96, 3)
+    from multiyolov5_tpu_torch.cli.export import main as export_main
+    from multiyolov5_tpu_torch.tools.convert_pt import convert
+    from multiyolov5_tpu_torch.utils.profiling import estimate_gflops
+    assert estimate_gflops(spec, img_size=64) > 0
+    torch.save({"model": seeded_state_dict(spec, 0)}, tmp + "/w.pt")
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert(tmp + "/w.pt", tmp + "/c.npz")
+    assert Engine(tmp + "/c.npz", cfg=spec.yaml, device="cpu", half=False).spec.nc == spec.nc
+    with contextlib.redirect_stdout(io.StringIO()):
+        made = export_main(["--weights", tmp + "/w.npz", "--img-size", "64", "--include",
+                            "torchscript", "--device", "cpu", "--output", tmp + "/export"])
+    assert torch.jit.load(made[0])(torch.zeros(1, 3, 64, 64))[0].shape[-1] == spec.nc + 5
     assert not any(m.split(".")[0] in ("jax", "multiyolov5_tpu", "cv2", "PIL", "torchvision",
                                        "yaml", "pandas")
-                   for m in sys.modules)
+                   for m, mod in sys.modules.items() if mod is not None)
     print("OK", len(names))
 """)
 
 
 def test_port_imports_and_runs_without_jax():
     res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
-                         env={**os.environ, "TINY_SPEC": json.dumps(TINY)},
+                         env={**os.environ, "TINY_SPEC": json.dumps(TINY),
+                              "OMP_NUM_THREADS": "1"},  # tiny ops: one thread each
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.startswith("OK")
