@@ -71,6 +71,21 @@ unless named), on the card and, for reference, on the CPU:
   the smoke's weights as a reference-style ``.pt`` and a bare
   ``state_dict`` through ``Engine`` (bitwise equal to their
   ``convert_pt`` ``.npz``), ``cli.detect.main`` and ``cli.test.main``.
+* the training CLI [14]: ``cli.train.main`` (bf16, ``--img-size 832 1024
+  --batch-size 8 --workers 8``, the scratch hyp with mosaic, autoanchor)
+  on seeded 2048x1024 PNG trees in the Cityscapes layout: run A, two
+  epochs of two steps, K6 forward and backward once a step (held against
+  its plain version on the first step's arguments) and each epoch's eval
+  launching K1 (both modes), K2, K7, K5 and K4 (each held on the CLI's
+  arguments), results.txt in the JAX CLI's format, JSON hyp/opt,
+  stripped ``last.npz`` / ``best.npz`` that ``Engine`` serves; the first
+  detection and seg batches bitwise equal with 1 and 8 loader threads;
+  run B interrupted at epoch 1, named by ``tools/resume.py --dry-run``
+  and resumed from the momentum, EMA and update count the file held,
+  bitwise; run C, one epoch of the BiSe head with ``--quad --multi-scale
+  --remat --seg-loss ohem``, where K6 must not launch; the item host ms,
+  the step ms, the epoch walls and one step's peak memory with and
+  without remat.
 
 It checks that every kernel ran on its path, holds each kernel against its
 plain version on the arguments its path gave it, and times the paths and
@@ -222,6 +237,18 @@ SEG_CE_DZ_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # of max |dz|
 # 1e-4, and the changes at 50x the rehearsal's worst tensor.
 TRAIN_LOSS_REL = 1e-4
 TRAIN_UPDATE_REL = 5e-2  # of each tensor's own change, + 2 float32 ulps of its values
+
+# the training CLI [14]: cli/train.py on pspv5s at full width on seeded PNG
+# trees in the Cityscapes layout (2048x1024 frames: 16 detection training
+# frames, 8 val; 8 seg training and 4 val frames with labelId masks); run A
+# two epochs at --img-size 832 1024 --batch-size 8 (2 steps an epoch, one
+# seg batch), run B three epochs interrupted at epoch 1 and resumed, run C
+# one epoch of the BiSe head with quad, multi-scale, remat and OHEM at 512
+TC_ORIG_HW = (1024, 2048)
+TC_DET, TC_VAL, TC_SEG, TC_SEG_VAL = 16, 8, 8, 4
+TC_IMG, TC_BS, TC_WORKERS = (832, 1024), 8, 8
+TC_C_CFG, TC_C_IMG = "yolov5s_city_seg_bise", (512, 1024)
+TC_BOXES = 12          # seeded boxes a detection frame
 
 # the other model families [9], each at full width and depth, bs1
 FAMILY_CFGS = ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
@@ -2129,21 +2156,20 @@ def run_cli(argv, kernels: bool):
     spent, count, lock = {"det": 0.0, "seg": 0.0}, {"det": 0, "seg": 0}, threading.Lock()
 
     def timed(kind, fn):
-        def wrapper(self, index):
+        def wrapper(self, index, *gens):
             t0 = time.perf_counter()
             try:
-                return fn(self, index)
+                return fn(self, index, *gens)
             finally:
                 with lock:
                     spent[kind] += time.perf_counter() - t0
                     count[kind] += 1
         return wrapper
 
+    # the loaders build each item by the datasets' ``item``
     spies = [spied(cli, "evaluate_detection", after=rec["eval"].append),
-             replaced(DetectionDataset, "__getitem__",
-                      timed("det", DetectionDataset.__getitem__)),
-             replaced(CitySegmentation, "__getitem__",
-                      timed("seg", CitySegmentation.__getitem__))]
+             replaced(DetectionDataset, "item", timed("det", DetectionDataset.item)),
+             replaced(CitySegmentation, "item", timed("seg", CitySegmentation.item))]
     if kernels:
         spies += [spied(engine_mod.Engine, "forward", after=rec["net"].append),
                   spied(E, "non_max_suppression", after=rec["dets"].extend),
@@ -3367,6 +3393,384 @@ def phase_train():
     return res
 
 
+def tc_tree(work: str, rng, nc: int) -> str:
+    """[14]'s seeded PNG trees under ``work`` and their dataset file (JSON):
+    ``det/images/{train,val}`` + ``det/labels`` (TC_BOXES boxes of the
+    cfg's classes a frame), ``citys/leftImg8bit/{train,val}/aachen`` +
+    ``gtFine`` labelId masks (255 in places).  Frames are 32x32-px blocks
+    of seeded colours plus noise, so they compress and decode quickly."""
+    h, w = TC_ORIG_HW
+
+    def frame():
+        base = np.repeat(np.repeat(rng.randint(0, 256, (h // 32, w // 32, 3)), 32, 0), 32, 1)
+        return np.clip(base + rng.randint(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+
+    from multiyolov5_tpu_torch.data import png
+    for split, n in (("train", TC_DET), ("val", TC_VAL)):
+        idir, ldir = (os.path.join(work, "det", k, split) for k in ("images", "labels"))
+        os.makedirs(idir)
+        os.makedirs(ldir)
+        for i in range(n):
+            png.imwrite(os.path.join(idir, f"f{i:03d}.png"), frame())
+            wh = rng.rand(TC_BOXES, 2) * 0.2 + 0.03
+            xy = wh / 2 + rng.rand(TC_BOXES, 2) * (1 - wh)
+            rows = np.concatenate([rng.randint(0, nc, (TC_BOXES, 1)), xy, wh], 1)
+            with open(os.path.join(ldir, f"f{i:03d}.txt"), "w") as fh:
+                fh.write("".join("%d %.6f %.6f %.6f %.6f\n" % tuple(r) for r in rows))
+    for split, n in (("train", TC_SEG), ("val", TC_SEG_VAL)):
+        idir = os.path.join(work, "citys", "leftImg8bit", split, "aachen")
+        mdir = os.path.join(work, "citys", "gtFine", split, "aachen")
+        os.makedirs(idir)
+        os.makedirs(mdir)
+        for i in range(n):
+            png.imwrite(os.path.join(idir, f"aachen_{i:06d}_leftImg8bit.png"), frame())
+            ids = np.repeat(np.repeat(rng.randint(0, 34, (h // 16, w // 16)), 16, 0), 16, 1)
+            ids[rng.rand(h, w) < 0.05] = 255
+            png.imwrite(os.path.join(mdir, f"aachen_{i:06d}_gtFine_labelIds.png"),
+                        ids.astype(np.uint8))
+    data = os.path.join(work, "data.json")
+    with open(data, "w") as fh:
+        json.dump({"train": os.path.join(work, "det", "images", "train"),
+                   "val": os.path.join(work, "det", "images", "val"),
+                   "segtrain": os.path.join(work, "citys"),
+                   "segval": os.path.join(work, "citys"), "nc": nc}, fh)
+    return data
+
+
+class TcSteps:
+    """Wraps cli.train's make_train_step: each step's K6 launches and host
+    ms (synchronised), the first step's K6 arguments, and a
+    KeyboardInterrupt at call ``stop_at`` (counting from 1) if given."""
+
+    def __init__(self, cli, stop_at=None):
+        self.real, self.stop_at = cli.make_train_step, stop_at
+        self.k6, self.ms, self.first = [], [], None
+
+    def __call__(self, *a, **kw):
+        from multiyolov5_tpu_torch.ops import kernels as K
+        from multiyolov5_tpu_torch.train import trainer as T
+        step = self.real(*a, **kw)
+
+        def wrapped(*args, **kwargs):
+            if len(self.ms) + 1 == self.stop_at:
+                raise KeyboardInterrupt
+            before = K.launch_counts()
+            t0 = time.perf_counter()
+            if self.first is None:
+                rec = []
+                with spied(T, "seg_ce", before=lambda z, y, w=None: rec.append(
+                        (z.detach().clone(), y.clone(), w))):
+                    out = step(*args, **kwargs)
+                self.first = rec[0] if rec else None
+            else:
+                out = step(*args, **kwargs)
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            after = K.launch_counts()
+            self.k6.append((after["seg_ce"] - before["seg_ce"],
+                            after["seg_ce_bwd"] - before["seg_ce_bwd"]))
+            return out
+        return wrapped
+
+
+def tc_run(argv, steps, evals=None):
+    """``cli.train.main(argv)`` under ``steps`` (a TcSteps), its printed
+    lines kept out of stdout; with ``evals`` (a dict), each epoch's eval
+    launch counts under "launches" and its kernels' arguments (as
+    ``run_eval`` records them) under their names; the epochs' walls
+    (the loader's iteration to the epoch's checkpoint) under "walls"."""
+    from multiyolov5_tpu_torch import engine as engine_mod
+    from multiyolov5_tpu_torch import evaluation as E
+    from multiyolov5_tpu_torch.cli import train as cli
+    from multiyolov5_tpu_torch.data.detection import DetectionLoader
+    from multiyolov5_tpu_torch.models import blocks
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops import nms as nms_mod
+    spies = [replaced(cli, "make_train_step", steps)]
+    if evals is not None:
+        for k in ("stem", "conv3x3", "c3", "nms_greedy", "upsample_argmax", "launches",
+                  "walls"):
+            evals.setdefault(k, [])
+        epoch_eval, starts = {}, []
+
+        def counted(fn):
+            def wrapper(*a, **kw):
+                before = K.launch_counts()
+                out = fn(*a, **kw)
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                after = K.launch_counts()
+                for k in after:
+                    epoch_eval[k] = epoch_eval.get(k, 0) + after[k] - before[k]
+                return out
+            return wrapper
+
+        def save(real):
+            def wrapper(path, tree):
+                real(path, tree)
+                if path.endswith("last.npz") and "opt" in tree:     # not strip_optimizer's
+                    evals["launches"].append(dict(epoch_eval))
+                    epoch_eval.clear()
+                    evals["walls"].append(time.perf_counter() - starts[-1])
+            return wrapper
+
+        real_iter = DetectionLoader.__iter__
+
+        def timed_iter(self):
+            if self.ds.augment:
+                starts.append(time.perf_counter())
+            return real_iter(self)
+
+        spies += [replaced(cli, "seg_validation", counted(cli.seg_validation)),
+                  replaced(cli, "evaluate_detection", counted(cli.evaluate_detection)),
+                  replaced(cli.ckpt_lib, "save_npz", save(cli.ckpt_lib.save_npz)),
+                  replaced(DetectionLoader, "__iter__", timed_iter),
+                  spied(engine_mod, "stem", before=recorder(evals["stem"])),
+                  spied(blocks, "conv3x3", before=recorder(evals["conv3x3"])),
+                  spied(blocks, "c3", before=recorder(evals["c3"])),
+                  spied(nms_mod, "nms_greedy", before=recorder(evals["nms_greedy"])),
+                  spied(E, "upsample_argmax", before=recorder(evals["upsample_argmax"]))]
+    with contextlib.ExitStack() as stack:
+        for sp in spies:
+            stack.enter_context(sp)
+        return quiet(cli.main, argv)
+
+
+def tc_results(run: str, n: int):
+    """results.txt's rows: n of the JAX CLI's 12 columns (the epoch and 11
+    numbers), all finite."""
+    with open(os.path.join(run, "results.txt")) as fh:
+        rows = [r.split() for r in fh.read().strip().splitlines()]
+    vals = np.array(rows, float)
+    if vals.shape != (n, 12) or not np.isfinite(vals).all():
+        raise AssertionError(f"{run}/results.txt: {vals.shape} values, finite "
+                             f"{np.isfinite(vals).all()}; want {n} rows of 12 finite numbers")
+    return vals
+
+
+def tc_batches(data: dict, workers: int):
+    """The first detection and seg training batches that cli/train.py's
+    loaders give with ``workers`` threads (run A's settings)."""
+    from multiyolov5_tpu_torch.data.detection import DetectionDataset, DetectionLoader
+    from multiyolov5_tpu_torch.data.hyps import load_hyp
+    from multiyolov5_tpu_torch.data.segmentation import get_citys_loader
+    img = TC_IMG[0]
+    ds = quiet(DetectionDataset, data["train"], img_size=img, batch_size=TC_BS, augment=True,
+               hyp=load_hyp("scratch"), stride=32)
+    det = next(iter(DetectionLoader(ds, TC_BS, shuffle=True, workers=workers, seed=SEED)))
+    seg = next(iter(get_citys_loader(root=data["segtrain"], split="train", mode="train",
+                                     batch_size=TC_BS, workers=workers, base_size=TC_IMG[1],
+                                     crop_size=(img, img // 2), seed=SEED)))
+    return det, seg, ds
+
+
+def tc_peak(spec, sd, remat: bool, batch) -> int:
+    """Peak device bytes of one bf16 train step of ``spec`` (weights ``sd``;
+    BiSe aux, OHEM, quad) on ``batch``, with or without remat."""
+    from multiyolov5_tpu_torch.data.hyps import load_hyp
+    from multiyolov5_tpu_torch.train import trainer as T
+    cfg = T.TrainConfig(hyp=load_hyp("scratch"), batch_size=batch[0].shape[0], seg_aux=True,
+                        seg_loss="ohem", quad=True, remat=remat)
+    ts, groups = T.create_train_state(spec, cfg, state_dict=sd, device=DEVICE)
+    step = T.make_train_step(spec, cfg, groups)
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    step(ts, *batch, *TRAIN_STEP_ARGS, True, rng=gen)       # warm: workspaces, kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(ts, *batch, *TRAIN_STEP_ARGS, True, rng=gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del ts, step
+    return peak
+
+
+def phase_train_cli(card: str):
+    """[14] the training CLI at full width on the card: runs A (two epochs,
+    K6 each step, the eval kernels each epoch held against their plain
+    versions on the CLI's arguments, results.txt, JSON hyp/opt, stripped
+    checkpoints that serve), the loaders' batches across worker counts, B
+    (interrupted, named by tools/resume.py, resumed from the exact saved
+    state) and C (BiSe, quad, multi-scale, remat, OHEM: no K6); item host
+    ms, step ms, epoch walls, peak memory with and without remat."""
+    from multiyolov5_tpu_torch.cli import train as cli
+    from multiyolov5_tpu_torch.data.detection import generators
+    from multiyolov5_tpu_torch.engine import Engine
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.tools import resume as resume_tool
+    from multiyolov5_tpu_torch.utils.checkpoint import from_jax_params, load_npz
+    log(f"[14] the training CLI: cli.train.main, {CFG} full width, bf16, hyp scratch (mosaic), "
+        f"autoanchor, --img-size {TC_IMG[0]} {TC_IMG[1]} --batch-size {TC_BS} --workers "
+        f"{TC_WORKERS} --seed {SEED}, on {TC_DET} + {TC_VAL} detection and {TC_SEG} + "
+        f"{TC_SEG_VAL} Cityscapes seeded {TC_ORIG_HW} PNG frames")
+    work = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    nc = load_spec(CFG).nc
+    data_path = tc_tree(work, np.random.RandomState(SEED + 41), nc)
+    with open(data_path) as fh:
+        data = json.load(fh)
+    log(f"  trees written in {time.perf_counter() - t0:.1f} s")
+    base = ["--data", data_path, "--cfg", CFG, "--img-size", str(TC_IMG[0]), str(TC_IMG[1]),
+            "--batch-size", str(TC_BS), "--seg-eval-interval", "1", "--workers",
+            str(TC_WORKERS), "--seed", str(SEED), "--no-tb",
+            "--device", "" if DEVICE == "cuda" else DEVICE]
+    nb = TC_DET // TC_BS
+    res = {"card": card}
+
+    # run A: two epochs, every step's K6 and every epoch's eval kernels
+    K.reset_launches()
+    steps, evals = TcSteps(cli), {}
+    t0 = time.perf_counter()
+    run_a, _ = tc_run(base + ["--epochs", "2", "--project", work, "--name", "a"], steps, evals)
+    wall_a = time.perf_counter() - t0
+    launches = K.launch_counts()
+    log(f"  run A: {len(steps.ms)} steps in {wall_a:.1f} s; launches {launches}; per step "
+        f"K6 (fwd, bwd) {steps.k6}; per epoch's eval {evals['launches']}")
+    check("run A steps with K6 forward and backward not launched once each",
+          sum(k != (1, 1) for k in steps.k6) + abs(len(steps.k6) - 2 * nb), 0)
+    for e, counts in enumerate(evals["launches"]):
+        for k in ("stem", "stem_float", "conv3x3", "c3", "nms_greedy", "upsample_argmax"):
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"run A epoch {e}'s eval did not launch {k}: {counts}")
+    if len(evals["launches"]) != 2:
+        raise AssertionError(f"run A: {len(evals['launches'])} epoch evals, want 2")
+    z, y, w = steps.first
+    upstream = TC_BS * cli.TrainConfig(hyp={}).seggain
+    dl, dabs, drel = k6_against_plain(z, y, w, upstream)
+    log(f"  seg_ce on the CLI's first step: {tuple(z.shape)} {str(z.dtype)[6:]} logits, "
+        f"{tuple(y.shape)} labels: loss |diff| {dl:.3e} relative, dz max|diff| {dabs:.3e}")
+    check("seg_ce (train CLI) loss |diff|/|plain|", dl, SEG_CE_LOSS_REL)
+    check("seg_ce (train CLI) dz max|diff|/max|plain dz|", drel, SEG_CE_DZ_REL[z.dtype])
+    errs = hold_path_kernels(evals, "the train CLI's evals")
+    errs["seg_ce"] = dabs
+    rows = tc_results(run_a, 2)
+    for f in ("hyp.yaml", "opt.yaml"):
+        with open(os.path.join(run_a, f)) as fh:
+            json.load(fh)
+    frame = (np.random.RandomState(SEED + 43).rand(*IN_HW, 3) * 255).astype(np.uint8)
+    served = {}
+    for f in ("last.npz", "best.npz"):
+        path = os.path.join(run_a, "weights", f)
+        tree = load_npz(path)
+        if tree.get("opt") is not None or tree.get("ema_params") is not None:
+            raise AssertionError(f"run A's {f} is not stripped")
+        dets, masks = Engine(path, device=DEVICE, half=True)(frame, ORIG_HW, conf=CONF)
+        if not (np.isfinite(dets[0]).all() and masks[0].shape == ORIG_HW):
+            raise AssertionError(f"run A's {f} does not serve")
+        served[f] = len(dets[0])
+    log(f"  results.txt {rows.shape} (the JAX CLI's columns): epochs {rows[:, 0].tolist()}, "
+        f"det loss {rows[:, 4].tolist()}, seg {rows[:, 5].tolist()}, mAP@.5 "
+        f"{rows[:, 8].tolist()}, mIoU {rows[:, 10].tolist()}; last/best.npz stripped, "
+        f"served ({served} detections)")
+    res["run_a"] = {"launches": launches, "eval_launches": evals["launches"],
+                    "k6_per_step": steps.k6, "step_ms": steps.ms, "epoch_walls_s": evals["walls"],
+                    "wall_s": wall_a, "results": rows.tolist(), "errs": errs,
+                    "k6": {"loss_rel": dl, "dz_max_abs": dabs, "dz_rel": drel}}
+    del evals, steps
+
+    # the loaders: the first batches with 1 and TC_WORKERS threads
+    (d1, s1, ds), (d8, s8, _) = tc_batches(data, 1), tc_batches(data, TC_WORKERS)
+    same = (all(np.array_equal(a, b) for a, b in zip(d1[:3], d8[:3]))
+            and np.array_equal(s1[0], s8[0]) and np.array_equal(s1[1], s8[1]))
+    lab = d1[1][d1[2]]
+    ok = bool(len(lab)) and (lab[:, 1:] >= 0).all() and (lab[:, 1:] <= 1).all() \
+        and (lab[:, 3:] > 0).all()
+    log(f"  loaders: first det batch {d1[0].shape} ({len(lab)} labels), seg batch "
+        f"{s1[0].shape}: 1 and {TC_WORKERS} workers bitwise equal {same}; labels in [0, 1], "
+        f"w, h > 0: {ok}")
+    if not (same and ok):
+        raise AssertionError("the loaders' first batches differ across worker counts, or a "
+                             "label is out of [0, 1] or empty")
+    det_ms = host_ms(lambda: ds.item(0, *generators(SEED, 0, 0)))
+    from multiyolov5_tpu_torch.data.segmentation import get_citys_loader
+    seg_ds = get_citys_loader(root=data["segtrain"], split="train", mode="train",
+                              batch_size=TC_BS, base_size=TC_IMG[1],
+                              crop_size=(TC_IMG[0], TC_IMG[0] // 2)).ds
+    seg_ms = host_ms(lambda: seg_ds.item(0, generators(SEED, 0, 0)[0]))
+    step_ms = float(np.median(res["run_a"]["step_ms"][1:]))
+    log(f"  on {card}: one det training item (mosaic, {TC_IMG[0]}) {det_ms:.1f} host ms, one "
+        f"seg training item {seg_ms:.1f} host ms (one thread each); step {step_ms:.1f} ms "
+        f"(median after the first, synchronised); epoch walls "
+        f"{[round(v, 2) for v in res['run_a']['epoch_walls_s']]} s")
+    res["times"] = {"det_item_host_ms": det_ms, "seg_item_host_ms": seg_ms,
+                    "step_ms": step_ms, "epoch_walls_s": res["run_a"]["epoch_walls_s"]}
+
+    # run B: three epochs, interrupted at epoch 1's first step, then resumed
+    with contextlib.suppress(KeyboardInterrupt):
+        tc_run(base + ["--epochs", "3", "--project", work, "--name", "b"],
+               TcSteps(cli, stop_at=nb + 1))
+    last_b = os.path.join(work, "b", "weights", "last.npz")
+    held = load_npz(last_b)
+    if held["epoch"] != 0 or held.get("opt") is None:
+        raise AssertionError(f"run B's last.npz: epoch {held['epoch']}, opt "
+                             f"{held.get('opt') is not None}")
+    cmds = quiet(resume_tool.main, ["--dir", work, "--dry-run"])
+    named = [c[c.index("--weights") + 1] for c in cmds]
+    if named != [last_b]:
+        raise AssertionError(f"tools/resume.py named {named}, want only {last_b}")
+    restored = []
+    real_restore = cli._restore
+
+    def spy(ts, tree, device):
+        real_restore(ts, tree, device)
+        restored.append(({k: v.detach().cpu().clone() for k, v in ts.opt["momentum"].items()},
+                         {k: v.detach().cpu().clone() for k, v in ts.ema.items()}, ts.updates))
+    with replaced(cli, "_restore", spy):
+        run_b, _ = tc_run(["--resume", last_b, "--device", base[-1]], TcSteps(cli))
+    mom, ema, updates = restored[0]
+    want_mom = from_jax_params(held["opt"], {})
+    want_ema = from_jax_params(held["ema_params"], held["ema_state"])
+    diff = (sum(not torch.equal(mom[k], want_mom[k]) for k in want_mom)
+            + sum(not torch.equal(ema[k], want_ema[k]) for k in want_ema)
+            + int(updates != int(held["updates"])) + int(set(mom) != set(want_mom)))
+    rows_b = tc_results(run_b, 3)
+    log(f"  run B: interrupted at epoch 1 (last.npz epoch 0, {int(held['updates'])} updates); "
+        f"tools/resume.py --dry-run named it alone; --resume continued epochs "
+        f"{rows_b[1:, 0].tolist()}")
+    check("run B resumed: momentum, EMA and update count entries not bitwise equal to the "
+          "file's", diff, 0)
+    res["run_b"] = {"updates_held": int(held["updates"]), "epochs": rows_b[:, 0].tolist()}
+
+    # run C: BiSe with quad, multi-scale, remat and OHEM; no K6
+    K.reset_launches()
+    steps = TcSteps(cli)
+    run_c, _ = tc_run(["--data", data_path, "--cfg", TC_C_CFG, "--img-size", str(TC_C_IMG[0]),
+                       str(TC_C_IMG[1]), "--batch-size", str(TC_BS), "--epochs", "1",
+                       "--quad", "--multi-scale", "--remat", "--seg-loss", "ohem",
+                       "--seg-eval-interval", "1", "--workers", str(TC_WORKERS), "--seed",
+                       str(SEED), "--no-tb", "--project", work, "--name", "c",
+                       "--device", base[-1]], steps)
+    rows_c = tc_results(run_c, 1)
+    launches_c = K.launch_counts()
+    check("run C (BiSe, OHEM): K6 launches", launches_c["seg_ce"] + launches_c["seg_ce_bwd"], 0)
+    rng = np.random.RandomState(SEED + 45)
+    img = TC_C_IMG[0]
+    batch = (torch.from_numpy((rng.rand(TC_BS // 4, 2 * img, 2 * img, 3) * 255)
+                              .astype(np.uint8)).to(DEVICE),
+             *(torch.as_tensor(a).to(DEVICE) for a in train_batch(rng, TC_BS // 4, nc, 19)[1:3]),
+             torch.from_numpy(rng.rand(TC_BS, img // 2, img, 3).astype(np.float32)).to(DEVICE),
+             torch.from_numpy(rng.randint(-1, 19, (TC_BS, img // 2, img))).to(DEVICE))
+    peaks = {}
+    if DEVICE == "cuda":
+        from multiyolov5_tpu_torch.models.model import seeded_state_dict
+        c_spec = load_spec(TC_C_CFG)
+        c_sd = seeded_state_dict(c_spec, SEED)
+        peaks = {name: tc_peak(c_spec, c_sd, remat, batch)
+                 for name, remat in (("remat", True), ("plain", False))}
+    log(f"  run C ({TC_C_CFG}, --quad --multi-scale --remat --seg-loss ohem): results "
+        f"{rows_c[0, 1:6].tolist()} (finite), K6 not launched; launches {launches_c}; one "
+        f"bf16 step's peak device memory (det {tuple(batch[0].shape)}, seg "
+        f"{tuple(batch[3].shape)}): with remat {peaks.get('remat', 0) / 2**30:.2f} GiB, "
+        f"without {peaks.get('plain', 0) / 2**30:.2f} GiB")
+    res["run_c"] = {"launches": launches_c, "results": rows_c.tolist(), "peak_bytes": peaks,
+                    "step_ms": steps.ms}
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -3405,6 +3809,7 @@ def main() -> int:
     pe = phase_profile_export(eng32, eng16, frames, smi)
     del eng32, eng16, cpu_eng
     tr = phase_train()
+    tc = phase_train_cli(smi)
     k6 = tr["k6_times"]["bf16"]
     train_counts = tr["launches"]["bf16"]
     launches["seg_ce"] = train_counts["seg_ce"] + train_counts["seg_ce_bwd"]
@@ -3463,6 +3868,8 @@ def main() -> int:
                 "eval_cli_launches": cli["launches"][k], "hub_launches": hb["launches"][k],
                 "train_launches": train_counts[k] + (train_counts["seg_ce_bwd"]
                                                      if k == "seg_ce" else 0),
+                "train_cli_launches": tc["run_a"]["launches"][k] + (
+                    tc["run_a"]["launches"]["seg_ce_bwd"] if k == "seg_ce" else 0),
                 "err_dtype": "float32",
                 "ms_dtype": ("float32" if k.startswith("nms") or k == "stem_float"
                              else "bfloat16")}
@@ -3522,7 +3929,7 @@ def main() -> int:
                    "eval_candidates_per_image": eval_n,
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
                    "serving_bs8": sv, "families": fam, "app": app, "eval_cli": cli,
-                   "hub": hb, "profile_export": pe}, fh, indent=1)
+                   "hub": hb, "profile_export": pe, "train_cli": tc}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

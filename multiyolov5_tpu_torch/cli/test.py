@@ -25,6 +25,7 @@ import argparse
 import json
 
 from ..data.detection import DetectionDataset, DetectionLoader
+from ..data.hyps import read_yaml
 from ..data.segmentation import get_citys_loader, get_citysbdd_loader, get_custom_loader
 from ..engine import Engine
 from ..evaluation import evaluate_detection, seg_validation
@@ -32,24 +33,12 @@ from ..utils.general import set_logging
 from .detect import select_device
 
 
-def load_data(path: str) -> dict:
-    """The dataset yaml.  A JSON file (JSON is YAML) is read without PyYAML,
-    which the card's machine need not have."""
-    with open(path) as fh:
-        text = fh.read()
-    try:
-        return json.loads(text)
-    except ValueError:
-        import yaml
-        return yaml.safe_load(text)
-
-
 def run(opt):
     if opt.plots:
         raise NotImplementedError("--plots: PR curves and the confusion matrix need "
                                   "matplotlib, which the port does not use")
     set_logging()
-    data = load_data(opt.data)
+    data = read_yaml(opt.data)        # JSON needs no PyYAML
     w = opt.weights[0] if isinstance(opt.weights, list) else opt.weights
     eng = Engine(w, cfg=opt.cfg, device=select_device(opt.device), half=opt.half)
     spec = eng.spec

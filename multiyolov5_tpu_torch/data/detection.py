@@ -1,24 +1,37 @@
-"""Detection dataset and loader for evaluation (counterpart of
+"""Detection dataset and loader (counterpart of
 ``multiyolov5_tpu/data/detection.py``; reference utils/datasets.py).
 
-The JAX package's eval semantics on the port's own host code: discovery
-from a directory, a ``.txt`` list (``./`` entries relative to it) or a
-list; the label cache (under ``.torchcache.npz``, so that neither package
-reads the other's); polygon label rows turned into boxes; ``single_cls``;
-rect binning by aspect ratio with ``batch_shapes``; ``load_image``
-(shrinks by cv2's ``INTER_AREA``, ``data/resize.py``; grows by cv2's
-``INTER_LINEAR``, ``data/letterbox.py``), the letterbox with ``auto=False,
-scaleup=False``, the label transform and BGR -> RGB.  ``DetectionLoader``
-yields the ``(imgs, targets, tmask, paths, shapes)`` batches that
-``evaluation.evaluate_detection`` reads, from ordered worker threads.
+The JAX package's semantics on the port's own host code: discovery from a
+directory, a ``.txt`` list (``./`` entries relative to it) or a list; the
+label cache (under ``.torchcache.npz``, so that neither package reads the
+other's); polygon label rows turned into boxes; ``single_cls``; rect
+binning by aspect ratio with ``batch_shapes``; ``load_image`` (in eval mode
+it shrinks by cv2's ``INTER_AREA``, ``data/resize.py``; it grows, and with
+``augment`` also shrinks, by cv2's ``INTER_LINEAR``, ``data/letterbox.py``)
+and the RAM image cache; the letterbox, the label transform and BGR ->
+RGB.  ``DetectionLoader`` yields the ``(imgs, targets, tmask, paths,
+shapes)`` batches that the train step and ``evaluation.evaluate_detection``
+read, from ordered worker threads.
+
+Training (``augment``): mosaic, mixup, ``random_perspective``, the HSV
+jitter and the flips (``data/augment.py`` computes cv2's warps and colour
+conversions), and rect training; the loader's shuffle, image weights and
+``quad`` (collate_fn4).  The JAX dataset draws from the global ``random``
+and ``np.random``; an item here takes a ``random.Random`` and an
+``np.random.RandomState`` and draws from them in the same order (mosaic
+``random()``; the centre's two ``uniform``s and ``choices(k=3)``; the eight
+``uniform``s of ``random_perspective``; mixup's ``random()`` [,
+``randint``, ``beta``]; the HSV gains' ``uniform(-1, 1, 3)``; the flips'
+two ``random()``s), so seeded alike the two items are equal.  The loader
+derives each item's generators from (seed, epoch, position in the epoch)
+and each quad group's from (seed, epoch, batch): a batch is the same
+whatever the worker count.
 
 Images are PNG files, read by ``data/png.py``: any other image in a split
 raises ``NotImplementedError`` naming it before anything is loaded (the
-JAX cache would drop it as corrupted, and so change the metric).  The
-training parts raise ``NotImplementedError`` too: ``augment`` (mosaic,
-``random_perspective``, HSV, flips), ``image_weights`` and ``quad`` come
-with the rest of training (ROADMAP.md, "The rest of training"), and so
-does the RAM image cache.
+JAX cache would drop it as corrupted, and so change the metric).
+``load_mosaic9``, ``replicate``, ``cutout`` and ``hist_equalize``, which
+the JAX CLI never calls, are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,23 +41,30 @@ import hashlib
 import math
 import os
 import queue as queue_mod
+import random
 import threading
 from pathlib import Path
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..utils.boxes import xywhn2xyxy, xyxy2xywh
 from . import png
-from .letterbox import _resize, letterbox
+from .augment import augment_hsv, random_perspective, resize_linear
+from .letterbox import letterbox
 from .resize import resize_area
 
 IMG_FORMATS = ("bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp", "mpo")
 CACHE_VERSION = "torch-0.1"
 CACHE_SUFFIX = ".torchcache.npz"
-TRAINING = ("comes with the rest of training, which the port does not have yet "
-            "(ROADMAP.md, 'The rest of training')")
+QUAD_STREAM = 1 << 30      # keeps the quad groups' streams apart from the items'
+
+
+def generators(*key: int) -> Tuple[random.Random, np.random.RandomState]:
+    """A ``random.Random`` and an ``np.random.RandomState`` seeded from the
+    integers ``key`` (``np.random.SeedSequence``)."""
+    a, b = np.random.SeedSequence([int(k) for k in key]).generate_state(2)
+    return random.Random(int(a)), np.random.RandomState(int(b))
 
 
 def img2label_paths(img_paths: List[str]) -> List[str]:
@@ -58,18 +78,19 @@ def get_hash(files: List[str]) -> str:
 
 
 class DetectionDataset:
-    """reference LoadImagesAndLabels, evaluation mode."""
+    """reference LoadImagesAndLabels."""
 
-    def __init__(self, path, img_size=640, batch_size=16, augment=False,
-                 rect=False, image_weights=False, single_cls=False, stride=32,
-                 pad=0.0, prefix=""):
-        if augment:
-            raise NotImplementedError(
-                f"augment (mosaic, random_perspective, HSV, flips) {TRAINING}")
-        if image_weights:
-            raise NotImplementedError(f"image_weights {TRAINING}")
+    def __init__(self, path, img_size=640, batch_size=16, augment=False, hyp=None,
+                 rect=False, image_weights=False, cache_images=False, single_cls=False,
+                 stride=32, pad=0.0, prefix=""):
         self.img_size = img_size
-        self.rect = rect
+        self.augment = augment
+        self.hyp = hyp or {}
+        self.image_weights = image_weights
+        self.rect = False if image_weights else rect
+        self.mosaic = self.augment and not self.rect
+        self.mosaic_border = [-img_size // 2, -img_size // 2]
+        self.stride = stride
 
         f: List[str] = []
         for p in (path if isinstance(path, list) else [path]):
@@ -123,6 +144,7 @@ class DetectionDataset:
         nb = int(bi[-1]) + 1
         self.batch = bi
         self.n = n
+        self.indices = list(range(n))
 
         if self.rect:
             s = self.shapes  # (w, h)
@@ -143,6 +165,13 @@ class DetectionDataset:
                     shapes[i] = [1, 1 / mini]
             self.batch_shapes = (np.ceil(
                 np.array(shapes) * img_size / stride + pad) * stride).astype(int)
+
+        self.imgs = [None] * n
+        self.img_hw0 = [None] * n
+        self.img_hw = [None] * n
+        if cache_images:
+            for i in range(n):
+                self.imgs[i], self.img_hw0[i], self.img_hw[i] = self.load_image(i)
 
     def _cache_labels(self, path: Path, prefix: str = ""):
         """Each image's size (its PNG header) and labels; an image whose
@@ -206,30 +235,113 @@ class DetectionDataset:
 
     def load_image(self, index):
         """(BGR uint8 image resized so its long side is ``img_size``,
-        (h0, w0), (h, w)): ``INTER_AREA`` to shrink, ``INTER_LINEAR`` to grow."""
+        (h0, w0), (h, w)), from the RAM cache when it holds it: cv2's
+        ``INTER_AREA`` to shrink in eval mode, ``INTER_LINEAR`` otherwise."""
+        if self.imgs[index] is not None:
+            return self.imgs[index], self.img_hw0[index], self.img_hw[index]
         img = png.imread(self.img_files[index])
         h0, w0 = img.shape[:2]
         r = self.img_size / max(h0, w0)
         if r != 1:
             wh = (int(w0 * r), int(h0 * r))
-            img = (resize_area(img, wh) if r < 1
-                   else _resize(torch.from_numpy(img), wh).numpy())
+            img = (resize_area(img, wh) if r < 1 and not self.augment
+                   else resize_linear(img, wh))
         return img, (h0, w0), img.shape[:2]
 
+    def _perspective(self, img, labels, rnd, border=(0, 0)):
+        hyp = self.hyp
+        return random_perspective(
+            img, labels, rnd, degrees=hyp.get("degrees", 0),
+            translate=hyp.get("translate", 0.1), scale=hyp.get("scale", 0.5),
+            shear=hyp.get("shear", 0), perspective=hyp.get("perspective", 0.0),
+            border=border)
+
+    def load_mosaic(self, index, rnd):
+        """Four images around a random centre on a 2s x 2s canvas of 114,
+        then ``random_perspective`` back to s x s (reference
+        utils/datasets.py:668-725)."""
+        labels4 = []
+        s = self.img_size
+        yc, xc = (int(rnd.uniform(-x, 2 * s + x)) for x in self.mosaic_border)
+        indices = [index] + rnd.choices(self.indices, k=3)
+        img4 = None
+        for i, idx in enumerate(indices):
+            img, _, (h, w) = self.load_image(idx)
+            if i == 0:
+                img4 = np.full((s * 2, s * 2, img.shape[2]), 114, np.uint8)
+                x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+                x1b, y1b, x2b, y2b = w - (x2a - x1a), h - (y2a - y1a), w, h
+            elif i == 1:
+                x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+                x1b, y1b, x2b, y2b = 0, h - (y2a - y1a), min(w, x2a - x1a), h
+            elif i == 2:
+                x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+                x1b, y1b, x2b, y2b = w - (x2a - x1a), 0, w, min(y2a - y1a, h)
+            else:
+                x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
+                x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
+            img4[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+            padw, padh = x1a - x1b, y1a - y1b
+            labels = self.labels[idx].copy()
+            if labels.size:
+                labels[:, 1:] = xywhn2xyxy(labels[:, 1:], w, h, padw, padh)
+            labels4.append(labels)
+        labels4 = np.concatenate(labels4, 0)
+        np.clip(labels4[:, 1:], 0, 2 * s, out=labels4[:, 1:])
+        return self._perspective(img4, labels4, rnd, border=self.mosaic_border)
+
     def __getitem__(self, index):
-        img, (h0, w0), (h, w) = self.load_image(index)
-        shape = self.batch_shapes[self.batch[index]] if self.rect else self.img_size
-        img, ratio, pad = letterbox(img, shape, auto=False, scaleup=False)
-        img = img.numpy()
-        shapes = (h0, w0), ((h / h0, w / w0), pad)
-        labels = self.labels[index].copy()
-        if labels.size:
-            labels[:, 1:] = xywhn2xyxy(labels[:, 1:], ratio[0] * w, ratio[1] * h,
-                                       padw=pad[0], padh=pad[1])
-        if len(labels):
+        """The item at position ``index``; in training mode with the
+        generators of (0, 0, index) (the loader passes its own to
+        :meth:`item`)."""
+        return self.item(index, *(generators(0, 0, index) if self.augment else (None, None)))
+
+    def item(self, index, rnd: Optional[random.Random], nrs: Optional[np.random.RandomState]):
+        """(RGB uint8 image, labels (n, 5) [cls, xywh normalised], path,
+        shapes or None), the JAX ``__getitem__`` with its draws from
+        ``rnd`` and ``nrs``."""
+        index = self.indices[index]
+        hyp = self.hyp
+        mosaic = self.mosaic and rnd.random() < hyp.get("mosaic", 0)
+        shapes = None
+        if mosaic:
+            img, labels = self.load_mosaic(index, rnd)
+            if rnd.random() < hyp.get("mixup", 0):
+                img2, labels2 = self.load_mosaic(rnd.randint(0, self.n - 1), rnd)
+                r = nrs.beta(8.0, 8.0)
+                img = (img * r + img2 * (1 - r)).astype(np.uint8)
+                labels = np.concatenate((labels, labels2), 0)
+        else:
+            img, (h0, w0), (h, w) = self.load_image(index)
+            shape = self.batch_shapes[self.batch[index]] if self.rect else self.img_size
+            img, ratio, pad = letterbox(img, shape, auto=False, scaleup=self.augment)
+            img = img.numpy()
+            shapes = (h0, w0), ((h / h0, w / w0), pad)
+            labels = self.labels[index].copy()
+            if labels.size:
+                labels[:, 1:] = xywhn2xyxy(labels[:, 1:], ratio[0] * w, ratio[1] * h,
+                                           padw=pad[0], padh=pad[1])
+
+        if self.augment:
+            if not mosaic:
+                img, labels = self._perspective(img, labels, rnd)
+            augment_hsv(img, nrs, hyp.get("hsv_h", 0.015), hyp.get("hsv_s", 0.7),
+                        hyp.get("hsv_v", 0.4))
+
+        nl = len(labels)
+        if nl:
             labels[:, 1:5] = xyxy2xywh(labels[:, 1:5])
             labels[:, [2, 4]] /= img.shape[0]
             labels[:, [1, 3]] /= img.shape[1]
+        if self.augment:
+            if rnd.random() < hyp.get("flipud", 0):
+                img = np.flipud(img)
+                if nl:
+                    labels[:, 2] = 1 - labels[:, 2]
+            if rnd.random() < hyp.get("fliplr", 0):
+                img = np.fliplr(img)
+                if nl:
+                    labels[:, 1] = 1 - labels[:, 1]
         img = np.ascontiguousarray(img[:, :, ::-1])  # BGR->RGB, keep HWC
         return img, labels.astype(np.float32), self.img_files[index], shapes
 
@@ -271,40 +383,48 @@ def ordered_batches(n: int, make, workers: int):
 
 
 class DetectionLoader:
-    """Threaded prefetching loader of eval batches, in order.
+    """Threaded prefetching loader, batches in order.
 
     Yields (imgs (B, H, W, 3) uint8 RGB, targets (B, T, 5), mask (B, T),
-    paths, shapes).  A rect dataset's batches are its aspect-ratio bins.
-    ``shard`` / ``num_shards`` split the batches between hosts (reference
+    paths, shapes).  A rect dataset's batches are its aspect-ratio bins
+    (never shuffled).  ``shuffle`` permutes the positions with
+    ``RandomState(seed + epoch)``, the epoch counting the iterations;
+    ``quad`` folds each 4 items into one (collate_fn4).  ``shard`` /
+    ``num_shards`` split the batches between hosts (reference
     utils/datasets.py:76)."""
 
     def __init__(self, dataset: DetectionDataset, batch_size: int,
                  max_targets: int = 128, shuffle: bool = False,
                  workers: int = 4, shard: int = 0, num_shards: int = 1,
-                 drop_last: bool = True, quad: bool = False):
-        if quad:
-            raise NotImplementedError(f"quad (collate_fn4) {TRAINING}")
-        if shuffle and not dataset.rect:
-            raise NotImplementedError(f"shuffle {TRAINING}")
+                 drop_last: bool = True, seed: int = 0, quad: bool = False):
+        if quad and batch_size % 4:
+            raise ValueError("quad=True requires batch_size divisible by 4")
         self.ds = dataset
         self.bs = batch_size
         self.max_targets = max_targets
+        self.quad = quad
+        self.rect = bool(getattr(dataset, "rect", False))
+        self.shuffle = shuffle and not self.rect
         self.workers = max(1, workers)
         self.shard = shard
         self.num_shards = num_shards
         self.drop_last = drop_last
+        self.epoch = 0
+        self.seed = seed
 
     def _plan(self):
-        """The batches' index arrays, shard-local."""
+        """The epoch's batches' position arrays, shard-local."""
         n = len(self.ds)
         idx = np.arange(n)
-        if self.ds.rect:
+        if self.rect:
             bins = np.asarray(self.ds.batch)
             nb = int(bins[-1]) + 1 if n else 0
             batches = [idx[bins == b] for b in range(nb)]
             if self.drop_last and nb > 1 and len(batches[-1]) < len(batches[0]):
                 batches = batches[:-1]
             return batches[self.shard::self.num_shards]
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
         idx = idx[self.shard::self.num_shards]
         if self.num_shards > 1:         # equal step counts on every host
             idx = idx[: n // self.num_shards]
@@ -315,11 +435,60 @@ class DetectionLoader:
     def __len__(self):
         return len(self._plan())
 
+    def set_image_weights(self, weights: np.ndarray):
+        """reference train.py:303-316: the epoch's positions map to images
+        drawn with probability proportional to ``weights``."""
+        n = len(self.ds)
+        rng = np.random.RandomState(self.seed + self.epoch)
+        self.ds.indices = list(rng.choice(n, size=n, p=weights / weights.sum()))
+
+    def batch(self, batches, bi: int, epoch: int):
+        """Batch ``bi`` of an epoch's plan, its items' draws from
+        (seed, epoch, position) and its quad groups' from (seed, epoch, bi)."""
+        aug = self.ds.augment
+        items = [self.ds.item(i, *(generators(self.seed, epoch, i) if aug else (None, None)))
+                 for i in batches[bi]]
+        if self.quad:
+            items = self._quad(items, generators(self.seed, epoch, bi, QUAD_STREAM)[0])
+        return self._collate(items)
+
     def __iter__(self):
         batches = self._plan()
-        return ordered_batches(len(batches),
-                               lambda bi: self._collate([self.ds[i] for i in batches[bi]]),
+        epoch = self.epoch
+        self.epoch += 1
+        return ordered_batches(len(batches), lambda bi: self.batch(batches, bi, epoch),
                                self.workers)
+
+    @staticmethod
+    def _quad(items, rnd: random.Random):
+        """collate_fn4 (reference utils/datasets.py:601-625;
+        multiyolov5_tpu/data/detection.py:611-644): each group of 4 items
+        becomes one 2x item, with probability 0.5 (``rnd.random()``) its
+        first image grown 2x by cv2's ``INTER_LINEAR``, else a 2x2 stitch of
+        the four with their labels offset and halved."""
+        if len(items) < 4:      # a ragged drop_last=False tail passes unfolded
+            return items
+        out = []
+        ho = np.array([[0., 0, 1, 0, 0]], np.float32)   # below: y += 1
+        wo = np.array([[0., 1, 0, 0, 0]], np.float32)   # right: x += 1
+        s = np.array([[1, .5, .5, .5, .5]], np.float32)
+        for g in range(len(items) // 4):
+            i = g * 4
+            img, _, path, shapes = items[i]
+            h, w = img.shape[:2]
+            if rnd.random() < 0.5:
+                im = resize_linear(img, (w * 2, h * 2))
+                lb = items[i][1]
+            else:
+                im = np.empty((h * 2, w * 2, img.shape[2]), img.dtype)
+                im[:h, :w] = img
+                im[h:, :w] = items[i + 1][0]
+                im[:h, w:] = items[i + 2][0]
+                im[h:, w:] = items[i + 3][0]
+                lb = np.concatenate([items[i][1], items[i + 1][1] + ho,
+                                     items[i + 2][1] + wo, items[i + 3][1] + ho + wo], 0) * s
+            out.append((im, lb, path, shapes))
+        return out
 
     def _collate(self, items):
         imgs = np.stack([it[0] for it in items], 0)

@@ -138,13 +138,14 @@ class Engine:
     def names(self) -> List[str]:
         return self.spec.names
 
-    def forward(self, frames: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def forward(self, frames: torch.Tensor, raw: bool = False):
         """frames (B, H, W, 3) on the engine's device, uint8, or float32 or
         bfloat16 in [0, 1] (the seg loader's x / 255, used as it is), H and
         W any multiples of the stride (serving's 512x1024, the eval
         loader's rect shapes such as 576x1024) -> (decoded candidates (B,
         no, N) float32, 1/8-res seg logits (B, C, h, w), or None for a
-        detection-only model)."""
+        detection-only model).  With ``raw``, the first is the pair
+        (decoded candidates, Detect's raw per-level maps)."""
         if frames.shape[1] % self.stride or frames.shape[2] % self.stride:
             raise ValueError(f"frame {tuple(frames.shape[1:3])} is not a "
                              f"multiple of the stride {self.stride}")
@@ -152,7 +153,8 @@ class Engine:
                    else self.stem_weights)
         with torch.inference_mode():
             y1 = stem(frames, *weights, out_dtype=self.dtype)
-            return self.model(y1.permute(0, 3, 1, 2), start_layer=2)
+            return self.model(y1.permute(0, 3, 1, 2), start_layer=2,
+                              decode="both" if raw else True)
 
     def forward_augment(self, frames: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Test-time augmentation (multiyolov5_tpu/engine.py:393-407): the

@@ -93,20 +93,31 @@ def evaluate_detection(engine: Union[Engine, str, None], loader, names=None,
     shapes: per image ((h0, w0), ratio_pad) or None).
 
     Returns ((P, R, mAP50, mAP, vbox, vobj, vcls), maps_per_class,
-    (t_inf, t_nms, seen)); the validation losses stay 0 (no ``loss_hyp``),
-    and the times are host seconds around synchronised work."""
-    if loss_hyp is not None:
-        raise NotImplementedError("validation losses come with the training port")
+    (t_inf, t_nms, seen)); the times are host seconds around synchronised
+    work.  Given ``loss_hyp``, (vbox, vobj, vcls) are the mean over the
+    batches of ``DetectionLoss``'s (lbox, lobj, lcls) on Detect's raw maps
+    (multiyolov5_tpu/evaluation.py:85-93, :114-117), else 0."""
     if wandb_logger is not None:
         raise NotImplementedError("wandb is not available to the port")
     if plots:
         raise NotImplementedError("PR curves and the confusion matrix need matplotlib")
     eng = _engine(engine, cfg, device, half)
-    nc = eng.spec.nc
+    spec = eng.spec
+    nc = spec.nc
     iouv = np.linspace(0.5, 0.95, 10)
     stats: List = []
     seen = 0
     t_inf = t_nms = 0.0
+    det_loss = None
+    if loss_hyp is not None:
+        from .train.losses import DetectionLoss
+        det_loss = DetectionLoss(
+            nc=nc, na=spec.na,
+            anchors=np.asarray(spec.anchors, np.float32).reshape(spec.nl, spec.na, 2)
+            / np.asarray(spec.strides, np.float32)[:, None, None],
+            strides=spec.strides, hyp=loss_hyp)
+    loss_items = np.zeros(3)
+    n_batches = 0
 
     jdict: List[Dict] = []
     txt_dir = Path(save_dir) / "labels"
@@ -114,12 +125,19 @@ def evaluate_detection(engine: Union[Engine, str, None], loader, names=None,
         txt_dir.mkdir(parents=True, exist_ok=True)
 
     for imgs, targets, tmask, paths, shapes in loader:
+        n_batches += 1
         x = _frames(imgs, eng.device)
         t0 = time.time()
-        z, _ = eng.forward(x)
+        z, _ = eng.forward(x) if det_loss is None else eng.forward(x, raw=True)
         if eng.device.type == "cuda":
             torch.cuda.synchronize(eng.device)
         t_inf += time.time() - t0
+        if det_loss is not None:
+            z, raw = z
+            with torch.inference_mode():
+                _, items = det_loss(raw, torch.as_tensor(targets).to(eng.device),
+                                    torch.as_tensor(tmask).to(eng.device))
+            loss_items += items[:3].cpu().numpy()
         t0 = time.time()
         with torch.inference_mode():
             preds = non_max_suppression(z.transpose(1, 2), conf_thres=conf_thres,
@@ -200,7 +218,7 @@ def evaluate_detection(engine: Union[Engine, str, None], loader, names=None,
         for i, c in enumerate(ap_class):
             print(f"{names[int(c)]:>20s}{int(nt[int(c)]):>9d}{p[i]:>10.3g}"
                   f"{r[i]:>10.3g}{ap50[i]:>10.3g}{ap_m[i]:>11.3g}")
-    loss_avg = np.zeros(3)      # validation losses need loss_hyp (training port)
+    loss_avg = loss_items / max(n_batches, 1)
     if save_json and jdict:
         import json as json_lib
         pred_json = Path(save_dir) / "predictions.json"

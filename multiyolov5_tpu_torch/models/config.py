@@ -11,6 +11,7 @@ Detection-only configs (no ``n_segcls``) compile with ``seg_index`` and
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Union
@@ -194,15 +195,20 @@ def _check_anchor_order(spec: ModelSpec) -> None:
 
 
 def load_spec(cfg: Union[str, Dict[str, Any]], nc: Optional[int] = None) -> ModelSpec:
-    """Accepts a dict, a path to a reference-format yaml, or a built-in name
-    from :mod:`multiyolov5_tpu_torch.models.zoo` (e.g. 'yolov5s_city_seg');
+    """Accepts a dict, a path to a reference-format yaml (a JSON file, which
+    is YAML, is read without PyYAML), or a built-in name from
+    :mod:`multiyolov5_tpu_torch.models.zoo` (e.g. 'yolov5s_city_seg');
     ``nc`` overrides the config's number of detection classes."""
     if isinstance(cfg, dict):
         d = cfg
     elif os.path.exists(cfg):
-        import yaml
         with open(cfg) as fh:
-            d = yaml.safe_load(fh)
+            text = fh.read()
+        try:
+            d = json.loads(text)
+        except ValueError:
+            import yaml
+            d = yaml.safe_load(text)
     else:
         from . import zoo
         d = zoo.get(cfg)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.nn import Dropout
 from ..ops.resize import resize_bilinear
 from .blocks import ASPP, C3, C3SPP, FFM, RFB2, Conv, PyramidPooling
 
@@ -53,17 +54,27 @@ class Detect(nn.Module):
                 b[:, 4] += math.log(8 / (640 / s) ** 2)
                 b[:, 5:] += math.log(0.6 / (self.nc - 0.99))
 
-    def forward(self, xs: List[torch.Tensor], decode: bool = True):
+    def forward(self, xs: List[torch.Tensor], decode=True):
+        """``decode``: True for the candidates, False for the raw maps,
+        "both" for the pair (candidates, raw maps) from one set of convs
+        (the eval loop's validation losses read the raw maps)."""
+        ys = [conv(x) for conv, x in zip(self.m, xs)]
         if self.training or not decode:
-            outs = []
-            for conv, x in zip(self.m, xs):
-                y = conv(x)
-                b, _, ny, nx = y.shape
-                outs.append(y.view(b, self.na, self.no, ny, nx).permute(0, 1, 3, 4, 2))
-            return outs
+            return self._raw(ys)
+        z = self._decode(ys)
+        return (z, self._raw(ys)) if decode == "both" else z
+
+    def _raw(self, ys: List[torch.Tensor]) -> List[torch.Tensor]:
+        out = []
+        for y in ys:
+            b, _, ny, nx = y.shape
+            out.append(y.view(b, self.na, self.no, ny, nx).permute(0, 1, 3, 4, 2))
+        return out
+
+    def _decode(self, ys: List[torch.Tensor]) -> torch.Tensor:
         zs = []
-        for i, x in enumerate(xs):
-            y = self.m[i](x).float()                       # (B, na*no, ny, nx)
+        for i, y in enumerate(ys):
+            y = y.float()                                  # (B, na*no, ny, nx)
             b, _, ny, nx = y.shape
             y = y.sigmoid().reshape(b, self.na, self.no, ny * nx)
             s = self.strides[i]
@@ -115,7 +126,7 @@ class SegMaskBase(nn.Module):
         self.m = nn.Sequential(
             C3(ch[0], c_hid, n=n, shortcut=shortcut, fused=fused, kernel=kernel),
             C3SPP(c_hid, c_out, fused=fused),
-            nn.Dropout(0.1),
+            Dropout(0.1),
             nn.Conv2d(c_out, n_segcls, 3, 1, 1, bias=False))
 
     def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
@@ -124,9 +135,12 @@ class SegMaskBase(nn.Module):
 
 class SegMaskBiSe(nn.Module):
     """BiSeNet-style head, reference models/yolo.py:30-86
-    (multiyolov5_tpu/models/heads.py:273-314).  The aux pair (``aux16``,
-    ``aux32``) is built, so the JAX package's weights load whole, but only
-    training reads it, and training of this head is not ported yet."""
+    (multiyolov5_tpu/models/heads.py:273-314).  In eval mode it returns the
+    1/8-res logits; in training mode ``[main, aux16, aux32]``: the main
+    logits and the aux pair on ``feat2`` (1/8 res) and ``feat3`` (1/16
+    res), each at its own resolution.  The JAX head upsamples them x8, x8
+    and x16 to the label size; the port's loss does that
+    (train/trainer.py), the same function."""
 
     def __init__(self, n_segcls: int, ch: Sequence[int], fused: bool = False,
                  kernel: bool = False):
@@ -139,20 +153,20 @@ class SegMaskBiSe(nn.Module):
         self.up16 = nn.Sequential(Conv(128, 128, 3, fused=fused, kernel=kernel))
         self.up32 = nn.Sequential(Conv(128, 128, 3, fused=fused, kernel=kernel))
         self.out = nn.Sequential(FFM(256, 256, k=3, fused=fused, kernel=kernel),
-                                 nn.Dropout(0.1), nn.Conv2d(256, n_segcls, 1))
+                                 Dropout(0.1), nn.Conv2d(256, n_segcls, 1))
         self.aux16 = nn.Sequential(Conv(128, 128, 3, fused=fused), nn.Conv2d(128, n_segcls, 1))
         self.aux32 = nn.Sequential(Conv(128, 128, 3, fused=fused), nn.Conv2d(128, n_segcls, 1))
 
-    def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("SegMaskBiSe training (the aux pair and its losses) "
-                                      "is not ported yet")
+    def forward(self, xs: List[torch.Tensor]):
         x8, x16, x32 = xs
         f32 = self.up32(self.m32(x32))
         feat3 = resize_bilinear(f32, (f32.shape[2] * 2, f32.shape[3] * 2))
         f16 = self.up16(self.m16(x16) + feat3)
         feat2 = resize_bilinear(f16, (f16.shape[2] * 2, f16.shape[3] * 2))
-        return self.out(torch.cat([self.m8(x8), feat2], 1))
+        main = self.out(torch.cat([self.m8(x8), feat2], 1))
+        if not self.training:
+            return main
+        return [main, self.aux16(feat2), self.aux32(feat3)]
 
 
 class SegMaskLab(nn.Module):

@@ -8,13 +8,15 @@ rows with the spec's save set.  The modules of every zoo entry
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from . import blocks as B
-from ..ops.nn import BN_MOMENTUM
+from ..ops.nn import BN_MOMENTUM, Dropout
 from .config import ModelSpec
 from .heads import Detect, SegMaskBase, SegMaskBiSe, SegMaskLab, SegMaskPSP
 
@@ -66,7 +68,9 @@ class Model(nn.Module):
     1/8-res seg logits (B, n_segcls, h, w), or None for a detection-only
     model); in training mode, or with ``decode=False``, the
     first is the list of raw per-level maps (B, na, ny, nx, no)
-    (heads.Detect), the input of train/losses.DetectionLoss."""
+    (heads.Detect), the input of train/losses.DetectionLoss, and with
+    ``decode="both"`` the pair (decoded candidates, raw maps).  In
+    training mode the BiSe head's seg output is ``[main, aux16, aux32]``."""
 
     def __init__(self, spec: ModelSpec, fused: bool = False, kernels: bool = True):
         super().__init__()
@@ -98,6 +102,20 @@ class Model(nn.Module):
             if row.i in spec.save:
                 cache[row.i] = y
         return det, seg
+
+    @contextlib.contextmanager
+    def dropout_rng(self, generator: Optional[torch.Generator]):
+        """For the duration, every dropout of the model (the Base and BiSe
+        heads' ``ops/nn.Dropout``) draws its training-mode mask from
+        ``generator``; None drops nothing."""
+        mods = [m for m in self.modules() if isinstance(m, Dropout)]
+        for m in mods:
+            m.generator = generator
+        try:
+            yield
+        finally:
+            for m in mods:
+                m.generator = None
 
 
 def init_model(model: Model, generator: torch.Generator) -> Model:

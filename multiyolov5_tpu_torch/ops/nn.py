@@ -65,3 +65,25 @@ def fuse_conv_bn(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         for suffix in (".weight", ".bias", ".running_mean", ".running_var"):
             del out[bn + suffix]
     return out
+
+
+class Dropout(torch.nn.Module):
+    """Dropout whose mask comes from an explicit generator, as the JAX
+    package's ``Ctx.dropout`` (multiyolov5_tpu/ops/nn.py:526-534) draws
+    from the step's rng: in training mode with ``generator`` set (by
+    ``models/model.Model.dropout_rng``), each element is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``; with no generator,
+    or in eval mode, the input passes through unchanged."""
+
+    def __init__(self, p: float = 0.1):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p <= 0.0 or self.generator is None:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        mask.bernoulli_(keep, generator=self.generator)
+        return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)

@@ -49,9 +49,19 @@ def _focal_wrap(loss, logits, targets, gamma: float, alpha: float = 0.25):
     return loss * alpha_f * (1.0 - p_t) ** gamma
 
 
+def _qfocal_wrap(loss, logits, targets, gamma: float, alpha: float = 0.25):
+    """QFocalLoss wrapper (reference utils/loss.py:63-86)."""
+    p = torch.sigmoid(logits)
+    alpha_f = targets * alpha + (1 - targets) * (1 - alpha)
+    return loss * alpha_f * torch.abs(targets - p) ** gamma
+
+
 @dataclass
 class DetectionLoss:
-    """reference ComputeLoss (utils/loss.py:89-217)."""
+    """reference ComputeLoss (utils/loss.py:89-217).  With ``autobalance``
+    the per-level objectness weights are state: the call takes them as
+    ``balance`` and returns their update, renormalised by the stride-16
+    level (``ssi``; reference utils/loss.py:156-161)."""
 
     nc: int
     na: int
@@ -60,11 +70,14 @@ class DetectionLoss:
     hyp: Dict[str, float]
     gr: float = 1.0
     balance: Sequence[float] = field(default_factory=lambda: [4.0, 1.0, 0.4])
+    autobalance: bool = False
 
     def __post_init__(self):
         self.cp, self.cn = smooth_bce(self.hyp.get("label_smoothing", 0.0))
         if len(self.anchors) != 3:
             self.balance = [4.0, 1.0, 0.25, 0.06, 0.02][: len(self.anchors)]
+        strides = list(self.strides)
+        self.ssi = strides.index(16) if (self.autobalance and 16 in strides) else 0
         self._consts = {}
 
     def _device_consts(self, dev: torch.device, grids) -> Tuple[torch.Tensor, ...]:
@@ -79,11 +92,13 @@ class DetectionLoss:
         return self._consts[key]
 
     def __call__(self, preds: List[torch.Tensor], targets: torch.Tensor,
-                 tmask: torch.Tensor):
+                 tmask: torch.Tensor, balance: Optional[torch.Tensor] = None):
         """preds: per-level raw maps (B, na, ny, nx, 5+nc) (any float dtype;
         the loss runs in float32); targets: (B, T, 5) [cls, x, y, w, h]
-        normalized (padded); tmask: (B, T) bool validity.  Returns (loss *
-        B, detached items (lbox, lobj, lcls, loss))."""
+        normalized (padded); tmask: (B, T) bool validity; balance: the
+        (nl,) objectness weights carried as state (autobalance).  Returns
+        (loss * B, detached items (lbox, lobj, lcls, loss)), and the
+        updated balance when ``balance`` is given."""
         B, T = targets.shape[:2]
         na, hyp = self.na, self.hyp
         dev = targets.device
@@ -95,6 +110,7 @@ class DetectionLoss:
         valid = tmask.reshape(N).bool()
         anchors, off, gains = self._device_consts(
             dev, tuple((p.shape[2], p.shape[3]) for p in preds))
+        obj_per_level = []
         b_idx = img_idx[:, None, None].expand(N, na, 5)
         a_idx = torch.arange(na, device=dev)[None, :, None].expand(N, na, 5)
 
@@ -148,7 +164,9 @@ class DetectionLoss:
             obj_loss = _bce_logits(obj_logit, tobj, hyp.get("obj_pw", 1.0))
             if fl_g > 0:
                 obj_loss = _focal_wrap(obj_loss, obj_logit, tobj, fl_g)
-            lobj = lobj + obj_loss.mean() * self.balance[i]
+            obji = obj_loss.mean()
+            obj_per_level.append(obji)
+            lobj = lobj + obji * (balance[i] if balance is not None else self.balance[i])
 
             if self.nc > 1:
                 tcls = t_flat[:, 0].long()
@@ -166,7 +184,13 @@ class DetectionLoss:
         lobj = lobj * hyp["obj"]
         lcls = lcls * hyp["cls"]
         loss = lbox + lobj + lcls
-        return loss * B, torch.stack([lbox, lobj, lcls, loss]).detach()
+        items = torch.stack([lbox, lobj, lcls, loss]).detach()
+        if balance is not None:
+            # EMA toward 1e-4 / obji, then renormalised by the stride-16 level
+            obji = torch.stack(obj_per_level).detach()
+            new_bal = balance * 0.9999 + 0.0001 / obji
+            return loss * B, items, new_bal / new_bal[self.ssi]
+        return loss * B, items
 
 
 # ---------------------------------------------------------------------------
@@ -196,11 +220,23 @@ def cross_entropy_seg(logits: torch.Tensor, target: torch.Tensor,
     return torch.where(valid, nll, 0.0).sum() / denom.clamp(min=1.0)
 
 
-def segmentation_loss(preds, target, weight=None, ignore_index: int = -1):
-    """reference SegmentationLosses (utils/loss.py:221-263), plain CE.  The
-    aux branches of the BiSe head are not ported."""
-    p = preds[0] if isinstance(preds, (list, tuple)) else preds
-    return cross_entropy_seg(p, target, weight, ignore_index)
+def segmentation_loss(preds, target, aux: bool = False, aux_num: int = 2,
+                      aux_weight: float = 0.1, weight=None, ignore_index: int = -1):
+    """reference SegmentationLosses (utils/loss.py:221-263): plain CE, or CE
+    plus the weighted aux heads (BiSe's two: ``aux_weight * 1.5`` and
+    ``aux_weight / 2``; one: ``aux_weight``).  ``preds`` are logits at the
+    target's size, or a list of them (main first)."""
+    if not aux:
+        p = preds[0] if isinstance(preds, (list, tuple)) else preds
+        return cross_entropy_seg(p, target, weight, ignore_index)
+    if aux_num == 2:
+        p1, p2, p3 = preds
+        return (cross_entropy_seg(p1, target, weight, ignore_index)
+                + aux_weight * 1.5 * cross_entropy_seg(p2, target, weight, ignore_index)
+                + aux_weight / 2.0 * cross_entropy_seg(p3, target, weight, ignore_index))
+    p1, p2 = preds
+    return (cross_entropy_seg(p1, target, weight, ignore_index)
+            + aux_weight * cross_entropy_seg(p2, target, weight, ignore_index))
 
 
 def seg_focal_loss(logits, target, gamma: float = 2.0, ignore_index: int = -1):
@@ -212,17 +248,54 @@ def seg_focal_loss(logits, target, gamma: float = 2.0, ignore_index: int = -1):
     return ((1.0 - pt) ** gamma * ce).mean()
 
 
-def ohem_ce_loss(preds, target, thresh: float = 0.7, ignore_index: int = -1):
+def ohem_ce_loss(preds, target, thresh: float = 0.7, ignore_index: int = -1,
+                 aux: bool = False, aux_weight=(0.15, 0.05)):
     """reference OhemCELoss (utils/loss.py:303-328): keep pixel losses above
-    -log(thresh), but at least 1/16 of the valid pixels (top-k)."""
-    logits = preds[0] if isinstance(preds, (list, tuple)) else preds
-    valid, _, nll = _nll(logits, target, ignore_index)
-    nll = torch.where(valid, nll, 0.0).reshape(-1)
-    n_min = valid.sum() // 16
-    sorted_l = torch.sort(nll, descending=True).values
-    k = torch.maximum((sorted_l > -math.log(thresh)).sum(), n_min)
-    keep = torch.arange(sorted_l.shape[0], device=nll.device) < k
-    return torch.where(keep, sorted_l, 0.0).sum() / k.clamp(min=1)
+    -log(thresh), but at least 1/16 of the valid pixels (top-k); with
+    ``aux``, plus the two aux heads' at ``aux_weight``."""
+    def once(logits):
+        valid, _, nll = _nll(logits, target, ignore_index)
+        nll = torch.where(valid, nll, 0.0).reshape(-1)
+        n_min = valid.sum() // 16
+        sorted_l = torch.sort(nll, descending=True).values
+        k = torch.maximum((sorted_l > -math.log(thresh)).sum(), n_min)
+        keep = torch.arange(sorted_l.shape[0], device=nll.device) < k
+        return torch.where(keep, sorted_l, 0.0).sum() / k.clamp(min=1)
+
+    if not aux:
+        return once(preds[0] if isinstance(preds, (list, tuple)) else preds)
+    return (once(preds[0]) + aux_weight[0] * once(preds[1])
+            + aux_weight[1] * once(preds[2]))
+
+
+def prob_ohem_ce_loss(preds, target, thresh: float = 0.5, min_kept: int = 256,
+                      ignore_index: int = -1, aux: bool = False,
+                      aux_weight=(0.4, 0.4), class_weight=None):
+    """reference ProbOhemCrossEntropy2d (utils/loss.py:332-390): keep the
+    pixels whose true-class probability is at most max(thresh, the
+    ``min_kept``-th smallest probability)."""
+    def once(logits):
+        valid = (target != ignore_index).reshape(-1)
+        t = torch.where(target == ignore_index, 0, target).long().reshape(-1)
+        c = logits.shape[1]
+        prob = torch.softmax(logits.float(), 1).permute(0, 2, 3, 1).reshape(-1, c)
+        mask_prob = torch.where(valid, prob.gather(1, t[:, None])[:, 0], 1.0)
+        sorted_p = torch.sort(mask_prob).values
+        kth = sorted_p[min(min_kept, sorted_p.shape[0]) - 1]
+        kept = valid & (mask_prob <= torch.clamp(kth, min=thresh))
+        nll = -torch.log(torch.clamp(prob, min=1e-12)).gather(1, t[:, None])[:, 0]
+        if class_weight is not None:
+            w = torch.as_tensor(class_weight, dtype=torch.float32, device=nll.device)[t]
+            nll = nll * w
+            denom = torch.where(kept, w, 0.0).sum()
+        else:
+            denom = kept.sum().float()
+        return torch.where(kept, nll, 0.0).sum() / denom.clamp(min=1.0)
+
+    if not aux:
+        return once(preds[0] if isinstance(preds, (list, tuple)) else preds)
+    return (once(preds[0]) + aux_weight[0] * once(preds[1])
+            + aux_weight[1] * once(preds[2]))
 
 
 def pad_targets(labels: List[np.ndarray], max_t: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -13,13 +13,23 @@ does; ``compute_dtype=torch.float32`` runs it in float32.  On the card the
 model runs channels_last.
 
 The seg loss is K6 (ops/kernels/seg_ce.py) wherever the JAX package would
-call ``seg_ce_up8`` (its trainer.py:125-141: plain CE, a PSP/Base/Lab
-head), on the card always, not only on a TPU.  The OHEM and focal losses
-upsample the 1/8-res logits and take the plain losses.
+call ``seg_ce_up8`` (its trainer.py:125-141: plain CE without aux heads, a
+PSP/Base/Lab head), on the card always, not only on a TPU.  The OHEM and
+focal losses, and BiSe's aux heads (``seg_aux``: the main, aux16 and aux32
+logits, weighted 1, ``seg_aux_weight * 1.5`` and ``seg_aux_weight / 2``),
+upsample the logits to the label size and take the plain losses.
+
+The step's ``rng`` (a ``torch.Generator`` on the model's device) feeds the
+dropout of the Base and BiSe heads (ops/nn.Dropout); with ``rng=None`` they
+drop nothing, as the JAX ``Ctx.dropout`` does with no rng.  ``remat``
+recomputes each forward in the backward (``torch.utils.checkpoint``,
+non-reentrant), as the JAX step's ``jax.checkpoint``: the recomputation
+redraws the same dropout mask from the generator's saved state and leaves
+the BN running statistics as the first forward left them (JAX's
+checkpoint is functional, so its state comes from one forward).
 
 Not ported: ``pack_stem``, the ``det_hwna`` layout and the one-hot gather
-(TPU layout work); ``remat``, the mesh / DDP branch, ``autobalance`` and the
-BiSe aux losses (ROADMAP.md, 'The rest of training').
+(TPU layout work); the mesh / DDP branch (ROADMAP.md, parallelism).
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..models.config import ModelSpec
 from ..models.model import Model, init_model
@@ -52,9 +64,12 @@ class TrainConfig:
     seggain: float = 0.35
     seg_loss: str = "ce"               # ce | ohem | focal
     seg_enabled: bool = True           # False = detection-only training
+    seg_aux: bool = False              # BiSe head -> True (aux_num=2)
+    seg_aux_weight: float = 0.1
     adam: bool = False
     quad: bool = False                 # quad collate (reference train.py:368)
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = False                # recompute each forward in the backward
     class_weight: Optional[np.ndarray] = None
 
 
@@ -120,6 +135,44 @@ def _images(a, dev: torch.device) -> torch.Tensor:
     return x if dev.type == "cuda" else x.contiguous()
 
 
+def _forward(model: Model, x: torch.Tensor, rng: Optional[torch.Generator], remat: bool):
+    """``model(x)`` with its dropout drawing from ``rng``; with ``remat``,
+    under a non-reentrant checkpoint whose recomputation restarts ``rng``
+    from its state at the first forward (the same mask) and puts the BN
+    running statistics back as that forward left them."""
+    if not remat:
+        with model.dropout_rng(rng):
+            return model(x)
+    rng_state = rng.get_state() if rng is not None else None
+    calls = [0]
+
+    def run(inp):
+        again = calls[0] > 0
+        calls[0] += 1
+        if not again:
+            with model.dropout_rng(rng):
+                return model(inp)
+        bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+        saved = [(m.running_mean.clone(), m.running_var.clone(),
+                  m.num_batches_tracked.clone()) for m in bns]
+        now = rng.get_state() if rng is not None else None
+        if rng is not None:
+            rng.set_state(rng_state)
+        try:
+            with model.dropout_rng(rng):
+                return model(inp)
+        finally:
+            if rng is not None:
+                rng.set_state(now)
+            with torch.no_grad():
+                for m, (mean, var, n) in zip(bns, saved):
+                    m.running_mean.copy_(mean)
+                    m.running_var.copy_(var)
+                    m.num_batches_tracked.copy_(n)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int]):
     """Returns step(ts, det_imgs, det_tgts, det_mask, seg_imgs, seg_lbls,
     lr, lr_bias, momentum, do_update, rng=None) -> (ts, metrics).
@@ -127,10 +180,10 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int]):
     det_imgs (B, H, W, 3) uint8; det_tgts (B, T, 5) [cls, xywh] normalized
     and det_mask (B, T) bool, from losses.pad_targets; seg_imgs (B', H', W',
     3) float in [0, 1]; seg_lbls (B', H', W') int, -1 unlabelled; host
-    arrays or tensors.  ``rng`` is the dropout generator of the heads that
-    have dropout, none of which is ported: pspv5s draws no random numbers.
-    metrics: {"det_items": (lbox, lobj, lcls, loss), "seg_loss", "total"},
-    tensors on the state's device (reading them synchronises)."""
+    arrays or tensors.  ``rng``: the dropout generator (a ``torch.Generator``
+    on the model's device), or None for no dropout.  metrics: {"det_items":
+    (lbox, lobj, lcls, loss), "seg_loss", "total"}, tensors on the state's
+    device (reading them synchronises)."""
     det_loss_fn = DetectionLoss(
         nc=spec.nc, na=spec.na,
         anchors=np.asarray(spec.anchors, np.float32).reshape(spec.nl, spec.na, 2)
@@ -142,19 +195,29 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int]):
     cw = None if cfg.class_weight is None else torch.as_tensor(cfg.class_weight,
                                                                dtype=torch.float32)
     seg_module = spec.rows[spec.seg_index].module if spec.seg_index is not None else None
-    fused_ce = cfg.seg_loss == "ce" and seg_module in ("SegMaskPSP", "SegMaskBase",
-                                                       "SegMaskLab")
+    if cfg.seg_aux and cfg.seg_enabled and seg_module != "SegMaskBiSe":
+        raise ValueError(f"seg_aux needs the BiSe head's aux pair, not {seg_module}")
+    fused_ce = (cfg.seg_loss == "ce" and not cfg.seg_aux
+                and seg_module in ("SegMaskPSP", "SegMaskBase", "SegMaskLab"))
     low = cfg.compute_dtype != torch.float32
+    aux_w = cfg.seg_aux_weight
 
-    def seg_loss_fn(logits, lbls):
+    def seg_loss_fn(out, lbls):
         if fused_ce:
-            return seg_ce(logits, lbls, cw)
-        up = resize_bilinear(logits, tuple(lbls.shape[-2:]))
+            return seg_ce(out, lbls, cw)
+        hw = tuple(lbls.shape[-2:])
+        if isinstance(out, (list, tuple)):     # BiSe in training: main, aux16, aux32
+            out = out if cfg.seg_aux else out[:1]
+            up = [resize_bilinear(z, hw) for z in out]
+        else:
+            up = [resize_bilinear(out, hw)]
         if cfg.seg_loss == "ohem":
-            return ohem_ce_loss(up, lbls)
+            return ohem_ce_loss(up, lbls, aux=cfg.seg_aux,
+                                aux_weight=(aux_w * 1.5, aux_w / 2.0))
         if cfg.seg_loss == "focal":
-            return seg_focal_loss(up, lbls)
-        return segmentation_loss(up, lbls, cw)
+            return seg_focal_loss(up[0], lbls)
+        return segmentation_loss(up, lbls, aux=cfg.seg_aux, aux_num=2,
+                                 aux_weight=aux_w, weight=cw)
 
     def update(ts: TrainState, lr: float, lr_bias: float, momentum: float) -> None:
         names, params = zip(*ts.model.named_parameters())
@@ -180,7 +243,7 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int]):
         dev = next(model.parameters()).device
         amp = torch.autocast(dev.type, dtype=cfg.compute_dtype, enabled=low)
         with amp:
-            det_raw, _ = model(_images(det_imgs, dev) / 255.0)
+            det_raw, _ = _forward(model, _images(det_imgs, dev) / 255.0, rng, cfg.remat)
         dloss, ditems = det_loss_fn(det_raw, torch.as_tensor(det_tgts).to(dev),
                                     torch.as_tensor(det_mask).to(dev))
         dloss = dloss * cfg.detgain * (4.0 if cfg.quad else 1.0)
@@ -190,7 +253,7 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int]):
         if cfg.seg_enabled and spec.seg_index is not None:
             # second forward: the BN statistics already advanced on the det batch
             with amp:
-                _, seg_out = model(_images(seg_imgs, dev))
+                _, seg_out = _forward(model, _images(seg_imgs, dev), rng, cfg.remat)
             # reference train.py:386 scales the mean CE by the DETECTION
             # batch size (the two tasks share one accumulated optimizer step)
             sl = seg_loss_fn(seg_out, torch.as_tensor(seg_lbls).to(dev)) \

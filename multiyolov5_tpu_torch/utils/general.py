@@ -1,13 +1,21 @@
-"""Run management helpers the app needs (counterpart of part of
+"""Run management helpers of the CLIs (counterpart of
 ``multiyolov5_tpu/utils/general.py``: ``set_logging``, ``increment_path``,
-``clean_str``, :17-32 and :92)."""
+``get_latest_run``, ``colorstr``, ``one_cycle``, ``labels_to_class_weights``,
+``labels_to_image_weights``, ``check_dataset``, ``clean_str``,
+``check_file`` and ``print_mutation``, which writes its yaml as JSON:
+JSON is YAML, so ``yaml.safe_load`` reads it, and the port needs no PyYAML)."""
 
 from __future__ import annotations
 
 import glob
+import json
 import logging
+import math
+import os
 import re
 from pathlib import Path
+
+import numpy as np
 
 logger = logging.getLogger("multiyolov5_tpu_torch")
 
@@ -30,5 +38,95 @@ def increment_path(path, exist_ok: bool = False, sep: str = "") -> str:
     return f"{path}{sep}{n}"
 
 
+def get_latest_run(search_dir: str = ".") -> str:
+    """The newest ``last*.npz`` / ``last*.pt`` under ``search_dir``, or ""."""
+    last = glob.glob(f"{search_dir}/**/last*.npz", recursive=True) + \
+        glob.glob(f"{search_dir}/**/last*.pt", recursive=True)
+    return max(last, key=os.path.getctime) if last else ""
+
+
+def colorstr(*input):
+    *args, string = input if len(input) > 1 else ("blue", "bold", input[0])
+    colors = {"black": "\033[30m", "red": "\033[31m", "green": "\033[32m",
+              "yellow": "\033[33m", "blue": "\033[34m", "magenta": "\033[35m",
+              "cyan": "\033[36m", "white": "\033[37m", "bright_black": "\033[90m",
+              "bright_red": "\033[91m", "bright_green": "\033[92m",
+              "bright_yellow": "\033[93m", "bright_blue": "\033[94m",
+              "bright_magenta": "\033[95m", "bright_cyan": "\033[96m",
+              "bright_white": "\033[97m", "end": "\033[0m", "bold": "\033[1m",
+              "underline": "\033[4m"}
+    return "".join(colors[x] for x in args) + f"{string}" + colors["end"]
+
+
+def one_cycle(y1: float = 0.0, y2: float = 1.0, steps: int = 100):
+    """Cosine ramp y1->y2 (reference utils/general.py:186-188)."""
+    return lambda x: ((1 - math.cos(x * math.pi / steps)) / 2) * (y2 - y1) + y1
+
+
+def labels_to_class_weights(labels, nc: int = 80) -> np.ndarray:
+    """Inverse-frequency class weights (reference utils/general.py:216-230)."""
+    if len(labels) == 0:
+        return np.zeros(nc)
+    labels = np.concatenate(labels, 0)
+    classes = labels[:, 0].astype(int)
+    weights = np.bincount(classes, minlength=nc).astype(float)
+    weights[weights == 0] = 1
+    weights = 1 / weights
+    weights /= weights.sum()
+    return weights
+
+
+def labels_to_image_weights(labels, nc: int = 80, class_weights=None) -> np.ndarray:
+    """Each image's weight: its class counts against ``class_weights``."""
+    if class_weights is None:
+        class_weights = np.ones(nc)
+    class_counts = np.array(
+        [np.bincount(lb[:, 0].astype(int), minlength=nc) for lb in labels])
+    return (class_weights.reshape(1, nc) * class_counts).sum(1)
+
+
+def check_dataset(data: dict) -> None:
+    """Every ``train`` / ``val`` path of the dataset dict exists (the
+    reference's download is replaced by an error: no network)."""
+    for k in ("train", "val"):
+        if k in data and data[k]:
+            paths = data[k] if isinstance(data[k], list) else [data[k]]
+            for p in paths:
+                if not os.path.exists(p):
+                    raise FileNotFoundError(
+                        f"dataset path missing: {p} (auto-download disabled)")
+
+
 def clean_str(s: str) -> str:
     return re.sub(pattern="[|@#!¡·$€%&()=?¿^*;:,¨´><+]", repl="_", string=s)
+
+
+def check_file(file: str) -> str:
+    """``file`` itself, or the one file of that name under ``.``
+    (reference utils/general.py:102-113)."""
+    if not file or os.path.isfile(file):
+        return file
+    files = glob.glob("./**/" + file, recursive=True)
+    if not files:
+        raise FileNotFoundError(f"File Not Found: {file}")
+    if len(files) != 1:
+        raise ValueError(f"Multiple files match '{file}': {files}")
+    return files[0]
+
+
+def print_mutation(hyp: dict, results, yaml_file: str = "hyp_evolved.yaml",
+                   evolve_txt: str = "evolve.txt", n_metrics: int = 5) -> None:
+    """Log an evolution result, keep evolve.txt fitness-sorted (column 0
+    fitness2; rows [fitness, P, R, mAP50, mAP, *hypers]) and write the best
+    hyps to ``yaml_file`` (reference utils/general.py:528-556)."""
+    keys = list(hyp.keys())
+    print("evolved: " + ", ".join(f"{k}={hyp[k]:.4g}" for k in keys[:8]) + " ...")
+    with open(evolve_txt, "a") as f:
+        f.write(" ".join(f"{x:.5g}" for x in list(results) + [hyp[k] for k in keys])
+                + "\n")
+    x = np.unique(np.loadtxt(evolve_txt, ndmin=2), axis=0)
+    x = x[np.argsort(-x[:, 0])]
+    np.savetxt(evolve_txt, x, "%12.5g")
+    best = {k: float(x[0, n_metrics + i]) for i, k in enumerate(keys)}
+    with open(yaml_file, "w") as f:
+        json.dump(best, f, indent=1)

@@ -264,3 +264,19 @@ def test_float_batches_are_not_quantised(slice_pair, monkeypatch):
     assert seen == [torch.float32]
     assert 0.3 < got[0] < 0.95 and 0.1 < got[1] < 0.95
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_validation_losses_match_jax(slice_pair, det_loader):
+    """Given ``loss_hyp``, (vbox, vobj, vcls) are the batch mean of
+    DetectionLoss on Detect's raw maps: equal to the JAX
+    ``evaluate_detection(loss_hyp=...)``'s to 1e-4 relative."""
+    spec, params, state, peng = slice_pair
+    hyp = {"box": 0.05, "cls": 0.5, "cls_pw": 1.0, "obj": 1.0, "obj_pw": 1.0,
+           "anchor_t": 4.0, "fl_gamma": 0.0, "label_smoothing": 0.0}
+    want, _, _ = jax_eval.evaluate_detection(spec, params, state, det_loader, conf_thres=0.001,
+                                             iou_thres=0.6, fused=True, loss_hyp=hyp)
+    got, _, _ = port_eval.evaluate_detection(peng, det_loader, conf_thres=0.001,
+                                             iou_thres=0.6, loss_hyp=hyp)
+    assert min(want[4:7]) > 0
+    np.testing.assert_allclose(got[4:7], want[4:7], rtol=1e-4, atol=0)
+    np.testing.assert_allclose(got[:4], want[:4], rtol=0, atol=1e-4)

@@ -17,8 +17,9 @@ port's codec:
 
 The port must give the JAX loaders' ``img_files``, ``labels``, ``shapes``
 and ``batch_shapes``, and every batch (images, targets, mask, paths,
-``shapes``; seg images float32 and masks) exactly.  A ``.jpg`` in a split,
-the training modes and options raise ``NotImplementedError`` up front.
+``shapes``; seg images float32 and masks) exactly.  A ``.jpg`` in a split
+raises ``NotImplementedError`` up front; the training modes and options
+build (tests/test_torch_train_data.py holds them).
 """
 
 import numpy as np
@@ -167,16 +168,23 @@ def test_detection_loader_square_matches_jax(det_tree):
 
 
 def test_detection_training_parts_and_jpeg_raise(det_tree, tmp_path):
+    """The training parts build (tests/test_torch_train_data.py holds their
+    items): ``augment`` and ``image_weights`` datasets, a quad loader, a
+    shuffled rect loader that keeps the bins in order, as the JAX one;
+    a quad batch not divisible by 4 and a ``.jpg`` in a split raise."""
     path = str(det_tree / "images" / "val")
     for kw in (dict(augment=True), dict(image_weights=True)):
-        with pytest.raises(NotImplementedError, match="training"):
-            port_det.DetectionDataset(path, img_size=IMG_SIZE, **kw)
+        pds = port_det.DetectionDataset(path, img_size=IMG_SIZE, **kw)
+        jds = jax_det.DetectionDataset(path, img_size=IMG_SIZE, **kw)
+        assert (pds.mosaic, pds.rect) == (jds.mosaic, jds.rect)
     pds = port_det.DetectionDataset(path, img_size=IMG_SIZE, batch_size=BS, rect=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        port_det.DetectionLoader(pds, 4, quad=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        port_det.DetectionLoader(port_det.DetectionDataset(path, img_size=IMG_SIZE), 4,
-                                 shuffle=True)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        port_det.DetectionLoader(pds, 6, quad=True)
+    assert port_det.DetectionLoader(pds, 4, quad=True).quad
+    shuffled = port_det.DetectionLoader(pds, 4, shuffle=True)
+    assert not shuffled.shuffle
+    assert [b.tolist() for b in shuffled._plan()] == [
+        b.tolist() for b in port_det.DetectionLoader(pds, 4)._plan()]
     d = tmp_path / "images" / "val"
     d.mkdir(parents=True)
     png.imwrite(str(d / "a.png"), _frame(np.random.RandomState(1), 64, 64))
@@ -287,9 +295,11 @@ def test_seg_pairs_and_raises(seg_tree, tmp_path):
                 == jax_seg.get_city_pairs(str(seg_tree / "citys"), split))
     assert (port_seg.get_custom_pairs(str(seg_tree / "custom"), "val")
             == jax_seg.get_custom_pairs(str(seg_tree / "custom"), "val"))
-    for mode in ("train", "val"):
-        with pytest.raises(NotImplementedError, match="training"):
-            port_seg.get_citys_loader(root=str(seg_tree / "citys"), split="val", mode=mode)
+    for mode in ("train", "val"):                # built (tests/test_torch_train_data.py)
+        assert port_seg.get_citys_loader(root=str(seg_tree / "citys"), split="val",
+                                         mode=mode).ds.mode == mode
+    with pytest.raises(ValueError, match="seg mode"):
+        port_seg.get_citys_loader(root=str(seg_tree / "citys"), split="val", mode="x")
     # a BDD-style .jpg frame with its .png trainId mask in a citysbdd split
     idir = tmp_path / "leftImg8bit" / "val" / "bdd"
     mdir = tmp_path / "gtFine" / "val" / "bdd"

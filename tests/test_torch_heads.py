@@ -139,8 +139,23 @@ def test_seg_head_matches_jax(name):
 
 
 def test_bise_training_raises():
-    _, row, _, _, _ = _head("yolov5s_city_seg_bise")
-    mod = heads.SegMaskBiSe(row.args[0], row.args[4]).train()
-    xs = [torch.zeros(1, c, 128 // s, 256 // s) for s, c in zip((8, 16, 32), row.args[4])]
-    with pytest.raises(NotImplementedError, match="aux"):
-        mod(xs)
+    """BiSe's training forward no longer raises: it returns [main, aux16,
+    aux32] at 1/8, 1/8 and 1/16 resolution, which the JAX head's training
+    outputs are, upsampled x8, x8 and x16 (bilinear, align_corners)."""
+    from multiyolov5_tpu.ops.resize import resize_bilinear as jax_resize
+    apply, strides = HEADS["yolov5s_city_seg_bise"]
+    args, row, params, state, sd = _head("yolov5s_city_seg_bise")
+    mod = heads.SegMaskBiSe(row.args[0], row.args[4], fused=True)
+    mod.load_state_dict(sd, strict=True)
+    rng = np.random.RandomState(8)
+    xs = [rng.randn(2, 128 // s, 256 // s, c).astype(np.float32)
+          for s, c in zip(strides, row.args[4])]
+    ctx = Ctx(p=params, s=state, train=True, fused=True, seg_up=True)
+    want = apply(ctx, [jnp.asarray(x) for x in xs], args)
+    with torch.no_grad():
+        got = mod.train()([torch.from_numpy(x).permute(0, 3, 1, 2) for x in xs])
+    assert [tuple(g.shape) for g in got] == [(2, 19, 16, 32), (2, 19, 16, 32), (2, 19, 8, 16)]
+    for g, w in zip(got, want):
+        up = jax_resize(jnp.asarray(g.permute(0, 2, 3, 1).numpy()), w.shape[1:3])
+        np.testing.assert_allclose(np.asarray(up), np.asarray(w), rtol=0,
+                                   atol=1e-4 * max(1.0, float(np.abs(w).max())))

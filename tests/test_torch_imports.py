@@ -200,3 +200,57 @@ def test_port_imports_and_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.startswith("OK")
+
+
+# the training CLI (cli/train.py, its augmenting loaders, autoanchor and
+# tools/resume.py) with the same modules blocked: a TINY epoch with mosaic,
+# the HSV jitter and the seg scale-crop-jitter, then the resume tool
+_TRAIN_SCRIPT = _SCRIPT[:_SCRIPT.index("import numpy as np")] + textwrap.dedent("""
+    import json, os, tempfile
+    import numpy as np
+    from multiyolov5_tpu_torch.cli import train
+    from multiyolov5_tpu_torch.data import png
+    from multiyolov5_tpu_torch.tools import resume
+    import multiyolov5_tpu_torch.data.augment, multiyolov5_tpu_torch.data.pil_ops
+    import multiyolov5_tpu_torch.utils.autoanchor, multiyolov5_tpu_torch.utils.loggers
+    root = tempfile.mkdtemp()
+    rng = np.random.RandomState(0)
+    for d in ("images/train", "labels/train", "seg/segimages/train", "seg/seglabels/train",
+              "seg/segimages/val", "seg/seglabels/val"):
+        os.makedirs(os.path.join(root, d))
+    for i in range(8):
+        png.imwrite(f"{root}/images/train/im{i}.png", (rng.rand(64, 80, 3) * 255).astype(np.uint8))
+        with open(f"{root}/labels/train/im{i}.txt", "w") as fh:
+            fh.write("0 0.5 0.5 0.4 0.4\\n2 0.3 0.35 0.2 0.25\\n")
+    for split in ("train", "val"):
+        for i in range(4):
+            png.imwrite(f"{root}/seg/segimages/{split}/s{i}.png",
+                        (rng.rand(64, 96, 3) * 255).astype(np.uint8))
+            png.imwrite(f"{root}/seg/seglabels/{split}/s{i}.png",
+                        rng.randint(0, 4, (64, 96)).astype(np.uint8))
+    with open(f"{root}/data.json", "w") as fh:
+        json.dump({"train": f"{root}/images/train", "val": f"{root}/images/train", "nc": 3,
+                   "segtrain": f"{root}/seg", "segval": f"{root}/seg"}, fh)
+    with open(f"{root}/tiny.json", "w") as fh:
+        fh.write(os.environ["TINY_SPEC"])
+    run, _ = train.main(["--data", f"{root}/data.json", "--cfg", f"{root}/tiny.json",
+                         "--epochs", "1", "--batch-size", "4", "--img-size", "64", "64",
+                         "--base-size", "64", "--seg-data-kind", "custom", "--workers", "2",
+                         "--device", "cpu", "--fp32", "--project", f"{root}/runs"])
+    rows = open(f"{run}/results.txt").read().split()
+    assert len(rows) == 12 and np.isfinite([float(v) for v in rows]).all()
+    assert resume.main(["--dir", f"{root}/runs", "--dry-run"]) == []
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "multiyolov5_tpu", "cv2", "PIL",
+                                       "torchvision", "yaml", "pandas")
+                   for m, mod in sys.modules.items() if mod is not None)
+    print("OK")
+""")
+
+
+def test_training_cli_runs_without_jax():
+    res = subprocess.run([sys.executable, "-c", _TRAIN_SCRIPT], cwd=ROOT,
+                         env={**os.environ, "TINY_SPEC": json.dumps(TINY),
+                              "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("OK")

@@ -49,6 +49,8 @@ from multiyolov5_tpu_torch.utils.checkpoint import (from_jax_params, load_checkp
                                                     save_npz, strip_optimizer,
                                                     to_jax_params)
 
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
+
 HYP = {"box": 0.05, "cls": 0.5, "cls_pw": 1.0, "obj": 1.0, "obj_pw": 1.0,
        "anchor_t": 4.0, "fl_gamma": 0.0, "label_smoothing": 0.0,
        "weight_decay": 0.0005}
@@ -231,3 +233,195 @@ def test_npz_round_trip(pair, tmp_path):
     ema = {**pts.ema}
     for k, v in sd.items():
         assert torch.equal(v, ema[k].float()), k
+
+
+# ---------------------------------------------------------------------------
+# The step's other settings, each against the JAX step (one compile a case)
+# ---------------------------------------------------------------------------
+
+HEAD_ROWS = {
+    "SegMaskPSP": [[16, 19, 22], 1, "SegMaskPSP", ["n_segcls", 3, 256, False]],
+    "SegMaskBase": [[16], 1, "SegMaskBase", ["n_segcls", 3, 512, False]],
+    "SegMaskBiSe": [[16, 19, 22], 1, "SegMaskBiSe", ["n_segcls", 3, 256, False]],
+    "SegMaskLab": [[4, 19], 1, "SegMaskLab", ["n_segcls", 3, 256, False]],
+}
+# Adam's first update is lr * m_hat / (sqrt(v_hat) + eps) = lr * g / (|g| +
+# eps): where |g| is within a few eps of 0, float32 reassociation of g moves
+# it anywhere in (-lr, lr), a sign flip included.  So an Adam case holds
+# each tensor's change under the bound above except for at most ADAM_SHARE
+# of its entries, and those within 2 * lr_max of each other.
+ADAM_SHARE = 1e-3
+CW = np.array([0.5, 1.0, 2.0, 1.5], np.float32)
+# case: (head, JAX/port TrainConfig settings, hyp over HYP)
+STEP_CASES = {
+    "base": ("SegMaskBase", {}, {}),
+    "lab_cw_flgamma_ls": ("SegMaskLab", {"class_weight": CW},
+                          {"fl_gamma": 1.5, "label_smoothing": 0.1}),
+    "bise_aux_ce": ("SegMaskBiSe", {"seg_aux": True}, {}),
+    "bise_aux_ohem": ("SegMaskBiSe", {"seg_aux": True, "seg_loss": "ohem"}, {}),
+    "adam_quad_det_only": ("SegMaskPSP", {"adam": True, "quad": True,
+                                          "seg_enabled": False}, {}),
+    "ohem": ("SegMaskPSP", {"seg_loss": "ohem"}, {}),
+    "focal": ("SegMaskPSP", {"seg_loss": "focal"}, {}),
+}
+
+
+def _tiny(head):
+    sp = json.loads(json.dumps(TINY))
+    sp["head"][-2] = HEAD_ROWS[head]
+    return sp
+
+
+def _close_adam(got, want, init, what):
+    u_got = np.asarray(got, np.float32) - init
+    u_want = np.asarray(want, np.float32) - init
+    bound = (UPDATE_REL * np.abs(u_want).max()
+             + 4 * np.finfo(np.float32).eps * np.abs(np.asarray(want)).max())
+    bad = np.abs(u_got - u_want) > bound
+    assert bad.mean() <= ADAM_SHARE, f"{what}: {bad.sum()} of {bad.size} entries off"
+    assert np.abs(u_got - u_want).max() <= 2 * max(LR, LR_BIAS) + bound, what
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_step_setting_matches_jax(case):
+    """One update (rng None on both sides) under the bounds above; Adam's
+    case under ADAM_SHARE too."""
+    head, kw, hyp_over = STEP_CASES[case]
+    hyp = {**HYP, **hyp_over}
+    sp = _tiny(head)
+    jspec = jax_load_spec(sp)
+    jcfg = JaxTrainConfig(hyp=hyp, batch_size=2, seg_batch_size=2,
+                          compute_dtype=jnp.float32, **kw)
+    ts0, jgroups = jax_create(jspec, jcfg, seed=0)
+    jstep = jax_make_step(jspec, jcfg, jgroups, donate=False)
+    args = _batch(100)
+    jts, jm = jstep(ts0, *[jnp.asarray(a) for a in args], None, jnp.float32(LR),
+                    jnp.float32(LR_BIAS), jnp.float32(MOM), jnp.asarray(True))
+    cfg = TrainConfig(hyp=hyp, batch_size=2, compute_dtype=torch.float32, **kw)
+    pts, groups = create_train_state(
+        load_spec(sp), cfg, state_dict=from_jax_params(ts0["params"], ts0["state"]),
+        device="cpu")
+    pts, pm = make_train_step(load_spec(sp), cfg, groups)(pts, *args, LR, LR_BIAS, MOM,
+                                                          True, rng=None)
+    for k in ("total", "seg_loss", "det_items"):
+        np.testing.assert_allclose(pm[k].numpy(), np.asarray(jm[k]), rtol=LOSS_REL,
+                                   atol=0, err_msg=k)
+    assert pts.updates == int(jts["updates"]) == 1
+    params, state = to_jax_params(pts.state_dict())
+    ema_params, ema_state = to_jax_params(pts.ema)
+    adam = kw.get("adam", False)
+    opt = ({"m": to_jax_params(pts.opt["m"])[0], "v": to_jax_params(pts.opt["v"])[0]}
+           if adam else {"momentum": to_jax_params(pts.opt["momentum"])[0]})
+    jopt = ({"m": jts["opt"][0], "v": jts["opt"][1]} if adam
+            else {"momentum": jts["opt"]})
+    if adam:
+        assert pts.opt["t"] == int(jts["opt"][2]) == 1
+    close = _close_adam if adam else _close_update
+    for name, got, want, init in (
+            ("params", params, jts["params"], ts0["params"]),
+            ("state", state, jts["state"], ts0["state"]),
+            ("ema_params", ema_params, jts["ema_params"], ts0["params"]),
+            ("ema_state", ema_state, jts["ema_state"], ts0["state"]),
+            *((f"opt.{k}", opt[k], jopt[k], {n: np.zeros_like(v) for n, v in jopt[k].items()})
+              for k in jopt)):
+        assert set(got) == set(want), name
+        for k, w in want.items():
+            close(got[k], w, np.asarray(init[k]), f"{name}[{k}]")
+
+
+# ---------------------------------------------------------------------------
+# Dropout follows the step's rng; remat; autobalance
+# ---------------------------------------------------------------------------
+
+
+def _port_run(head, rng_seed, remat=False, steps=1, updates=True):
+    sp = _tiny(head)
+    spec = load_spec(sp)
+    cfg = TrainConfig(hyp=HYP, batch_size=2, compute_dtype=torch.float32, remat=remat)
+    torch.manual_seed(123)               # the global generator must not matter
+    ts, groups = create_train_state(spec, cfg, seed=0, device="cpu")
+    step = make_train_step(spec, cfg, groups)
+    g = None if rng_seed is None else torch.Generator().manual_seed(rng_seed)
+    grads = []
+    for i in range(steps):
+        ts, m = step(ts, *_batch(100 + i), LR, LR_BIAS, MOM, updates, rng=g)
+        grads.append({k: p.grad.clone() for k, p in ts.model.named_parameters()})
+    return ts, m, grads
+
+
+@pytest.mark.parametrize("head", ["SegMaskBase", "SegMaskBiSe", "SegMaskPSP"])
+def test_dropout_follows_step_rng(head):
+    """Two steps given generators of one seed are bitwise equal; a step
+    given none differs from them only where there is dropout (Base, BiSe)."""
+    ts_a, ma, _ = _port_run(head, 5)
+    ts_b, mb, _ = _port_run(head, 5)
+    ts_n, mn, _ = _port_run(head, None)
+    for k, v in ts_a.state_dict().items():
+        assert torch.equal(v, ts_b.state_dict()[k]), k
+    assert torch.equal(ma["total"], mb["total"])
+    dropout = head != "SegMaskPSP"
+    assert (not torch.equal(ma["seg_loss"], mn["seg_loss"])) == dropout
+    assert torch.equal(ma["det_items"], mn["det_items"])
+    same = all(torch.equal(v, ts_n.state_dict()[k]) for k, v in ts_a.state_dict().items())
+    assert same != dropout
+
+
+def test_dropout_rng_none_and_eval_drop_nothing():
+    """With no generator (the JAX ``Ctx.dropout`` with rng None) or in eval
+    mode the head's dropout is the identity; a generator drops ~10% and
+    scales the rest by 1/0.9."""
+    from multiyolov5_tpu_torch.ops.nn import Dropout
+    d = Dropout(0.1).train()
+    x = torch.rand(4, 8, 16, 16) + 0.5
+    assert torch.equal(d(x), x)
+    d.generator = torch.Generator().manual_seed(0)
+    y = d(x)
+    share = (y == 0).float().mean().item()
+    assert 0.07 < share < 0.13
+    np.testing.assert_allclose(y[y != 0].numpy(), (x[y != 0] / 0.9).numpy(), rtol=1e-6)
+    assert torch.equal(d.eval()(x), x)
+
+
+@pytest.mark.parametrize("head", ["SegMaskBiSe", "SegMaskPSP"])
+def test_remat_equals_the_plain_step(head):
+    """remat (a non-reentrant checkpoint around each forward) gives the
+    gradients and BN running statistics of the step without it, to 1e-6
+    relative, with a live dropout mask redrawn in the recomputation, over
+    two accumulated steps (the statistics advance once a forward)."""
+    ts_r, mr, gr = _port_run(head, 7, remat=True, steps=2, updates=False)
+    ts_p, mp, gp = _port_run(head, 7, remat=False, steps=2, updates=False)
+    np.testing.assert_allclose(mr["total"].numpy(), mp["total"].numpy(), rtol=1e-6)
+    for a, b in zip(gr, gp):
+        for k in a:
+            scale = max(b[k].abs().max().item(), 1e-30)
+            assert (a[k] - b[k]).abs().max().item() <= 1e-6 * scale, k
+    for k, v in ts_p.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(ts_r.state_dict()[k].numpy(), v.numpy(),
+                                       rtol=1e-6, atol=0, err_msg=k)
+    n_r, n_p = (t.model.state_dict()["model.0.conv.bn.num_batches_tracked"]
+                for t in (ts_r, ts_p))
+    assert int(n_r) == int(n_p) == 1 + 4  # init's statistics pass, 2 x (det + seg)
+
+
+def test_autobalance_matches_jax():
+    """DetectionLoss(autobalance=True): the per-level objectness weights in
+    and out, renormalised by the stride-16 level, equal the JAX loss's."""
+    from multiyolov5_tpu.train.losses import DetectionLoss as JaxLoss
+    from multiyolov5_tpu_torch.train.losses import DetectionLoss as PortLoss
+    rng = np.random.RandomState(3)
+    anchors = np.asarray(TINY["anchors"], np.float32).reshape(3, 3, 2) \
+        / np.array([8, 16, 32], np.float32)[:, None, None]
+    preds = [rng.randn(2, 3, s, s, 8).astype(np.float32) for s in (8, 4, 2)]
+    _, tgts, tmask, _, _ = _batch(9)
+    bal = np.array([4.0, 1.0, 0.4], np.float32)
+    kw = dict(nc=3, na=3, anchors=anchors, strides=[8, 16, 32], hyp=HYP, autobalance=True)
+    jl, ji, jb = JaxLoss(**kw)([jnp.asarray(p) for p in preds], jnp.asarray(tgts),
+                               jnp.asarray(tmask), balance=jnp.asarray(bal))
+    pl, pi, pb = PortLoss(**kw)([torch.from_numpy(p) for p in preds], torch.from_numpy(tgts),
+                                torch.from_numpy(tmask), balance=torch.from_numpy(bal))
+    assert PortLoss(**kw).ssi == 1
+    np.testing.assert_allclose(pb.numpy(), np.asarray(jb), rtol=1e-5)
+    assert pb[1].item() == 1.0
+    np.testing.assert_allclose(pl.item(), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(pi.numpy(), np.asarray(ji), rtol=1e-5)
