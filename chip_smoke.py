@@ -86,6 +86,21 @@ unless named), on the card and, for reference, on the CPU:
   --remat --seg-loss ohem``, where K6 must not launch; the item host ms,
   the step ms, the epoch walls and one step's peak memory with and
   without remat.
+* parallelism [15]: two ranks share the card over gloo (spawned
+  processes, ``parallel/mesh.py``).  (a) the data-parallel step at [7]'s
+  geometry (global batch 8, float32, TF32 off): K6 forward and backward
+  once a step on each rank, held on each rank's arguments with the global
+  D against its plain version; both ranks' states bitwise equal; losses
+  and every tensor's change against the one-process step under [7]'s
+  card-vs-CPU bounds; the same step at world 1 over NCCL.  (b)
+  ``spatial_forward`` at n_model 2 (bs2 512x1024) against the one-process
+  forward.  (c) the dp1 x sp2 step (no K6) against the one-process step.
+  (d) ``cli.train.main`` with ``--num-processes 2`` and then
+  ``--model-parallel 2`` (a TCP rendezvous on localhost): one run
+  directory, rank 0's, whose checkpoint ``Engine`` serves.  (e)
+  ``save_sharded`` by both ranks, ``load_sharded`` by both and by one
+  process, bitwise.  Readings: ms a step and a frame beside one process,
+  and each collective's calls, bytes and ms in one step.
 
 It checks that every kernel ran on its path, holds each kernel against its
 plain version on the arguments its path gave it, and times the paths and
@@ -3081,11 +3096,13 @@ def _phase_families(eng32, frames):
     return res
 
 
-def train_batch(rng, bs: int, nc: int, nseg: int):
+def train_batch(rng, bs: int, nc: int, nseg: int, det_hw=None, seg_hw=None):
     """bench.py:74-84's batch: uint8 det images with 20 targets each, padded
-    to TRAIN_MAX_T; float seg images in [0, 1]; int64 labels in [-1, nseg)."""
+    to TRAIN_MAX_T; float seg images in [0, 1]; int64 labels in [-1, nseg);
+    at TRAIN_DET_HW / TRAIN_SEG_HW unless given."""
     from multiyolov5_tpu_torch.train.losses import pad_targets
-    imgs = (rng.rand(bs, *TRAIN_DET_HW, 3) * 255).astype(np.uint8)
+    det_hw, seg_hw = det_hw or TRAIN_DET_HW, seg_hw or TRAIN_SEG_HW
+    imgs = (rng.rand(bs, *det_hw, 3) * 255).astype(np.uint8)
     labels = []
     for _ in range(bs):
         lab = np.zeros((TRAIN_TARGETS, 5), np.float32)
@@ -3094,8 +3111,8 @@ def train_batch(rng, bs: int, nc: int, nseg: int):
         lab[:, 3:5] = rng.rand(TRAIN_TARGETS, 2) * 0.2 + 0.05
         labels.append(lab)
     tgts, mask = pad_targets(labels, TRAIN_MAX_T)
-    seg_imgs = rng.rand(bs, *TRAIN_SEG_HW, 3).astype(np.float32)
-    seg_lbls = rng.randint(-1, nseg, (bs, *TRAIN_SEG_HW))
+    seg_imgs = rng.rand(bs, *seg_hw, 3).astype(np.float32)
+    seg_lbls = rng.randint(-1, nseg, (bs, *seg_hw))
     return imgs, tgts, mask, seg_imgs, seg_lbls
 
 
@@ -3242,8 +3259,8 @@ def phase_train():
         ts, step = train_state(spec, sd, dt, DEVICE, TRAIN_BS)
         rec[name] = []
         K.reset_launches()
-        with spied(T, "seg_ce", before=lambda z, y, w=None, store=rec[name]: store.append(
-                (z.detach().clone(), y.clone(), w))):
+        with spied(T, "seg_ce", before=lambda z, y, w=None, group=None, store=rec[name]:
+                   store.append((z.detach().clone(), y.clone(), w))):
             ts, m = step(ts, *batch, *args)
         torch.cuda.synchronize()
         counts = K.launch_counts()
@@ -3458,7 +3475,7 @@ class TcSteps:
             t0 = time.perf_counter()
             if self.first is None:
                 rec = []
-                with spied(T, "seg_ce", before=lambda z, y, w=None: rec.append(
+                with spied(T, "seg_ce", before=lambda z, y, w=None, group=None: rec.append(
                         (z.detach().clone(), y.clone(), w))):
                     out = step(*args, **kwargs)
                 self.first = rec[0] if rec else None
@@ -3771,6 +3788,431 @@ def phase_train_cli(card: str):
     return res
 
 
+# [15] parallelism: two ranks share the one card over gloo (NCCL refuses two
+# ranks on one device), at [7]'s geometry; the spatial forward at 512x1024
+PAR_WORLD = 2
+PAR_SPATIAL_BS, PAR_SPATIAL_HW = 2, (512, 1024)
+PAR_REPS = 2
+# the spatial forward against the one-process forward, both float32 on the
+# card: rtol 1e-4 as the JAX package's own test (tests/test_spatial.py:110-111)
+# with an absolute term of 1e-4 of the output's scale.  That test's 1e-5
+# absolute holds the JAX package against itself at its init's small
+# outputs; here the shards' convolutions run at other shapes (cuDNN picks
+# its algorithms a shape), and on the CPU at the test weights the port's
+# sharded forward was 4.9e-5 off its unsharded one at a logit scale of 10.6
+# (tests/test_torch_parallel_spatial.py)
+SPATIAL_RTOL, SPATIAL_ATOL_OF_SCALE = 1e-4, 1e-4
+# the training CLI under [15]: one epoch of two steps (16 frames, batch 8)
+# and rank 0's seg eval (--noval: [14] holds the detection eval); 1024
+# keeps every H shard of the det image and the seg crop (1024 x 512) a
+# multiple of the stride 32 under --model-parallel 2
+PAR_CLI_IMG = 1024
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def par_state(spec, sd, device, bs, mesh=None):
+    """A float32 train state and step (hyp scratch) of ``sd``, over ``mesh``."""
+    from multiyolov5_tpu_torch.data.hyps import load_hyp
+    from multiyolov5_tpu_torch.train import trainer as T
+    cfg = T.TrainConfig(hyp=load_hyp("scratch"), batch_size=bs, compute_dtype=torch.float32)
+    ts, groups = T.create_train_state(spec, cfg, state_dict=sd, device=device)
+    return ts, T.make_train_step(spec, cfg, groups, mesh=mesh)
+
+
+def _host(tree):
+    return {k: v.detach().cpu().clone() for k, v in tree.items()}
+
+
+def _timed_steps(ts, step, batch, args, device) -> list:
+    """Host ms of PAR_REPS synchronised steps (each updates the state)."""
+    out = []
+    for _ in range(PAR_REPS):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(ts, *batch, *args)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+@contextlib.contextmanager
+def collective_meter(device):
+    """Count the bytes each collective of parallel/comm.py sends (its
+    input) and its host ms (synchronised before and after), for the duration."""
+    from multiyolov5_tpu_torch.parallel import comm
+    rec = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
+
+    def meter(kind, real):
+        def run(self, t, *a):
+            if self.size == 1:
+                return real(self, t, *a)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(self, t, *a)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            r = rec[kind]
+            r[0] += 1
+            r[1] += t.numel() * t.element_size()
+            r[2] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    with replaced(comm.Group, "all_reduce_", meter("all_reduce", comm.Group.all_reduce_)), \
+            replaced(comm.Group, "all_gather_raw", meter("all_gather",
+                                                         comm.Group.all_gather_raw)):
+        yield rec
+
+
+def par_rank(rank: int, world: int, store: str, device: str, geo: dict, out: str) -> None:
+    """One rank of [15]: (a) the data-parallel step with K6 and its global
+    D held on this rank's arguments, (e) the sharded checkpoint of its
+    state, (c) the dp1 x sp2 step, (b) the spatial forward; readings.
+    Saves its results under ``out``."""
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import Model, seeded_state_dict
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.parallel.mesh import (initialize_distributed, make_mesh,
+                                                     shard_train_batch)
+    from multiyolov5_tpu_torch.parallel.spatial import spatial_forward
+    from multiyolov5_tpu_torch.train import trainer as T
+    from multiyolov5_tpu_torch.utils.checkpoint import load_sharded, save_sharded
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    initialize_distributed(f"file://{store}", world, rank, device=device)
+    res = {"backend": torch.distributed.get_backend()}
+    spec = load_spec(geo["cfg"])
+    sd = seeded_state_dict(spec, SEED)
+    host = train_batch(np.random.RandomState(SEED + 9), geo["bs"], spec.nc, spec.n_segcls,
+                       geo["det_hw"], geo["seg_hw"])
+    args = (*TRAIN_STEP_ARGS, True)
+
+    # (a) the data-parallel step: K6 once forward, once backward on this rank
+    mesh = make_mesh(world, 1)
+    batch = tuple(torch.as_tensor(a).to(device) for a in shard_train_batch(mesh, host))
+    ts, step = par_state(spec, sd, device, geo["bs"], mesh)
+    rec = []
+    K.reset_launches()
+    with spied(T, "seg_ce", before=lambda z, y, w=None, group=None: rec.append(
+            (z.detach().clone(), y.clone(), w, group))):
+        ts, m = step(ts, *batch, *args)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    res["launches"] = K.launch_counts()
+    res["metrics"] = {k: v.cpu() for k, v in m.items()}
+    res["dp"] = {"state": _host(ts.state_dict()), "ema": _host(ts.ema),
+                 "momentum": _host(ts.opt["momentum"]), "updates": ts.updates}
+    # K6 with the global D against its plain version on this rank's arguments
+    z, y, w, group = rec[0]
+    upstream = geo["bs"] * T.TrainConfig(hyp={}).seggain
+    k6 = []
+    for fn in (K.seg_ce, K.seg_ce_plain):
+        zz = z.detach().clone().requires_grad_(True)
+        loss = fn(zz, y, w, group=group)
+        (loss * upstream).backward()
+        k6.append((loss.detach().float().cpu(), zz.grad.float()))
+    (lk, gk), (lp, gp) = k6
+    dz = (gk - gp).abs().max().item()
+    res["k6"] = {"z": tuple(z.shape), "loss_rel": abs(lk.item() - lp.item()) / abs(lp.item()),
+                 "dz_max_abs": dz, "dz_rel": dz / gp.abs().max().item(),
+                 "group": group.size if group is not None else 1}
+    # (e) the state through save_sharded / load_sharded, every rank
+    tree = {"state": res["dp"]["state"], "ema": res["dp"]["ema"],
+            "momentum": res["dp"]["momentum"], "updates": ts.updates}
+    save_sharded(geo["ckpt"], tree)
+    back = load_sharded(geo["ckpt"])
+    res["ckpt_diff"] = sum(int(not torch.equal(back[p][k], tree[p][k]))
+                           for p in ("state", "ema", "momentum") for k in tree[p]) \
+        + int(back["updates"] != tree["updates"])
+    # readings: ms a step, then one step's collectives
+    res["dp_step_ms"] = _timed_steps(ts, step, batch, args, device)
+    with collective_meter(device) as meter:
+        step(ts, *batch, *args)
+    res["dp_collectives"] = meter
+    del ts, step, rec, k6
+
+    # (c) the dp1 x sp2 step on the same global batch: H over the two ranks
+    mesh = make_mesh(1, world)
+    batch = tuple(torch.as_tensor(a).to(device) for a in shard_train_batch(mesh, host))
+    ts, step = par_state(spec, sd, device, geo["bs"], mesh)
+    K.reset_launches()
+    ts, m = step(ts, *batch, *args)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    res["sp_launches"] = K.launch_counts()
+    res["sp_metrics"] = {k: v.cpu() for k, v in m.items()}
+    res["sp"] = {"state": _host(ts.state_dict()), "ema": _host(ts.ema),
+                 "momentum": _host(ts.opt["momentum"]), "updates": ts.updates}
+    res["sp_step_ms"] = _timed_steps(ts, step, batch, args, device)
+    with collective_meter(device) as meter:
+        step(ts, *batch, *args)
+    res["sp_collectives"] = meter
+    del ts, step
+
+    # (b) the spatial forward (float32) of the seeded frames, H over the ranks
+    model = Model(spec)
+    model.load_state_dict(sd, strict=False)
+    fn = spatial_forward(model.to(device), mesh, compute_dtype=torch.float32)
+    frames = (np.random.RandomState(SEED + 51).rand(PAR_SPATIAL_BS, *geo["spatial_hw"], 3)
+              * 255).astype(np.uint8)
+    det, seg = fn(frames)
+    res["spatial"] = {"det": det.cpu(), "seg": seg.cpu()}
+    res["spatial_ms"] = []
+    for _ in range(PAR_REPS):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(frames)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        res["spatial_ms"].append((time.perf_counter() - t0) * 1e3)
+    with collective_meter(device) as meter:
+        fn(frames)
+    res["spatial_collectives"] = meter
+    torch.distributed.destroy_process_group()
+    torch.save(res, os.path.join(out, f"{rank}.pt"))
+
+
+def par_cli_rank(rank: int, world: int, argv, out: str) -> None:
+    """One rank of [15]'s training CLI run."""
+    from multiyolov5_tpu_torch.cli import train as cli
+    res = quiet(cli.main, argv + ["--num-processes", str(world), "--process-id", str(rank)])
+    torch.save(res, os.path.join(out, f"cli{rank}.pt"))
+
+
+def spawn(fn, world: int, args, timeout_s: float = 600.0) -> None:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes, joined;
+    a rank's failure raises here."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(world, *args), nprocs=world, join=False,
+                             start_method="spawn")
+    t0 = time.perf_counter()
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > timeout_s:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"{fn.__name__}: ranks still running after {timeout_s} s")
+
+
+def _held_step(what, r, ref, init, metrics, ref_metrics):
+    """A rank's step state and metrics against the one-process step's."""
+    for k in ("total", "seg_loss", "det_items"):
+        check(f"{what}: {k} max|diff|/|one process|",
+              ((metrics[k] - ref_metrics[k]).abs() / ref_metrics[k].abs()).max().item(),
+              TRAIN_LOSS_REL)
+    worst = {}
+    for part, ref_part, base in (("state", ref["state"], init), ("ema", ref["ema"], init),
+                                 ("momentum", ref["momentum"],
+                                  {k: torch.zeros_like(v) for k, v in ref["momentum"].items()})):
+        bad, worst[part], _ = change_errors(r[part], ref_part, base)
+        check(f"{what}: {part} tensors off their change bound", len(bad), 0)
+    return worst
+
+
+def phase_parallel(card: str):
+    """[15] parallelism on the card: (a) the data-parallel step over two
+    ranks sharing the card (gloo), K6 held on each rank's arguments with
+    the global D, against the one-process step, and the same step at world
+    1 over NCCL; (b) the spatial forward at n_model 2 against the
+    one-process forward; (c) the dp1 x sp2 step; (d) cli.train.main with
+    --num-processes 2, then --model-parallel 2; (e) the sharded checkpoint
+    round trip; readings of ms a step and a frame, and of the collectives."""
+    from multiyolov5_tpu_torch.engine import Engine
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import Model, seeded_state_dict
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.parallel.mesh import make_mesh
+    from multiyolov5_tpu_torch.parallel.spatial import spatial_forward
+    from multiyolov5_tpu_torch.utils.checkpoint import load_npz, load_sharded
+    log(f"[15] parallelism: {CFG} seed {SEED} float32 (TF32 off), {PAR_WORLD} ranks sharing "
+        f"the card over gloo; steps at det bs{TRAIN_BS} {TRAIN_DET_HW} + seg bs{TRAIN_BS} "
+        f"{TRAIN_SEG_HW} (global batch), the spatial forward at bs{PAR_SPATIAL_BS} "
+        f"{PAR_SPATIAL_HW}")
+    work = os.path.join(ROOT, "build", "chip_smoke_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    geo = {"cfg": CFG, "bs": TRAIN_BS, "det_hw": TRAIN_DET_HW, "seg_hw": TRAIN_SEG_HW,
+           "spatial_hw": PAR_SPATIAL_HW, "ckpt": os.path.join(work, "sharded")}
+    t0 = time.perf_counter()
+    spawn(par_rank, PAR_WORLD, (os.path.join(work, "store"), DEVICE, geo, work))
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"{r}.pt"), weights_only=False)
+             for r in range(PAR_WORLD)]
+    log(f"  {PAR_WORLD} ranks over {ranks[0]['backend']} ran (a), (e), (c), (b) in "
+        f"{wall:.1f} s (spawn and CUDA init included)")
+    res = {"card": card, "ranks_wall_s": wall, "backend": ranks[0]["backend"]}
+
+    # the one-process references on the card: the step on the global batch
+    spec = load_spec(CFG)
+    sd = seeded_state_dict(spec, SEED)
+    init = {k: v.float() for k, v in sd.items()}
+    host = train_batch(np.random.RandomState(SEED + 9), TRAIN_BS, spec.nc, spec.n_segcls)
+    batch = tuple(torch.as_tensor(a).to(DEVICE) for a in host)
+    args = (*TRAIN_STEP_ARGS, True)
+    ts, step = par_state(spec, sd, DEVICE, TRAIN_BS)
+    ts, m1 = step(ts, *batch, *args)
+    ref = {"state": _host(ts.state_dict()), "ema": _host(ts.ema),
+           "momentum": _host(ts.opt["momentum"])}
+    ref_metrics = {k: v.cpu() for k, v in m1.items()}
+    one_ms = _timed_steps(ts, step, batch, args, DEVICE)
+    del ts, step
+
+    # (a) the data-parallel step
+    for r, q in enumerate(ranks):
+        c = q["launches"]
+        log(f"  (a) rank {r}: total {q['metrics']['total'].item():.6f} (one process "
+            f"{ref_metrics['total'].item():.6f}); launches {c}")
+        if DEVICE == "cuda" and (c["seg_ce"], c["seg_ce_bwd"]) != (1, 1):
+            raise AssertionError(f"(a) rank {r}: K6 forward/backward launched "
+                                 f"{c['seg_ce']}/{c['seg_ce_bwd']} times, not once each")
+        k6 = q["k6"]
+        log(f"  (a) rank {r}: seg_ce with the global D (over {k6['group']} ranks) on its "
+            f"{k6['z']} logits: loss |diff| {k6['loss_rel']:.3e} relative, dz max|diff| "
+            f"{k6['dz_max_abs']:.3e}")
+        check(f"(a) rank {r} seg_ce (global D) loss |diff|/|plain|", k6["loss_rel"],
+              SEG_CE_LOSS_REL)
+        check(f"(a) rank {r} seg_ce (global D) dz max|diff|/max|plain dz|", k6["dz_rel"],
+              SEG_CE_DZ_REL[torch.float32])
+    diff = sum(int(not torch.equal(ranks[0]["dp"][p][k], ranks[1]["dp"][p][k]))
+               for p in ("state", "ema", "momentum") for k in ranks[0]["dp"][p])
+    check("(a) the ranks' states: tensors not bitwise equal", diff, 0)
+    worst = _held_step("(a) dp2 vs one process", ranks[0]["dp"], ref, init,
+                       ranks[0]["metrics"], ref_metrics)
+    res["a"] = {"launches": [q["launches"] for q in ranks], "k6": [q["k6"] for q in ranks],
+                "worst_change_rel": worst, "total": ranks[0]["metrics"]["total"].item(),
+                "one_process_total": ref_metrics["total"].item()}
+
+    # (a) again at world 1 over NCCL, the CLI's backend for a card a rank
+    if DEVICE == "cuda":
+        torch.distributed.init_process_group("nccl", init_method=f"file://{work}/nccl",
+                                             world_size=1, rank=0,
+                                             device_id=torch.device(DEVICE, 0))
+        try:
+            mesh = make_mesh()
+            ts, step = par_state(spec, sd, DEVICE, TRAIN_BS, mesh)
+            ts, mn = step(ts, *batch, *args)
+            got = {"state": _host(ts.state_dict()), "ema": _host(ts.ema),
+                   "momentum": _host(ts.opt["momentum"])}
+            backend = torch.distributed.get_backend()
+            del ts, step
+        finally:
+            torch.distributed.destroy_process_group()
+        log(f"  (a) world 1 over {backend}: total {mn['total'].item():.6f}")
+        res["a"]["nccl_worst_change_rel"] = _held_step(
+            "(a) world 1 over NCCL vs one process", got, ref, init,
+            {k: v.cpu() for k, v in mn.items()}, ref_metrics)
+
+    # (e) the sharded checkpoint: written by both ranks, read by both and by this process
+    back = load_sharded(geo["ckpt"])
+    diff = sum(int(not torch.equal(back[p][k], ranks[0]["dp"][p][k]))
+               for p in ("state", "ema", "momentum") for k in ranks[0]["dp"][p])
+    check("(e) save_sharded -> load_sharded: entries not bitwise equal (ranks, then one "
+          "process)", sum(q["ckpt_diff"] for q in ranks) + diff, 0)
+
+    # (c) the dp1 x sp2 step: no K6 (the plain seg loss under a model axis)
+    c = ranks[0]["sp_launches"]
+    check("(c) dp1 x sp2 step: K6 launches", c["seg_ce"] + c["seg_ce_bwd"], 0)
+    diff = sum(int(not torch.equal(ranks[0]["sp"][p][k], ranks[1]["sp"][p][k]))
+               for p in ("state", "ema", "momentum") for k in ranks[0]["sp"][p])
+    check("(c) the ranks' states: tensors not bitwise equal", diff, 0)
+    res["c"] = {"worst_change_rel": _held_step("(c) dp1 x sp2 vs one process", ranks[0]["sp"],
+                                               ref, init, ranks[0]["sp_metrics"], ref_metrics)}
+
+    # (b) the spatial forward against the one-process Model(kernels=False) forward
+    model = Model(spec)
+    model.load_state_dict(sd, strict=False)
+    fn = spatial_forward(model.to(DEVICE), make_mesh(), compute_dtype=torch.float32)
+    frames = (np.random.RandomState(SEED + 51).rand(PAR_SPATIAL_BS, *PAR_SPATIAL_HW, 3)
+              * 255).astype(np.uint8)
+    z, seg = (t.cpu() for t in fn(frames))
+    spatial_one_ms = []
+    for _ in range(PAR_REPS):
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(frames)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        spatial_one_ms.append((time.perf_counter() - t0) * 1e3)
+    res["b"] = {}
+    for r, q in enumerate(ranks):
+        for name, got, want in (("boxes", q["spatial"]["det"][:, :4], z[:, :4]),
+                                ("obj/cls", q["spatial"]["det"][:, 4:], z[:, 4:]),
+                                ("seg logits", q["spatial"]["seg"], seg)):
+            scale = want.abs().max().item()
+            excess = ((got - want).abs() - SPATIAL_RTOL * want.abs()).max().item()
+            check(f"(b) rank {r} spatial {name}: max(|diff| - {SPATIAL_RTOL:g} |one process|) "
+                  f"/ scale {scale:.3g}", max(excess, 0.0) / scale, SPATIAL_ATOL_OF_SCALE)
+            res["b"][f"{name} rank {r}"] = {"max_abs": (got - want).abs().max().item(),
+                                           "scale": scale}
+    del model, fn
+
+    # (d) the training CLI as two ranks: --num-processes 2, then --model-parallel 2
+    data_path = tc_tree(os.path.join(work, "tree"), np.random.RandomState(SEED + 61), spec.nc)
+    res["d"] = {}
+    frame = (np.random.RandomState(SEED + 63).rand(*IN_HW, 3) * 255).astype(np.uint8)
+    for name, extra in (("dp2", []), ("dp1_sp2", ["--model-parallel", str(PAR_WORLD)])):
+        argv = ["--data", data_path, "--cfg", CFG, "--img-size", str(PAR_CLI_IMG),
+                str(PAR_CLI_IMG), "--batch-size", str(TC_BS), "--epochs", "1", "--noval",
+                "--seg-eval-interval", "1", "--workers", str(TC_WORKERS), "--seed", str(SEED),
+                "--no-tb", "--project", os.path.join(work, "runs"), "--name", name,
+                "--coordinator", f"localhost:{_free_port()}",
+                "--device", "" if DEVICE == "cuda" else DEVICE, *extra]
+        t0 = time.perf_counter()
+        spawn(par_cli_rank, PAR_WORLD, (argv, work))
+        wall = time.perf_counter() - t0
+        runs = [torch.load(os.path.join(work, f"cli{r}.pt"), weights_only=False)[0]
+                for r in range(PAR_WORLD)]
+        made = sorted(os.listdir(os.path.join(work, "runs")))
+        if len(set(runs)) != 1 or made.count(name) != 1 or any(
+                m.startswith(name) and m != name for m in made):
+            raise AssertionError(f"(d) {name}: the ranks' run directories {runs}, made {made}")
+        rows = tc_results(runs[0], 1)
+        path = os.path.join(runs[0], "weights", "last.npz")
+        if load_npz(path).get("opt") is not None:
+            raise AssertionError(f"(d) {name}: last.npz is not stripped")
+        dets, masks = Engine(path, device=DEVICE, half=True)(frame, ORIG_HW, conf=CONF)
+        if not (np.isfinite(dets[0]).all() and masks[0].shape == ORIG_HW):
+            raise AssertionError(f"(d) {name}: rank 0's checkpoint does not serve")
+        log(f"  (d) cli.train.main --num-processes {PAR_WORLD} {' '.join(extra)}: one run "
+            f"directory (rank 0's), results.txt {rows[0, 1:6].tolist()}, last.npz stripped "
+            f"and served ({len(dets[0])} detections); {wall:.1f} s with the spawn")
+        res["d"][name] = {"results": rows.tolist(), "wall_s": wall}
+
+    # readings: no speed-up is expected, the ranks share one card's SMs
+    def med(v):
+        return float(np.median(v))
+    res["readings"] = {
+        "one_process_step_ms": med(one_ms), "dp2_step_ms": med(ranks[0]["dp_step_ms"]),
+        "dp1_sp2_step_ms": med(ranks[0]["sp_step_ms"]),
+        "one_process_spatial_ms_a_frame": med(spatial_one_ms) / PAR_SPATIAL_BS,
+        "sp2_spatial_ms_a_frame": med(ranks[0]["spatial_ms"]) / PAR_SPATIAL_BS,
+        "collectives": {k: ranks[0][f"{k}_collectives"] for k in ("dp", "sp", "spatial")}}
+    rd = res["readings"]
+    log(f"  on {card}: one-process step {rd['one_process_step_ms']:.1f} ms, dp2 step "
+        f"{rd['dp2_step_ms']:.1f} ms, dp1 x sp2 step {rd['dp1_sp2_step_ms']:.1f} ms (median of "
+        f"{PAR_REPS}, host clock, synchronised); spatial forward "
+        f"{rd['sp2_spatial_ms_a_frame']:.2f} ms a frame at n_model {PAR_WORLD}, one process "
+        f"{rd['one_process_spatial_ms_a_frame']:.2f}")
+    for k, v in rd["collectives"].items():
+        log(f"  {k} collectives on rank 0 (one step or forward, each synchronised): "
+            + "; ".join(f"{kind} {n} calls, {b / 2**20:.2f} MiB, {ms:.1f} ms"
+                        for kind, (n, b, ms) in v.items()))
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -3810,6 +4252,7 @@ def main() -> int:
     del eng32, eng16, cpu_eng
     tr = phase_train()
     tc = phase_train_cli(smi)
+    par = phase_parallel(smi)
     k6 = tr["k6_times"]["bf16"]
     train_counts = tr["launches"]["bf16"]
     launches["seg_ce"] = train_counts["seg_ce"] + train_counts["seg_ce_bwd"]
@@ -3877,7 +4320,10 @@ def main() -> int:
     kk = {k["name"]: k for k in kernels}
     kk["seg_ce"].update(fwd_ms=k6["fwd_ms"], bwd_ms=k6["bwd_ms"],
                         fwd_launches=train_counts["seg_ce"],
-                        bwd_launches=train_counts["seg_ce_bwd"], plan=tr["k6"]["bf16"]["plan"])
+                        bwd_launches=train_counts["seg_ce_bwd"], plan=tr["k6"]["bf16"]["plan"],
+                        # [15] (a): forward + backward on each rank of the 2-rank step
+                        dp_launches=[c["seg_ce"] + c["seg_ce_bwd"] for c in par["a"]["launches"]],
+                        dp_max_abs_err=max(q["dz_max_abs"] for q in par["a"]["k6"]))
     # the float32 form (3xTF32) beside the CUDA cores' float32 bound
     kk["stem_float"].update(cuda_core_bound_ms=sf["cuda_core_bound_ms"])
     # K2's float32 form (3xTF32), summed over eval's 10 bs4 sites
@@ -3929,7 +4375,8 @@ def main() -> int:
                    "eval_candidates_per_image": eval_n,
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
                    "serving_bs8": sv, "families": fam, "app": app, "eval_cli": cli,
-                   "hub": hb, "profile_export": pe, "train_cli": tc}, fh, indent=1)
+                   "hub": hb, "profile_export": pe, "train_cli": tc, "parallel": par}, fh,
+                  indent=1)
     print(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -27,12 +27,21 @@ The step's dropout (the Base and BiSe heads) draws from a
 splits its rng key each step; the loaders draw from generators derived
 from ``--seed``, the epoch and the position, so a run is reproducible.
 
+Parallelism (parallel/mesh.py): ``--num-processes N --process-id R
+--coordinator host:port`` runs one process a rank, started once per rank
+(NCCL when every rank has a card of its own, gloo on the CPU and where
+ranks share a card); ``--model-parallel M`` makes the mesh (N / M, M),
+the image H axis split over M ranks (dp x sp).  Batch sizes round up to
+the data axis as the JAX CLI's do, the loaders are shard-local (each data
+index loads its slice; a model group's ranks take their H rows of it),
+the step is the global-batch step (train/trainer.py), and rank 0 alone
+evaluates and writes ``results.txt``, the checkpoints and the run files.
+``--sync-bn`` is the JAX no-op: the global-batch BN is always on.
+
 Not here: ``--no-pack-stem`` is accepted (the packed stem is TPU layout
-work); ``--sync-bn`` is the JAX no-op; ``--num-processes`` > 1 and
-``--model-parallel`` > 1 raise ``NotImplementedError`` (ROADMAP.md,
-parallelism); so do the wandb artifact options (``--upload-dataset``,
+work); the wandb artifact options (``--upload-dataset``,
 ``--bbox-interval``, ``--save-period``, a ``wandb-artifact://`` resume):
-the card's machine has no wandb.  TensorBoard writes through
+they raise, the card's machine has no wandb.  TensorBoard writes through
 ``torch.utils.tensorboard`` where it imports; the matplotlib plots
 (labels, first batches, results, evolution) are skipped, each with one
 printed line.
@@ -61,6 +70,8 @@ from ..engine import Engine
 from ..evaluation import evaluate_detection, seg_validation
 from ..models.config import load_spec
 from ..models.model import Model, init_model
+from ..parallel.mesh import (host_barrier, initialize_distributed, local_rows, make_mesh,
+                             rank_device, replicate, round_batch_for_devices, world_size)
 from ..train.optim import WarmupCosine
 from ..train.trainer import (TrainConfig, checkpoint_tree, create_train_state,
                              make_train_step)
@@ -72,7 +83,6 @@ from ..utils.loggers import WandbLogger, check_wandb_resume
 from ..utils.metrics import fitness2
 from .detect import select_device
 
-PARALLEL = "ROADMAP.md, parallelism: the port trains on one device"
 NO_WANDB = "needs wandb, which the port does not use"
 
 
@@ -93,8 +103,6 @@ def _skip_plot(what: str) -> None:
 
 def _check_options(opt) -> None:
     """Raise up front on what the port does not have."""
-    if (opt.num_processes or 0) > 1 or opt.model_parallel > 1:
-        raise NotImplementedError(f"--num-processes / --model-parallel: {PARALLEL}")
     if check_wandb_resume(opt):
         raise NotImplementedError(f"--resume wandb-artifact://: {NO_WANDB}")
     if opt.upload_dataset or opt.bbox_interval != -1 or opt.save_period != -1:
@@ -148,20 +156,50 @@ def _restore(ts, tree, device) -> None:
         ts.updates = int(tree["updates"])
 
 
+def _rank0_path(path: str, rank: int) -> str:
+    """Rank 0's value of ``path`` on every rank."""
+    if world_size() == 1:
+        return path
+    obj = [path if rank == 0 else None]
+    torch.distributed.broadcast_object_list(obj, src=0)
+    return obj[0]
+
+
 def train(opt):
+    """One training run; with ``--num-processes`` > 1, this rank's part of
+    it (every rank calls it).  Returns (save_dir, best fitness2)."""
     set_logging()
-    device = torch.device(select_device(opt.device))
+    n_proc = max(1, opt.num_processes or 0)
+    rank = opt.process_id if n_proc > 1 else 0
+    # rendezvous before any other use of the devices (reference train.py:619)
+    joined = n_proc > 1 and not torch.distributed.is_initialized()
+    initialize_distributed(opt.coordinator, n_proc, rank, device=select_device(opt.device))
+    try:
+        return _train(opt, rank)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(opt, rank: int):
+    world = world_size()
+    device = rank_device(select_device(opt.device), rank, world)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    main_rank = rank == 0
     hyp = load_hyp(opt.hyp)
     if opt.label_smoothing:
         hyp["label_smoothing"] = opt.label_smoothing
-    save_dir = Path(increment_path(Path(opt.project) / opt.name, exist_ok=opt.exist_ok))
+    save_dir = Path(_rank0_path(
+        increment_path(Path(opt.project) / opt.name, exist_ok=opt.exist_ok), rank))
     wdir = save_dir / "weights"
-    wdir.mkdir(parents=True, exist_ok=True)
     last, best = wdir / "last.npz", wdir / "best.npz"
-    with open(save_dir / "hyp.yaml", "w") as fh:      # JSON is YAML
-        json.dump(hyp, fh, indent=1)
-    with open(save_dir / "opt.yaml", "w") as fh:
-        json.dump(_opt_dict(opt), fh, indent=1)
+    if main_rank:
+        wdir.mkdir(parents=True, exist_ok=True)
+        with open(save_dir / "hyp.yaml", "w") as fh:      # JSON is YAML
+            json.dump(hyp, fh, indent=1)
+        with open(save_dir / "opt.yaml", "w") as fh:
+            json.dump(_opt_dict(opt), fh, indent=1)
     results_file = save_dir / "results.txt"
 
     data = read_yaml(opt.data)
@@ -204,21 +242,45 @@ def train(opt):
     imgsz = opt.img_size[0] if isinstance(opt.img_size, list) else opt.img_size
     gs = max(spec.strides)
     bs = opt.batch_size
+    # the mesh (JAX CLI :140-162): --model-parallel N splits the image H
+    # axis over N ranks, the rest is data parallel; batch sizes round UP to
+    # the data axis, never silently to one device
+    n_mp = max(1, opt.model_parallel)
+    if world % n_mp:
+        raise SystemExit(f"--model-parallel {n_mp} does not divide the {world} processes")
+    n_data = world // n_mp
+    mesh = make_mesh(n_data, n_mp) if world > 1 else None
+    if world > 1:
+        seg_bs0 = opt.seg_batch_size or bs
+        # --quad: collate_fn4 merges 4 loader images into one, so the
+        # collated det batch (bs/4) is what must divide the data axis
+        new_bs = (4 * round_batch_for_devices(-(-bs // 4), n_data)
+                  if opt.quad else round_batch_for_devices(bs, n_data))
+        new_seg = round_batch_for_devices(seg_bs0, n_data)
+        if (new_bs, new_seg) != (bs, seg_bs0) and main_rank:
+            print(f"NOTE: rounding batch sizes up for {n_data}-way data parallelism: "
+                  f"det {bs}->{new_bs}, seg {seg_bs0}->{new_seg}")
+        bs = new_bs
+        opt.seg_batch_size = new_seg
+    d_index = 0 if mesh is None else mesh.data_index
     # scale loss gains to detect layers / classes / image size (reference train.py:248-250)
     nl = spec.nl
     hyp["box"] *= 3.0 / nl
     hyp["cls"] *= nc / 80.0 * 3.0 / nl
     hyp["obj"] *= (imgsz / 640) ** 2 * 3.0 / nl
 
-    train_ds = DetectionDataset(data["train"], img_size=imgsz, batch_size=bs, augment=True,
+    # shard-local loaders: each data index loads its slice of every batch
+    # (DistributedSampler analog, reference utils/datasets.py:76)
+    bs_local = bs // n_data
+    train_ds = DetectionDataset(data["train"], img_size=imgsz, batch_size=bs_local, augment=True,
                                 hyp=hyp, rect=opt.rect, stride=gs, single_cls=opt.single_cls,
                                 cache_images=opt.cache_images,
                                 image_weights=opt.image_weights)
     if opt.quad:
         opt.max_targets *= 4    # collate_fn4 merges 4 images' labels into one item
-    train_loader = DetectionLoader(train_ds, batch_size=bs, max_targets=opt.max_targets,
+    train_loader = DetectionLoader(train_ds, batch_size=bs_local, max_targets=opt.max_targets,
                                    shuffle=True, workers=opt.workers, seed=opt.seed,
-                                   quad=opt.quad)
+                                   quad=opt.quad, shard=d_index, num_shards=n_data)
     nb = len(train_loader)
 
     seg_enabled = bool(data.get("segtrain")) and spec.seg_index is not None
@@ -226,8 +288,9 @@ def train(opt):
     seg_factory = {"citys": get_citys_loader, "citysbdd": get_citysbdd_loader,
                    "custom": get_custom_loader}[seg_kind]
     seg_kwargs = dict(root=data.get("segtrain"), split="train", mode="train",
-                      batch_size=opt.seg_batch_size or bs, workers=opt.workers,
-                      base_size=opt.base_size, seed=opt.seed)
+                      batch_size=(opt.seg_batch_size or bs) // n_data, workers=opt.workers,
+                      base_size=opt.base_size, seed=opt.seed, shard=d_index,
+                      num_shards=n_data)
     segval_kwargs = dict(root=data.get("segval"), split="val",
                          mode="val" if seg_kind == "citysbdd" else "testval",
                          batch_size=max(bs // 8, 1), workers=opt.workers,
@@ -240,7 +303,7 @@ def train(opt):
         seg_kwargs["crop_size"] = (imgsz, imgsz // 2)
         segval_kwargs["crop_size"] = (512, 512)
     seg_loader = seg_factory(**seg_kwargs) if seg_enabled else None
-    segval_loader = seg_factory(**segval_kwargs) if seg_enabled else None
+    segval_loader = seg_factory(**segval_kwargs) if seg_enabled and main_rank else None
     if seg_enabled and len(seg_loader) == 0:
         raise ValueError(f"{data['segtrain']}: fewer seg training images than one batch "
                          f"({seg_loader.bs})")
@@ -269,7 +332,14 @@ def train(opt):
     ts, groups = create_train_state(spec, cfg, seed=opt.seed, state_dict=sd, device=device)
     if resume_tree is not None:
         _restore(ts, resume_tree, device)
-    step = make_train_step(spec, cfg, groups)
+    if mesh is not None:
+        # rank 0's weights, optimizer state and EMA on every rank
+        replicate(mesh, [*ts.model.state_dict().values(), *ts.ema.values(),
+                         *[v for k, d in ts.opt.items() if k != "t" for v in d.values()]])
+        if main_rank:
+            print(f"data-parallel over {n_data} ranks"
+                  + (f" x spatial over {n_mp}" if n_mp > 1 else ""))
+    step = make_train_step(spec, cfg, groups, mesh=mesh)
 
     nbs = 64
     nw = max(round(hyp["warmup_epochs"] * nb), 800)
@@ -282,7 +352,7 @@ def train(opt):
                          momentum=hyp["momentum"], linear=opt.linear_lr)
 
     tb = None
-    if not opt.no_tb:
+    if not opt.no_tb and main_rank:
         try:
             from torch.utils.tensorboard import SummaryWriter
             tb = SummaryWriter(str(save_dir))
@@ -290,7 +360,7 @@ def train(opt):
             print("TensorBoard: off (torch.utils.tensorboard does not import)")
 
     val_loader = None       # the det val loader is shape-stable across epochs
-    if data.get("val") and not opt.noval:
+    if data.get("val") and not opt.noval and main_rank:
         val_ds = DetectionDataset(data["val"], img_size=opt.img_size_test, batch_size=bs,
                                   augment=False, rect=True, stride=gs, pad=0.5,
                                   single_cls=opt.single_cls)
@@ -333,13 +403,17 @@ def train(opt):
                     seg_imgs, seg_masks = next(seg_iter)
             else:
                 seg_imgs, seg_masks = dummy_seg
-            if len(imgs) == 1 or (seg_enabled and len(seg_imgs) == 1):
-                continue  # reference train.py:338 BN/SE batch-1 guard
+            if len(imgs) * n_data == 1 or (seg_enabled and len(seg_imgs) * n_data == 1):
+                continue  # reference train.py:338 BN/SE batch-1 guard (global batch)
             if opt.multi_scale:
                 # bucketed multi-scale (reference train.py:354-361), drawn from
-                # a seeded generator of its own
+                # a seeded generator of its own (the same on every rank); the
+                # sizes stay whole multiples of the stride on every H shard
                 sf = (0.5, 0.75, 1.0, 1.25, 1.5)[ms_rng.randint(5)]
-                imgs = multiscale_resize(imgs, sf, gs)
+                imgs = multiscale_resize(imgs, sf, gs * n_mp)
+            if n_mp > 1:        # this rank's H rows of its data slice
+                imgs, seg_imgs, seg_masks = (local_rows(mesh, a) for a in
+                                             (imgs, seg_imgs, seg_masks))
             ni = i + ni_base
             if ni < 3 and not opt.nosave and not plotted:
                 _skip_plot("first-batch mosaics (train_batch*.jpg)")
@@ -353,7 +427,7 @@ def train(opt):
                 else mloss_dev + metrics["det_items"]
             msegloss_dev = metrics["seg_loss"] if msegloss_dev is None \
                 else msegloss_dev + metrics["seg_loss"]
-            if i % opt.log_interval == 0:
+            if i % opt.log_interval == 0 and main_rank:
                 items = metrics["det_items"].cpu().numpy()
                 segl = float(metrics["seg_loss"]) / bs
                 print(f"epoch {epoch}/{opt.epochs - 1} it {i}/{nb} "
@@ -363,9 +437,10 @@ def train(opt):
             mloss = mloss_dev.cpu().numpy() / (i + 1)
             msegloss = float(msegloss_dev) / bs / (i + 1)
 
-        # --- eval of the EMA weights (reference train.py:430-453) ---
-        if (seg_enabled and (epoch % opt.seg_eval_interval == 0
-                             or epoch >= opt.epochs - opt.seg_eval_tail)) \
+        # --- eval of the EMA weights (reference train.py:430-453), on rank 0
+        # (reference rank-0 gating, train.py:430): the EMA is replicated ---
+        if (seg_enabled and main_rank and (epoch % opt.seg_eval_interval == 0
+                                           or epoch >= opt.epochs - opt.seg_eval_tail)) \
                 or val_loader is not None:
             eng = Engine(spec=spec, state_dict={k: v.detach().cpu() for k, v in ts.ema.items()},
                          device=device, half=False)
@@ -385,31 +460,37 @@ def train(opt):
         if tb is not None:
             for tag, val in zip(tags, vals):
                 tb.add_scalar(tag, float(val), epoch)
-        with open(results_file, "a") as fh:
-            fh.write(f"{epoch} " + " ".join(
-                f"{x:.5g}" for x in (*mloss, msegloss, *results[:4], miou, fi)) + "\n")
+        if main_rank:
+            with open(results_file, "a") as fh:
+                fh.write(f"{epoch} " + " ".join(
+                    f"{x:.5g}" for x in (*mloss, msegloss, *results[:4], miou, fi)) + "\n")
 
         # --- checkpoint (reference train.py:474-499: --nosave skips all but
         # the final epoch, and --evolve never saves mid-run) ---
         final_epoch = epoch == opt.epochs - 1
-        if (not opt.nosave) or (final_epoch and not getattr(opt, "evolve", False)):
+        if main_rank and ((not opt.nosave)
+                          or (final_epoch and not getattr(opt, "evolve", False))):
             ck = checkpoint_tree(ts, spec, epoch=epoch, best_fitness=max(best_fitness, fi))
             ckpt_lib.save_npz(str(last), ck)
             if fi > best_fitness:
                 ckpt_lib.save_npz(str(best), ck)
         best_fitness = max(best_fitness, fi)
-        print(f"epoch {epoch} done: fitness2 {fi:.4f} (best {best_fitness:.4f}) "
-              f"mIoU {miou:.4f}")
+        if main_rank:
+            print(f"epoch {epoch} done: fitness2 {fi:.4f} (best {best_fitness:.4f}) "
+                  f"mIoU {miou:.4f}")
 
-    for f in (last, best):      # finalize (reference strip_optimizer)
-        if f.exists():
-            ckpt_lib.strip_optimizer(str(f))
-    _skip_plot("results plot (results.png)")
+    if main_rank:
+        for f in (last, best):      # finalize (reference strip_optimizer)
+            if f.exists():
+                ckpt_lib.strip_optimizer(str(f))
+        _skip_plot("results plot (results.png)")
     if tb is not None:
         tb.close()
     wandb_logger.finish()
-    print(f"{opt.epochs - start_epoch} epochs completed in "
-          f"{(time.time() - t0) / 3600:.3f} hours. Results: {save_dir}")
+    host_barrier()          # rank 0's files are written before any rank returns
+    if main_rank:
+        print(f"{opt.epochs - start_epoch} epochs completed in "
+              f"{(time.time() - t0) / 3600:.3f} hours. Results: {save_dir}")
     return str(save_dir), best_fitness
 
 
@@ -491,18 +572,21 @@ def build_parser():
     p.add_argument("--adam", action="store_true")
     p.add_argument("--linear-lr", action="store_true")
     p.add_argument("--sync-bn", action="store_true",
-                   help="no-op: one device, its batch is the global batch")
+                   help="no-op: the global-batch BN is always on under data parallelism")
     p.add_argument("--quad", action="store_true",
                    help="quad dataloader: fold 4 images into one 2x-res "
                         "batch item (reference collate_fn4, loss x4)")
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="> 1 raises: spatial sharding is not ported")
+                   help="shard the image H axis over this many ranks "
+                        "(dp x sp; processes = data_parallel * model_parallel)")
+    # one process a rank (reference --local_rank/env:// DDP, train.py:585-621):
+    # start every rank with the same coordinator address
     p.add_argument("--coordinator", default=None,
-                   help="multi-host training is not ported")
+                   help="host:port of the rendezvous (or a file:// URL)")
     p.add_argument("--num-processes", type=int, default=0,
-                   help="> 1 raises: multi-host training is not ported")
-    p.add_argument("--process-id", type=int, default=0)
+                   help="total processes, one a rank (0/1 = one process)")
+    p.add_argument("--process-id", type=int, default=0, help="this process's rank")
     p.add_argument("--project", default="runs/train")
     p.add_argument("--name", default="exp")
     p.add_argument("--exist-ok", action="store_true")
@@ -550,7 +634,8 @@ def main(argv=None):
         if opt_yaml.is_file():
             saved = read_yaml(str(opt_yaml)) or {}
             for k, v in saved.items():
-                if hasattr(opt, k) and k not in ("resume", "weights", "exist_ok", "device"):
+                if hasattr(opt, k) and k not in ("resume", "weights", "exist_ok", "device",
+                                                 "process_id", "coordinator"):
                     setattr(opt, k, v)
         opt.weights = ckpt
         opt.resume = True

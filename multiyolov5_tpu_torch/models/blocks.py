@@ -7,7 +7,9 @@ or ``fused`` (BN folded into a biased conv, see ops/nn.fuse_conv_bn).  A
 block built with ``kernel=True`` runs its fused 3x3 convs through the K2
 kernel (ops/kernels/conv3x3.py); a fused C3 built with ``c3_kernel=True``
 runs whole through the K7 kernel (ops/kernels/c3.py) in eval mode at batch
-> 1; all other convs are ``F.conv2d``.
+> 1; all other convs are ``F.conv2d``.  Convs with vertical reach, pools
+and global means go through ops/shard.py, which a sharded forward
+(parallel/spatial.py) turns into halo exchanges and gathers.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import shard
 from ..ops.kernels import c3, conv3x3
 from ..ops.nn import BN_EPS, BN_MOMENTUM, autopad
 from ..ops.resize import adaptive_avg_pool_multi, max_pool_same, resize_bilinear, upsample_nearest
@@ -62,7 +65,7 @@ class Conv(nn.Module):
     def forward(self, x):
         if self.kernel:
             return conv3x3_k2(self.conv, x, True)
-        y = self.conv(x)
+        y = shard.conv2d(self.conv, x)
         if self.bn is not None:
             y = self.bn(y)
         return F.silu(y)
@@ -83,7 +86,7 @@ class ConvBN(nn.Module):
         conv, bn = getattr(self, "0"), getattr(self, "1")
         if self.kernel:
             return conv3x3_k2(conv, x, True)
-        y = conv(x)
+        y = shard.conv2d(conv, x)
         if bn is not None:
             y = bn(y)
         return F.silu(y)
@@ -221,7 +224,9 @@ def _global_branch(c1: int, c2: int, fused: bool) -> nn.Module:
 def _global_apply(branch: nn.Module, x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """The global branch on ``x``, broadcast to ``like``'s shape (the
     nearest upsample of a 1x1 map)."""
-    return getattr(branch, "1")(x.mean((2, 3), keepdim=True)).expand_as(like)
+    mean = shard.mean_hw(x)
+    with shard.whole():
+        return getattr(branch, "1")(mean).expand_as(like)
 
 
 class RFB2(nn.Module):
@@ -289,10 +294,10 @@ class PyramidPooling(nn.Module):
 
     def forward(self, x):
         hw = tuple(x.shape[-2:])
-        feats = [x]
-        for i, p in enumerate(adaptive_avg_pool_multi(x, self.k), start=1):
-            feats.append(resize_bilinear(getattr(self, f"conv{i}")(p), hw))
-        return torch.cat(feats, 1)
+        pools = adaptive_avg_pool_multi(x, self.k)
+        with shard.whole():          # the pooled maps: whole on every rank
+            ys = [getattr(self, f"conv{i}")(p) for i, p in enumerate(pools, start=1)]
+        return torch.cat([x] + [resize_bilinear(y, hw, whole=True) for y in ys], 1)
 
 
 class FFM(nn.Module):
@@ -310,7 +315,7 @@ class FFM(nn.Module):
 
     def forward(self, x):
         feat = self.convblk(x)
-        a = feat.mean((2, 3), keepdim=True)
+        a = shard.mean_hw(feat)
         a = F.silu(getattr(self.channel_attention, "1")(a))
         a = torch.sigmoid(getattr(self.channel_attention, "3")(a))
         return feat * a + feat

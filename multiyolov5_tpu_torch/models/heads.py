@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops import shard
 from ..ops.nn import Dropout
 from ..ops.resize import resize_bilinear
 from .blocks import ASPP, C3, C3SPP, FFM, RFB2, Conv, PyramidPooling
@@ -130,7 +131,8 @@ class SegMaskBase(nn.Module):
             nn.Conv2d(c_out, n_segcls, 3, 1, 1, bias=False))
 
     def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
-        return self.m(xs[0])
+        m = self.m
+        return shard.conv2d(m[3], m[2](m[1](m[0](xs[0]))))
 
 
 class SegMaskBiSe(nn.Module):

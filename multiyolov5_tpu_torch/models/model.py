@@ -104,18 +104,20 @@ class Model(nn.Module):
         return det, seg
 
     @contextlib.contextmanager
-    def dropout_rng(self, generator: Optional[torch.Generator]):
+    def dropout_rng(self, generator: Optional[torch.Generator], mesh=None):
         """For the duration, every dropout of the model (the Base and BiSe
         heads' ``ops/nn.Dropout``) draws its training-mode mask from
-        ``generator``; None drops nothing."""
+        ``generator``; None drops nothing.  With a ``mesh``
+        (parallel/mesh.py) the inputs are this rank's slices of the global
+        batch, and each dropout keeps its slice of the global mask."""
         mods = [m for m in self.modules() if isinstance(m, Dropout)]
         for m in mods:
-            m.generator = generator
+            m.generator, m.mesh = generator, mesh
         try:
             yield
         finally:
             for m in mods:
-                m.generator = None
+                m.generator = m.mesh = None
 
 
 def init_model(model: Model, generator: torch.Generator) -> Model:

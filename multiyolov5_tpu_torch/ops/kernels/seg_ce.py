@@ -10,6 +10,14 @@ logits channels last, (B, h, w, C) in memory, as the train step's seg head
 leaves them; the wrapper takes (B, C, h, w) of either layout and returns
 dz in z's.
 
+Data parallelism: with a ``group`` (parallel/comm.py) each rank holds a
+slice of the global batch and the loss is the global mean.  The forward
+kernel returns ``stats = (loss, D)`` and the backward kernel scales by
+``1 / stats[1]``, so the wrapper all-reduces ``D``, returns this rank's
+term ``loss * max(D, 1) / max(D_global, 1)`` and hands the backward a
+``stats`` whose ``[1]`` is ``D_global``: the kernels are unchanged.  The
+plain version divides by the same global denominator.
+
 :func:`plan` picks both launches' tiles, threads and shared memory on the
 host from the tap tables (:func:`tile_ranges` says which label pixels a
 tile walks, as the kernels compute it).
@@ -178,12 +186,13 @@ def _device_tables(h: int, w: int, H: int, W: int,
 
 
 def seg_ce_plain(z: torch.Tensor, y: torch.Tensor, weight: Optional[torch.Tensor] = None,
-                 ignore_index: int = -1) -> torch.Tensor:
+                 ignore_index: int = -1, group=None) -> torch.Tensor:
     """Mean weighted CE of ``resize_bilinear(z, y.shape[1:])`` against ``y``:
     the sum of w[y] * nll over labels other than ``ignore_index``, over
     max(sum of their w[y], 1), so all-ignored labels give 0.  float32 math
     (float64 for float64 logits), the gradient reaches ``z`` by autograd in
-    ``z``'s dtype."""
+    ``z``'s dtype.  With a ``group``, the sum is this rank's and the
+    denominator the group's (module docstring)."""
     up = F.interpolate(z.to(torch.promote_types(z.dtype, torch.float32)),
                        size=tuple(y.shape[-2:]), mode="bilinear", align_corners=True)
     yl = y.long()
@@ -192,6 +201,8 @@ def seg_ce_plain(z: torch.Tensor, y: torch.Tensor, weight: Optional[torch.Tensor
     num = F.cross_entropy(up, yl, weight=w, ignore_index=ignore_index, reduction="sum")
     den = (valid.sum().to(up.dtype) if w is None
            else (w[torch.where(valid, yl, 0)] * valid).sum())
+    if group is not None:
+        den = group.sum(den)
     return num / den.clamp(min=1.0)
 
 
@@ -266,11 +277,21 @@ seg_ce_forward.launches = 0
 seg_ce_backward.launches = 0
 
 
+def _global_stats(stats: torch.Tensor, group) -> torch.Tensor:
+    """The forward kernel's ``(loss, D)`` of a rank's slice -> (its term of
+    the global mean, D over ``group``): what the backward kernel reads."""
+    d = stats[1]
+    d_all = group.sum(d)
+    return torch.stack([stats[0] * d.clamp(min=1.0) / d_all.clamp(min=1.0), d_all])
+
+
 class _SegCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, z, y, w, ignore_index):
+    def forward(ctx, z, y, w, ignore_index, group):
         zc = z.contiguous(memory_format=torch.channels_last)
         stats, lse = seg_ce_forward(zc, y, w, ignore_index)
+        if group is not None:
+            stats = _global_stats(stats, group)
         ctx.save_for_backward(zc, y, w, lse, stats)
         ctx.ignore_index = ignore_index
         ctx.copied = zc.data_ptr() != z.data_ptr()
@@ -281,21 +302,24 @@ class _SegCE(torch.autograd.Function):
         z, y, w, lse, stats = ctx.saved_tensors
         dz = seg_ce_backward(z, y, w, lse, stats, grad.float().reshape(1),
                              ctx.ignore_index)
-        return (dz.contiguous() if ctx.copied else dz), None, None, None
+        return (dz.contiguous() if ctx.copied else dz), None, None, None, None
 
 
 def seg_ce(z: torch.Tensor, y: torch.Tensor, weight: Optional[torch.Tensor] = None,
-           ignore_index: int = -1) -> torch.Tensor:
+           ignore_index: int = -1, group=None) -> torch.Tensor:
     """K6 on a CUDA tensor, :func:`seg_ce_plain` on a CPU tensor.
 
     z: (B, C, h, w) 1/8-res logits (float32 or bfloat16; channels last, as
     the train step's seg head gives them, or any other strides at the cost
     of one copy, and dz then comes back contiguous); y: (B, H, W) integer
     labels, ``ignore_index`` where unlabelled; weight: optional (C,) class
-    weights.  Returns the float32 scalar loss."""
+    weights; group: the ranks whose slices make the global batch (None or
+    a group of one: this batch alone).  Returns the float32 scalar loss."""
+    if group is not None and group.size == 1:
+        group = None
     if not build.on_device(z, "seg_ce"):
-        return seg_ce_plain(z, y, weight, ignore_index)
+        return seg_ce_plain(z, y, weight, ignore_index, group)
     y = y.to(device=z.device, dtype=torch.int32).contiguous()
     w = (torch.ones(z.shape[1], dtype=torch.float32, device=z.device) if weight is None
          else weight.to(z.device, torch.float32).contiguous())
-    return _SegCE.apply(z, y, w, int(ignore_index))
+    return _SegCE.apply(z, y, w, int(ignore_index), group)

@@ -73,17 +73,29 @@ class Dropout(torch.nn.Module):
     from the step's rng: in training mode with ``generator`` set (by
     ``models/model.Model.dropout_rng``), each element is kept with
     probability ``1 - p`` and scaled by ``1 / (1 - p)``; with no generator,
-    or in eval mode, the input passes through unchanged."""
+    or in eval mode, the input passes through unchanged.
+
+    On a mesh (``mesh`` set with the generator) ``x`` is this rank's slice
+    of the global batch, and the JAX mask is one draw over the global
+    batch: every rank draws the global mask from the same generator and
+    keeps its own batch rows and H rows, so a step's mask does not depend
+    on the number of ranks."""
 
     def __init__(self, p: float = 0.1):
         super().__init__()
         self.p = p
         self.generator = None
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p <= 0.0 or self.generator is None:
             return x
         keep = 1.0 - self.p
-        mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        b, c, h, w = x.shape
+        nd, nm = (1, 1) if self.mesh is None else (self.mesh.n_data, self.mesh.n_model)
+        mask = torch.empty((b * nd, c, h * nm, w), dtype=torch.float32, device=x.device)
         mask.bernoulli_(keep, generator=self.generator)
+        if self.mesh is not None:
+            d, m = self.mesh.data_index, self.mesh.model_index
+            mask = mask[d * b:(d + 1) * b, :, m * h:(m + 1) * h]
         return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)

@@ -1,7 +1,9 @@
 """Resize and pooling (counterpart of ``multiyolov5_tpu/ops/resize.py``).
 
 The JAX package re-derives torch's semantics as dense matmuls; here the
-same functions are torch's own ops on NCHW tensors.
+same functions are torch's own ops on NCHW tensors.  Inside a sharded
+forward (ops/shard.py) the bilinear resize and the adaptive pools read the
+whole map, gathered from the ranks, and the max pool takes a halo.
 """
 
 from __future__ import annotations
@@ -11,14 +13,22 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import shard
 
-def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
+                    whole: bool = False) -> torch.Tensor:
     """``F.interpolate(mode='bilinear', align_corners=True)``, the seg heads'
-    resize (reference models/yolo.py:149-186)."""
-    if tuple(x.shape[-2:]) == tuple(out_hw):
+    resize (reference models/yolo.py:149-186).  In a sharded forward,
+    ``out_hw`` is the local size: the resize reads the whole map (gathered,
+    or ``x`` itself where every rank holds it ``whole``) and returns this
+    rank's rows."""
+    if tuple(x.shape[-2:]) == tuple(out_hw) and not whole:
         return x
-    return F.interpolate(x, size=tuple(int(v) for v in out_hw),
-                         mode="bilinear", align_corners=True)
+    full = x if whole else shard.gather_rows(x)
+    out = F.interpolate(full, size=(shard.rows_total(int(out_hw[0])), int(out_hw[1])),
+                        mode="bilinear", align_corners=True)
+    return shard.own_rows(out, int(out_hw[0]))
 
 
 def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -31,11 +41,10 @@ def adaptive_avg_pool_multi(x: torch.Tensor, ks: Sequence[int]) -> List[torch.Te
 
     Pools a contiguous NCHW copy: on an H100 (700 W) torch's channels_last
     kernel took 0.40-0.84 ms per pool for k = 2, 3, 6 at (1, 128, 64, 128),
-    the contiguous one 0.01-0.04 ms."""
-    x = x.contiguous()
+    the contiguous one 0.01-0.04 ms.  In a sharded forward the pools are
+    of the whole map, the same on every rank."""
+    x = shard.gather_rows(x).contiguous()
     return [F.adaptive_avg_pool2d(x, k) for k in ks]
 
 
-def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Stride-1 same-padding max pool (SPP, reference models/common.py:170)."""
-    return F.max_pool2d(x, k, 1, k // 2)
+max_pool_same = shard.max_pool_same

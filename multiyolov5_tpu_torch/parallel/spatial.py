@@ -1,0 +1,92 @@
+"""Spatial (H-axis) model parallelism (counterpart of
+``multiyolov5_tpu/parallel/spatial.py``).
+
+The JAX package shards the activations' H axis over the mesh's ``model``
+axis with sharding annotations and lets GSPMD insert the halo exchanges and
+gathers.  The port writes them: inside ops/shard.py's ``sharded`` context
+each rank holds its rows of every map, convs and max pools with vertical
+reach take halos from ``parallel/comm.halo_exchange`` (3x3 convs at
+dilation 1-3 in C3, the neck, RFB2 and FFM; ASPP's dilations 3, 6 and 9;
+stride-2 convs: 1 row above, none below; SPP's k5/9/13 pools, filled with
+``-inf``), and the ops that read the whole map (the adaptive pools, the
+global means, the align-corners bilinear resizes of the seg heads) work
+from a gather.  Focus, 1x1 convs, nearest upsamples and concats stay local.
+Parameters are replicated.
+
+The forward is ``Model(kernels=False)``'s, as the JAX path forces
+``sever=False``: the K1/K2/K7 kernels take whole maps.  The same sharded
+forward, in training mode under global-batch BN, is the dp x sp train step
+(train/trainer.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.model import Model
+from ..ops import shard
+from ..ops.nn import fuse_conv_bn
+from ..ops.resize import resize_bilinear
+from .comm import all_gather
+from .mesh import Mesh
+
+
+def spatial_forward(model: Model, mesh: Mesh, compute_dtype=torch.bfloat16,
+                    fused: bool = True, decode: bool = True):
+    """The eval forward of ``model`` (an unfused :class:`Model` on this
+    rank's device) with the batch split over the mesh's data axis and H
+    over its model axis.
+
+    Returns ``fn(x)`` for the global batch of NHWC uint8/float frames in
+    [0, 255] (every rank passes the same ``x``; each takes its slice).
+    Outputs are replicated on every rank, as the JAX path's
+    ``out_shardings=P()``: the decoded candidates (B, no, N) float32 (the
+    raw per-level maps with ``decode=False``) and the seg logits upsampled
+    to the input's size, (B, n_segcls, H, W) float32, or None.  ``fused``
+    folds the BNs first (the JAX ``fused``).  H must keep every stride-32
+    row count a multiple of ``n_model`` (:func:`spatial_sharding_ok`)."""
+    spec = model.spec
+    dev = next(model.parameters()).device
+    net = model
+    if fused:
+        net = Model(spec, fused=True, kernels=False)
+        net.load_state_dict(fuse_conv_bn({k: v.detach().cpu()
+                                          for k, v in model.state_dict().items()}))
+        net.to(dev)
+    net.eval()
+    det_mod = net.model[spec.detect_index] if spec.detect_index is not None else None
+    low = compute_dtype != torch.float32
+
+    @torch.no_grad()
+    def fn(x) -> tuple:
+        x = torch.as_tensor(x)
+        hw = tuple(x.shape[1:3])
+        if not spatial_sharding_ok(hw[0], mesh.n_model, max(spec.strides)):
+            raise ValueError(f"spatial_forward: H {hw[0]} does not split into "
+                             f"{mesh.n_model} shards at stride {max(spec.strides)}")
+        b = x.shape[0] // mesh.n_data
+        h = hw[0] // mesh.n_model
+        d, m = mesh.data_index, mesh.model_index
+        xs = x[d * b:(d + 1) * b, m * h:(m + 1) * h].to(dev)
+        xs = xs.permute(0, 3, 1, 2).float().contiguous() / 255.0
+        with torch.autocast(dev.type, dtype=compute_dtype, enabled=low), \
+                shard.sharded(mesh.model, mesh.data):
+            raw, seg = net(xs, decode=False)
+        rows = (lambda t: all_gather(t, mesh.data, 0)) if mesh.n_data > 1 else (lambda t: t)
+        det = None
+        if raw is not None:
+            raw = [rows(all_gather(r, mesh.model, 2)) for r in raw]
+            if decode:
+                det = det_mod._decode([r.permute(0, 1, 4, 2, 3).flatten(1, 2) for r in raw])
+            else:
+                det = raw
+        if seg is not None:
+            seg = rows(resize_bilinear(all_gather(seg, mesh.model, 2).float(), hw))
+        return det, seg
+
+    return fn
+
+
+def spatial_sharding_ok(h: int, n_model: int, max_stride: int = 32) -> bool:
+    """True when H shards evenly at every pyramid level."""
+    return (h % (max_stride * n_model)) == 0

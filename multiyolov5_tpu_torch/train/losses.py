@@ -13,6 +13,14 @@ The objectness target ``tobj`` takes the max over lattice entries that land
 in one cell, as in the JAX package (its module docstring): the reference's
 last-write-wins depends on memory order.  Segmentation logits are planar
 (B, C, H, W) here, NHWC there.
+
+Data parallelism: each loss takes an optional ``group`` (parallel/comm.py)
+over whose ranks the global batch is split, each rank holding an equal
+slice.  A rank's loss is then its term of the global loss: the sums over
+its slice over the global normalisers (positive counts, cells, pixels,
+class weights, OHEM's threshold from the global pixel losses), so the sum
+of the ranks' losses, and of their gradients, is the loss and gradient of
+the global batch.  Reported items are the global values on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.comm import Group, all_gather_stacked, all_reduce_sum
 from ..utils.boxes import bbox_iou_ciou
 
 # 5 candidate cells: center + left/up/right/down neighbors (g = 0.5 bias)
@@ -92,14 +101,19 @@ class DetectionLoss:
         return self._consts[key]
 
     def __call__(self, preds: List[torch.Tensor], targets: torch.Tensor,
-                 tmask: torch.Tensor, balance: Optional[torch.Tensor] = None):
+                 tmask: torch.Tensor, balance: Optional[torch.Tensor] = None,
+                 group: Optional[Group] = None):
         """preds: per-level raw maps (B, na, ny, nx, 5+nc) (any float dtype;
         the loss runs in float32); targets: (B, T, 5) [cls, x, y, w, h]
         normalized (padded); tmask: (B, T) bool validity; balance: the
-        (nl,) objectness weights carried as state (autobalance).  Returns
-        (loss * B, detached items (lbox, lobj, lcls, loss)), and the
-        updated balance when ``balance`` is given."""
+        (nl,) objectness weights carried as state (autobalance); group:
+        the ranks whose slices make the global batch (module docstring).
+        Returns (loss * B, detached items (lbox, lobj, lcls, loss)), and
+        the updated balance when ``balance`` is given; B, the items and
+        the balance are the global batch's."""
         B, T = targets.shape[:2]
+        ranks = 1 if group is None else group.size
+        gsum = (lambda t: t.detach()) if ranks == 1 else group.sum
         na, hyp = self.na, self.hyp
         dev = targets.device
         fl_g = hyp.get("fl_gamma", 0.0)
@@ -150,7 +164,7 @@ class DetectionLoss:
             pwh = torch.square(torch.sigmoid(ps[..., 2:4]) * 2.0) * anchors_i[None, :, None, :]
             iou = bbox_iou_ciou(torch.cat([pxy, pwh], -1), tbox)   # (N, na, 5)
 
-            n_pos = pos.sum().clamp(min=1)
+            n_pos = gsum(pos.sum().float()).clamp(min=1)
             lbox = lbox + torch.where(pos, 1.0 - iou, 0.0).sum() / n_pos
 
             # objectness target: max-scatter of the clamped detached iou
@@ -164,7 +178,7 @@ class DetectionLoss:
             obj_loss = _bce_logits(obj_logit, tobj, hyp.get("obj_pw", 1.0))
             if fl_g > 0:
                 obj_loss = _focal_wrap(obj_loss, obj_logit, tobj, fl_g)
-            obji = obj_loss.mean()
+            obji = obj_loss.sum() / (obj_loss.numel() * ranks)
             obj_per_level.append(obji)
             lobj = lobj + obji * (balance[i] if balance is not None else self.balance[i])
 
@@ -184,13 +198,13 @@ class DetectionLoss:
         lobj = lobj * hyp["obj"]
         lcls = lcls * hyp["cls"]
         loss = lbox + lobj + lcls
-        items = torch.stack([lbox, lobj, lcls, loss]).detach()
+        items = gsum(torch.stack([lbox, lobj, lcls, loss]))
         if balance is not None:
             # EMA toward 1e-4 / obji, then renormalised by the stride-16 level
-            obji = torch.stack(obj_per_level).detach()
+            obji = gsum(torch.stack(obj_per_level))
             new_bal = balance * 0.9999 + 0.0001 / obji
-            return loss * B, items, new_bal / new_bal[self.ssi]
-        return loss * B, items
+            return loss * (B * ranks), items, new_bal / new_bal[self.ssi]
+        return loss * (B * ranks), items
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +220,13 @@ def _nll(logits: torch.Tensor, target: torch.Tensor, ignore_index: int):
     return valid, t, -logp.gather(1, t[:, None])[:, 0]
 
 
+def _gsum(t: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    return t if group is None else group.sum(t)
+
+
 def cross_entropy_seg(logits: torch.Tensor, target: torch.Tensor,
                       weight: Optional[torch.Tensor] = None,
-                      ignore_index: int = -1) -> torch.Tensor:
+                      ignore_index: int = -1, group: Optional[Group] = None) -> torch.Tensor:
     """Mean CE over non-ignored pixels; logits (B, C, H, W), target (B, H, W)."""
     valid, t, nll = _nll(logits, target, ignore_index)
     if weight is not None:
@@ -217,50 +235,68 @@ def cross_entropy_seg(logits: torch.Tensor, target: torch.Tensor,
         denom = torch.where(valid, wpix, 0.0).sum()
     else:
         denom = valid.sum().float()
-    return torch.where(valid, nll, 0.0).sum() / denom.clamp(min=1.0)
+    return torch.where(valid, nll, 0.0).sum() / _gsum(denom, group).clamp(min=1.0)
 
 
 def segmentation_loss(preds, target, aux: bool = False, aux_num: int = 2,
-                      aux_weight: float = 0.1, weight=None, ignore_index: int = -1):
+                      aux_weight: float = 0.1, weight=None, ignore_index: int = -1,
+                      group: Optional[Group] = None):
     """reference SegmentationLosses (utils/loss.py:221-263): plain CE, or CE
     plus the weighted aux heads (BiSe's two: ``aux_weight * 1.5`` and
     ``aux_weight / 2``; one: ``aux_weight``).  ``preds`` are logits at the
     target's size, or a list of them (main first)."""
+    def ce(p):
+        return cross_entropy_seg(p, target, weight, ignore_index, group)
+
     if not aux:
-        p = preds[0] if isinstance(preds, (list, tuple)) else preds
-        return cross_entropy_seg(p, target, weight, ignore_index)
+        return ce(preds[0] if isinstance(preds, (list, tuple)) else preds)
     if aux_num == 2:
         p1, p2, p3 = preds
-        return (cross_entropy_seg(p1, target, weight, ignore_index)
-                + aux_weight * 1.5 * cross_entropy_seg(p2, target, weight, ignore_index)
-                + aux_weight / 2.0 * cross_entropy_seg(p3, target, weight, ignore_index))
+        return ce(p1) + aux_weight * 1.5 * ce(p2) + aux_weight / 2.0 * ce(p3)
     p1, p2 = preds
-    return (cross_entropy_seg(p1, target, weight, ignore_index)
-            + aux_weight * cross_entropy_seg(p2, target, weight, ignore_index))
+    return ce(p1) + aux_weight * ce(p2)
 
 
-def seg_focal_loss(logits, target, gamma: float = 2.0, ignore_index: int = -1):
+def seg_focal_loss(logits, target, gamma: float = 2.0, ignore_index: int = -1,
+                   group: Optional[Group] = None):
     """reference SegFocalLoss (utils/loss.py:279-297): the reference
-    multiplies the *scalar mean CE* by per-pixel (1-p)^gamma then means."""
-    ce = cross_entropy_seg(logits, target, None, ignore_index)
+    multiplies the *scalar mean CE* by per-pixel (1-p)^gamma then means.
+    On a group the CE is the global one (its sum over the ranks, carried
+    through autograd) and the mean is over the global pixels."""
+    ce = all_reduce_sum(cross_entropy_seg(logits, target, None, ignore_index, group), group)
     t = torch.where(target == ignore_index, 0, target).long()
     pt = torch.softmax(logits.float(), 1).gather(1, t[:, None])[:, 0]
-    return ((1.0 - pt) ** gamma * ce).mean()
+    ranks = 1 if group is None else group.size
+    return ((1.0 - pt) ** gamma * ce).sum() / (pt.numel() * ranks)
+
+
+def _global_places(v: torch.Tensor, group: Optional[Group], descending: bool):
+    """(the place of each entry of this rank's ``v`` in the global sorted
+    order of every rank's ``v`` (stable: ties by rank, then position, so
+    every rank agrees), the gathered values)."""
+    allv = all_gather_stacked(v.detach(), group).reshape(-1)
+    order = torch.sort(allv, descending=descending, stable=True).indices
+    place = torch.empty_like(order)
+    place[order] = torch.arange(order.numel(), device=order.device)
+    off = (0 if group is None else group.index) * v.numel()
+    return place[off:off + v.numel()], allv
 
 
 def ohem_ce_loss(preds, target, thresh: float = 0.7, ignore_index: int = -1,
-                 aux: bool = False, aux_weight=(0.15, 0.05)):
+                 aux: bool = False, aux_weight=(0.15, 0.05), group: Optional[Group] = None):
     """reference OhemCELoss (utils/loss.py:303-328): keep pixel losses above
     -log(thresh), but at least 1/16 of the valid pixels (top-k); with
-    ``aux``, plus the two aux heads' at ``aux_weight``."""
+    ``aux``, plus the two aux heads' at ``aux_weight``.  On a group, k and
+    the kept pixels come from the global sorted pixel losses (all-gathered);
+    each rank sums its kept ones over the global k."""
     def once(logits):
         valid, _, nll = _nll(logits, target, ignore_index)
         nll = torch.where(valid, nll, 0.0).reshape(-1)
-        n_min = valid.sum() // 16
-        sorted_l = torch.sort(nll, descending=True).values
-        k = torch.maximum((sorted_l > -math.log(thresh)).sum(), n_min)
-        keep = torch.arange(sorted_l.shape[0], device=nll.device) < k
-        return torch.where(keep, sorted_l, 0.0).sum() / k.clamp(min=1)
+        n_min = _gsum(valid.sum(), group) // 16
+        place, allv = _global_places(nll, group, descending=True)
+        k = torch.maximum((allv > -math.log(thresh)).sum(), n_min)
+        keep = place < k
+        return torch.where(keep, nll, 0.0).sum() / k.clamp(min=1)
 
     if not aux:
         return once(preds[0] if isinstance(preds, (list, tuple)) else preds)
@@ -270,17 +306,19 @@ def ohem_ce_loss(preds, target, thresh: float = 0.7, ignore_index: int = -1,
 
 def prob_ohem_ce_loss(preds, target, thresh: float = 0.5, min_kept: int = 256,
                       ignore_index: int = -1, aux: bool = False,
-                      aux_weight=(0.4, 0.4), class_weight=None):
+                      aux_weight=(0.4, 0.4), class_weight=None,
+                      group: Optional[Group] = None):
     """reference ProbOhemCrossEntropy2d (utils/loss.py:332-390): keep the
     pixels whose true-class probability is at most max(thresh, the
-    ``min_kept``-th smallest probability)."""
+    ``min_kept``-th smallest probability); on a group, the global
+    ``min_kept``-th (all-gathered) and the global denominator."""
     def once(logits):
         valid = (target != ignore_index).reshape(-1)
         t = torch.where(target == ignore_index, 0, target).long().reshape(-1)
         c = logits.shape[1]
         prob = torch.softmax(logits.float(), 1).permute(0, 2, 3, 1).reshape(-1, c)
         mask_prob = torch.where(valid, prob.gather(1, t[:, None])[:, 0], 1.0)
-        sorted_p = torch.sort(mask_prob).values
+        sorted_p = torch.sort(all_gather_stacked(mask_prob.detach(), group).reshape(-1)).values
         kth = sorted_p[min(min_kept, sorted_p.shape[0]) - 1]
         kept = valid & (mask_prob <= torch.clamp(kth, min=thresh))
         nll = -torch.log(torch.clamp(prob, min=1e-12)).gather(1, t[:, None])[:, 0]
@@ -290,7 +328,7 @@ def prob_ohem_ce_loss(preds, target, thresh: float = 0.5, min_kept: int = 256,
             denom = torch.where(kept, w, 0.0).sum()
         else:
             denom = kept.sum().float()
-        return torch.where(kept, nll, 0.0).sum() / denom.clamp(min=1.0)
+        return torch.where(kept, nll, 0.0).sum() / _gsum(denom, group).clamp(min=1.0)
 
     if not aux:
         return once(preds[0] if isinstance(preds, (list, tuple)) else preds)

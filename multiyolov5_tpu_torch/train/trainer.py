@@ -28,12 +28,35 @@ redraws the same dropout mask from the generator's saved state and leaves
 the BN running statistics as the first forward left them (JAX's
 checkpoint is functional, so its state comes from one forward).
 
+Data parallelism (``mesh``, parallel/mesh.py): each rank runs the step on
+its slice of the global batch, and the step is the JAX step jitted over
+the mesh (its trainer.py:196-223).  Every BN takes its moments over the
+world (parallel/sync_bn.py), the losses their normalisers over the global
+batch (train/losses.py; K6 its global denominator), and each rank's loss
+is its term of the global loss, so the sum of the ranks' gradients is the
+global gradient: on update steps one all-reduce of the accumulated
+``.grad`` (the sum is linear, so reducing the accumulation equals reducing
+each step's).  A flat all-reduce of the port's own, not DDP's reducer:
+the step runs two backwards through one module and the det backward never
+reaches the seg head, which DDP handles only with
+``find_unused_parameters`` and a reducer per backward.  Optimizer, EMA and
+the update count stay replicated (every rank applies the same summed
+gradient).  ``cfg.batch_size`` is the global detection batch.  With
+``n_model`` > 1 (dp x sp) the images' H axis is split over the model
+group (parallel/spatial.py, ops/shard.py): the forwards run sharded, the
+det raw maps, seg logits and seg labels are gathered over the model group,
+each rank of a model group takes the loss of its data slice at
+``1 / n_model`` (so each gradient is counted once across the model
+group) with normalisers over the data group, and the seg loss takes the
+plain path, as the JAX step turns ``fused_ce`` off under a model axis.
+
 Not ported: ``pack_stem``, the ``det_hwna`` layout and the one-hot gather
-(TPU layout work); the mesh / DDP branch (ROADMAP.md, parallelism).
+(TPU layout work).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -45,8 +68,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.config import ModelSpec
 from ..models.model import Model, init_model
+from ..ops import shard
 from ..ops.kernels import seg_ce
 from ..ops.resize import resize_bilinear
+from ..parallel import sync_bn
+from ..parallel.comm import all_gather
 from ..utils.checkpoint import to_jax_params
 from . import optim
 from .losses import DetectionLoss, ohem_ce_loss, seg_focal_loss, segmentation_loss
@@ -135,14 +161,22 @@ def _images(a, dev: torch.device) -> torch.Tensor:
     return x if dev.type == "cuda" else x.contiguous()
 
 
-def _forward(model: Model, x: torch.Tensor, rng: Optional[torch.Generator], remat: bool):
-    """``model(x)`` with its dropout drawing from ``rng``; with ``remat``,
-    under a non-reentrant checkpoint whose recomputation restarts ``rng``
-    from its state at the first forward (the same mask) and puts the BN
-    running statistics back as that forward left them."""
+def _forward(model: Model, x: torch.Tensor, rng: Optional[torch.Generator], remat: bool,
+             mesh=None):
+    """``model(x)`` with its dropout drawing from ``rng``, sharded over the
+    mesh's model group when it has one; with ``remat``, under a
+    non-reentrant checkpoint whose recomputation restarts ``rng`` from its
+    state at the first forward (the same mask) and puts the BN running
+    statistics back as that forward left them."""
+    spatial = mesh is not None and mesh.n_model > 1
+
+    def call(inp):
+        ctx = shard.sharded(mesh.model, mesh.data) if spatial else contextlib.nullcontext()
+        with model.dropout_rng(rng, mesh), ctx:
+            return model(inp)
+
     if not remat:
-        with model.dropout_rng(rng):
-            return model(x)
+        return call(x)
     rng_state = rng.get_state() if rng is not None else None
     calls = [0]
 
@@ -150,8 +184,7 @@ def _forward(model: Model, x: torch.Tensor, rng: Optional[torch.Generator], rema
         again = calls[0] > 0
         calls[0] += 1
         if not again:
-            with model.dropout_rng(rng):
-                return model(inp)
+            return call(inp)
         bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
         saved = [(m.running_mean.clone(), m.running_var.clone(),
                   m.num_batches_tracked.clone()) for m in bns]
@@ -159,8 +192,7 @@ def _forward(model: Model, x: torch.Tensor, rng: Optional[torch.Generator], rema
         if rng is not None:
             rng.set_state(rng_state)
         try:
-            with model.dropout_rng(rng):
-                return model(inp)
+            return call(inp)
         finally:
             if rng is not None:
                 rng.set_state(now)
@@ -173,17 +205,20 @@ def _forward(model: Model, x: torch.Tensor, rng: Optional[torch.Generator], rema
     return checkpoint(run, x, use_reentrant=False)
 
 
-def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int]):
+def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int], mesh=None):
     """Returns step(ts, det_imgs, det_tgts, det_mask, seg_imgs, seg_lbls,
     lr, lr_bias, momentum, do_update, rng=None) -> (ts, metrics).
 
     det_imgs (B, H, W, 3) uint8; det_tgts (B, T, 5) [cls, xywh] normalized
     and det_mask (B, T) bool, from losses.pad_targets; seg_imgs (B', H', W',
     3) float in [0, 1]; seg_lbls (B', H', W') int, -1 unlabelled; host
-    arrays or tensors.  ``rng``: the dropout generator (a ``torch.Generator``
-    on the model's device), or None for no dropout.  metrics: {"det_items":
-    (lbox, lobj, lcls, loss), "seg_loss", "total"}, tensors on the state's
-    device (reading them synchronises)."""
+    arrays or tensors.  On a ``mesh`` (every rank calls the step) they are
+    this rank's slice (parallel/mesh.shard_train_batch).  ``rng``: the
+    dropout generator (a ``torch.Generator`` on the model's device, the
+    same seed on every rank), or None for no dropout.  metrics:
+    {"det_items": (lbox, lobj, lcls, loss), "seg_loss", "total"}, the
+    global batch's, tensors on the state's device (reading them
+    synchronises)."""
     det_loss_fn = DetectionLoss(
         nc=spec.nc, na=spec.na,
         anchors=np.asarray(spec.anchors, np.float32).reshape(spec.nl, spec.na, 2)
@@ -197,14 +232,19 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int]):
     seg_module = spec.rows[spec.seg_index].module if spec.seg_index is not None else None
     if cfg.seg_aux and cfg.seg_enabled and seg_module != "SegMaskBiSe":
         raise ValueError(f"seg_aux needs the BiSe head's aux pair, not {seg_module}")
-    fused_ce = (cfg.seg_loss == "ce" and not cfg.seg_aux
+    parallel = mesh is not None and mesh.size > 1
+    spatial = mesh is not None and mesh.n_model > 1
+    # the ranks whose losses add up to the global loss, and each one's share
+    loss_group = (mesh.data if spatial else mesh.world) if parallel else None
+    share = 1.0 / mesh.n_model if spatial else 1.0
+    fused_ce = (cfg.seg_loss == "ce" and not cfg.seg_aux and not spatial
                 and seg_module in ("SegMaskPSP", "SegMaskBase", "SegMaskLab"))
     low = cfg.compute_dtype != torch.float32
     aux_w = cfg.seg_aux_weight
 
     def seg_loss_fn(out, lbls):
         if fused_ce:
-            return seg_ce(out, lbls, cw)
+            return seg_ce(out, lbls, cw, group=loss_group)
         hw = tuple(lbls.shape[-2:])
         if isinstance(out, (list, tuple)):     # BiSe in training: main, aux16, aux32
             out = out if cfg.seg_aux else out[:1]
@@ -213,16 +253,35 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int]):
             up = [resize_bilinear(out, hw)]
         if cfg.seg_loss == "ohem":
             return ohem_ce_loss(up, lbls, aux=cfg.seg_aux,
-                                aux_weight=(aux_w * 1.5, aux_w / 2.0))
+                                aux_weight=(aux_w * 1.5, aux_w / 2.0), group=loss_group)
         if cfg.seg_loss == "focal":
-            return seg_focal_loss(up[0], lbls)
+            return seg_focal_loss(up[0], lbls, group=loss_group)
         return segmentation_loss(up, lbls, aux=cfg.seg_aux, aux_num=2,
-                                 aux_weight=aux_w, weight=cw)
+                                 aux_weight=aux_w, weight=cw, group=loss_group)
+
+    def gathered(out):
+        """Under dp x sp, the whole maps of sharded outputs (raw maps,
+        logits: H axis 2; labels: axis 1), through autograd."""
+        if not spatial:
+            return out
+        if isinstance(out, (list, tuple)):
+            return [gathered(o) for o in out]
+        return all_gather(out, mesh.model, 2 if out.dim() >= 4 else 1)
+
+    def all_reduce_grads(params) -> None:
+        """Sum the accumulated gradients over the world, in one flat buffer."""
+        grads = [p.grad for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        mesh.world.all_reduce_(flat)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def update(ts: TrainState, lr: float, lr_bias: float, momentum: float) -> None:
         names, params = zip(*ts.model.named_parameters())
         grads = [p.grad for p in params]
         with torch.no_grad():
+            if parallel:
+                all_reduce_grads(params)
             if cfg.adam:
                 ts.opt["t"] += 1
                 optim.adam_update(names, params, grads, [ts.opt["m"][k] for k in names],
@@ -241,26 +300,35 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int]):
              rng: Optional[torch.Generator] = None):
         model = ts.model
         dev = next(model.parameters()).device
+        if parallel:
+            sync_bn.convert(model, mesh)
+        if spatial and any(a.shape[1] % max(spec.strides) for a in (det_imgs, seg_imgs)):
+            raise ValueError(f"dp x sp: each rank's H rows must be a multiple of "
+                             f"{max(spec.strides)} (image H a multiple of "
+                             f"{max(spec.strides) * mesh.n_model})")
         amp = torch.autocast(dev.type, dtype=cfg.compute_dtype, enabled=low)
         with amp:
-            det_raw, _ = _forward(model, _images(det_imgs, dev) / 255.0, rng, cfg.remat)
-        dloss, ditems = det_loss_fn(det_raw, torch.as_tensor(det_tgts).to(dev),
-                                    torch.as_tensor(det_mask).to(dev))
+            det_raw, _ = _forward(model, _images(det_imgs, dev) / 255.0, rng, cfg.remat, mesh)
+        dloss, ditems = det_loss_fn(gathered(det_raw), torch.as_tensor(det_tgts).to(dev),
+                                    torch.as_tensor(det_mask).to(dev), group=loss_group)
         dloss = dloss * cfg.detgain * (4.0 if cfg.quad else 1.0)
-        dloss.backward()
-        total = dloss.detach()
-        sloss = torch.zeros((), dtype=torch.float32, device=dev)
+        (dloss * share).backward()
+        terms = [dloss.detach()]
         if cfg.seg_enabled and spec.seg_index is not None:
             # second forward: the BN statistics already advanced on the det batch
             with amp:
-                _, seg_out = _forward(model, _images(seg_imgs, dev), rng, cfg.remat)
+                _, seg_out = _forward(model, _images(seg_imgs, dev), rng, cfg.remat, mesh)
             # reference train.py:386 scales the mean CE by the DETECTION
             # batch size (the two tasks share one accumulated optimizer step)
-            sl = seg_loss_fn(seg_out, torch.as_tensor(seg_lbls).to(dev)) \
+            sl = seg_loss_fn(gathered(seg_out), gathered(torch.as_tensor(seg_lbls).to(dev))) \
                 * cfg.batch_size * cfg.seggain
-            sl.backward()
-            sloss = sl.detach()
-            total = total + sloss
+            (sl * share).backward()
+            terms.append(sl.detach())
+        else:
+            terms.append(torch.zeros((), dtype=torch.float32, device=dev))
+        # the global det and seg losses: each rank's terms summed
+        dl, sloss = loss_group.sum(torch.stack(terms)) if parallel else terms
+        total = dl + sloss
         if do_update:
             update(ts, lr, lr_bias, momentum)
         return ts, {"det_items": ditems, "seg_loss": sloss, "total": total}

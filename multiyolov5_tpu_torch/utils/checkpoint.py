@@ -250,6 +250,40 @@ def load_checkpoint(path: str) -> Tuple[Optional[Any], Dict[str, torch.Tensor]]:
     return cfg, from_jax_params(params, state)
 
 
+def save_sharded(path: str, tree: Dict[str, Any]) -> None:
+    """The port's counterpart of the JAX package's ``save_orbax``: a nested
+    dict of tensors (and plain Python values) to a directory, through
+    ``torch.distributed.checkpoint``.  With a process group every rank
+    calls it with the same replicated tree and the files are written once;
+    without one, the one process writes them.  Orbax's checkpoints cannot
+    cross into the port (the card's machine has no orbax); the npz format
+    (:func:`save_npz`) is the one both packages read."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(tree, checkpoint_id=os.path.abspath(path))
+
+
+def load_sharded(path: str) -> Dict[str, Any]:
+    """The tree :func:`save_sharded` wrote, on any world size (every rank
+    calls it; each gets the whole tree), its tensors on the CPU.  The
+    tree's shape comes from the checkpoint's metadata."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    path = os.path.abspath(path)
+    md = dcp.FileSystemReader(path).read_metadata()
+    tree: Dict[str, Any] = {}
+    for key, item in md.state_dict_metadata.items():
+        *parents, leaf = md.planner_data[key]
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = (torch.empty(item.size, dtype=item.properties.dtype)
+                      if isinstance(item, TensorStorageMetadata) else None)
+    dcp.load(tree, checkpoint_id=path)
+    return tree
+
+
 def strip_optimizer(path: str, out_path: Optional[str] = None) -> None:
     """Finalize a training checkpoint for inference (reference
     utils/general.py:512-525; multiyolov5_tpu/utils/checkpoint.py:212-227):

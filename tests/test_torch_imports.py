@@ -52,7 +52,8 @@ _SCRIPT = textwrap.dedent("""
         importlib.import_module(name)
     for script in ("chip_smoke", "prof_c3_torch", "prof_stem_torch", "prof_eval_torch",
                    "prof_serving_torch", "prof_train_torch", "prof_nms_torch",
-                   "prof_conv3x3_torch", "prof_seg_ce_torch", "prof_mask_torch"):
+                   "prof_conv3x3_torch", "prof_seg_ce_torch", "prof_mask_torch",
+                   "prof_collectives_torch"):
         importlib.import_module(script)
     from multiyolov5_tpu_torch.engine import Engine
     eng = Engine(cfg="yolov5s_city_seg", device="cpu", half=False, seed=1)
@@ -65,7 +66,9 @@ _SCRIPT = textwrap.dedent("""
            "serving", "data.letterbox", "ops.kernels.c3", "data.png", "data.sources",
            "data.cityscapes", "utils.general", "utils.plots", "cli.detect", "data.resize",
            "data.detection", "data.segmentation", "cli.test", "hub", "utils.profiling",
-           "cli.profile", "cli.export", "tools.trace_report", "tools.convert_pt"}
+           "cli.profile", "cli.export", "tools.trace_report", "tools.convert_pt",
+           "parallel.comm", "parallel.mesh", "parallel.sync_bn", "parallel.spatial",
+           "ops.shard"}
     assert {pkg.__name__ + "." + m for m in new} <= set(names)
     from multiyolov5_tpu_torch.models import zoo
     for name in ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",

@@ -17,6 +17,8 @@ train and 2 val frames, the dataset file in JSON.
 * the checkpoints cross both ways: the JAX ``load_npz`` and the JAX CLI's
   ``--resume`` read the port's ``last.npz``, and the port's ``--resume``
   continues the JAX CLI's interrupted run;
+* ``--num-processes 2`` and ``--model-parallel 2`` (two spawned ranks,
+  gloo): rank 0 writes the one run directory;
 * the options the port does not have raise ``NotImplementedError`` up
   front.
 """
@@ -34,6 +36,7 @@ from multiyolov5_tpu_torch.engine import Engine
 from multiyolov5_tpu_torch.tools import resume as resume_tool
 from multiyolov5_tpu_torch.utils.checkpoint import from_jax_params, load_npz
 
+import _torch_parallel_worker as W
 from test_torch_train_step import HEAD_ROWS, TINY
 
 from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
@@ -244,10 +247,43 @@ def test_checkpoints_cross_both_ways(tree, tmp_path, monkeypatch):
 
 
 def test_cli_raises_what_it_does_not_have(tree, tmp_path):
-    for extra, what in ((["--num-processes", "2"], "parallelism"),
-                        (["--model-parallel", "2"], "parallelism"),
-                        (["--upload-dataset"], "wandb"), (["--bbox-interval", "5"], "wandb"),
+    for extra, what in ((["--upload-dataset"], "wandb"), (["--bbox-interval", "5"], "wandb"),
                         (["--save-period", "1"], "wandb"),
                         (["--resume", "wandb-artifact://e/p/r"], "wandb")):
         with pytest.raises(NotImplementedError, match=what):
             cli.main(_argv(tree, tmp_path, "det", "SegMaskPSP", 1, *extra))
+
+
+@pytest.mark.parametrize("extra", [[], ["--model-parallel", "2"]], ids=["dp2", "dp1_sp2"])
+def test_cli_multi_process(tree, tmp_path, extra):
+    """``--num-processes 2`` (gloo on the CPU, a ``file://`` rendezvous), as
+    the JAX CLI's test_train_cli_model_parallel: the global batch of 4 over
+    two ranks, or with ``--model-parallel 2`` the image H axis over them;
+    rank 0 alone writes the run, whose checkpoint serves and which
+    ``--resume`` continues as two ranks."""
+    argv = _argv(tree, tmp_path, "joint", "SegMaskPSP", 1,
+                 "--coordinator", f"file://{tmp_path}/store", *extra)
+    res = W.launch_cli(2, argv, tmp_path)
+    run = res[0][0]
+    assert res[1][0] == run and len(list((tmp_path / "runs").iterdir())) == 1
+    rows = _rows(run)
+    assert [r[0] for r in rows] == ["0"] and float(rows[0][5]) > 0     # seg loss
+    json.loads((Path(run) / "hyp.yaml").read_text())
+    assert json.loads((Path(run) / "opt.yaml").read_text())["num_processes"] == 2
+    last = Path(run) / "weights" / "last.npz"
+    _stripped(last)
+    eng = Engine(str(last), device="cpu", half=False)
+    _, masks = eng((np.random.RandomState(1).rand(64, 64, 3) * 255).astype(np.uint8),
+                   (64, 64), conf=0.001)
+    assert masks[0].shape == (64, 64)
+    # --resume as two ranks: the finished run fine-tunes one epoch more
+    res = W.launch_cli(2, ["--resume", str(last), "--device", "cpu",
+                           "--coordinator", f"file://{tmp_path}/store2"], tmp_path)
+    assert res[0][0] == res[1][0] == run
+    assert [r[0] for r in _rows(run)] == ["0", "1"]
+
+
+def test_cli_model_parallel_must_divide_the_world(tree, tmp_path):
+    """As the JAX CLI's :147-149: one process cannot hold a model axis of 2."""
+    with pytest.raises(SystemExit, match="does not divide"):
+        cli.main(_argv(tree, tmp_path, "det", "SegMaskPSP", 1, "--model-parallel", "2"))
