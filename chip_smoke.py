@@ -101,6 +101,18 @@ unless named), on the card and, for reference, on the CPU:
   ``save_sharded`` by both ranks, ``load_sharded`` by both and by one
   process, bitwise.  Readings: ms a step and a frame beside one process,
   and each collective's calls, bytes and ms in one step.
+* the DSL's other rows [16]: the v5.0 hub configs (``models/hub``) at full
+  width and depth on seeded weights.  (a) yolov3 (no folded stem: rows
+  from 0 on the frame / 255) through ``Engine`` at 512x1024, fp32 and
+  bf16, bs1 and a bs8 batch, against the CPU engine ([9]'s float64
+  reference and bf16 drift at bs1): every K2 launch and K3 (bs1) or K5
+  (bs8) held against its plain version on its own arguments; K2's bf16
+  sites timed; ``evaluate_detection`` on a bs4 batch (K5).  (b)
+  yolov5s-transformer at bs1 (K1, K2 at strides 1 and 2, K3) and bs2
+  (K7), its C3TR row card against CPU.  (c) yolov3-spp, yolov3-tiny,
+  yolov5-fpn and yolov5-panet at bs1 in fp32 against the CPU.  (d) one
+  float32 train step of yolov5-panet (bs2 320x320) against the CPU's.
+  Each phase's wall seconds go to chip_smoke.json (``phase_s``).
 
 It checks that every kernel ran on its path, holds each kernel against its
 plain version on the arguments its path gave it, and times the paths and
@@ -257,7 +269,7 @@ TRAIN_UPDATE_REL = 5e-2  # of each tensor's own change, + 2 float32 ulps of its 
 # trees in the Cityscapes layout (2048x1024 frames: 16 detection training
 # frames, 8 val; 8 seg training and 4 val frames with labelId masks); run A
 # two epochs at --img-size 832 1024 --batch-size 8 (2 steps an epoch, one
-# seg batch), run B three epochs interrupted at epoch 1 and resumed, run C
+# seg batch), run B two epochs interrupted at epoch 1 and resumed, run C
 # one epoch of the BiSe head with quad, multi-scale, remat and OHEM at 512
 TC_ORIG_HW = (1024, 2048)
 TC_DET, TC_VAL, TC_SEG, TC_SEG_VAL = 16, 8, 8, 4
@@ -269,7 +281,7 @@ TC_BOXES = 12          # seeded boxes a detection frame
 FAMILY_CFGS = ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
                X_CFG, "yolov5s", "yolov5s6")
 BISE_CFG, DET_CFG, L_CFG = "yolov5s_city_seg_bise", "yolov5s", "yolov5l_city_seg"
-FAMILY_REPS, FAMILY_ITERS = 5, 10
+FAMILY_REPS, FAMILY_ITERS = 3, 10
 # [9] holds each network's float32 output against the same network in
 # float64 on the CPU: rounding errors grow with depth and activation
 # scale, past NET_REL on the deepest model.  Measured by this phase at
@@ -287,6 +299,16 @@ F64_FACTOR = 4.0
 # bf16 engine against its fp32 one, and never tighter than [3]'s bounds.
 BF16_FACTOR = 2.0
 STEM_BATCHES = (1, 4)
+
+# the DSL's other rows [16]: the v5.0 hub configs at full width and depth,
+# seeded weights; yolov3 at bs1 and bs8 and through the eval path (one bs4
+# batch); the transformer at bs1 and bs2 (K7 on its row-2 C3); the other
+# four at bs1 in float32; one float32 train step of yolov5-panet at bs2
+# 320x320 (the CPU's step at full width takes seconds there)
+DSL_MAIN, DSL_TR = "yolov3", "yolov5s-transformer"
+DSL_OTHERS = ("yolov3-spp", "yolov3-tiny", "yolov5-fpn", "yolov5-panet")
+DSL_BS, DSL_TR_BS = 8, 2
+DSL_TRAIN_CFG, DSL_TRAIN_BS, DSL_TRAIN_HW = "yolov5-panet", 2, (320, 320)
 
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W) for the bounds
 HBM_BYTES_S = 3.35e12
@@ -407,6 +429,10 @@ def check(name: str, value: float, bound: float, ok: bool = None) -> None:
 
 
 def phase_card():
+    """[1] the card's name and power limit, the kernels' build, and the
+    count of their SASS instructions started in the background
+    (:func:`sass_counts`); returns (the nvidia-smi line, the count's
+    process), which :func:`check_sass` reads once the other phases ran."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -418,39 +444,46 @@ def phase_card():
         f"({os.path.relpath(path, ROOT)})")
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as fh:
         fh.write(nvcc_log)
-    mma, tma = tensor_core_ops(path)
+    return smi, sass_counts(path)
+
+
+def sass_counts(lib):
+    """A process that prints, for each kernel symbol of ``cuobjdump -sass``
+    of the built library, its HMMA/HGMMA instructions ("H") and UTMALDG
+    instructions ("T"), one tab-separated line each."""
+    exe = next((c for c in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump")
+                if c and os.path.exists(c)), None)
+    if exe is None:
+        raise RuntimeError("cuobjdump not found")
+    count = ("/Function : /{sub(/.*Function : /, \"\"); f = $0; next} "
+             "/HMMA|HGMMA/{h[f]++; next} /UTMALDG/{t[f]++} "
+             "END{for (k in h) print \"H\\t\" k \"\\t\" h[k]; "
+             "for (k in t) print \"T\\t\" k \"\\t\" t[k]}")
+    return subprocess.Popen(f"{exe} -sass {lib} | awk '{count}'", shell=True,
+                            stdout=subprocess.PIPE, text=True)
+
+
+def check_sass(proc) -> None:
+    """[1]'s instruction counts: every tensor-core form has HMMA/HGMMA
+    instructions, and the TMA forms UTMALDG loads."""
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"cuobjdump -sass failed ({proc.returncode})")
+    mma, tma = {}, {}
+    for line in out.splitlines():
+        kind, fn, n = line.split("\t")
+        (mma if kind == "H" else tma)[fn] = int(n)
     for name in ("stem_tc", "stem_tf32", "conv3x3_tma", "conv3x3_tf32", "c3_bf16", "c3_tf32"):
         n = sum(v for k, v in mma.items() if name in k)
-        log(f"  HMMA/HGMMA instructions in the SASS of {name} (all instantiations): {n}")
+        log(f"  [1] HMMA/HGMMA instructions in the SASS of {name} (all instantiations): {n}")
         if n == 0:
             raise AssertionError(f"{name} has no tensor-core instruction")
     # the kernels that load their input by TMA
     for name in ("conv3x3_tma", "conv3x3_tf32", "c3_bf16"):
         n = sum(v for k, v in tma.items() if name in k)
-        log(f"  UTMALDG instructions in the SASS of {name}: {n}")
+        log(f"  [1] UTMALDG instructions in the SASS of {name}: {n}")
         if n == 0:
             raise AssertionError(f"{name} has no TMA load")
-    return smi
-
-
-def tensor_core_ops(lib):
-    """({kernel symbol: HMMA/HGMMA instructions}, {kernel symbol: UTMALDG
-    instructions}) in ``cuobjdump -sass`` of the built library."""
-    exe = next((c for c in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump")
-                if c and os.path.exists(c)), None)
-    if exe is None:
-        raise RuntimeError("cuobjdump not found")
-    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    counts, tma, fn = {}, {}, None
-    for line in sass.splitlines():
-        if "Function : " in line:
-            fn = line.split("Function : ")[1].strip()
-        elif fn and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] = counts.get(fn, 0) + 1
-        elif fn and "UTMALDG" in line:
-            tma[fn] = tma.get(fn, 0) + 1
-    return counts, tma
 
 
 def record_path_inputs(eng, frame):
@@ -535,17 +568,18 @@ def conv_bound(x, co: int, stride: int, cuda_cores: bool = False):
         nbytes, 3 * flops, TF32_FLOP_S)
 
 
-def time_k2_f32(calls):
-    """K2's float32 form at each ``(x, w, b, stride, dilation, act)`` of
-    ``calls`` beside cuDNN float32 (TF32 off) and both bounds; returns
-    (rows, sums)."""
+def time_k2(calls):
+    """K2 at each ``(x, w, b, stride, dilation, act)`` of ``calls`` beside
+    cuDNN in x's type (float32 with TF32 off) and the bound (in float32
+    both bounds); returns (rows, sums)."""
     import torch.nn.functional as F
 
     from multiyolov5_tpu_torch.ops import kernels as K
     from multiyolov5_tpu_torch.ops.kernels.conv3x3 import plan as conv_plan
     rows = []
+    f32 = calls[0][0].dtype == torch.float32
     for x, wt, b, s, d, act in calls:
-        xc, wc = x.permute(0, 3, 1, 2), wt.permute(0, 3, 1, 2)
+        xc, wc, bc = x.permute(0, 3, 1, 2), wt.permute(0, 3, 1, 2), b.to(x.dtype)
         bsz, hh, ww, ci = x.shape
         co = wt.shape[0]
         ho, wo = (hh - 1) // s + 1, (ww - 1) // s + 1
@@ -554,18 +588,21 @@ def time_k2_f32(calls):
             "plan": plan_text(conv_plan(bsz, ho, wo, ci, co, x.dtype, s, d)),
             "ms": graph_ms(lambda: K.conv3x3(x, wt, b, s, d, act)),
             # few repetitions: cuDNN fp32 without TF32 takes ~75 ms at FFM's site
-            "plain_ms": graph_ms(lambda: K.conv3x3_plain(x, wt, b, s, d, act), iters=3,
-                                 replays=2),
-            "library_ms": graph_ms(lambda: F.conv2d(xc, wc, b, s, d, d), iters=3, replays=2),
+            "plain_ms": graph_ms(lambda: K.conv3x3_plain(x, wt, b, s, d, act),
+                                 **({"iters": 3, "replays": 2} if f32 else {})),
+            "library_ms": graph_ms(lambda: F.conv2d(xc, wc, bc, s, d, d),
+                                   **({"iters": 3, "replays": 2} if f32 else {})),
             "bound_ms": conv_bound(x, co, s)[0],
-            "cuda_core_bound_ms": conv_bound(x, co, s, cuda_cores=True)[0]})
-    sums = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                 "cuda_core_bound_ms")}
+            "bound_by": conv_bound(x, co, s)[1]})
+        if f32:
+            rows[-1]["cuda_core_bound_ms"] = conv_bound(x, co, s, cuda_cores=True)[0]
+    sums = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")
+            + (("cuda_core_bound_ms",) if f32 else ())}
     for r in rows:
         log(f"    {tuple(r['x'])} -> {r['c_out']} s{r['stride']} d{r['dilation']} "
-            f"{r['plan']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN fp32 "
-            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} (3xTF32; CUDA-core fp32 "
-            f"{r['cuda_core_bound_ms']:.5f})")
+            f"{r['plan']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN "
+            f"{'fp32' if f32 else 'bf16'} {r['library_ms']:.4f}, bound {r['bound_ms']:.5f}"
+            + (f" (3xTF32; CUDA-core fp32 {r['cuda_core_bound_ms']:.5f})" if f32 else ""))
     return rows, sums
 
 
@@ -872,20 +909,21 @@ def phase_end_to_end(eng32, eng16, cpu_eng, frames):
     return launches
 
 
-def eval_batches(eng, rng):
+def eval_batches(eng, rng, batches: int = EVAL_BATCHES):
     """Seeded in-memory loaders in the batch contracts of the JAX package's
     loaders.  Detection: (imgs uint8, targets (B, T, 5) [cls, xywh
     normalized], tmask, paths, shapes), the labels a jittered subset of
     ``eng``'s own detections plus boxes no detection covers, so mAP is
-    neither 0 nor 1.  Segmentation: (imgs float in [0, 1], masks int32 at
-    ORIG_HW): seeded uint8 labels, 70% ``eng``'s class map, 30% random
-    classes, 10% 255, with 255 mapped to the loader's ignore -1."""
+    neither 0 nor 1.  Segmentation (none for a detection-only model):
+    (imgs float in [0, 1], masks int32 at ORIG_HW): seeded uint8 labels,
+    70% ``eng``'s class map, 30% random classes, 10% 255, with 255 mapped
+    to the loader's ignore -1."""
     from multiyolov5_tpu_torch.ops.kernels import upsample_argmax
     from multiyolov5_tpu_torch.ops.nms import non_max_suppression
     det, seg = [], []
     h, w = IN_HW
     nc = eng.spec.nc
-    for b in range(EVAL_BATCHES):
+    for b in range(batches):
         imgs = (rng.rand(EVAL_BS, *IN_HW, 3) * 255).astype(np.uint8)
         z, logits = eng.forward(torch.from_numpy(imgs).to(DEVICE))
         dets = non_max_suppression(z.transpose(1, 2), EVAL_CONF, EVAL_IOU, multi_label=True,
@@ -904,6 +942,8 @@ def eval_batches(eng, rng):
             tmask[i, :len(cls)] = True
         det.append((imgs, targets, tmask, [f"b{b}_{i}.png" for i in range(EVAL_BS)],
                     [(ORIG_HW, RATIO_PAD)] * EVAL_BS))
+        if logits is None:                  # a detection-only model
+            continue
         cmap = upsample_argmax(logits.float().contiguous(), ORIG_HW, via_hw=IN_HW).cpu().numpy()
         masks = np.where(rng.rand(*cmap.shape) < 0.3,
                          rng.randint(0, logits.shape[1], cmap.shape), cmap).astype(np.uint8)
@@ -1426,7 +1466,7 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
     # calls) and at pspv5x's bs1 sites (seeded weights and inputs), each
     # beside cuDNN in float32 (TF32 off) and both bounds
     log(f"  conv3x3 float32 at the eval path's {len(sites16)} bs{EVAL_BS} sites:")
-    f32_sites, k2_f32 = time_k2_f32([(x, wt, b, kw.get("stride", 1), kw.get("dilation", 1),
+    f32_sites, k2_f32 = time_k2([(x, wt, b, kw.get("stride", 1), kw.get("dilation", 1),
                                       kw.get("act", True))
                                      for (x, wt, b), kw in ev["rec"]["conv3x3"][:len(sites16)]])
     log(f"  conv3x3 float32 eval sums: kernel {k2_f32['ms']:.4f} ms, plain "
@@ -1438,7 +1478,7 @@ def phase_timing(eng32, eng16, frames, sites16, nms_in, ev):
     x_calls = [(torch.randn(shape, generator=g, device=dev), wt, b, s, d, act)
                for shape, co, s, d, act, wt, b in record_path_inputs(ex, frames[0])[0]]
     log(f"  conv3x3 float32 at {X_CFG}'s {len(x_calls)} bs1 sites:")
-    x_sites, k2_x = time_k2_f32(x_calls)
+    x_sites, k2_x = time_k2(x_calls)
     del ex, x_calls
     log(f"  conv3x3 float32 {X_CFG} sums: kernel {k2_x['ms']:.4f} ms, cuDNN fp32 "
         f"{k2_x['library_ms']:.4f}, bound {k2_x['bound_ms']:.5f} (3xTF32; CUDA-core fp32 "
@@ -2809,49 +2849,56 @@ def frame_ms(eng, frame):
 
 
 def forward64(eng, x):
-    """A CPU engine's network in float64, folded stem included: the
-    reference of [9]'s float32 checks."""
+    """A CPU engine's network in float64 on uint8 frames, folded stem
+    included (or from row 0 on x / 255): the reference of [9]'s and [16]'s
+    float32 checks."""
     import copy
 
     import torch.nn.functional as F
 
     from multiyolov5_tpu_torch.ops.kernels.stem import space_to_depth4
     model = copy.deepcopy(eng.model).double()
-    w1, b1, w2, b2 = (t.double() for t in eng.stem_weights)
     with torch.inference_mode():
+        if not eng.fold_stem:
+            z, seg = model(x.double().permute(0, 3, 1, 2) / 255)
+            return z, None if seg is None else seg.float()
+        w1, b1, w2, b2 = (t.double() for t in eng.stem_weights)
         y = F.silu(F.conv2d(space_to_depth4(x).double(), w1.permute(3, 2, 0, 1), b1, padding=1))
         y = F.silu(F.conv2d(F.pad(y, (1, 0, 1, 0)), w2.permute(3, 2, 0, 1), b2))
         z, seg = model(y, start_layer=2)
     return z, None if seg is None else seg.float()
 
 
-def run_family(cfg, frame):
-    """One configuration at bs1 on seeded weights: launches; the card's
-    fp32 network against float64 and its post-processing against the CPU's;
-    bf16 against fp32 beside the CPU's own bf16 drift; every K2 site
-    against its plain version; ms/frame."""
+def run_family(cfg, frame, half: bool = True, timing: bool = True):
+    """One configuration (a zoo or hub name) at bs1 on seeded weights:
+    launches; the card's fp32 network against float64 and its
+    post-processing against the CPU's; with ``half``, bf16 against fp32
+    beside the CPU's own bf16 drift; every K2 site against its plain
+    version; with ``timing``, ms/frame."""
     from multiyolov5_tpu_torch.engine import Engine
     from multiyolov5_tpu_torch.models.config import load_spec
     from multiyolov5_tpu_torch.models.model import seeded_state_dict
     from multiyolov5_tpu_torch.ops import kernels as K
     spec = load_spec(cfg)
-    sd = seeded_state_dict(spec, SEED)
+    sd = seeded_state_dict(spec, SEED, DEVICE)     # the statistics pass on the card
     e32 = Engine(spec=spec, state_dict=sd, device=DEVICE, half=False)
-    e16 = Engine(spec=spec, state_dict=sd, device=DEVICE, half=True)
+    e16 = Engine(spec=spec, state_dict=sd, device=DEVICE, half=True) if half else None
     cpu = Engine(spec=spec, state_dict=sd, device="cpu", half=False)
     n_k2 = k2_sites(e32.model)
     seg = spec.seg_index is not None
+    stem = (f"stem c_mid {e32.stem_weights[0].shape[-1]}" if e32.fold_stem
+            else "no folded stem (rows from 0)")
     log(f"  {cfg}: {len(spec.rows)} rows, seg head "
         f"{spec.rows[spec.seg_index].module if seg else 'none'}, strides {spec.strides}, "
-        f"stem c_mid {e32.stem_weights[0].shape[-1]}, {n_k2} K2 sites")
+        f"{stem}, {n_k2} K2 sites")
     x = torch.from_numpy(frame[None]).to(DEVICE)
     K.reset_launches()
     z_card, seg_card = e32.forward(x)
     card = e32.postprocess(z_card, seg_card, IN_HW, ORIG_HW, conf=CONF)
     torch.cuda.synchronize()
     launches = K.launch_counts()
-    want = {"stem": 1, "stem_float": 0, "conv3x3": n_k2, "nms": 1, "nms_greedy": 0,
-            "upsample_argmax": int(seg), "c3": 0}
+    want = {"stem": int(e32.fold_stem), "stem_float": 0, "conv3x3": n_k2, "nms": 1,
+            "nms_greedy": 0, "upsample_argmax": int(seg), "c3": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"{cfg} bs1 launches {launches}, want {want}")
     t0 = time.perf_counter()
@@ -2887,6 +2934,43 @@ def run_family(cfg, frame):
                  + ("" if close else "; networks past NET_REL: detections reported"),
                  card, ref, E2E_MATCH_SHARE if close else None, BOX_PX if close else None,
                  E2E_SCORE_ABS, E2E_MASK_SHARE)
+    res = {"launches_per_frame": launches, "k2_sites": n_k2, "cpu_forward_s": t_cpu,
+           "dets": len(card[0][0]), "network_fp32": net}
+    if half:
+        res["bf16_vs_fp32"] = bf16_drift(cfg, spec, sd, e16, e32, x, z_cpu, seg_cpu)
+    # every K2 site of the path, on the engines' own weights and shapes
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    res["k2_rel_err"] = {}
+    for eng, dt, bound in ((e32, torch.float32, F32_REL), (e16, torch.bfloat16, BF16_REL)):
+        if eng is None:
+            continue
+        sites, _ = record_path_inputs(eng, frame)
+        worst_rel = 0.0
+        for shape, co, st, dl, act, wt, b in sites:
+            xs = torch.randn(shape, generator=g, device=DEVICE).to(dt)
+            got = K.conv3x3(xs, wt, b, st, dl, act)
+            torch.cuda.synchronize()
+            worst_rel = max(worst_rel, diffs(got, K.conv3x3_plain(xs, wt, b, st, dl, act))[1])
+        check(f"{cfg} conv3x3 {str(dt)[6:]} at its {len(sites)} sites "
+              f"(c_in {sorted({s[0][-1] for s in sites})}) max|diff|/max(max|ref|,1)",
+              worst_rel, bound)
+        res["k2_rel_err"][str(dt)[6:]] = worst_rel
+    for name, eng in (("fp32", e32), ("bf16", e16)) if timing else ():
+        if eng is None:
+            continue
+        reps = frame_ms(eng, frame)
+        res[f"{name}_ms"] = reps
+        log(f"  {cfg} Engine.__call__ bs1 {name}: median {float(np.median(reps)):.3f} "
+            f"ms/frame over {FAMILY_REPS} reps of {FAMILY_ITERS}, range "
+            f"{min(reps):.3f}-{max(reps):.3f}")
+    return res, (e32, e16, cpu)
+
+
+def bf16_drift(cfg, spec, sd, e16, e32, x, z_cpu, seg_cpu):
+    """The card's bf16 network against its fp32 one on ``x``, held to
+    BF16_FACTOR x the CPU's own bf16 drift (never tighter than [3]'s bounds)."""
+    from multiyolov5_tpu_torch.engine import Engine
+    seg = spec.seg_index is not None
     z16, seg16 = e16.forward(x)
     z32, seg32 = e32.forward(x)
     # bf16's own drift on this network: the CPU's bf16 engine against its fp32
@@ -2909,39 +2993,12 @@ def run_family(cfg, frame):
                 f"(the CPU's bf16 forward took {t_cpu16:.1f} s)")
             check(f"{cfg} network bf16 vs fp32 card: {what}", got,
                   max(bound, BF16_FACTOR * own))
-    # every K2 site of the path, on the engines' own weights and shapes
-    g = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
-    worst = {}
-    for eng, dt, bound in ((e32, torch.float32, F32_REL), (e16, torch.bfloat16, BF16_REL)):
-        sites, _ = record_path_inputs(eng, frame)
-        worst_rel = 0.0
-        for shape, co, st, dl, act, wt, b in sites:
-            xs = torch.randn(shape, generator=g, device=DEVICE).to(dt)
-            got = K.conv3x3(xs, wt, b, st, dl, act)
-            torch.cuda.synchronize()
-            worst_rel = max(worst_rel, diffs(got, K.conv3x3_plain(xs, wt, b, st, dl, act))[1])
-        check(f"{cfg} conv3x3 {str(dt)[6:]} at its {len(sites)} sites "
-              f"(c_in {sorted({s[0][-1] for s in sites})}) max|diff|/max(max|ref|,1)",
-              worst_rel, bound)
-        worst[str(dt)[6:]] = worst_rel
-    res = {"launches_per_frame": launches, "k2_sites": n_k2, "k2_rel_err": worst,
-           "cpu_forward_s": t_cpu, "dets": len(card[0][0]), "network_fp32": net,
-           "bf16_vs_fp32": bf16}
-    for name, eng in (("fp32", e32), ("bf16", e16)):
-        reps = frame_ms(eng, frame)
-        res[f"{name}_ms"] = reps
-        log(f"  {cfg} Engine.__call__ bs1 {name}: median {float(np.median(reps)):.3f} "
-            f"ms/frame over {FAMILY_REPS} reps of {FAMILY_ITERS}, range "
-            f"{min(reps):.3f}-{max(reps):.3f}")
-    return res, (e32, e16, cpu)
+    return bf16
 
 
-def phase_families(eng32, frames):
-    """[9] the other model families: K1's float mode, each configuration of
-    FAMILY_CFGS at bs1, BiSe's seg_validation on float batches, an
-    InferenceServer on a detection-only model, and pspv5l at bs2 off K7.
-    A failed bound is reported where it happens and raised at the end of
-    the phase, so one run shows every one."""
+def deferring_checks(label: str, fn, *args):
+    """``fn(*args)`` with each failed bound reported where it happens and
+    raised at the end, so one run shows every one."""
     failures = []
     real = check
 
@@ -2952,10 +3009,18 @@ def phase_families(eng32, frames):
             failures.append(str(e))
 
     with replaced(sys.modules[__name__], "check", deferred):
-        res = _phase_families(eng32, frames)
+        res = fn(*args)
     if failures:
-        raise AssertionError(f"[9]: {len(failures)} bound(s) failed: {failures}")
+        raise AssertionError(f"{label}: {len(failures)} bound(s) failed: {failures}")
     return res
+
+
+def phase_families(eng32, frames):
+    """[9] the other model families: K1's float mode, each configuration of
+    FAMILY_CFGS at bs1, BiSe's seg_validation on float batches, an
+    InferenceServer on a detection-only model, and pspv5l at bs2 off K7.
+    Failed bounds are raised at the end of the phase."""
+    return deferring_checks("[9]", _phase_families, eng32, frames)
 
 
 def _phase_families(eng32, frames):
@@ -3079,7 +3144,7 @@ def _phase_families(eng32, frames):
     from multiyolov5_tpu_torch.models.config import load_spec
     from multiyolov5_tpu_torch.models.model import seeded_state_dict
     spec_l = load_spec(L_CFG)
-    l32 = Engine(spec=spec_l, state_dict=seeded_state_dict(spec_l, SEED), device=DEVICE,
+    l32 = Engine(spec=spec_l, state_dict=seeded_state_dict(spec_l, SEED, DEVICE), device=DEVICE,
                  half=False)
     x2 = torch.from_numpy(np.stack(frames[:2])).to(DEVICE)
     K.reset_launches()
@@ -3142,6 +3207,35 @@ def change_errors(got: dict, want: dict, init: dict):
         if span > 1e3 * eps * top:
             rel.append(err / span)
     return bad, max(rel), float(np.median(rel))
+
+
+def train_step64(spec, sd, host, args, bs: int):
+    """The train step on ``host`` on the CPU in float64 (parameters,
+    buffers, gradients, momentum, EMA and the images): the reference of a
+    float32 step, as forward64 is of a float32 forward."""
+    from multiyolov5_tpu_torch.train import trainer as T
+    ts, step = train_state(spec, sd, torch.float32, "cpu", bs)
+    ts.model.double()
+    for p in ts.model.parameters():
+        p.grad = torch.zeros_like(p)
+    ts.opt["momentum"] = {k: v.double() for k, v in ts.opt["momentum"].items()}
+    ts.ema = {k: v.double() if v.is_floating_point() else v for k, v in ts.ema.items()}
+    images32 = T._images
+    with replaced(T, "_images", lambda a, dev: images32(a, dev).double()):
+        return step(ts, *host, *args)
+
+
+def within_f64(got, cpu, ref64, init) -> bool:
+    """A float32 tensor ``got`` against its float64 reference ``ref64``:
+    within TRAIN_UPDATE_REL of the reference's change from ``init`` + 2
+    float32 ulps of its values, or within F64_FACTOR x the CPU's own
+    float32 error ``cpu`` against the reference."""
+    eps = float(np.finfo(np.float32).eps)
+    ref64, init = ref64.double().cpu(), init.double().cpu()
+    err = (got.double().cpu() - ref64).abs().max().item()
+    own = (cpu.double().cpu() - ref64).abs().max().item()
+    span, top = (ref64 - init).abs().max().item(), ref64.abs().max().item()
+    return err <= max(TRAIN_UPDATE_REL * span + 2 * eps * top, F64_FACTOR * own)
 
 
 def k6_bound(z, y):
@@ -3715,9 +3809,9 @@ def phase_train_cli(card: str):
     res["times"] = {"det_item_host_ms": det_ms, "seg_item_host_ms": seg_ms,
                     "step_ms": step_ms, "epoch_walls_s": res["run_a"]["epoch_walls_s"]}
 
-    # run B: three epochs, interrupted at epoch 1's first step, then resumed
+    # run B: two epochs, interrupted at epoch 1's first step, then resumed
     with contextlib.suppress(KeyboardInterrupt):
-        tc_run(base + ["--epochs", "3", "--project", work, "--name", "b"],
+        tc_run(base + ["--epochs", "2", "--project", work, "--name", "b"],
                TcSteps(cli, stop_at=nb + 1))
     last_b = os.path.join(work, "b", "weights", "last.npz")
     held = load_npz(last_b)
@@ -3743,7 +3837,7 @@ def phase_train_cli(card: str):
     diff = (sum(not torch.equal(mom[k], want_mom[k]) for k in want_mom)
             + sum(not torch.equal(ema[k], want_ema[k]) for k in want_ema)
             + int(updates != int(held["updates"])) + int(set(mom) != set(want_mom)))
-    rows_b = tc_results(run_b, 3)
+    rows_b = tc_results(run_b, 2)
     log(f"  run B: interrupted at epoch 1 (last.npz epoch 0, {int(held['updates'])} updates); "
         f"tools/resume.py --dry-run named it alone; --resume continued epochs "
         f"{rows_b[1:, 0].tolist()}")
@@ -3792,7 +3886,7 @@ def phase_train_cli(card: str):
 # ranks on one device), at [7]'s geometry; the spatial forward at 512x1024
 PAR_WORLD = 2
 PAR_SPATIAL_BS, PAR_SPATIAL_HW = 2, (512, 1024)
-PAR_REPS = 2
+PAR_REPS = 1
 # the spatial forward against the one-process forward, both float32 on the
 # card: rtol 1e-4 as the JAX package's own test (tests/test_spatial.py:110-111)
 # with an absolute term of 1e-4 of the output's scale.  That test's 1e-5
@@ -4213,6 +4307,257 @@ def phase_parallel(card: str):
     return res
 
 
+def hold_recorded(eng, frames, what: str, bound: float):
+    """One counted ``Engine`` call on ``frames`` (B, H, W, 3) uint8 with the
+    arguments of K1, K2, K7, K3 and K5 recorded; each kernel the call
+    launched then held against its plain version on them
+    (:func:`hold_path_kernels`).  Returns (the call's output, its launches,
+    the records, the errors)."""
+    from multiyolov5_tpu_torch import engine as engine_mod
+    from multiyolov5_tpu_torch.models import blocks
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops import nms as nms_mod
+    rec = {k: [] for k in ("stem", "conv3x3", "c3", "nms", "nms_greedy", "upsample_argmax")}
+    with spied(engine_mod, "stem", before=recorder(rec["stem"])), \
+            spied(blocks, "conv3x3", before=recorder(rec["conv3x3"])), \
+            spied(blocks, "c3", before=recorder(rec["c3"])), \
+            spied(nms_mod, "nms_packed", before=recorder(rec["nms"])), \
+            spied(nms_mod, "nms_greedy", before=recorder(rec["nms_greedy"])):
+        K.reset_launches()
+        out = eng(frames, ORIG_HW, conf=CONF)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+    return out, launches, rec, hold_path_kernels(rec, what, bound)
+
+
+def want_launches(what: str, launches: dict, want: dict) -> None:
+    log(f"  {what}: launches {launches}")
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+
+
+def batch_vs_cpu(name, e32, cpu, frames, own_f64):
+    """A batch of uint8 ``frames`` through the card's fp32 engine against
+    the CPU's: the networks within max(NET_REL, F64_FACTOR x the CPU's own
+    float32 error at bs1 (``own_f64``, by output)), the detections under
+    [3]'s end-to-end bounds where the networks are within NET_REL (else
+    reported)."""
+    x = torch.from_numpy(frames)
+    z_card, _ = e32.forward(x.to(DEVICE))
+    t0 = time.perf_counter()
+    z_cpu, _ = cpu.forward(x)
+    t_cpu = time.perf_counter() - t0
+    z_card = z_card.cpu()
+    close = True
+    for what, sl, k in (("boxes", slice(0, 4), 1), ("obj/cls", slice(4, None), 0)):
+        err = diffs(z_card[:, sl], z_cpu[:, sl])[k]
+        close = close and err <= NET_REL
+        check(f"{name} network fp32 card vs CPU: {what} "
+              f"{'max|diff|/max(max|ref|,1)' if k else 'max|diff|'}", err,
+              max(NET_REL, F64_FACTOR * own_f64[what]["cpu_vs_f64"]))
+    card = e32.postprocess(z_card.to(DEVICE), None, IN_HW, ORIG_HW, conf=CONF)
+    ref = cpu.postprocess(z_cpu, None, IN_HW, ORIG_HW, conf=CONF)
+    compare_runs(f"{name} end to end fp32 card vs CPU (the CPU forward took {t_cpu:.1f} s)"
+                 + ("" if close else "; networks past NET_REL: detections reported"),
+                 card, ref, E2E_MATCH_SHARE if close else None, BOX_PX if close else None,
+                 E2E_SCORE_ABS, E2E_MASK_SHARE)
+    return z_card, t_cpu
+
+
+def phase_dsl(frames, card: str):
+    """[16] the DSL's other rows: the v5.0 hub configs at full width on the
+    card.  Failed bounds are raised at the end of the phase."""
+    return deferring_checks("[16]", _phase_dsl, frames, card)
+
+
+def _phase_dsl(frames, card: str):
+    from multiyolov5_tpu_torch import evaluation as E
+    from multiyolov5_tpu_torch.models import blocks
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    from multiyolov5_tpu_torch.ops import kernels as K
+    from multiyolov5_tpu_torch.ops import nms as nms_mod
+    from multiyolov5_tpu_torch.utils.profiling import estimate_gflops
+    log(f"[16] the DSL's other rows: {DSL_MAIN}, {DSL_TR}, {', '.join(DSL_OTHERS)} at full "
+        f"width and depth, seed {SEED}, {IN_HW} -> {ORIG_HW}, conf {CONF}")
+    res = {"launches": {}}
+    counted = []
+    rng = np.random.RandomState(SEED + 31)
+    batch = np.stack([(rng.rand(*IN_HW, 3) * 255).astype(np.uint8) for _ in range(DSL_BS)])
+
+    # (a) yolov3: bs1 fp32 and bf16 (run_family), each kernel on its own
+    # arguments, K2's sites timed, a bs8 batch, the eval path
+    spec = load_spec(DSL_MAIN)
+    with torch.device("meta"):
+        from multiyolov5_tpu_torch.models.model import Model
+        n_params = sum(p.numel() for p in Model(spec).parameters())
+    gf = estimate_gflops(spec, None, IN_HW)
+    log(f"  {DSL_MAIN}: {n_params} parameters, {gf:.4f} GFLOPs a frame at {IN_HW} "
+        f"({estimate_gflops(spec, None, 640):.4f} at 640x640)")
+    a, (e32, e16, cpu) = run_family(DSL_MAIN, frames[0])
+    a.update(parameters=n_params, gflops=gf)
+    n_k2 = a["k2_sites"]
+    for eng, name, bound in ((e32, "fp32", F32_REL), (e16, "bf16", BF16_REL)):
+        _, launches, rec, errs = hold_recorded(eng, frames[0][None], f"{DSL_MAIN} bs1 {name}",
+                                               bound)
+        want_launches(f"{DSL_MAIN} bs1 {name}", launches,
+                      {"stem": 0, "conv3x3": n_k2, "nms": 1, "nms_greedy": 0, "c3": 0})
+        counted.append(launches)
+        a[f"bs1_{name}_errs"] = errs
+        if name == "bf16":
+            calls = [(x, wt, b, kw.get("stride", 1), kw.get("dilation", 1), kw.get("act", True))
+                     for (x, wt, b), kw in rec["conv3x3"]]
+            log(f"  conv3x3 bf16 at {DSL_MAIN}'s {len(calls)} bs1 sites (their own inputs):")
+            a["k2_sites_bf16"], a["k2_bf16"] = time_k2(calls)
+            t = a["k2_bf16"]
+            log(f"  conv3x3 bf16 {DSL_MAIN} sums: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f}, cuDNN bf16 {t['library_ms']:.4f}, bound "
+                f"{t['bound_ms']:.5f}")
+    # bs8: launches, every kernel on its arguments, card against the CPU
+    for eng, name, bound in ((e32, "fp32", F32_REL), (e16, "bf16", BF16_REL)):
+        _, launches, _, errs = hold_recorded(eng, batch, f"{DSL_MAIN} bs{DSL_BS} {name}", bound)
+        want_launches(f"{DSL_MAIN} bs{DSL_BS} {name}", launches,
+                      {"stem": 0, "conv3x3": n_k2, "nms": 0, "nms_greedy": 1, "c3": 0})
+        counted.append(launches)
+        a[f"bs{DSL_BS}_{name}_errs"] = errs
+    z8, a["bs8_cpu_s"] = batch_vs_cpu(f"{DSL_MAIN} bs{DSL_BS}", e32, cpu, batch,
+                                      a["network_fp32"])
+    z8_16, _ = e16.forward(torch.from_numpy(batch).to(DEVICE))
+    own = a["bf16_vs_fp32"]["cpu"]["objcls_mean"]
+    check(f"{DSL_MAIN} bs{DSL_BS} network bf16 vs fp32 card: obj/cls mean |diff|",
+          (z8_16[:, 4:].float().cpu() - z8[:, 4:]).abs().mean().item(),
+          max(BF16_OBJCLS_MEAN, BF16_FACTOR * own))
+    for name, eng in (("fp32", e32), ("bf16", e16)):
+        reps = [r / DSL_BS for r in frame_ms(eng, batch)]
+        a[f"bs{DSL_BS}_{name}_ms"] = reps
+        log(f"  {DSL_MAIN} Engine.__call__ bs{DSL_BS} {name}: median "
+            f"{float(np.median(reps)):.3f} ms/frame over {FAMILY_REPS} reps of {FAMILY_ITERS}, "
+            f"range {min(reps):.3f}-{max(reps):.3f}")
+    # the eval path on one bs4 batch: K2 and K5 on their own arguments
+    det_b, _ = eval_batches(e32, np.random.RandomState(SEED + 33), batches=1)
+    rec = {k: [] for k in ("stem", "conv3x3", "c3", "nms_greedy", "upsample_argmax")}
+    with spied(blocks, "conv3x3", before=recorder(rec["conv3x3"])), \
+            spied(nms_mod, "nms_greedy", before=recorder(rec["nms_greedy"])):
+        K.reset_launches()
+        metrics, _, _ = quiet(E.evaluate_detection, e32, det_b, conf_thres=EVAL_CONF,
+                              iou_thres=EVAL_IOU)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+    want_launches(f"{DSL_MAIN} evaluate_detection bs{EVAL_BS}", launches,
+                  {"stem": 0, "conv3x3": n_k2, "nms": 0, "nms_greedy": 1, "c3": 0})
+    counted.append(launches)
+    a["eval_errs"] = hold_path_kernels(rec, f"{DSL_MAIN} eval", F32_REL)
+    a["eval_metrics"] = [float(v) for v in metrics[:4]]
+    log(f"  {DSL_MAIN} evaluate_detection P, R, mAP@.5, mAP: {a['eval_metrics']}")
+    if not 0.0 < metrics[2] < 1.0:
+        raise AssertionError(f"{DSL_MAIN}: degenerate mAP@.5 {metrics[2]}")
+    res[DSL_MAIN] = a
+    del e32, e16, cpu
+
+    # (b) yolov5s-transformer: bs1 (K1, K2 s1 and s2, K3), C3TR against the
+    # CPU, bs2 (K7 on the row-2 C3)
+    b, (t32, t16, tcpu) = run_family(DSL_TR, frames[0])
+    for eng, name, bound in ((t32, "fp32", F32_REL), (t16, "bf16", BF16_REL)):
+        _, launches, rec, errs = hold_recorded(eng, frames[0][None], f"{DSL_TR} bs1 {name}",
+                                               bound)
+        want_launches(f"{DSL_TR} bs1 {name}", launches,
+                      {"stem": 1, "conv3x3": b["k2_sites"], "nms": 1, "c3": 0})
+        counted.append(launches)
+        strides = sorted({kw.get("stride", 1) for _, kw in rec["conv3x3"]})
+        if strides != [1, 2]:
+            raise AssertionError(f"{DSL_TR}: K2 strides {strides}, want [1, 2]")
+        b[f"bs1_{name}_errs"] = errs
+    row = next(r.i for r in t32.spec.rows if r.module == "C3TR")
+    seen = []
+    hook = t32.model.model[row].register_forward_pre_hook(
+        lambda m, args: seen.append(args[0].clone()))
+    t32.forward(torch.from_numpy(frames[0][None]).to(DEVICE))
+    hook.remove()
+    with torch.inference_mode():
+        got = t32.model.model[row](seen[0]).cpu()
+        want = tcpu.model.model[row](seen[0].cpu())
+    b["c3tr_rel"] = diffs(got, want)[1]
+    log(f"  {DSL_TR} C3TR (row {row}) on the card's input {tuple(seen[0].shape)}: "
+        f"{(seen[0].shape[2] * seen[0].shape[3])} tokens")
+    check(f"{DSL_TR} C3TR row {row} fp32 card vs CPU max|diff|/max(max|ref|,1)",
+          b["c3tr_rel"], F32_REL)
+    x2 = np.stack(frames[:DSL_TR_BS])
+    n_c3 = sum(isinstance(m, blocks.C3) and m.c3_kernel for m in t32.model.modules())
+    if n_c3 < 1:
+        raise AssertionError(f"{DSL_TR}: no C3 on K7")
+    _, launches, _, b[f"bs{DSL_TR_BS}_errs"] = hold_recorded(
+        t32, x2, f"{DSL_TR} bs{DSL_TR_BS} fp32", F32_REL)
+    want_launches(f"{DSL_TR} bs{DSL_TR_BS} fp32 ({n_c3} C3 row(s) on K7)", launches,
+                  {"stem": 1, "conv3x3": b["k2_sites"], "nms_greedy": 1, "c3": n_c3})
+    counted.append(launches)
+    batch_vs_cpu(f"{DSL_TR} bs{DSL_TR_BS}", t32, tcpu, x2, b["network_fp32"])
+    res[DSL_TR] = b
+    del t32, t16, tcpu
+
+    # (c) the other four at bs1 in float32
+    for cfg in DSL_OTHERS:
+        res[cfg], _ = run_family(cfg, frames[0], half=False, timing=False)
+
+    # (d) one float32 train step of yolov5-panet, card against the CPU
+    spec = load_spec(DSL_TRAIN_CFG)
+    sd = seeded_state_dict(spec, SEED, DEVICE)
+    host = train_batch(np.random.RandomState(SEED + 35), DSL_TRAIN_BS, spec.nc, 2,
+                       det_hw=DSL_TRAIN_HW, seg_hw=DSL_TRAIN_HW)
+    args = (*TRAIN_STEP_ARGS, True)
+    ts_c, step_c = train_state(spec, sd, torch.float32, DEVICE, DSL_TRAIN_BS)
+    K.reset_launches()
+    ts_c, m_c = step_c(ts_c, *(torch.as_tensor(t).to(DEVICE) for t in host), *args)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{DSL_TRAIN_CFG} train step launched {launches}")
+    t_cpu = time.perf_counter()
+    ts_h, step_h = train_state(spec, sd, torch.float32, "cpu", DSL_TRAIN_BS)
+    ts_h, m_h = step_h(ts_h, *host, *args)
+    t_cpu = time.perf_counter() - t_cpu
+    log(f"  {DSL_TRAIN_CFG} fp32 bs{DSL_TRAIN_BS} {DSL_TRAIN_HW} step, card vs CPU (the CPU "
+        f"step took {t_cpu:.1f} s): total {m_c['total'].item():.5f}")
+    for k in ("total", "det_items"):
+        a_, b_ = m_c[k].cpu(), m_h[k]
+        check(f"{DSL_TRAIN_CFG} train fp32 card vs CPU: {k} max|diff|/|CPU|",
+              ((a_ - b_).abs() / b_.abs()).max().item(), TRAIN_LOSS_REL)
+    # a network this deep amplifies float32 rounding itself (its CPU forward
+    # is ~3e-3 off float64, (c)): as [9] does for the forward, the card's
+    # step is held against the step in float64, to [7]'s change bound or
+    # F64_FACTOR x the CPU's own float32 error, whichever is larger
+    ts_64, _ = train_step64(spec, sd, host, args, DSL_TRAIN_BS)
+    init = {k: v.float() for k, v in sd.items()}
+    mom0 = {k: torch.zeros_like(v) for k, v in ts_h.opt["momentum"].items()}
+    res["train"] = {"cpu_s": t_cpu}
+    for what, got, want, ref, ref64 in (
+            ("params+BN", ts_c.state_dict(), ts_h.state_dict(), init, ts_64.state_dict()),
+            ("EMA", ts_c.ema, ts_h.ema, init, ts_64.ema),
+            ("momentum", ts_c.opt["momentum"], ts_h.opt["momentum"], mom0,
+             ts_64.opt["momentum"])):
+        bad, worst, med = change_errors(got, want, ref)
+        bad64 = [k for k in bad if not within_f64(got[k], want[k], ref64[k], ref[k])]
+        log(f"  {what}: {len(want)} tensors, change |diff|/|change| card vs CPU worst "
+            f"{worst:.3e}, median {med:.3e}; {len(bad)} past [7]'s change bound: {bad}")
+        check(f"{DSL_TRAIN_CFG} train fp32 card vs float64: {what} tensors off max([7]'s "
+              f"change bound, {F64_FACTOR:g} x the CPU's own error)", len(bad64), 0)
+        res["train"][what] = {"worst": worst, "median": med, "past_change_bound": bad}
+    res["launches"] = {k: sum(c[k] for c in counted) for k in counted[0]}
+    log(f"  [16]'s counted runs launched {res['launches']} on {card}")
+    return res
+
+
+PHASE_S = {}
+
+
+def timed(label: str, fn, *args):
+    """``fn(*args)``, its wall seconds logged and kept in PHASE_S."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[label] = time.perf_counter() - t0
+    log(f"  {label} took {PHASE_S[label]:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -4224,35 +4569,38 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = phase_card()
+    t_start = time.perf_counter()
+    smi, sass = timed("[1]", phase_card)
     rng = np.random.RandomState(SEED)
     frames = [(rng.rand(*IN_HW, 3) * 255).astype(np.uint8) for _ in range(N_FRAMES)]
     eng32 = Engine(cfg=CFG, device=DEVICE, half=False, seed=SEED)
     eng16 = Engine(cfg=CFG, device=DEVICE, half=True, seed=SEED)
     cpu_eng = Engine(cfg=CFG, device="cpu", half=False, seed=SEED)
 
-    errs, sites16, nms_in = phase_kernels(eng32, eng16, frames)
-    launches = phase_end_to_end(eng32, eng16, cpu_eng, frames)
-    ev = phase_eval(eng32, eng16, cpu_eng)
+    errs, sites16, nms_in = timed("[2]", phase_kernels, eng32, eng16, frames)
+    launches = timed("[3]", phase_end_to_end, eng32, eng16, cpu_eng, frames)
+    ev = timed("[5]", phase_eval, eng32, eng16, cpu_eng)
     launches["nms_greedy"] = ev["launches"]["nms_greedy"]
     errs["nms_greedy"] = ev["errs"]["nms_greedy"]
     (e2e, times, per_site, library, bounds, k4_eval, short, c3_times, k2_f32, k2_sweep,
-     stem_bs8) = phase_timing(eng32, eng16, frames, sites16, nms_in, ev)
+     stem_bs8) = timed("[6]", phase_timing, eng32, eng16, frames, sites16, nms_in, ev)
     eval_launches, eval_errs = ev["launches"], ev["errs"]
     eval_n, eval_metrics = ev["n"], ev["metrics"]
     del ev
-    sv = phase_serving(eng32, eng16, cpu_eng)
+    sv = timed("[8]", phase_serving, eng32, eng16, cpu_eng)
     n_batched = sum(b[0] > 1 for b in sv["batches"])
     launches["c3"] = sv["launches"]["c3"]
-    app = phase_app(eng32, eng16, cpu_eng, frames, smi)
-    fam = phase_families(eng32, frames)
-    cli = phase_eval_cli(eng32, smi)
-    hb = phase_hub(smi)
-    pe = phase_profile_export(eng32, eng16, frames, smi)
+    app = timed("[10]", phase_app, eng32, eng16, cpu_eng, frames, smi)
+    fam = timed("[9]", phase_families, eng32, frames)
+    cli = timed("[11]", phase_eval_cli, eng32, smi)
+    hb = timed("[12]", phase_hub, smi)
+    pe = timed("[13]", phase_profile_export, eng32, eng16, frames, smi)
     del eng32, eng16, cpu_eng
-    tr = phase_train()
-    tc = phase_train_cli(smi)
-    par = phase_parallel(smi)
+    tr = timed("[7]", phase_train)
+    tc = timed("[14]", phase_train_cli, smi)
+    par = timed("[15]", phase_parallel, smi)
+    dsl = timed("[16]", phase_dsl, frames, smi)
+    check_sass(sass)
     k6 = tr["k6_times"]["bf16"]
     train_counts = tr["launches"]["bf16"]
     launches["seg_ce"] = train_counts["seg_ce"] + train_counts["seg_ce_bwd"]
@@ -4290,8 +4638,10 @@ def main() -> int:
     # (forward + backward) in the counted bf16 train step [7], K7 in the
     # bf16 batched server's run [8] (serving_batches batched forwards);
     # eval_launches, train_launches, eval_cli_launches ([11], the CLI's
-    # counted run) and hub_launches ([12], one fp32 AutoShape call on the
-    # mixed list): every kernel on those paths.
+    # counted run), hub_launches ([12], one fp32 AutoShape call on the
+    # mixed list) and dsl_launches ([16]'s counted calls: yolov3 bs1 fp32
+    # and bf16, bs8 fp32 and bf16, its eval batch; the transformer bs1 fp32
+    # and bf16, bs2): every kernel on those paths.
     # max_abs_err: the float32 comparison of [2] at the serving shapes; for
     # nms the keep entries that differ, for nms_greedy the picks that differ
     # on the eval path's lists, for upsample_argmax the mismatched pixel
@@ -4313,6 +4663,8 @@ def main() -> int:
                                                      if k == "seg_ce" else 0),
                 "train_cli_launches": tc["run_a"]["launches"][k] + (
                     tc["run_a"]["launches"]["seg_ce_bwd"] if k == "seg_ce" else 0),
+                "dsl_launches": dsl["launches"][k] + (
+                    dsl["launches"]["seg_ce_bwd"] if k == "seg_ce" else 0),
                 "err_dtype": "float32",
                 "ms_dtype": ("float32" if k.startswith("nms") or k == "stem_float"
                              else "bfloat16")}
@@ -4375,7 +4727,9 @@ def main() -> int:
                    "eval_candidates_per_image": eval_n,
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
                    "serving_bs8": sv, "families": fam, "app": app, "eval_cli": cli,
-                   "hub": hb, "profile_export": pe, "train_cli": tc, "parallel": par}, fh,
+                   "hub": hb, "profile_export": pe, "train_cli": tc, "parallel": par,
+                   "dsl": dsl, "phase_s": PHASE_S,
+                   "total_s": time.perf_counter() - t_start}, fh,
                   indent=1)
     print(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,14 +1,18 @@
 """Inference engine (counterpart of ``multiyolov5_tpu/engine.py``).
 
 One call runs, on ``device``:
-    letterboxed frame (uint8, or float in [0, 1]) -> folded stem (K1) ->
-    trunk (neck 3x3s on K2; at batch > 1 the narrow backbone C3 on K7) ->
-    seg head (its Pallas-site 3x3s on K2), if the model has one, + Detect
-    decode (float32) -> NMS (K3 for one frame, one K5 launch for a batch)
-    -> letterbox unmap -> upsample + argmax class map (K4)
-and returns host arrays.  Every zoo entry runs: the four seg heads,
-detection-only models (no class map) and the 4-level P6 models (stride
-64).  Weights come from a JAX-package ``.npz`` checkpoint, a reference
+    letterboxed frame (uint8, or float in [0, 1]) -> folded stem (K1; a
+    model without the Focus + Conv(3, s2) stem runs from row 0 on the
+    frame / 255) -> trunk (neck 3x3s on K2; at batch > 1 the narrow
+    backbone C3 on K7) -> seg head (its Pallas-site 3x3s on K2), if the
+    model has one, + Detect decode (float32) -> NMS (K3 for one frame, one
+    K5 launch for a batch) -> letterbox unmap -> upsample + argmax class
+    map (K4)
+and returns host arrays.  Every zoo entry and hub config runs: the four
+seg heads, detection-only models (no class map), the 4-level P6 models
+(stride 64), yolov3 and the transformer.  BNs that no conv absorbs keep
+their running statistics in the fused model.  Weights come from a
+JAX-package ``.npz`` checkpoint, a reference
 ``.pt`` (utils/checkpoint.load_pt: its config, when it carries one, wins
 over ``cfg``), a ``state_dict``, or a seeded random init; BN is folded at build and
 ``half=True`` then casts the parameters to bfloat16.  Decode and NMS stay
@@ -105,23 +109,28 @@ class Engine:
                 print(f"WARNING: weights {weights!r} not found - random init from cfg {cfg!r}")
             spec = load_spec(cfg or "yolov5s_city_seg")
             sd = seeded_state_dict(spec, seed)
-        if not stem_lib.can_fold_stem(spec):
-            raise NotImplementedError("the engine needs the Focus + Conv(3, s2) stem")
         self.spec = spec
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if half else torch.float32
         fsd = fuse_conv_bn(sd)
 
-        # rows 0-1 run as the folded stem; for uint8 frames /255 folds into
-        # conv1's weights, float frames (already in [0, 1]) take them unscaled
-        hwio = lambda k: np.asarray(fsd[k]).transpose(2, 3, 1, 0)  # noqa: E731
-        w1, b1, w2, b2 = (torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                          for a in stem_lib.fold_stem_weights(
-                              hwio("model.0.conv.conv.weight"),
-                              np.asarray(fsd["model.0.conv.conv.bias"]),
-                              hwio("model.1.conv.weight"), np.asarray(fsd["model.1.conv.bias"])))
-        self.stem_weights = (w1 * _INV255, b1, w2, b2)
-        self.stem_weights_float = (w1, b1, w2, b2)
+        # rows 0-1 run as the folded stem where they are Focus + Conv(3, s2);
+        # for uint8 frames /255 folds into conv1's weights, float frames
+        # (already in [0, 1]) take them unscaled.  Any other stem runs in the
+        # model from row 0, as the JAX engine runs it
+        # (multiyolov5_tpu/engine.py:379-387)
+        self.fold_stem = stem_lib.can_fold_stem(spec)
+        self.stem_weights = self.stem_weights_float = None
+        if self.fold_stem:
+            hwio = lambda k: np.asarray(fsd[k]).transpose(2, 3, 1, 0)  # noqa: E731
+            w1, b1, w2, b2 = (torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                              for a in stem_lib.fold_stem_weights(
+                                  hwio("model.0.conv.conv.weight"),
+                                  np.asarray(fsd["model.0.conv.conv.bias"]),
+                                  hwio("model.1.conv.weight"),
+                                  np.asarray(fsd["model.1.conv.bias"])))
+            self.stem_weights = (w1 * _INV255, b1, w2, b2)
+            self.stem_weights_float = (w1, b1, w2, b2)
 
         model = Model(spec, fused=True)
         model.load_state_dict(fsd, strict=True)
@@ -149,12 +158,16 @@ class Engine:
         if frames.shape[1] % self.stride or frames.shape[2] % self.stride:
             raise ValueError(f"frame {tuple(frames.shape[1:3])} is not a "
                              f"multiple of the stride {self.stride}")
-        weights = (self.stem_weights_float if frames.is_floating_point()
-                   else self.stem_weights)
+        decode = "both" if raw else True
         with torch.inference_mode():
+            if not self.fold_stem:
+                x = frames.to(self.dtype)
+                x = x if frames.is_floating_point() else x / 255
+                return self.model(x.permute(0, 3, 1, 2), decode=decode)
+            weights = (self.stem_weights_float if frames.is_floating_point()
+                       else self.stem_weights)
             y1 = stem(frames, *weights, out_dtype=self.dtype)
-            return self.model(y1.permute(0, 3, 1, 2), start_layer=2,
-                              decode="both" if raw else True)
+            return self.model(y1.permute(0, 3, 1, 2), start_layer=2, decode=decode)
 
     def forward_augment(self, frames: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Test-time augmentation (multiyolov5_tpu/engine.py:393-407): the

@@ -32,6 +32,7 @@ from .data.letterbox import letterbox
 from .engine import Engine
 from .models.config import load_spec
 from .models.model import seeded_state_dict
+from .ops.stem import can_fold_stem
 from .utils.boxes import xyxy2xywh
 from .utils.checkpoint import intersect_load, load_checkpoint
 from .utils.general import increment_path
@@ -41,19 +42,21 @@ from .utils.plots import color_list, plot_one_box
 def create(name: str, pretrained: Optional[str] = None, channels: int = 3,
            classes: int = 80, autoshape: bool = True, *,
            device: Union[str, torch.device] = "cuda", half: bool = True):
-    """Build a model by zoo name on ``device``; optionally load weights and
-    wrap it in :class:`AutoShape` (reference hubconf.py:22-48).  The
-    default ``classes`` (80, or None) keeps the zoo's head and loads
-    ``pretrained`` whole; any other number rebuilds the head for it (a
-    seeded init) and copies in the ``pretrained`` tensors whose names and
-    shapes match."""
-    if channels != 3:
-        raise NotImplementedError("the port's stem kernel reads 3-channel frames only")
-    if classes in (80, None):
+    """Build a model by zoo or hub-config name on ``device``; optionally
+    load weights and wrap it in :class:`AutoShape` (reference
+    hubconf.py:22-48).  The default ``channels`` (3) and ``classes`` (80, or
+    None) keep the config and load ``pretrained`` whole; any other values
+    rebuild the model for them (a seeded init) and copy in the
+    ``pretrained`` tensors whose names and shapes match.  Other than 3
+    channels needs a model without the folded Focus stem, whose kernel
+    reads 3-channel frames."""
+    if channels == 3 and classes in (80, None):
         eng = Engine(pretrained if pretrained and os.path.exists(pretrained) else None,
                      cfg=name, device=device, half=half)
         return AutoShape(eng) if autoshape else eng
-    spec = load_spec(name, nc=classes)
+    spec = load_spec(name, ch=channels, nc=classes or 80)
+    if channels != 3 and can_fold_stem(spec):
+        raise NotImplementedError("the port's stem kernel reads 3-channel frames only")
     sd = seeded_state_dict(spec, 0)
     if pretrained and os.path.exists(pretrained):
         sd, _ = intersect_load(sd, load_checkpoint(pretrained)[1])

@@ -3,10 +3,12 @@
 Reads the reference yaml model DSL (rows of ``[from, number, module, args]``)
 and compiles it into a static :class:`ModelSpec`: resolved per-layer
 channels, depth/width-scaled args, the save set of intermediate outputs and
-analytic strides.  Pure Python; for the modules this package builds
-(models/model.py) the specs equal the JAX package's field for field.
-Detection-only configs (no ``n_segcls``) compile with ``seg_index`` and
-``n_segcls`` None.
+analytic strides.  Pure Python; the specs equal the JAX package's field
+for field, for every row type its ``init_model`` takes.  Detection-only
+configs (no ``n_segcls``) compile with ``seg_index`` and ``n_segcls`` None.  The
+v5.0 hub configs (yolov3, yolov3-spp, yolov3-tiny, yolov5-fpn,
+yolov5-panet, yolov5s-transformer) ship as JSON files under ``hub/``;
+:func:`load_spec` takes their names.
 """
 
 from __future__ import annotations
@@ -19,8 +21,11 @@ from typing import Any, Dict, List, Optional, Union
 from ..ops.nn import make_divisible
 
 # Modules whose first arg is the output-channel count (reference yolo.py:389-390)
-_CH_OUT_MODULES = {"Conv", "Bottleneck", "SPP", "Focus", "C3"}
-_REPEAT_INSERT = {"C3"}
+_CH_OUT_MODULES = {
+    "Conv", "GhostConv", "Bottleneck", "GhostBottleneck", "SPP", "DWConv",
+    "MixConv2d", "Focus", "CrossConv", "BottleneckCSP", "C3", "C3TR", "ASPP",
+}
+_REPEAT_INSERT = {"BottleneckCSP", "C3", "C3TR"}
 _SEG_HEADS = {"SegMaskPSP", "SegMaskBase", "SegMaskBiSe", "SegMaskLab"}
 
 
@@ -81,14 +86,20 @@ def _resolve_arg(a: Any, env: Dict[str, Any]) -> Any:
     return a
 
 
-def compile_spec(d: Dict[str, Any], ch_in: int = 3) -> ModelSpec:
+def compile_spec(d: Dict[str, Any], ch_in: int = 3, nc: Optional[int] = None,
+                 anchors=None) -> ModelSpec:
     d = dict(d)
+    if nc is not None:
+        d["nc"] = nc
+    if anchors is not None:
+        d["anchors"] = anchors
     gd = d["depth_multiple"]
     gw = d["width_multiple"]
     anchors_ = d["anchors"]
     nc_ = d["nc"]
     n_segcls = d.get("n_segcls")
-    no = (len(anchors_[0]) // 2) * (nc_ + 5)
+    na = (len(anchors_[0]) // 2) if isinstance(anchors_, list) else anchors_
+    no = na * (nc_ + 5)
     env = {"nc": nc_, "anchors": anchors_, "n_segcls": n_segcls,
            "nn.SiLU()": "silu"}
 
@@ -125,6 +136,10 @@ def compile_spec(d: Dict[str, Any], ch_in: int = 3) -> ModelSpec:
             if c2 != no:
                 c2 = make_divisible(c2 * gw, 8)
             args = [c1, c2, *args[1:]]
+            # square list kernels like [1, 1] (hub yolov3.yaml) -> int
+            if len(args) > 2 and isinstance(args[2], list) and \
+                    len(set(args[2])) == 1:
+                args[2] = args[2][0]
             if m in _REPEAT_INSERT:
                 args.insert(2, n_scaled)
                 n_scaled = 1
@@ -132,12 +147,23 @@ def compile_spec(d: Dict[str, Any], ch_in: int = 3) -> ModelSpec:
                 stride_out *= 2
             elif (len(args) > 3 and isinstance(args[3], int)
                   and not isinstance(args[3], bool) and args[3] > 1):
+                # strided variants (args = [c1, c2, k, s, ...]); a bool
+                # args[3] is a C3-family shortcut flag, not a stride
                 stride_out *= args[3]
+        elif m == "nn.BatchNorm2d":
+            c1 = get_ch(fi)
+            c2 = c1
+            args = [c1]
         elif m == "Concat":
             c1 = [get_ch(j) for j in fi]
             c2 = sum(c1)
         elif m == "Detect":
             c1 = [get_ch(j) for j in fi]
+            if isinstance(args[1], int):
+                # 'anchors: N' (reference yolo.py:405-406): N placeholder
+                # anchors a level, for autoanchor to evolve
+                args[1] = [list(range(args[1] * 2))] * len(fi)
+                d["anchors"] = args[1]
             args.append(list(c1))
             c2 = no
             detect_index = i
@@ -150,10 +176,24 @@ def compile_spec(d: Dict[str, Any], ch_in: int = 3) -> ModelSpec:
             c2 = args[0]
             seg_index = i
             stride_out = 1
+        elif m == "Contract":
+            c1 = get_ch(fi)
+            c2 = c1 * args[0] ** 2
+            stride_out *= args[0]
+        elif m == "Expand":
+            c1 = get_ch(fi)
+            c2 = c1 // args[0] ** 2
+            stride_out //= args[0]
         elif m == "nn.Upsample":
             c1 = get_ch(fi)
             c2 = c1
             stride_out = stride_out // args[1]
+        elif m == "nn.MaxPool2d":
+            c1 = get_ch(fi)
+            c2 = c1
+            s = args[1] if len(args) > 1 and args[1] else args[0]  # torch: stride = k
+            if s > 1:
+                stride_out *= s
         else:
             c1 = get_ch(fi)
             c2 = c1
@@ -169,7 +209,7 @@ def compile_spec(d: Dict[str, Any], ch_in: int = 3) -> ModelSpec:
 
     spec = ModelSpec(
         rows=rows, nc=nc_, n_segcls=n_segcls,
-        anchors=d["anchors"],
+        anchors=d["anchors"] if isinstance(d["anchors"], list) else [],
         strides=det_strides, save=save,
         detect_index=detect_index, seg_index=seg_index, yaml=d, ch_in=ch_in,
         names=[str(j) for j in range(nc_)],
@@ -194,22 +234,34 @@ def _check_anchor_order(spec: ModelSpec) -> None:
             spec.rows[spec.detect_index].args[1] = flipped
 
 
-def load_spec(cfg: Union[str, Dict[str, Any]], nc: Optional[int] = None) -> ModelSpec:
+HUB_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hub")
+
+
+def hub_configs() -> List[str]:
+    """The names of the hub configs under ``hub/`` (e.g. 'yolov3')."""
+    return sorted(f[:-5] for f in os.listdir(HUB_DIR) if f.endswith(".yaml"))
+
+
+def load_spec(cfg: Union[str, Dict[str, Any]], ch: int = 3, nc: Optional[int] = None,
+              anchors=None) -> ModelSpec:
     """Accepts a dict, a path to a reference-format yaml (a JSON file, which
-    is YAML, is read without PyYAML), or a built-in name from
-    :mod:`multiyolov5_tpu_torch.models.zoo` (e.g. 'yolov5s_city_seg');
-    ``nc`` overrides the config's number of detection classes."""
+    is YAML, is read without PyYAML), a built-in name from
+    :mod:`multiyolov5_tpu_torch.models.zoo` (e.g. 'yolov5s_city_seg') or a
+    hub config's name (e.g. 'yolov3', :func:`hub_configs`).  ``ch`` is the
+    input's channels; ``nc`` and ``anchors`` override the config's."""
     if isinstance(cfg, dict):
         d = cfg
-    elif os.path.exists(cfg):
-        with open(cfg) as fh:
-            text = fh.read()
-        try:
-            d = json.loads(text)
-        except ValueError:
-            import yaml
-            d = yaml.safe_load(text)
     else:
-        from . import zoo
-        d = zoo.get(cfg)
-    return compile_spec(d if nc is None else {**d, "nc": nc})
+        path = cfg if os.path.exists(cfg) else os.path.join(HUB_DIR, f"{cfg}.yaml")
+        if os.path.exists(path):
+            with open(path) as fh:
+                text = fh.read()
+            try:
+                d = json.loads(text)
+            except ValueError:
+                import yaml
+                d = yaml.safe_load(text)
+        else:
+            from . import zoo
+            d = zoo.get(cfg)
+    return compile_spec(d, ch, nc, anchors)

@@ -2,8 +2,8 @@
 
 :class:`Model` builds one module per spec row under ``model.<i>``, so its
 ``state_dict`` keys equal the JAX package's param/state keys, and walks the
-rows with the spec's save set.  The modules of every zoo entry
-(models/zoo.py) are built; other rows raise.
+rows with the spec's save set.  Every row type that the JAX package's
+``init_model`` takes is built.
 """
 
 from __future__ import annotations
@@ -23,20 +23,62 @@ from .heads import Detect, SegMaskBase, SegMaskBiSe, SegMaskLab, SegMaskPSP
 
 def _build_row(spec: ModelSpec, row, fused: bool, kernel: bool,
                c3_kernel: bool) -> nn.Module:
+    """The module of one spec row, with the JAX package's defaults
+    (multiyolov5_tpu/models/model.py:24-86).  A repeated Conv or Bottleneck
+    row is an ``nn.Sequential`` of its repeats (keys ``model.<i>.<rep>``);
+    the C3 family takes its repeats as an argument, and every other module
+    is built once whatever its count, as the JAX package does."""
     m, a = row.module, row.args
-    if row.n != 1 and m not in ("C3",):
-        raise NotImplementedError(f"row {row.i}: repeated {m}")
-    if m == "Focus":
-        return B.Focus(a[0], a[1], a[2] if len(a) > 2 else 1, fused=fused)
+    arg = lambda j, default: a[j] if len(a) > j else default  # noqa: E731
+
+    def repeated(make):
+        return make() if row.n == 1 else nn.Sequential(*[make() for _ in range(row.n)])
+
     if m == "Conv":
-        return B.Conv(a[0], a[1], a[2] if len(a) > 2 else 1,
-                      a[3] if len(a) > 3 else 1, fused=fused, kernel=kernel)
+        return repeated(lambda: B.Conv(a[0], a[1], arg(2, 1), arg(3, 1), g=arg(5, 1),
+                                       fused=fused, kernel=kernel))
+    if m == "Bottleneck":
+        return repeated(lambda: B.Bottleneck(a[0], a[1], arg(2, True), fused=fused,
+                                             kernel=kernel))
+    if m == "DWConv":
+        return B.DWConv(a[0], a[1], arg(2, 1), arg(3, 1), fused=fused)
+    if m == "Focus":
+        return B.Focus(a[0], a[1], arg(2, 1), fused=fused)
+    if m == "BottleneckCSP":
+        return B.BottleneckCSP(a[0], a[1], n=a[2], shortcut=arg(3, True), fused=fused,
+                               kernel=kernel)
     if m == "C3":
-        return B.C3(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else True,
+        return B.C3(a[0], a[1], n=a[2], shortcut=arg(3, True),
                     fused=fused, kernel=kernel, c3_kernel=c3_kernel)
+    if m == "C3TR":
+        return B.C3TR(a[0], a[1], n=a[2], fused=fused)
     if m == "SPP":
-        return B.SPP(a[0], a[1], tuple(a[2]) if len(a) > 2 else (5, 9, 13),
-                     fused=fused)
+        return B.SPP(a[0], a[1], tuple(arg(2, (5, 9, 13))), fused=fused)
+    if m == "ASPP":
+        return B.ASPP(a[0], a[1], fused=fused)
+    if m == "GhostConv":
+        return B.GhostConv(a[0], a[1], arg(2, 1), arg(3, 1), fused=fused)
+    if m == "GhostBottleneck":
+        return B.GhostBottleneck(a[0], a[1], arg(2, 3), arg(3, 1), fused=fused)
+    if m == "CrossConv":
+        return B.CrossConv(a[0], a[1], arg(2, 3), arg(3, 1), arg(4, 1), arg(5, 1.0),
+                           arg(6, False), fused=fused)
+    if m == "MixConv2d":
+        return B.MixConv2d(a[0], a[1], tuple(arg(2, (1, 3))), arg(3, 1))
+    if m == "Sum":
+        return B.Sum(len(row.f), arg(1, False))
+    if m == "Classify":
+        return B.Classify(a[0], a[1], arg(2, 1))
+    if m == "nn.BatchNorm2d":
+        return B.BatchNorm2d(a[0])
+    if m == "nn.MaxPool2d":
+        return B.MaxPool2d(a[0], arg(1, None), arg(2, 0))
+    if m == "nn.ZeroPad2d":
+        return B.ZeroPad2d(a[0])
+    if m == "Contract":
+        return B.Contract(a[0])
+    if m == "Expand":
+        return B.Expand(a[0])
     if m == "nn.Upsample":
         return B.Upsample(a[1], a[2])
     if m == "Concat":
@@ -120,11 +162,14 @@ class Model(nn.Module):
                 m.generator = m.mesh = None
 
 
-def init_model(model: Model, generator: torch.Generator) -> Model:
-    """Seeded random init of an unfused :class:`Model`.
+def init_model(model: Model, generator: torch.Generator, device="cpu") -> Model:
+    """Seeded random init of an unfused :class:`Model` on the CPU, whose
+    statistics pass then runs on ``device`` (the model stays there).
 
-    torch's default conv init (kaiming_uniform, a=sqrt(5)), random BN
-    affine parameters, the Detect bias prior of
+    torch's default conv and linear init (kaiming_uniform, a=sqrt(5)), the
+    attention's in-projection xavier_uniform with a zero bias (as
+    ``nn.MultiheadAttention`` initialises it), random BN affine
+    parameters, the Detect bias prior of
     multiyolov5_tpu/models/heads.py:38-50, and BN running statistics
     measured on one seeded random batch.  With unit running statistics the
     default init shrinks activations about threefold per conv, and the
@@ -137,12 +182,15 @@ def init_model(model: Model, generator: torch.Generator) -> Model:
     g = generator
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, nn.Conv2d):
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
                 nn.init.kaiming_uniform_(mod.weight, a=math.sqrt(5), generator=g)
                 if mod.bias is not None:
                     fan_in = mod.weight[0].numel()
                     bound = 1 / math.sqrt(fan_in)
                     mod.bias.uniform_(-bound, bound, generator=g)
+            elif isinstance(mod, B.TransformerLayer):
+                nn.init.xavier_uniform_(mod.ma.in_proj_weight, generator=g)
+                mod.ma.in_proj_bias.zero_()
             elif isinstance(mod, nn.BatchNorm2d):
                 mod.weight.uniform_(0.8, 1.2, generator=g)
                 mod.bias.uniform_(-0.1, 0.1, generator=g)
@@ -155,7 +203,8 @@ def init_model(model: Model, generator: torch.Generator) -> Model:
         for mod in model.modules():       # BN alone in training mode
             if isinstance(mod, nn.BatchNorm2d):
                 mod.train()
-        model(torch.rand(2, model.spec.ch_in, 256, 512, generator=g))
+        model.to(device)
+        model(torch.rand(2, model.spec.ch_in, 256, 512, generator=g).to(device))
         model.eval()
         for mod in model.modules():
             if isinstance(mod, nn.BatchNorm2d):
@@ -163,8 +212,10 @@ def init_model(model: Model, generator: torch.Generator) -> Model:
     return model
 
 
-def seeded_state_dict(spec: ModelSpec, seed: int = 0) -> dict:
-    """The unfused ``state_dict`` of a seeded random :class:`Model`, on the CPU."""
-    model = init_model(Model(spec), torch.Generator().manual_seed(seed))
-    return {k: v for k, v in model.state_dict().items()
+def seeded_state_dict(spec: ModelSpec, seed: int = 0, device="cpu") -> dict:
+    """The unfused ``state_dict`` of a seeded random :class:`Model`, on the
+    CPU.  The weights are drawn on the CPU; ``device`` runs the statistics
+    pass (a card's statistics differ from the CPU's by float32 rounding)."""
+    model = init_model(Model(spec), torch.Generator().manual_seed(seed), device)
+    return {k: v.cpu() for k, v in model.state_dict().items()
             if not k.endswith(".num_batches_tracked")}

@@ -43,6 +43,13 @@ class Plan(NamedTuple):
     k_steps: int
 
 
+def takes(c_in: int, c_out: int, stride: int = 1, dilation: int = 1) -> bool:
+    """Whether K2 takes a 3x3 conv of these widths, stride and dilation:
+    what :func:`plan` accepts of any shape.  Models decide their K2 sites
+    by it when they are built."""
+    return c_in % 16 == 0 and c_out % 8 == 0 and stride in (1, 2) and dilation in (1, 2, 3)
+
+
 def plan(bsz: int, ho: int, wo: int, c_in: int, c_out: int, dtype: torch.dtype,
          stride: int = 1, dilation: int = 1) -> Plan:
     """The tile and split of K2 for a (bsz, ho, wo, c_out) output of a
@@ -72,11 +79,9 @@ def plan(bsz: int, ho: int, wo: int, c_in: int, c_out: int, dtype: torch.dtype,
         raise ValueError(f"conv3x3: empty output {(bsz, ho, wo, c_out)}")
     if dtype not in _DTYPES:
         raise ValueError(f"conv3x3: dtype {dtype}")
-    if c_in % 16 or c_out % 8:
-        raise ValueError(f"conv3x3: needs c_in % 16 == 0 and c_out % 8 == 0, "
-                         f"got {c_in}, {c_out}")
-    if stride not in (1, 2) or dilation not in (1, 2, 3):
-        raise ValueError(f"conv3x3: stride {stride}, dilation {dilation}")
+    if not takes(c_in, c_out, stride, dilation):
+        raise ValueError(f"conv3x3: needs c_in % 16 == 0, c_out % 8 == 0, stride 1 or 2 "
+                         f"and dilation 1-3, got {c_in}, {c_out}, {stride}, {dilation}")
     row = 128 // dtype.itemsize             # channels in a 128-byte row
     bk = next(k for k in (row, row // 2, row // 4) if c_in % k == 0)
     wide = c_out % 128 == 0

@@ -18,8 +18,11 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
 
 
-def autopad(k: int, d: int = 1) -> int:
-    """'same' padding for an odd kernel (reference models/common.py:22-27)."""
+def autopad(k, d: int = 1):
+    """'same' padding for an odd kernel, an int or an (kh, kw) pair
+    (reference models/common.py:22-27)."""
+    if isinstance(k, (tuple, list)):
+        return tuple(d * (kk - 1) // 2 for kk in k)
     return d * (k - 1) // 2
 
 
@@ -35,8 +38,12 @@ def fuse_conv_bn(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
       w' = w * gamma / sqrt(var + eps);  b' = beta - gamma * mean / sqrt(var + eps)
     A BN named ``<x>.bn`` belongs to ``<x>.conv``; a BN in a bare Sequential
     (``<x>.1``) belongs to its numeric predecessor (``<x>.0``).  The folded
-    BN's weight, bias and running stats leave the dict.  Math runs in
-    float32 numpy, in the JAX package's order, so both give equal weights.
+    BN's weight, bias and running stats leave the dict.  A BN with no such
+    conv (BottleneckCSP's and MixConv2d's post-concat BNs, ``nn.BatchNorm2d``
+    rows, DAPPM's pre-activation BNs) keeps its entries: the fused model
+    applies it from its running statistics (:func:`batch_norm`), as
+    multiyolov5_tpu/ops/nn.py:565-568 skips it.  Math runs in float32
+    numpy, in the JAX package's order, so both give equal weights.
     """
     out = {k: v for k, v in sd.items() if not k.endswith(".num_batches_tracked")}
     bns = sorted({k[:-len(".running_mean")] for k in out
@@ -50,7 +57,7 @@ def fuse_conv_bn(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         w = out.get(conv + ".weight")
         gamma = np.asarray(out[bn + ".weight"], np.float32)
         if w is None or w.ndim != 4 or w.shape[0] != gamma.shape[0]:
-            raise ValueError(f"BN {bn!r} has no conv to fold into")
+            continue
         beta = np.asarray(out[bn + ".bias"], np.float32)
         mean = np.asarray(out[bn + ".running_mean"], np.float32)
         var = np.asarray(out[bn + ".running_var"], np.float32)
@@ -65,6 +72,22 @@ def fuse_conv_bn(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         for suffix in (".weight", ".bias", ".running_mean", ".running_var"):
             del out[bn + suffix]
     return out
+
+
+def batch_norm(bn: torch.nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """A BN that no conv absorbs: ``bn(x)`` in training mode; in eval mode
+    scale = gamma * rsqrt(var + eps) and shift = beta - mean * gamma *
+    rsqrt(var + eps) in float32, both cast to x's dtype, then x * scale +
+    shift, as multiyolov5_tpu/ops/nn.py:361-366 applies it.  So a bfloat16
+    engine (bf16 gamma and beta, float32 running statistics) rounds as the
+    JAX one does."""
+    if bn.training:
+        return bn(x)
+    inv = torch.rsqrt(bn.running_var.float() + bn.eps)
+    gamma = bn.weight.float()
+    scale = (gamma * inv).to(x.dtype)
+    shift = (bn.bias.float() - bn.running_mean.float() * gamma * inv).to(x.dtype)
+    return x * scale[:, None, None] + shift[:, None, None]
 
 
 class Dropout(torch.nn.Module):

@@ -81,6 +81,12 @@ def _split() -> Optional[Shard]:
     return None if s is None or s.whole or s.model.size == 1 else s
 
 
+def split() -> bool:
+    """True where the tensors at hand are this rank's rows of maps split
+    over more than one rank."""
+    return _split() is not None
+
+
 def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv(x)``; sharded, the halo rows its taps reach first.  The
     output's local rows start at this shard's first input row / stride

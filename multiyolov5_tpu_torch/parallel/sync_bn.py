@@ -64,7 +64,7 @@ def convert(model: nn.Module, mesh) -> nn.Module:
     """Make every ``nn.BatchNorm2d`` of ``model`` a :class:`GlobalBatchNorm2d`
     over ``mesh`` (in place; returns ``model``)."""
     for m in model.modules():
-        if type(m) is nn.BatchNorm2d or type(m) is GlobalBatchNorm2d:
+        if isinstance(m, nn.BatchNorm2d):
             m.__class__ = GlobalBatchNorm2d
             m.mesh = mesh
     return model

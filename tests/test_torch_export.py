@@ -17,7 +17,10 @@ PyTorch alone and run on a seeded frame:
     stem and the kernels' plain versions) on the same float frame, under
     the same bounds.
 The JAX package's formats and ONNX raise ``NotImplementedError`` before
-anything is written.
+anything is written.  Narrowed yolov5s-transformer and yolov3-tiny
+(tests/test_torch_hub_models.py's configs, seeded weights) export in
+each format at 64x128 and equal the live plain build to 1e-6 of the
+output's scale.
 """
 
 import json
@@ -123,3 +126,38 @@ def test_other_formats_raise(tmp_path, fmt):
         port_export.main(["--include", "torchscript", fmt, "--output", str(tmp_path),
                           "--device", "cpu"])
     assert not any(tmp_path.iterdir())
+
+
+# The hub's models: the narrowed configs of tests/test_torch_hub_models.py
+# on seeded weights, exported at 64x128 (the transformer's 2x4 tokens; the
+# yolov3-tiny stem runs from row 0) and held against the live plain build.
+HUB_EXPORTS = ["yolov5s-transformer", "yolov3-tiny"]
+
+
+@pytest.mark.parametrize("fmt", list(port_export.FORMATS))
+@pytest.mark.parametrize("name", HUB_EXPORTS)
+def test_hub_model_export_equals_live_build(tmp_path, name, fmt):
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    from multiyolov5_tpu_torch.utils.checkpoint import save_npz as port_save_npz
+    from multiyolov5_tpu_torch.utils.checkpoint import to_jax_params
+    from test_torch_hub_models import hub_cfg
+
+    cfg = hub_cfg(name)
+    params, state = to_jax_params(seeded_state_dict(load_spec(cfg), 0))
+    w = str(tmp_path / f"{name}.npz")
+    port_save_npz(w, {"params": params, "state": state, "spec_yaml": json.dumps(cfg)})
+    made = port_export.main(["--weights", w, "--img-size", "64", "128", "--include", fmt,
+                             "--output", str(tmp_path / "out"), "--device", "cpu"])
+    assert len(made) == 1
+    eng = Engine(w, device="cpu", half=False)
+    x = torch.from_numpy(np.random.RandomState(3).rand(1, 3, 64, 128).astype(np.float32))
+    with torch.no_grad():
+        live = port_export.ExportModel(port_export.plain_model(eng))(x)
+        got = _load(made[0])(x)
+    assert len(got) == len(live) == 1                   # detection only
+    n = 3 * sum((64 // s) * (128 // s) for s in eng.spec.strides)
+    assert got[0].shape == live[0].shape == (1, n, 8)
+    scale = max(live[0].abs().max().item(), 1.0)
+    assert (got[0] - live[0]).abs().max().item() <= 1e-6 * scale
+    assert np.ptp(live[0][..., 4].numpy()) > 1e-3        # scores that vary

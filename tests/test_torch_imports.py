@@ -4,7 +4,8 @@
 so do chip_smoke.py and the ``prof_*_torch.py`` scripts), a
 tiny seeded Engine serves one frame on the CPU, so does each other model
 family (the Base, BiSe and Lab seg heads, detection-only, P6; narrowed) on
-a float frame, the eval path (multi-label
+a float frame, the six hub configs load without PyYAML and yolov3-tiny
+and yolov5s-transformer (narrowed) serve a frame, the eval path (multi-label
 NMS over more than K3's 1024 rows, mAP, mIoU) runs on one batch, and the
 dual-task train step of the TINY spec (tests/test_torch_train_step.py)
 takes one update on the CPU, and an ``InferenceServer`` on the TINY spec
@@ -78,6 +79,15 @@ _SCRIPT = textwrap.dedent("""
         fd, fm = Engine(cfg=cfg, device="cpu", half=False, seed=0)(
             np.random.RandomState(3).rand(64, 128, 3).astype(np.float32), (64, 128), conf=0.001)
         assert fd[0].shape[1] == 6 and (fm[0] is None) == ("n_segcls" not in cfg)
+    from multiyolov5_tpu_torch.models.config import hub_configs
+    from multiyolov5_tpu_torch.models.config import load_spec as hub_spec
+    assert len(hub_configs()) == 6
+    for name in hub_configs():          # JSON files: read without PyYAML
+        cfg = dict(hub_spec(name).yaml, width_multiple=0.125)
+        if name in ("yolov3-tiny", "yolov5s-transformer"):
+            fd, fm = Engine(cfg=cfg, device="cpu", half=False, seed=0)(frame, (64, 128),
+                                                                      conf=0.001)
+            assert fd[0].shape[1] == 6 and fm[0] is None
 
     from multiyolov5_tpu_torch.evaluation import evaluate_detection, seg_validation
     import multiyolov5_tpu_torch.ops.nms as nms_mod
