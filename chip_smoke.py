@@ -99,8 +99,15 @@ unless named), on the card and, for reference, on the CPU:
   ``--model-parallel 2`` (a TCP rendezvous on localhost): one run
   directory, rank 0's, whose checkpoint ``Engine`` serves.  (e)
   ``save_sharded`` by both ranks, ``load_sharded`` by both and by one
-  process, bitwise.  Readings: ms a step and a frame beside one process,
-  and each collective's calls, bytes and ms in one step.
+  process, bitwise.  (f) the spatial forward of yolov3-tiny (a zero pad
+  and a stride-1 max pool across rows), yolov5s-transformer (C3TR on the
+  gathered map) and pspv5s at 544x1024, 17 units of the stride over two
+  ranks (288 + 256 rows), against the one-process forward under (b)'s
+  bound.  (g) the dp1 x sp2 step at det 800x832 + seg 544x1024 (uneven
+  shards) against the one-process step under (c)'s bounds; the parent
+  computes (f)'s and (g)'s references while (d)'s ranks run.  Readings:
+  ms a step and a frame beside one process, and each collective's calls,
+  bytes and ms in one step or forward.
 * the DSL's other rows [16]: the v5.0 hub configs (``models/hub``) at full
   width and depth on seeded weights.  (a) yolov3 (no folded stem: rows
   from 0 on the frame / 255) through ``Engine`` at 512x1024, fp32 and
@@ -112,6 +119,11 @@ unless named), on the card and, for reference, on the CPU:
   (K7), its C3TR row card against CPU.  (c) yolov3-spp, yolov3-tiny,
   yolov5-fpn and yolov5-panet at bs1 in fp32 against the CPU.  (d) one
   float32 train step of yolov5-panet (bs2 320x320) against the CPU's.
+* the host tools [17]: tools/cityscapes2yolo.py and the five subcommands
+  of tools/labelme_convert.py on a seeded tree, ``load_mosaic9``,
+  ``replicate``, ``cutout``, ``hist_equalize``, ``prune_params`` and
+  ``wh_iou``, with no PIL or cv2; ``seg_confusion_device`` on the card at
+  (2, 19, 1024, 2048) against the host ``SegMetric`` counts.
   Each phase's wall seconds go to chip_smoke.json (``phase_s``).
 
 It checks that every kernel ran on its path, holds each kernel against its
@@ -149,6 +161,7 @@ the one before that the kernels' JSON.  Longer records go to
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -189,7 +202,7 @@ HUB_SIZE = 1024
 M_CFG = "yolov5m_city_seg"
 X_CFG = "yolov5x_city_seg"     # pspv5x: [6] times K2's float32 form at its 22 bs1 sites
 # [13] profiling, export and .pt: cli/profile.py at bs1 (K2) and bs8 (K7 too)
-PROFILE_BATCHES, PROFILE_ITERS = (1, 8), 30
+PROFILE_BATCHES, PROFILE_ITERS = (1, 8), 5
 # the JAX package's estimate_gflops for pspv5s at 512x1024 (bench.py:273's
 # 28.79 GF/frame), which leaves out the Focus conv, and that conv's 2 x MACs
 # (3x3x12 -> 32 at 256x512); the port's counter must give their sum
@@ -248,7 +261,7 @@ TRAIN_BS, TRAIN_DET_HW, TRAIN_SEG_HW = 8, (832, 832), (512, 1024)
 TRAIN_TARGETS, TRAIN_MAX_T = 20, 128
 TRAIN_STEP_ARGS = (0.01, 0.01, 0.9)
 TRAIN_RUN_STEPS = 20     # the scheduled run, as cli/train.py:379-381 drives it
-TRAIN_REPS, TRAIN_REP_STEPS = 5, 5
+TRAIN_REPS, TRAIN_REP_STEPS = 2, 5
 # K6 against its plain version on the step's own arguments: both read the
 # same logits and compute in float32, so the loss differs by summation order
 # only; dz by that and, in bf16, one rounding of each side's float32 value
@@ -281,7 +294,7 @@ TC_BOXES = 12          # seeded boxes a detection frame
 FAMILY_CFGS = ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
                X_CFG, "yolov5s", "yolov5s6")
 BISE_CFG, DET_CFG, L_CFG = "yolov5s_city_seg_bise", "yolov5s", "yolov5l_city_seg"
-FAMILY_REPS, FAMILY_ITERS = 3, 10
+FAMILY_REPS, FAMILY_ITERS = 2, 5
 # [9] holds each network's float32 output against the same network in
 # float64 on the CPU: rounding errors grow with depth and activation
 # scale, past NET_REL on the deepest model.  Measured by this phase at
@@ -3896,6 +3909,14 @@ PAR_REPS = 1
 # sharded forward was 4.9e-5 off its unsharded one at a logit scale of 10.6
 # (tests/test_torch_parallel_spatial.py)
 SPATIAL_RTOL, SPATIAL_ATOL_OF_SCALE = 1e-4, 1e-4
+# [15] (f): every row type sharded at an uneven H, float32 at full width:
+# the hub's yolov3-tiny (a zero pad and a stride-1 max pool across rows),
+# yolov5s-transformer (C3TR on the gathered map) and pspv5s, each at
+# 544x1024 (17 units of the stride 32: 288 + 256 rows), bs1; (g) the dp1 x
+# sp2 step at an uneven H: det 800x832 (25 units: 416 + 384), seg 544x1024
+PAR_UNEVEN_HW = (544, 1024)
+PAR_UNEVEN_CFGS = ("yolov3-tiny", "yolov5s-transformer", CFG)
+PAR_UNEVEN_DET_HW, PAR_UNEVEN_SEG_HW = (800, 832), (544, 1024)
 # the training CLI under [15]: one epoch of two steps (16 frames, batch 8)
 # and rank 0's seg eval (--noval: [14] holds the detection eval); 1024
 # keeps every H shard of the det image and the seg crop (1024 x 512) a
@@ -3967,11 +3988,29 @@ def collective_meter(device):
         yield rec
 
 
+def uneven_frames(hw):
+    """[15] (f)'s seeded bs1 frame."""
+    return (np.random.RandomState(SEED + 53).rand(1, *hw, 3) * 255).astype(np.uint8)
+
+
+def spatial_of(cfg: str, mesh, device: str):
+    """``spatial_forward`` (float32) of ``cfg`` at full width on seeded
+    weights, over ``mesh``."""
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import Model, seeded_state_dict
+    from multiyolov5_tpu_torch.parallel.spatial import spatial_forward
+    spec = load_spec(cfg)
+    model = Model(spec)
+    model.load_state_dict(seeded_state_dict(spec, SEED), strict=False)
+    return spatial_forward(model.to(device), mesh, compute_dtype=torch.float32)
+
+
 def par_rank(rank: int, world: int, store: str, device: str, geo: dict, out: str) -> None:
     """One rank of [15]: (a) the data-parallel step with K6 and its global
     D held on this rank's arguments, (e) the sharded checkpoint of its
-    state, (c) the dp1 x sp2 step, (b) the spatial forward; readings.
-    Saves its results under ``out``."""
+    state, (c) the dp1 x sp2 step, (b) the spatial forward, (g) the dp1 x
+    sp2 step at an uneven H, (f) the spatial forward of every row type at
+    an uneven H; readings.  Saves its results under ``out``."""
     from multiyolov5_tpu_torch.models.config import load_spec
     from multiyolov5_tpu_torch.models.model import Model, seeded_state_dict
     from multiyolov5_tpu_torch.ops import kernels as K
@@ -3994,7 +4033,8 @@ def par_rank(rank: int, world: int, store: str, device: str, geo: dict, out: str
 
     # (a) the data-parallel step: K6 once forward, once backward on this rank
     mesh = make_mesh(world, 1)
-    batch = tuple(torch.as_tensor(a).to(device) for a in shard_train_batch(mesh, host))
+    unit = max(spec.strides)
+    batch = tuple(torch.as_tensor(a).to(device) for a in shard_train_batch(mesh, host, unit))
     ts, step = par_state(spec, sd, device, geo["bs"], mesh)
     rec = []
     K.reset_launches()
@@ -4038,8 +4078,9 @@ def par_rank(rank: int, world: int, store: str, device: str, geo: dict, out: str
 
     # (c) the dp1 x sp2 step on the same global batch: H over the two ranks
     mesh = make_mesh(1, world)
-    batch = tuple(torch.as_tensor(a).to(device) for a in shard_train_batch(mesh, host))
+    batch = tuple(torch.as_tensor(a).to(device) for a in shard_train_batch(mesh, host, unit))
     ts, step = par_state(spec, sd, device, geo["bs"], mesh)
+    step = functools.partial(step, heights=(host[0].shape[1], host[3].shape[1]))
     K.reset_launches()
     ts, m = step(ts, *batch, *args)
     if device == "cuda":
@@ -4074,6 +4115,43 @@ def par_rank(rank: int, world: int, store: str, device: str, geo: dict, out: str
     with collective_meter(device) as meter:
         fn(frames)
     res["spatial_collectives"] = meter
+    del model, fn
+
+    # (g) the dp1 x sp2 step at an uneven H: the ranks hold 416 + 384 det
+    # rows and 288 + 256 seg rows (mesh.split_rows in units of the stride)
+    host_u = train_batch(np.random.RandomState(SEED + 13), geo["bs"], spec.nc, spec.n_segcls,
+                         geo["uneven_det_hw"], geo["uneven_seg_hw"])
+    batch = tuple(torch.as_tensor(a).to(device) for a in shard_train_batch(mesh, host_u, unit))
+    res["uneven_rows"] = (batch[0].shape[1], batch[3].shape[1])
+    ts, step = par_state(spec, sd, device, geo["bs"], mesh)
+    step = functools.partial(step, heights=(host_u[0].shape[1], host_u[3].shape[1]))
+    ts, m = step(ts, *batch, *args)
+    res["uneven_sp_metrics"] = {k: v.cpu() for k, v in m.items()}
+    res["uneven_sp"] = {"state": _host(ts.state_dict()), "ema": _host(ts.ema),
+                        "momentum": _host(ts.opt["momentum"]), "updates": ts.updates}
+    del ts, step
+
+    # (f) every row type sharded at an uneven H: one timed forward each,
+    # pspv5s's collectives metered
+    res["uneven"] = {}
+    frame = uneven_frames(geo["uneven_hw"])
+    for cfg in geo["uneven_cfgs"]:
+        fn = spatial_of(cfg, mesh, device)
+        det, seg = fn(frame)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(frame)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        r = {"det": det.cpu(), "seg": None if seg is None else seg.cpu(),
+             "ms": (time.perf_counter() - t0) * 1e3}
+        if cfg == geo["cfg"]:
+            with collective_meter(device) as meter:
+                fn(frame)
+            r["collectives"] = meter
+        res["uneven"][cfg] = r
+        del fn
     torch.distributed.destroy_process_group()
     torch.save(res, os.path.join(out, f"{rank}.pt"))
 
@@ -4121,12 +4199,15 @@ def phase_parallel(card: str):
     1 over NCCL; (b) the spatial forward at n_model 2 against the
     one-process forward; (c) the dp1 x sp2 step; (d) cli.train.main with
     --num-processes 2, then --model-parallel 2; (e) the sharded checkpoint
-    round trip; readings of ms a step and a frame, and of the collectives."""
+    round trip; (f) the spatial forward of yolov3-tiny, yolov5s-transformer
+    and pspv5s at an uneven H against the one-process forward; (g) the dp1
+    x sp2 step at an uneven H against the one-process step; readings of ms
+    a step and a frame, and of the collectives."""
     from multiyolov5_tpu_torch.engine import Engine
     from multiyolov5_tpu_torch.models.config import load_spec
     from multiyolov5_tpu_torch.models.model import Model, seeded_state_dict
     from multiyolov5_tpu_torch.ops import kernels as K
-    from multiyolov5_tpu_torch.parallel.mesh import make_mesh
+    from multiyolov5_tpu_torch.parallel.mesh import make_mesh, split_rows
     from multiyolov5_tpu_torch.parallel.spatial import spatial_forward
     from multiyolov5_tpu_torch.utils.checkpoint import load_npz, load_sharded
     log(f"[15] parallelism: {CFG} seed {SEED} float32 (TF32 off), {PAR_WORLD} ranks sharing "
@@ -4137,13 +4218,15 @@ def phase_parallel(card: str):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     geo = {"cfg": CFG, "bs": TRAIN_BS, "det_hw": TRAIN_DET_HW, "seg_hw": TRAIN_SEG_HW,
-           "spatial_hw": PAR_SPATIAL_HW, "ckpt": os.path.join(work, "sharded")}
+           "spatial_hw": PAR_SPATIAL_HW, "ckpt": os.path.join(work, "sharded"),
+           "uneven_hw": PAR_UNEVEN_HW, "uneven_cfgs": PAR_UNEVEN_CFGS,
+           "uneven_det_hw": PAR_UNEVEN_DET_HW, "uneven_seg_hw": PAR_UNEVEN_SEG_HW}
     t0 = time.perf_counter()
     spawn(par_rank, PAR_WORLD, (os.path.join(work, "store"), DEVICE, geo, work))
     wall = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(work, f"{r}.pt"), weights_only=False)
              for r in range(PAR_WORLD)]
-    log(f"  {PAR_WORLD} ranks over {ranks[0]['backend']} ran (a), (e), (c), (b) in "
+    log(f"  {PAR_WORLD} ranks over {ranks[0]['backend']} ran (a), (e), (c), (b), (g), (f) in "
         f"{wall:.1f} s (spawn and CUDA init included)")
     res = {"card": card, "ranks_wall_s": wall, "backend": ranks[0]["backend"]}
 
@@ -4252,22 +4335,105 @@ def phase_parallel(card: str):
                                            "scale": scale}
     del model, fn
 
-    # (d) the training CLI as two ranks: --num-processes 2, then --model-parallel 2
+    # (d) the training CLI as two ranks: --num-processes 2, then --model-parallel 2,
+    # spawned from a thread while this process computes (g)'s and (f)'s
+    # one-process references (so (d)'s walls share the card with them)
     data_path = tc_tree(os.path.join(work, "tree"), np.random.RandomState(SEED + 61), spec.nc)
+    cli_runs, cli_errors = {}, []
+
+    def cli_ranks():
+        try:
+            for name, extra in (("dp2", []), ("dp1_sp2", ["--model-parallel", str(PAR_WORLD)])):
+                argv = ["--data", data_path, "--cfg", CFG, "--img-size", str(PAR_CLI_IMG),
+                        str(PAR_CLI_IMG), "--batch-size", str(TC_BS), "--epochs", "1", "--noval",
+                        "--seg-eval-interval", "1", "--workers", str(TC_WORKERS), "--seed",
+                        str(SEED), "--no-tb", "--project", os.path.join(work, "runs"), "--name",
+                        name, "--coordinator", f"localhost:{_free_port()}",
+                        "--device", "" if DEVICE == "cuda" else DEVICE, *extra]
+                t0 = time.perf_counter()
+                spawn(par_cli_rank, PAR_WORLD, (argv, work))
+                cli_runs[name] = (extra, time.perf_counter() - t0,
+                                  [torch.load(os.path.join(work, f"cli{r}.pt"),
+                                              weights_only=False)[0] for r in range(PAR_WORLD)])
+        except BaseException as e:  # noqa: BLE001 (raised in the main thread)
+            cli_errors.append(e)
+
+    import threading
+    cli_thread = threading.Thread(target=cli_ranks)
+    cli_thread.start()
+    try:
+        # (g) the dp1 x sp2 step at an uneven H against the one-process step on
+        # the same global batch
+        host_u = train_batch(np.random.RandomState(SEED + 13), TRAIN_BS, spec.nc, spec.n_segcls,
+                             PAR_UNEVEN_DET_HW, PAR_UNEVEN_SEG_HW)
+        ts, step = par_state(spec, sd, DEVICE, TRAIN_BS)
+        ts, mu = step(ts, *(torch.as_tensor(a).to(DEVICE) for a in host_u), *args)
+        ref_u = {"state": _host(ts.state_dict()), "ema": _host(ts.ema),
+                 "momentum": _host(ts.opt["momentum"])}
+        del ts, step
+        rows = [q["uneven_rows"] for q in ranks]
+        unit = max(spec.strides)
+        want = list(zip(split_rows(PAR_UNEVEN_DET_HW[0], PAR_WORLD, unit),
+                        split_rows(PAR_UNEVEN_SEG_HW[0], PAR_WORLD, unit)))
+        log(f"  (g) dp1 x sp2 at det {PAR_UNEVEN_DET_HW} + seg {PAR_UNEVEN_SEG_HW}: the ranks "
+            f"hold {rows} (det, seg) rows")
+        check("(g) ranks whose det and seg rows differ from split_rows' (uneven)",
+              sum(int(tuple(r) != w) for r, w in zip(rows, want)), 0,
+              ok=rows == [tuple(w) for w in want] and rows[0] != rows[1])
+        diff = sum(int(not torch.equal(ranks[0]["uneven_sp"][p][k], ranks[1]["uneven_sp"][p][k]))
+                   for p in ("state", "ema", "momentum") for k in ranks[0]["uneven_sp"][p])
+        check("(g) the ranks' states: tensors not bitwise equal", diff, 0)
+        res["g"] = {"rows": rows, "worst_change_rel": _held_step(
+            "(g) dp1 x sp2 at an uneven H vs one process", ranks[0]["uneven_sp"], ref_u, init,
+            ranks[0]["uneven_sp_metrics"], {k: v.cpu() for k, v in mu.items()})}
+
+        # (f) every row type sharded at an uneven H against the one-process forward
+        res["f"] = {}
+        frame = uneven_frames(PAR_UNEVEN_HW)
+        fns = {}
+        for cfg in PAR_UNEVEN_CFGS:
+            fns[cfg] = fn = spatial_of(cfg, make_mesh(), DEVICE)
+            z, seg = fn(frame)
+            outs = [("boxes", lambda q: q["det"][:, :4], z[:, :4].cpu()),
+                    ("obj/cls", lambda q: q["det"][:, 4:], z[:, 4:].cpu())]
+            if seg is not None:
+                outs.append(("seg logits", lambda q: q["seg"], seg.cpu()))
+            worst = 0.0
+            for r, q in enumerate(ranks):
+                u = q["uneven"][cfg]
+                if (u["seg"] is None) != (seg is None):
+                    raise AssertionError(f"(f) {cfg} rank {r}: seg output present on one side only")
+                for name, pick, want in outs:
+                    got = pick(u)
+                    scale = want.abs().max().item()
+                    excess = ((got - want).abs() - SPATIAL_RTOL * want.abs()).max().item()
+                    worst = max(worst, max(excess, 0.0) / scale)
+                    check(f"(f) {cfg} rank {r} at {PAR_UNEVEN_HW} {name}: max(|diff| - "
+                          f"{SPATIAL_RTOL:g} |one process|) / scale {scale:.3g}",
+                          max(excess, 0.0) / scale, SPATIAL_ATOL_OF_SCALE)
+            res["f"][cfg] = {"worst_excess_of_scale": worst, "sp2_ms_a_frame": ranks[0]["uneven"][
+                cfg]["ms"], "collectives": ranks[0]["uneven"][cfg].get("collectives")}
+
+    finally:
+        cli_thread.join()
+    if cli_errors:
+        raise cli_errors[0]
+    for cfg, fn in fns.items():           # (f)'s one-process time, the card to itself
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(frame)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        f_ms = res["f"][cfg]["one_process_ms_a_frame"] = (time.perf_counter() - t0) * 1e3
+        log(f"  (f) {cfg} at {PAR_UNEVEN_HW} over {PAR_WORLD} ranks "
+            f"({' + '.join(map(str, split_rows(PAR_UNEVEN_HW[0], PAR_WORLD, 32)))} rows): "
+            f"{res['f'][cfg]['sp2_ms_a_frame']:.2f} ms a frame, one process {f_ms:.2f} "
+            f"(one forward each, host clock, synchronised)")
+    del fns
     res["d"] = {}
     frame = (np.random.RandomState(SEED + 63).rand(*IN_HW, 3) * 255).astype(np.uint8)
-    for name, extra in (("dp2", []), ("dp1_sp2", ["--model-parallel", str(PAR_WORLD)])):
-        argv = ["--data", data_path, "--cfg", CFG, "--img-size", str(PAR_CLI_IMG),
-                str(PAR_CLI_IMG), "--batch-size", str(TC_BS), "--epochs", "1", "--noval",
-                "--seg-eval-interval", "1", "--workers", str(TC_WORKERS), "--seed", str(SEED),
-                "--no-tb", "--project", os.path.join(work, "runs"), "--name", name,
-                "--coordinator", f"localhost:{_free_port()}",
-                "--device", "" if DEVICE == "cuda" else DEVICE, *extra]
-        t0 = time.perf_counter()
-        spawn(par_cli_rank, PAR_WORLD, (argv, work))
-        wall = time.perf_counter() - t0
-        runs = [torch.load(os.path.join(work, f"cli{r}.pt"), weights_only=False)[0]
-                for r in range(PAR_WORLD)]
+    for name, (extra, wall, runs) in cli_runs.items():
         made = sorted(os.listdir(os.path.join(work, "runs")))
         if len(set(runs)) != 1 or made.count(name) != 1 or any(
                 m.startswith(name) and m != name for m in made):
@@ -4299,6 +4465,7 @@ def phase_parallel(card: str):
         f"{PAR_REPS}, host clock, synchronised); spatial forward "
         f"{rd['sp2_spatial_ms_a_frame']:.2f} ms a frame at n_model {PAR_WORLD}, one process "
         f"{rd['one_process_spatial_ms_a_frame']:.2f}")
+    rd["collectives"]["uneven_spatial"] = res["f"][CFG]["collectives"]
     for k, v in rd["collectives"].items():
         log(f"  {k} collectives on rank 0 (one step or forward, each synchronised): "
             + "; ".join(f"{kind} {n} calls, {b / 2**20:.2f} MiB, {ms:.1f} ms"
@@ -4546,6 +4713,202 @@ def _phase_dsl(frames, card: str):
     return res
 
 
+# [17] the host tools on a seeded tree (no PIL, no cv2 on the card's
+# machine), and seg_confusion_device on the card against SegMetric at a
+# bs2 19-class full frame
+TOOLS_HW = (256, 512)
+CONFUSION_SHAPE = (2, 19, 1024, 2048)
+
+
+def phase_tools(card: str):
+    """[17] tools/cityscapes2yolo.py and the five subcommands of
+    tools/labelme_convert.py on a seeded tree, the extra augmentations
+    (load_mosaic9 on cityscapes2yolo's output, replicate, cutout,
+    hist_equalize), prune_params / sparsity on pspv5s's weights and wh_iou;
+    then utils/metrics.seg_confusion_device on the card against the host
+    SegMetric counts, with both times."""
+    import base64
+    import random
+    from multiyolov5_tpu_torch.data import draw, png
+    from multiyolov5_tpu_torch.data.detection import (DetectionDataset, cutout, hist_equalize,
+                                                      replicate)
+    from multiyolov5_tpu_torch.data.hyps import load_hyp
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    from multiyolov5_tpu_torch.tools import cityscapes2yolo, labelme_convert
+    from multiyolov5_tpu_torch.utils.boxes import wh_iou
+    from multiyolov5_tpu_torch.utils.general import prune_params, sparsity
+    from multiyolov5_tpu_torch.utils.metrics import SegMetric, seg_confusion_device
+    log(f"[17] host tools on a seeded tree at {TOOLS_HW}; seg_confusion_device at "
+        f"{CONFUSION_SHAPE}")
+    work = os.path.join(ROOT, "build", "chip_smoke_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.RandomState(SEED + 71)
+    h, w = TOOLS_HW
+    res = {"card": card}
+    t0 = time.perf_counter()
+
+    # cityscapes2yolo: 2 splits x 2 cities x 2 frames, polygons of detection
+    # classes and others
+    names = list(cityscapes2yolo.LABEL_MAP) + ["road", "sky"]
+    want_lines, frames = {}, {}
+    for split in ("train", "val"):
+        for city in ("aachen", "bremen"):
+            for d in ("leftImg8bit", "gtFine"):
+                os.makedirs(os.path.join(work, "citys", d, split, city))
+            for i in range(2):
+                stem = f"{city}_{i:06d}_000019"
+                frame = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+                path = os.path.join(work, "citys", "leftImg8bit", split, city,
+                                    f"{stem}_leftImg8bit.png")
+                png.imwrite(path, frame)
+                frames[f"{split}/{stem}"] = open(path, "rb").read()
+                objs = [{"label": names[rng.randint(len(names))],
+                         "polygon": [[int(rng.randint(w)), int(rng.randint(h))]
+                                     for _ in range(rng.randint(3, 8))]}
+                        for _ in range(rng.randint(2, 7))]
+                want_lines[f"{split}/{stem}"] = sum(o["label"] in cityscapes2yolo.LABEL_MAP
+                                                    for o in objs)
+                with open(os.path.join(work, "citys", "gtFine", split, city,
+                                       f"{stem}_gtFine_polygons.json"), "w") as fh:
+                    json.dump({"imgWidth": w, "imgHeight": h, "objects": objs}, fh)
+    quiet(cityscapes2yolo.main, ["--root", os.path.join(work, "citys")])
+    bad = 0
+    for key, n in want_lines.items():
+        split, stem = key.split("/")
+        out = os.path.join(work, "citys", "labels", split, f"{stem}_leftImg8bit.txt")
+        rows = [list(map(float, r.split())) for r in open(out).read().splitlines()]
+        bad += int(len(rows) != n or any(not 0 <= r[0] < 10 or not all(0 <= v <= 1.01
+                                                                      for v in r[3:])
+                                          for r in rows))
+        copied = os.path.join(work, "citys", "images", split, f"{stem}_leftImg8bit.png")
+        bad += int(open(copied, "rb").read() != frames[key])
+    lists = [open(os.path.join(work, "citys", f"yolo_{sp}.txt")).read().splitlines()
+             for sp in ("train", "val")]
+    bad += int([len(x) for x in lists] != [4, 4])
+    check("[17] cityscapes2yolo: frames whose labels, copy or list are wrong", bad, 0)
+
+    # labelme_convert: an embedded PNG and an imagePath, every shape type
+    lm = os.path.join(work, "labelme")
+    os.makedirs(lm)
+    with open(os.path.join(work, "labels.txt"), "w") as fh:
+        fh.write("__ignore__\n_background_\ncar\nperson\nroad\n")
+    img = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+    png.imwrite(os.path.join(lm, "b.png"), img[..., ::-1])
+    shapes = [{"label": "car", "points": [[20.5, 10], [200, 30], [120, 90], [230, 200],
+                                          [30, 180]]},
+              {"label": "person", "points": [[260, 20], [500, 240], [500, 20], [260, 240]]},
+              {"label": "road", "points": [[-40, 200], [150, 300], [350, 230]]},
+              {"label": "car", "points": [[480, 250], [300, 120]], "shape_type": "rectangle"},
+              {"label": "person", "points": [[100, 100], [130, 120]], "shape_type": "circle"},
+              {"label": "__ignore__", "points": [[0, 0], [60, 0], [30, 40]]}]
+    for name, data in (("a", {"imageData": base64.b64encode(png.encode(img)).decode(),
+                              "imagePath": "a.jpg"}),
+                       ("b", {"imageData": None, "imagePath": "b.png"})):
+        with open(os.path.join(lm, f"{name}.json"), "w") as fh:
+            json.dump(dict(data, shapes=shapes), fh)
+    labels = os.path.join(work, "labels.txt")
+    quiet(labelme_convert.main, ["labelme2seg", lm, os.path.join(work, "seg"), "--labels",
+                                 labels])
+    quiet(labelme_convert.main, ["labelme2det", lm, os.path.join(work, "det"), "--labels",
+                                 labels])
+    want = np.zeros((h, w), np.int32)
+    for sh in shapes:
+        cid = {"car": 1, "person": 2, "road": 3}.get(sh["label"], -1)
+        want[labelme_convert._shape_to_mask((h, w), sh["points"],
+                                            sh.get("shape_type", "polygon"))] = cid
+    want[want < 0] = 255
+    bad = 0
+    for name in ("a", "b"):
+        mask = png.read_samples(os.path.join(work, "seg", "SegmentationClassPNG", f"{name}.png"))
+        bad += int(not np.array_equal(mask, want))
+        for folder in ("seg/JPEGImages", "det/images"):
+            bad += int(not np.array_equal(png.read_rgb(os.path.join(work, folder,
+                                                                    f"{name}.png")), img))
+        bad += int(len(open(os.path.join(work, "det", "labels", f"{name}.txt")).read()
+                       .splitlines()) != 5)
+    circle = draw.ellipse((h, w), [100 - 36.05551, 100 - 36.05551, 100 + 36.05551,
+                                   100 + 36.05551])
+    bad += int(not 3900 < circle.sum() < 4300)
+    os.makedirs(os.path.join(work, "voc"))
+    with open(os.path.join(work, "voc", "v.xml"), "w") as fh:
+        fh.write("<annotation><size><width>512</width><height>256</height></size><object>"
+                 "<name>car</name><bndbox><xmin>10</xmin><ymin>20</ymin><xmax>110</xmax>"
+                 "<ymax>220</ymax></bndbox></object></annotation>")
+    quiet(labelme_convert.main, ["voc2yolo", os.path.join(work, "voc"),
+                                 os.path.join(work, "voc_out"), "--names", "car"])
+    with open(os.path.join(work, "coco.json"), "w") as fh:
+        json.dump({"categories": [{"id": 3}], "images": [{"id": 1, "file_name": "c.png",
+                                                         "width": 512, "height": 256}],
+                   "annotations": [{"image_id": 1, "category_id": 3,
+                                    "bbox": [10, 20, 100, 200]}]}, fh)
+    quiet(labelme_convert.main, ["coco2yolo", os.path.join(work, "coco.json"),
+                                 os.path.join(work, "coco_out")])
+    os.makedirs(os.path.join(work, "kitti"))
+    with open(os.path.join(work, "kitti", "b.txt"), "w") as fh:
+        fh.write("Car 0 0 0 10 20 110 220 1 1 1 1 1 1 1\n")
+    quiet(labelme_convert.main, ["kitti2yolo", os.path.join(work, "kitti"),
+                                 os.path.join(work, "kitti_out"), "--names", "Car",
+                                 "--img-dir", lm])
+    line = "0 0.11719 0.46875 0.19531 0.78125"
+    for out in ("voc_out/v.txt", "coco_out/c.txt", "kitti_out/b.txt"):
+        got = [float(v) for v in open(os.path.join(work, out)).read().split()]
+        bad += int(not np.allclose(got, [float(v) for v in line.split()], atol=1e-5))
+    check("[17] labelme_convert: masks, images, labels or box lines that are wrong", bad, 0)
+
+    # the extra augmentations on cityscapes2yolo's output, prune_params, wh_iou
+    ds = quiet(DetectionDataset, os.path.join(work, "citys", "images", "train"), img_size=256,
+               batch_size=2, augment=True, hyp=load_hyp("scratch"))
+    img9, lab9 = ds.load_mosaic9(0, random.Random(SEED))
+    frame = png.imread(os.path.join(work, "citys", "images", "train",
+                                    "aachen_000000_000019_leftImg8bit.png"))
+    boxes = np.array([[0, 10, 20, 80, 90], [1, 200, 40, 260, 200]], np.float32)
+    img_r, lab_r = replicate(frame.copy(), boxes.copy(), random.Random(SEED))
+    lab_c = cutout(img_r, lab_r.copy(), random.Random(SEED))
+    eq = [hist_equalize(frame, clahe=c, bgr=True) for c in (True, False)]
+    sd = seeded_state_dict(load_spec(CFG), SEED)
+    pruned = quiet(prune_params, sd, 0.3)
+    convs = {k: v for k, v in pruned.items() if k.endswith(".weight") and v.ndim == 4}
+    sp = sparsity(convs)
+    iou = wh_iou(torch.tensor([[10.0, 13], [33, 23]]), torch.tensor([[10.0, 13], [16, 30]]))
+    bad = int(img9.shape != (256, 256, 3)) + int(lab9.shape[1] != 5) + int(len(lab_r) != 3)
+    bad += int(len(lab_c) > 3) + sum(int(e.shape != frame.shape or e.dtype != np.uint8)
+                                     for e in eq)
+    bad += int(abs(iou[0, 0].item() - 1) > 1e-6) + int(not 0.29 < sp < 0.31)
+    check("[17] load_mosaic9, replicate, cutout, hist_equalize, prune_params, wh_iou: "
+          "results of the wrong shape or value", bad, 0)
+    res["tools_s"] = time.perf_counter() - t0
+    res["pruned_conv_sparsity"] = sp
+    log(f"  the tools ran in {res['tools_s']:.2f} s (host); pruned conv sparsity {sp:.4f}")
+
+    # seg_confusion_device on the card against SegMetric's host histograms
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    b, c, hh, ww = CONFUSION_SHAPE
+    logits = torch.randn(CONFUSION_SHAPE, generator=gen, device=DEVICE)
+    target = torch.randint(-1, c, (b, hh, ww), generator=gen, device=DEVICE)
+    inter, union = seg_confusion_device(logits, target, c)
+    pred, tgt = logits.argmax(1).cpu().numpy(), target.cpu().numpy()
+    m = SegMetric(c)
+    m.update(pred, tgt)
+    bad = int(not np.array_equal(inter.cpu().numpy(), m.total_inter)) + \
+        int(not np.array_equal(union.cpu().numpy(), m.total_union))
+    check("[17] seg_confusion_device on the card: counts unequal to SegMetric's", bad, 0,
+          ok=bad == 0 and inter.device.type == DEVICE)
+    dev_ms = cuda_ms(lambda: seg_confusion_device(logits, target, c), iters=5, warmup=1) \
+        if DEVICE == "cuda" else float("nan")
+
+    def host():
+        SegMetric(c).update(pred, tgt)
+
+    res["confusion"] = {"shape": CONFUSION_SHAPE, "device_ms": dev_ms,
+                        "segmetric_host_ms": host_ms(host, reps=1)}
+    log(f"  on {card}: seg_confusion_device {dev_ms:.3f} ms (logits on the card), host "
+        f"SegMetric {res['confusion']['segmetric_host_ms']:.1f} ms on the argmax already "
+        f"on the host")
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 PHASE_S = {}
 
 
@@ -4600,6 +4963,7 @@ def main() -> int:
     tc = timed("[14]", phase_train_cli, smi)
     par = timed("[15]", phase_parallel, smi)
     dsl = timed("[16]", phase_dsl, frames, smi)
+    tools = timed("[17]", phase_tools, smi)
     check_sass(sass)
     k6 = tr["k6_times"]["bf16"]
     train_counts = tr["launches"]["bf16"]
@@ -4728,7 +5092,7 @@ def main() -> int:
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
                    "serving_bs8": sv, "families": fam, "app": app, "eval_cli": cli,
                    "hub": hb, "profile_export": pe, "train_cli": tc, "parallel": par,
-                   "dsl": dsl, "phase_s": PHASE_S,
+                   "dsl": dsl, "tools": tools, "phase_s": PHASE_S,
                    "total_s": time.perf_counter() - t_start}, fh,
                   indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -411,8 +411,9 @@ def _train(opt, rank: int):
                 # sizes stay whole multiples of the stride on every H shard
                 sf = (0.5, 0.75, 1.0, 1.25, 1.5)[ms_rng.randint(5)]
                 imgs = multiscale_resize(imgs, sf, gs * n_mp)
+            heights = (imgs.shape[1], seg_imgs.shape[1])
             if n_mp > 1:        # this rank's H rows of its data slice
-                imgs, seg_imgs, seg_masks = (local_rows(mesh, a) for a in
+                imgs, seg_imgs, seg_masks = (local_rows(mesh, a, gs) for a in
                                              (imgs, seg_imgs, seg_masks))
             ni = i + ni_base
             if ni < 3 and not opt.nosave and not plotted:
@@ -421,7 +422,7 @@ def _train(opt, rank: int):
             lr, lr_bias, mom = sched.at(ni, epoch)
             accumulate = sched.accumulate_at(ni, nbs, bs)
             ts, metrics = step(ts, imgs, tgts, tmask, seg_imgs, seg_masks, lr, lr_bias,
-                               mom, (ni % accumulate) == 0, rng=gen)
+                               mom, (ni % accumulate) == 0, rng=gen, heights=heights)
             # running sums on the device; read when printing and at the end
             mloss_dev = metrics["det_items"] if mloss_dev is None \
                 else mloss_dev + metrics["det_items"]

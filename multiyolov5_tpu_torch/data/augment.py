@@ -23,10 +23,28 @@ that OpenCV computes on uint8 images:
   ``COLOR_HSV2BGR`` (through float32, as OpenCV's 8-bit path does; its
   vector loop truncates where its scalar tail rounds, so a pixel's result
   depends on its column).
+* :func:`rgb2yuv` / :func:`yuv2rgb`: ``COLOR_RGB2YUV`` / ``COLOR_YUV2RGB``
+  in OpenCV's 14-bit fixed point (Y from 0.299/0.587/0.114, U = 0.492 (B -
+  Y), V = 0.877 (R - Y), offset 128; back with 2.032, -0.395, -0.581,
+  1.140), rounded by adding half and shifting, saturated.
+* :func:`equalize_hist`: ``equalizeHist``: the cumulative histogram past
+  the first occupied level, times 255 / (pixels - that level's count) in
+  float32, rounded half to even.
+* :func:`clahe`: ``createCLAHE(clipLimit, tileGridSize).apply``: an image
+  whose sides are not multiples of the grid is padded (reflect-101) by
+  ``grid - side % grid`` on both axes, even one that divides; each tile's
+  histogram is clipped at ``max(int(clip * tile pixels / 256), 1)``, the
+  clipped count spread evenly and its residual one a bin every ``256 //
+  residual`` bins from bin 0; the cumulative count times 255 / (tile
+  pixels) in float32 is the tile's table, and each pixel blends the four
+  nearest tiles' tables bilinearly in float32, rounded half to even.
 
-tests/test_torch_train_data.py holds each against cv2 (the colour
-conversions on every 8-bit colour), with no bound: they are equal.  The
-arithmetic runs in torch CPU ops on whole images.
+tests/test_torch_train_data.py holds the warps and the HSV conversions
+against cv2 (the colour conversions on every 8-bit colour), and
+tests/test_torch_augment_extra.py the YUV conversions (on every colour),
+the histogram equalizations and CLAHE, with no bound: they are equal.  The
+warps and HSV arithmetic run in torch CPU ops on whole images, the rest
+in numpy.
 """
 
 from __future__ import annotations
@@ -298,3 +316,82 @@ def resize_linear(img: np.ndarray, wh) -> np.ndarray:
     """``cv2.resize(img, wh, interpolation=INTER_LINEAR)`` on uint8 (a grow
     or a shrink; ``data/letterbox._resize``)."""
     return _resize(torch.from_numpy(np.ascontiguousarray(img)), tuple(wh)).numpy()
+
+
+YUV_SHIFT = 14
+
+
+def _descale(x: np.ndarray) -> np.ndarray:
+    return (x + (1 << (YUV_SHIFT - 1))) >> YUV_SHIFT
+
+
+def rgb2yuv(img: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 RGB -> YUV, ``cvtColor(COLOR_RGB2YUV)`` (BGR input
+    reversed first is ``COLOR_BGR2YUV``)."""
+    r, g, b = (img[..., i].astype(np.int64) for i in range(3))
+    y = _descale(r * 4899 + g * 9617 + b * 1868)
+    u = _descale((b - y) * 8061 + (128 << YUV_SHIFT))
+    v = _descale((r - y) * 14369 + (128 << YUV_SHIFT))
+    return np.clip(np.stack([y, u, v], -1), 0, 255).astype(np.uint8)
+
+
+def yuv2rgb(img: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 YUV -> RGB, ``cvtColor(COLOR_YUV2RGB)``."""
+    y = img[..., 0].astype(np.int64)
+    u, v = img[..., 1].astype(np.int64) - 128, img[..., 2].astype(np.int64) - 128
+    r = y + _descale(v * 18678)
+    g = y + _descale(u * -6472 + v * -9519)
+    b = y + _descale(u * 33292)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def equalize_hist(img: np.ndarray) -> np.ndarray:
+    """(H, W) uint8 -> ``cv2.equalizeHist(img)``."""
+    hist = np.bincount(img.ravel(), minlength=256)
+    lo = int(np.argmax(hist > 0))
+    if hist[lo] == img.size:
+        return np.full_like(img, lo)
+    scale = np.float32(255.0) / np.float32(img.size - hist[lo])
+    lut = np.zeros(256, np.uint8)
+    lut[lo + 1:] = np.clip(np.rint(np.cumsum(hist[lo + 1:]).astype(np.float32) * scale), 0, 255)
+    return lut[img]
+
+
+def clahe(img: np.ndarray, clip_limit: float = 2.0, grid=(8, 8)) -> np.ndarray:
+    """(H, W) uint8 -> ``cv2.createCLAHE(clip_limit, grid).apply(img)``
+    (``grid`` as (tiles across, tiles down))."""
+    h, w = img.shape
+    gx, gy = grid
+    src = img
+    if h % gy or w % gx:
+        src = np.pad(img, ((0, gy - h % gy), (0, gx - w % gx)), mode="reflect")
+    th, tw = src.shape[0] // gy, src.shape[1] // gx
+    area = th * tw
+    limit = max(int(clip_limit * area / 256), 1) if clip_limit > 0 else 0
+    tiles = src.reshape(gy, th, gx, tw).transpose(0, 2, 1, 3).reshape(gy, gx, area)
+    hist = np.stack([[np.bincount(t, minlength=256) for t in row] for row in tiles])
+    if limit:
+        clipped = np.maximum(hist - limit, 0).sum(-1)
+        hist = np.minimum(hist, limit) + (clipped // 256)[..., None]
+        for (j, i), resid in np.ndenumerate(clipped % 256):
+            if resid:
+                hist[j, i, ::max(256 // resid, 1)][:resid] += 1
+    scale = np.float32(255) / np.float32(area)
+    luts = np.clip(np.rint(np.cumsum(hist, -1).astype(np.float32) * scale), 0, 255)
+
+    def axis(n, tile, tiles):
+        f = np.arange(n, dtype=np.float32) * (np.float32(1) / np.float32(tile)) - np.float32(0.5)
+        lo = np.floor(f).astype(np.int64)
+        a = f - lo.astype(np.float32)
+        return np.maximum(lo, 0), np.minimum(lo + 1, tiles - 1), np.float32(1) - a, a
+
+    x1, x2, xa1, xa = axis(w, tw, gx)
+    y1, y2, ya1, ya = axis(h, th, gy)
+    v = img.astype(np.int64)
+
+    def lut(ty, tx):
+        return luts[ty[:, None], tx[None, :], v].astype(np.float32)
+
+    res = ((lut(y1, x1) * xa1 + lut(y1, x2) * xa) * ya1[:, None]
+           + (lut(y2, x1) * xa1 + lut(y2, x2) * xa) * ya[:, None])
+    return np.clip(np.rint(res), 0, 255).astype(np.uint8)

@@ -30,8 +30,10 @@ whatever the worker count.
 Images are PNG files, read by ``data/png.py``: any other image in a split
 raises ``NotImplementedError`` naming it before anything is loaded (the
 JAX cache would drop it as corrupted, and so change the metric).
-``load_mosaic9``, ``replicate``, ``cutout`` and ``hist_equalize``, which
-the JAX CLI never calls, are not ported (ROADMAP.md).
+The augmentations the JAX CLI never calls are here too, on the same
+generators: ``load_mosaic9`` (a method beside ``load_mosaic``),
+``replicate``, ``cutout`` and ``hist_equalize`` (cv2's YUV conversions,
+``equalizeHist`` and CLAHE from data/augment.py).
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ import numpy as np
 
 from ..utils.boxes import xywhn2xyxy, xyxy2xywh
 from . import png
-from .augment import augment_hsv, random_perspective, resize_linear
+from .augment import augment_hsv, equalize_hist, random_perspective, resize_linear, rgb2yuv, yuv2rgb
+from .augment import clahe as augment_clahe
 from .letterbox import letterbox
 from .resize import resize_area
 
@@ -290,6 +293,55 @@ class DetectionDataset:
         np.clip(labels4[:, 1:], 0, 2 * s, out=labels4[:, 1:])
         return self._perspective(img4, labels4, rnd, border=self.mosaic_border)
 
+    def load_mosaic9(self, index, rnd):
+        """Nine images around the first on a 3s x 3s canvas of 114, a random
+        2s x 2s crop of it, then ``random_perspective`` back to s x s
+        (reference utils/datasets.py:727-798): ``rnd.choices(k=8)``, the
+        crop's two ``uniform``s, the warp's eight."""
+        labels9 = []
+        s = self.img_size
+        indices = [index] + rnd.choices(self.indices, k=8)
+        img9 = None
+        hp = wp = -1
+        for i, idx in enumerate(indices):
+            img, _, (h, w) = self.load_image(idx)
+            if i == 0:  # center
+                img9 = np.full((s * 3, s * 3, img.shape[2]), 114, np.uint8)
+                h0, w0 = h, w
+                c = s, s, s + w, s + h
+            elif i == 1:  # top
+                c = s, s - h, s + w, s
+            elif i == 2:  # top right
+                c = s + wp, s - h, s + wp + w, s
+            elif i == 3:  # right
+                c = s + w0, s, s + w0 + w, s + h
+            elif i == 4:  # bottom right
+                c = s + w0, s + hp, s + w0 + w, s + hp + h
+            elif i == 5:  # bottom
+                c = s + w0 - w, s + h0, s + w0, s + h0 + h
+            elif i == 6:  # bottom left
+                c = s + w0 - wp - w, s + h0, s + w0 - wp, s + h0 + h
+            elif i == 7:  # left
+                c = s - w, s + h0 - h, s, s + h0
+            else:  # top left
+                c = s - w, s + h0 - hp - h, s, s + h0 - hp
+            padx, pady = c[:2]
+            x1, y1, x2, y2 = (max(x, 0) for x in c)
+            labels = self.labels[idx].copy()
+            if labels.size:
+                labels[:, 1:] = xywhn2xyxy(labels[:, 1:], w, h, padx, pady)
+            labels9.append(labels)
+            img9[y1:y2, x1:x2] = img[y1 - pady:, x1 - padx:][:y2 - y1, :x2 - x1]
+            hp, wp = h, w
+        yc, xc = (int(rnd.uniform(0, s)) for _ in self.mosaic_border)
+        img9 = img9[yc:yc + 2 * s, xc:xc + 2 * s]
+        labels9 = np.concatenate(labels9, 0)
+        if len(labels9):
+            labels9[:, [1, 3]] -= xc
+            labels9[:, [2, 4]] -= yc
+            np.clip(labels9[:, 1:], 0, 2 * s, out=labels9[:, 1:])
+        return self._perspective(img9, labels9, rnd, border=self.mosaic_border)
+
     def __getitem__(self, index):
         """The item at position ``index``; in training mode with the
         generators of (0, 0, index) (the loader passes its own to
@@ -344,6 +396,66 @@ class DetectionDataset:
                     labels[:, 1] = 1 - labels[:, 1]
         img = np.ascontiguousarray(img[:, :, ::-1])  # BGR->RGB, keep HWC
         return img, labels.astype(np.float32), self.img_files[index], shapes
+
+
+def hist_equalize(img: np.ndarray, clahe: bool = True, bgr: bool = False) -> np.ndarray:
+    """Histogram equalization of the Y channel of a uint8 BGR/RGB image
+    (reference utils/datasets.py hist_equalize; JAX
+    multiyolov5_tpu/data/detection.py:436): cv2's YUV round trip, CLAHE
+    (clip 2, 8 x 8 tiles) or ``equalizeHist``."""
+    yuv = rgb2yuv(img[..., ::-1] if bgr else img)
+    yuv[:, :, 0] = augment_clahe(yuv[:, :, 0], 2.0, (8, 8)) if clahe else \
+        equalize_hist(yuv[:, :, 0])
+    out = yuv2rgb(yuv)
+    return np.ascontiguousarray(out[..., ::-1] if bgr else out)
+
+
+def replicate(img: np.ndarray, labels: np.ndarray, rnd: random.Random):
+    """Copy the smaller half of the boxes (by mean side) to random places,
+    in place, and add their labels (reference utils/datasets.py
+    replicate()); ``rnd`` gives two ``uniform``s a copy."""
+    h, w = img.shape[:2]
+    boxes = labels[:, 1:].astype(int)
+    x1, y1, x2, y2 = boxes.T
+    s = ((x2 - x1) + (y2 - y1)) / 2
+    for i in s.argsort()[: round(s.size * 0.5)]:
+        x1b, y1b, x2b, y2b = boxes[i]
+        bh, bw = y2b - y1b, x2b - x1b
+        yc, xc = int(rnd.uniform(0, h - bh)), int(rnd.uniform(0, w - bw))
+        x1a, y1a, x2a, y2a = [xc, yc, xc + bw, yc + bh]
+        img[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+        labels = np.append(labels, [[labels[i, 0], x1a, y1a, x2a, y2a]], axis=0)
+    return img, labels
+
+
+def cutout(img: np.ndarray, labels: np.ndarray, rnd: random.Random) -> np.ndarray:
+    """31 grey rectangles of halving sizes, in place; the labels that the
+    larger ones cover by 60% or more go (reference utils/datasets.py:948-991).
+    ``rnd`` gives each mask's four ``randint``s and its colour's three."""
+    h, w = img.shape[:2]
+    scales = [0.5] * 1 + [0.25] * 2 + [0.125] * 4 + [0.0625] * 8 + [0.03125] * 16
+    for s in scales:
+        mask_h = rnd.randint(1, int(h * s))
+        mask_w = rnd.randint(1, int(w * s))
+        xmin = max(0, rnd.randint(0, w) - mask_w // 2)
+        ymin = max(0, rnd.randint(0, h) - mask_h // 2)
+        xmax = min(w, xmin + mask_w)
+        ymax = min(h, ymin + mask_h)
+        img[ymin:ymax, xmin:xmax] = [rnd.randint(64, 191) for _ in range(3)]
+        if len(labels) and s > 0.03:
+            box = np.array([[xmin, ymin, xmax, ymax]], np.float32)
+            ioa = _bbox_ioa(box[0], labels[:, 1:5])
+            labels = labels[ioa < 0.60]
+    return labels
+
+
+def _bbox_ioa(box1, box2, eps=1e-9):
+    """Intersection of ``box1`` (4,) with each of ``box2`` (n, 4) xyxy, over
+    each box2's area."""
+    b2x1, b2y1, b2x2, b2y2 = box2.T
+    inter = (np.minimum(box1[2], b2x2) - np.maximum(box1[0], b2x1)).clip(0) * \
+            (np.minimum(box1[3], b2y2) - np.maximum(box1[1], b2y1)).clip(0)
+    return inter / ((b2x2 - b2x1) * (b2y2 - b2y1) + eps)
 
 
 def ordered_batches(n: int, make, workers: int):

@@ -15,7 +15,8 @@ multiyolov5_tpu/cli/detect.py:132-138), so it needs no cv2 or PIL.
   2), RGB (H, W, 3), RGBA (H, W, 4), and a palette file's indices (H, W),
   not its colours.  The seg loaders read their masks with it.
 * :func:`read_rgb` returns ``np.asarray(Image.open(path).convert("RGB"))``:
-  (H, W, 3) uint8 RGB, gray replicated, a palette expanded, alpha dropped.
+  (H, W, 3) uint8 RGB, gray replicated, a palette expanded, alpha dropped
+  (:func:`decode_rgb` the same of PNG bytes).
 * :func:`require_png` raises ``NotImplementedError`` naming the first
   path of a list that is not a ``.png`` file: the loaders and hub check
   their inputs with it before they read any.
@@ -166,10 +167,16 @@ def imread(path: str) -> np.ndarray:
     return np.ascontiguousarray(_rgb(decode(_read(path), path))[..., ::-1])
 
 
+def decode_rgb(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """``np.asarray(Image.open(BytesIO(data)).convert("RGB"))`` of PNG
+    bytes: (H, W, 3) uint8 RGB."""
+    return np.ascontiguousarray(_rgb(decode(data, path)))
+
+
 def read_rgb(path: str) -> np.ndarray:
     """``np.asarray(Image.open(path).convert("RGB"))`` of a PNG: (H, W, 3)
     uint8 RGB."""
-    return np.ascontiguousarray(_rgb(decode(_read(path), path)))
+    return decode_rgb(_read(path), path)
 
 
 def read_samples(path: str) -> np.ndarray:

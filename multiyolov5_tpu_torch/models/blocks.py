@@ -408,7 +408,9 @@ class TransformerBlock(nn.Module):
     """reference models/common.py:49-92: an optional 1x1 Conv to c2, the
     map's pixels as tokens plus a learned linear of themselves, then
     ``num_layers`` TransformerLayers.  Every token attends to the whole map,
-    so a sharded forward raises."""
+    so a sharded forward runs the layers on the gathered map and keeps this
+    rank's rows (the gather's backward sums each token's gradient into the
+    rank that holds it)."""
 
     def __init__(self, c1: int, c2: int, num_heads: int, num_layers: int,
                  fused: bool = False):
@@ -419,14 +421,14 @@ class TransformerBlock(nn.Module):
         self.c2 = c2
 
     def forward(self, x):
-        if shard.split():
-            raise NotImplementedError("a transformer in a sharded forward")
         if self.conv is not None:
             x = self.conv(x)
+        _, start, rows = shard.place(x.shape[2], x.shape[3])
+        x = shard.gather_rows(x)
         b, _, h, w = x.shape
         p = x.flatten(2).permute(2, 0, 1)              # (L, B, C), pixels row-major
         y = self.tr(p + _linear(self.linear, p))
-        return y.permute(1, 2, 0).reshape(b, self.c2, h, w)
+        return y.permute(1, 2, 0).reshape(b, self.c2, h, w).narrow(2, start, rows)
 
 
 class C3TR(nn.Module):
@@ -602,9 +604,7 @@ class MaxPool2d(nn.Module):
         self.k, self.s, self.p = k, s or k, p
 
     def forward(self, x):
-        if shard.split() and (self.k > self.s or self.p):
-            raise NotImplementedError("a max pool reaching across rows in a sharded forward")
-        return F.max_pool2d(x, self.k, self.s, self.p)
+        return shard.max_pool2d(x, self.k, self.s, self.p)
 
 
 class ZeroPad2d(nn.Module):
@@ -615,9 +615,7 @@ class ZeroPad2d(nn.Module):
         self.pad = tuple(pad) if isinstance(pad, (list, tuple)) else (pad,) * 4
 
     def forward(self, x):
-        if shard.split():
-            raise NotImplementedError("zero padding in a sharded forward")
-        return F.pad(x, self.pad)
+        return shard.zero_pad(x, self.pad)
 
 
 class _BNConv(nn.Module):

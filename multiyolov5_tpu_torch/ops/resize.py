@@ -26,9 +26,10 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
     if tuple(x.shape[-2:]) == tuple(out_hw) and not whole:
         return x
     full = x if whole else shard.gather_rows(x)
-    out = F.interpolate(full, size=(shard.rows_total(int(out_hw[0])), int(out_hw[1])),
-                        mode="bilinear", align_corners=True)
-    return shard.own_rows(out, int(out_hw[0]))
+    total, start, rows = shard.place(int(out_hw[0]), int(out_hw[1]))
+    out = F.interpolate(full, size=(total, int(out_hw[1])), mode="bilinear",
+                        align_corners=True)
+    return out.narrow(2, start, rows)
 
 
 def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:

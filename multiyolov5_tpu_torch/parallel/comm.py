@@ -25,7 +25,8 @@ reduce-scatter on CUDA tensors).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -111,39 +112,82 @@ def all_gather_stacked(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     return _AllGather.apply(x, group)
 
 
-def all_gather(x: torch.Tensor, group: Optional[Group], dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group: Optional[Group], dim: int = 0,
+               rows: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in index order (rank 0's
-    first), with :func:`all_gather_stacked`'s gradient."""
+    first), with :func:`all_gather_stacked`'s gradient.  ``rows``: how many
+    entries along ``dim`` each rank gives (None: all of its ``x``, the same
+    size on every rank); each rank's ``x`` holds at least its count and at
+    most the largest.  gloo gathers equal sizes, so each ``x`` is padded to
+    the largest count and every part trimmed to its own."""
     if group is None or group.size == 1:
-        return x
-    return torch.cat(all_gather_stacked(x, group).unbind(0), dim)
+        return x if rows is None else x.narrow(dim, 0, rows[0])
+    if rows is None:
+        return torch.cat(all_gather_stacked(x, group).unbind(0), dim)
+    top = max(rows)
+    pad = list(x.shape)
+    pad[dim] = top - x.shape[dim]
+    parts = all_gather_stacked(torch.cat([x, x.new_zeros(pad)], dim), group).unbind(0)
+    return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, rows)], dim)
 
 
 def halo_exchange(x: torch.Tensor, top: int, bottom: int, group: Optional[Group],
-                  fill: float = 0.0) -> torch.Tensor:
+                  fill: float = 0.0, rows: Optional[Sequence[int]] = None,
+                  src: Optional[int] = None) -> torch.Tensor:
     """``x`` (B, C, h, W), this rank's rows of a map whose H axis is split
-    evenly over ``group`` in index order, with the ``top`` rows above it
-    and the ``bottom`` rows below it prepended and appended.  Rows past the
-    map's edges are ``fill`` (0 for a convolution's padding, ``-inf`` for a
-    max pool's).  A halo may reach past the next rank's rows: each rank
-    contributes its last ``min(top, h)`` and first ``min(bottom, h)`` rows
-    to one all-gather, and a halo is one slice of the ranks' rows in order
-    behind (or before) a fill of its own depth.  The gradient of each halo
-    row adds into the row it came from (the all-gather's backward).
+    over ``group`` in index order, with the ``top`` rows above it and the
+    ``bottom`` rows below it prepended and appended.  Rows past the map's
+    edges are ``fill`` (0 for a convolution's padding, ``-inf`` for a max
+    pool's).
 
-    Every rank builds the same graph (the slices differ only in their
-    offsets): autograd then runs the backward's collectives in the same
+    ``rows``: each rank's row count (None: ``h`` on every rank); a rank of
+    count 0 holds none of the map.  ``src``: the rank whose rows ``x`` is
+    (this rank, unless it holds none and computes a copy of another's).
+    Each rank gives its last ``top`` and first ``bottom`` rows, padded with
+    ``fill`` where it has fewer, to one all-gather; a halo is a selection
+    of those rows in map order, so it may reach past the next rank.  The
+    gradient of each halo row adds into the row it came from (the
+    all-gather's backward).
+
+    Every rank builds the same graph (the selections differ only in their
+    indices): autograd then runs the backward's collectives in the same
     order on every rank, which they need to meet."""
     if top == 0 and bottom == 0:
         return x
     b, c, h, w = x.shape
     n, m = (1, 0) if group is None else (group.size, group.index)
+    rows = [h] * n if rows is None else list(rows)
+    src = m if src is None else src
+    if rows[src] != h:
+        raise ValueError(f"halo_exchange: x has {h} rows, its shard {rows[src]}")
+    t = top + bottom
     nt, nb = min(top, h), min(bottom, h)
-    slab = torch.cat([x[:, :, h - nt:], x[:, :, :nb]], 2)
-    parts = all_gather_stacked(slab, group).unbind(0)  # rank r: its last nt, first nb rows
-    # above: fill for the rows over the map, then every rank's last nt rows;
-    # when top > h those are whole shards, so the slice reaches past rank m - 1
-    above = torch.cat([x.new_full((b, c, top, w), fill)] + [p[:, :, :nt] for p in parts], 2)
-    below = torch.cat([p[:, :, nt:] for p in parts] + [x.new_full((b, c, bottom, w), fill)], 2)
-    return torch.cat([above.narrow(2, m * nt, top), x,
-                      below.narrow(2, (m + 1) * nb, bottom)], 2)
+    slab = torch.cat([x.new_full((b, c, top - nt, w), fill), x[:, :, h - nt:],   # last top rows
+                      x[:, :, :nb], x.new_full((b, c, bottom - nb, w), fill)], 2)  # first bottom
+    parts = all_gather_stacked(slab, group)                         # (n, B, C, t, W)
+    # flat row 0 is the fill; rank r's slab row i is flat row 1 + r * t + i
+    flat = torch.cat([x.new_full((b, c, 1, w), fill),
+                      parts.permute(1, 2, 0, 3, 4).reshape(b, c, n * t, w)], 2)
+    halo = flat.index_select(2, _halo_index(tuple(rows), top, bottom, src, x.device))
+    return torch.cat([halo[:, :, :top], x, halo[:, :, top:]], 2)
+
+
+@functools.lru_cache(maxsize=1024)
+def _halo_index(rows: Tuple[int, ...], top: int, bottom: int, src: int,
+                device: torch.device) -> torch.Tensor:
+    """:func:`halo_exchange`'s rows of the gathered slabs for rank ``src``'s
+    halo, on ``device``: built once a plan, so a forward copies no index to
+    the card."""
+    n, t = len(rows), top + bottom
+    starts = [sum(rows[:r]) for r in range(n)]
+
+    def at(g: int) -> int:
+        for r in range(n):
+            j = g - starts[r]
+            if rows[r] and 0 <= j < rows[r]:
+                return 1 + r * t + (j - rows[r] + top if j >= rows[r] - top else top + j)
+        return 0                                                    # past the map's edges
+
+    a, h = starts[src], rows[src]
+    idx = [at(g) for g in range(a - top, a)] + [at(g) for g in range(a + h, a + h + bottom)]
+    return torch.tensor(idx, device=device)

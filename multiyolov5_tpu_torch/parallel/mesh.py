@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import datetime
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -150,36 +150,57 @@ def round_batch_for_devices(bs: int, n_dev: int) -> int:
     return -(-bs // n_dev) * n_dev
 
 
-def _rows(a, index: int, parts: int, axis: int):
-    n = a.shape[axis]
-    if n % parts:
-        raise ValueError(f"shard: axis {axis} of {n} does not split into {parts}")
-    k = n // parts
+def split_rows(h: int, parts: int, unit: int) -> Tuple[int, ...]:
+    """Each of ``parts`` ranks' rows of ``h`` rows, in whole ``unit``s (the
+    largest stride, so that every pyramid level splits into whole rows),
+    as even as they go: the first ranks take one unit more.  A rank gets
+    none where there are fewer units than ranks."""
+    if h % unit:
+        raise ValueError(f"shard: {h} rows are not a multiple of the stride {unit}")
+    k = h // unit
+    return tuple((k // parts + (r < k % parts)) * unit for r in range(parts))
+
+
+def _part(a, axis: int, rows: Sequence[int], index: int):
+    """Part ``index`` of ``a`` cut along ``axis`` into ``rows``."""
     sl = [slice(None)] * a.ndim
-    sl[axis] = slice(index * k, (index + 1) * k)
+    sl[axis] = slice(sum(rows[:index]), sum(rows[:index + 1]))
     return a[tuple(sl)]
 
 
 def shard_batch(mesh: Mesh, tree):
     """This rank's batch rows of each array of a tuple or list (global
     batch first, rank 0's slice first)."""
-    return type(tree)(_rows(a, mesh.data_index, mesh.n_data, 0) for a in tree)
+    def mine(a):
+        n = a.shape[0]
+        if n % mesh.n_data:
+            raise ValueError(f"shard: axis 0 of {n} does not split into {mesh.n_data}")
+        return _part(a, 0, (n // mesh.n_data,) * mesh.n_data, mesh.data_index)
+
+    return type(tree)(mine(a) for a in tree)
 
 
-def shard_train_batch(mesh: Mesh, args):
+def shard_train_batch(mesh: Mesh, args, unit: int):
     """This rank's slice of the step's batch (det_imgs, det_tgts, det_mask,
     seg_imgs, seg_lbls), from the global batch: its batch rows, and with
-    ``n_model`` > 1 its H rows of the images and seg labels."""
+    ``n_model`` > 1 its H rows of the images and seg labels, split in
+    ``unit``s (the largest stride) as :func:`local_rows` splits them."""
     det_imgs, det_tgts, det_mask, seg_imgs, seg_lbls = shard_batch(mesh, list(args))
-    det_imgs, seg_imgs, seg_lbls = (local_rows(mesh, a) for a in (det_imgs, seg_imgs, seg_lbls))
+    det_imgs, seg_imgs, seg_lbls = (local_rows(mesh, a, unit)
+                                    for a in (det_imgs, seg_imgs, seg_lbls))
     return det_imgs, det_tgts, det_mask, seg_imgs, seg_lbls
 
 
-def local_rows(mesh: Mesh, a, axis: int = 1):
+def local_rows(mesh: Mesh, a, unit: int, axis: int = 1):
     """This rank's H rows (``axis``) of a batch slice that every rank of
     its model group holds whole: what ``shard_train_batch`` takes of the
-    images after a loader's shard-local batch."""
-    return _rows(a, mesh.model_index, mesh.n_model, axis) if mesh.n_model > 1 else a
+    images after a loader's shard-local batch.  H splits by
+    :func:`split_rows` in ``unit``s (the largest stride, so every pyramid
+    level splits into whole rows), so a rank may get a unit more than
+    another, or none."""
+    if mesh.n_model == 1:
+        return a
+    return _part(a, axis, split_rows(a.shape[axis], mesh.n_model, unit), mesh.model_index)
 
 
 def replicate(mesh: Mesh, tensors):

@@ -13,6 +13,15 @@ global means, the align-corners bilinear resizes of the seg heads) work
 from a gather.  Focus, 1x1 convs, nearest upsamples and concats stay local.
 Parameters are replicated.
 
+H splits in units of the largest stride (mesh.split_rows), so a level's
+shards are whole rows but need not be equal: H = 32k for any k, as GSPMD
+takes any H.  The halos and gathers take each rank's row count (gloo
+gathers equal sizes: the parts are padded to the largest and trimmed).
+Where k < ``n_model``, a rank without rows computes a copy of the last
+rank's and gives nothing.  Every row type runs sharded: the transformer
+on the gathered map, the max pools on halos of ``-inf``, a zero pad's
+rows on the first and last ranks that hold rows.
+
 The forward is ``Model(kernels=False)``'s, as the JAX path forces
 ``sever=False``: the K1/K2/K7 kernels take whole maps.  The same sharded
 forward, in training mode under global-batch BN, is the dp x sp train step
@@ -28,7 +37,7 @@ from ..ops import shard
 from ..ops.nn import fuse_conv_bn
 from ..ops.resize import resize_bilinear
 from .comm import all_gather
-from .mesh import Mesh
+from .mesh import Mesh, split_rows
 
 
 def spatial_forward(model: Model, mesh: Mesh, compute_dtype=torch.bfloat16,
@@ -43,8 +52,8 @@ def spatial_forward(model: Model, mesh: Mesh, compute_dtype=torch.bfloat16,
     ``out_shardings=P()``: the decoded candidates (B, no, N) float32 (the
     raw per-level maps with ``decode=False``) and the seg logits upsampled
     to the input's size, (B, n_segcls, H, W) float32, or None.  ``fused``
-    folds the BNs first (the JAX ``fused``).  H must keep every stride-32
-    row count a multiple of ``n_model`` (:func:`spatial_sharding_ok`)."""
+    folds the BNs first (the JAX ``fused``).  H must be a multiple of the
+    largest stride; the shards need not be even (:func:`spatial_sharding_ok`)."""
     spec = model.spec
     dev = next(model.parameters()).device
     net = model
@@ -61,32 +70,36 @@ def spatial_forward(model: Model, mesh: Mesh, compute_dtype=torch.bfloat16,
     def fn(x) -> tuple:
         x = torch.as_tensor(x)
         hw = tuple(x.shape[1:3])
-        if not spatial_sharding_ok(hw[0], mesh.n_model, max(spec.strides)):
-            raise ValueError(f"spatial_forward: H {hw[0]} does not split into "
-                             f"{mesh.n_model} shards at stride {max(spec.strides)}")
+        plan = shard.Plan(split_rows(hw[0], mesh.n_model, max(spec.strides)), hw[1])
         b = x.shape[0] // mesh.n_data
-        h = hw[0] // mesh.n_model
-        d, m = mesh.data_index, mesh.model_index
-        xs = x[d * b:(d + 1) * b, m * h:(m + 1) * h].to(dev)
+        d = mesh.data_index
+        src = shard.src_of(plan.rows, mesh.model_index)
+        top = sum(plan.rows[:src])
+        xs = x[d * b:(d + 1) * b, top:top + plan.rows[src]].to(dev)
         xs = xs.permute(0, 3, 1, 2).float().contiguous() / 255.0
         with torch.autocast(dev.type, dtype=compute_dtype, enabled=low), \
-                shard.sharded(mesh.model, mesh.data):
+                shard.sharded(mesh.model, mesh.data, plan):
             raw, seg = net(xs, decode=False)
         rows = (lambda t: all_gather(t, mesh.data, 0)) if mesh.n_data > 1 else (lambda t: t)
+
+        def whole(t):       # (B, ..., h, w[, no]): H axis 2, W axis 3
+            return all_gather(t, mesh.model, 2, plan.at(t.shape[3]))
+
         det = None
         if raw is not None:
-            raw = [rows(all_gather(r, mesh.model, 2)) for r in raw]
+            raw = [rows(whole(r)) for r in raw]
             if decode:
                 det = det_mod._decode([r.permute(0, 1, 4, 2, 3).flatten(1, 2) for r in raw])
             else:
                 det = raw
         if seg is not None:
-            seg = rows(resize_bilinear(all_gather(seg, mesh.model, 2).float(), hw))
+            seg = rows(resize_bilinear(whole(seg).float(), hw))
         return det, seg
 
     return fn
 
 
 def spatial_sharding_ok(h: int, n_model: int, max_stride: int = 32) -> bool:
-    """True when H shards evenly at every pyramid level."""
+    """True when H shards evenly at every pyramid level (uneven shards run
+    too, a rank taking a unit of ``max_stride`` rows more than another)."""
     return (h % (max_stride * n_model)) == 0

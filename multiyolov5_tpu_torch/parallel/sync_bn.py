@@ -13,7 +13,8 @@ error does not grow with the element count, as a raw sum of squares' does.
 Momentum, eps and the unbiased running variance are ``nn.BatchNorm2d``'s,
 so the statistics equal one BN's over the concatenated batch.  Tensors
 that every rank of the model group holds whole (ops/shard.py ``whole``)
-are counted once, over the data group.
+are counted once, over the data group; a rank that holds none of a split
+map's rows counts none.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
         mean = xf.mean((0, 2, 3))
         m2 = torch.square(xf - mean[None, :, None, None]).sum((0, 2, 3))
         part = torch.stack([torch.full_like(mean, float(n)), mean, m2])       # (3, C)
+        if not shard.holds_rows():      # a copy of another rank's rows: counts none
+            part = part * 0.0
         cnt, means, m2s = all_gather_stacked(part, group).unbind(1)            # (ranks, C)
         total = cnt.sum(0)
         mean = (cnt * means).sum(0) / total

@@ -43,7 +43,10 @@ reaches the seg head, which DDP handles only with
 the update count stay replicated (every rank applies the same summed
 gradient).  ``cfg.batch_size`` is the global detection batch.  With
 ``n_model`` > 1 (dp x sp) the images' H axis is split over the model
-group (parallel/spatial.py, ops/shard.py): the forwards run sharded, the
+group (parallel/spatial.py, ops/shard.py; in units of the largest stride,
+so the shards may be uneven: ``shard_train_batch(mesh, batch, unit)`` and
+the step's ``heights``, and a rank with no rows computes a copy of
+another's): the forwards run sharded, the
 det raw maps, seg logits and seg labels are gathered over the model group,
 each rank of a model group takes the loss of its data slice at
 ``1 / n_model`` (so each gradient is counted once across the model
@@ -73,6 +76,7 @@ from ..ops.kernels import seg_ce
 from ..ops.resize import resize_bilinear
 from ..parallel import sync_bn
 from ..parallel.comm import all_gather
+from ..parallel.mesh import split_rows
 from ..utils.checkpoint import to_jax_params
 from . import optim
 from .losses import DetectionLoss, ohem_ce_loss, seg_focal_loss, segmentation_loss
@@ -162,16 +166,17 @@ def _images(a, dev: torch.device) -> torch.Tensor:
 
 
 def _forward(model: Model, x: torch.Tensor, rng: Optional[torch.Generator], remat: bool,
-             mesh=None):
+             mesh=None, plan: Optional[shard.Plan] = None):
     """``model(x)`` with its dropout drawing from ``rng``, sharded over the
-    mesh's model group when it has one; with ``remat``, under a
+    mesh's model group as ``plan`` splits H when it has one; with ``remat``, under a
     non-reentrant checkpoint whose recomputation restarts ``rng`` from its
     state at the first forward (the same mask) and puts the BN running
     statistics back as that forward left them."""
     spatial = mesh is not None and mesh.n_model > 1
 
     def call(inp):
-        ctx = shard.sharded(mesh.model, mesh.data) if spatial else contextlib.nullcontext()
+        ctx = (shard.sharded(mesh.model, mesh.data, plan) if spatial
+               else contextlib.nullcontext())
         with model.dropout_rng(rng, mesh), ctx:
             return model(inp)
 
@@ -207,13 +212,15 @@ def _forward(model: Model, x: torch.Tensor, rng: Optional[torch.Generator], rema
 
 def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int], mesh=None):
     """Returns step(ts, det_imgs, det_tgts, det_mask, seg_imgs, seg_lbls,
-    lr, lr_bias, momentum, do_update, rng=None) -> (ts, metrics).
+    lr, lr_bias, momentum, do_update, rng=None, heights=None) -> (ts, metrics).
 
     det_imgs (B, H, W, 3) uint8; det_tgts (B, T, 5) [cls, xywh] normalized
     and det_mask (B, T) bool, from losses.pad_targets; seg_imgs (B', H', W',
     3) float in [0, 1]; seg_lbls (B', H', W') int, -1 unlabelled; host
     arrays or tensors.  On a ``mesh`` (every rank calls the step) they are
-    this rank's slice (parallel/mesh.shard_train_batch).  ``rng``: the
+    this rank's slice (parallel/mesh.shard_train_batch); with ``n_model``
+    > 1, ``heights`` is (det H, seg H) of the whole images, which fixes
+    every rank's rows (mesh.split_rows).  ``rng``: the
     dropout generator (a ``torch.Generator`` on the model's device, the
     same seed on every rank), or None for no dropout.  metrics:
     {"det_items": (lbox, lobj, lcls, loss), "seg_loss", "total"}, the
@@ -259,14 +266,36 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int], m
         return segmentation_loss(up, lbls, aux=cfg.seg_aux, aux_num=2,
                                  aux_weight=aux_w, weight=cw, group=loss_group)
 
-    def gathered(out):
+    def gathered(out, plan):
         """Under dp x sp, the whole maps of sharded outputs (raw maps,
-        logits: H axis 2; labels: axis 1), through autograd."""
+        logits: H axis 2, W axis 3; labels: H axis 1, input rows), through
+        autograd."""
         if not spatial:
             return out
         if isinstance(out, (list, tuple)):
-            return [gathered(o) for o in out]
-        return all_gather(out, mesh.model, 2 if out.dim() >= 4 else 1)
+            return [gathered(o, plan) for o in out]
+        if out.dim() >= 4:
+            return all_gather(out, mesh.model, 2, plan.at(out.shape[3]))
+        return all_gather(out, mesh.model, 1, plan.rows)
+
+    def plan_of(a, h: Optional[int]):
+        """Under dp x sp, how the whole images' ``h`` rows split over the
+        model group (mesh.split_rows in units of the largest stride, as
+        mesh.shard_train_batch cut this rank's images ``a``, (B, h_r, W, 3))."""
+        if not spatial:
+            return None
+        if h is None:
+            raise ValueError("dp x sp: the step needs heights=(det H, seg H), the "
+                             "whole images' rows")
+        plan = shard.Plan(split_rows(h, mesh.n_model, max(spec.strides)), a.shape[2])
+        if a.shape[1] != plan.rows[mesh.model_index]:
+            raise ValueError(f"dp x sp: {a.shape[1]} rows on model index "
+                             f"{mesh.model_index}, where mesh.split_rows gives {plan.rows} "
+                             f"of {h}")
+        return plan
+
+    def inputs(x, plan):
+        return shard.take_rows(x, plan, mesh.model) if spatial else x
 
     def all_reduce_grads(params) -> None:
         """Sum the accumulated gradients over the world, in one flat buffer."""
@@ -297,30 +326,33 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig, groups: Dict[str, int], m
 
     def step(ts: TrainState, det_imgs, det_tgts, det_mask, seg_imgs, seg_lbls,
              lr: float, lr_bias: float, momentum: float, do_update: bool,
-             rng: Optional[torch.Generator] = None):
+             rng: Optional[torch.Generator] = None,
+             heights: Optional[Tuple[int, int]] = None):
         model = ts.model
         dev = next(model.parameters()).device
         if parallel:
             sync_bn.convert(model, mesh)
-        if spatial and any(a.shape[1] % max(spec.strides) for a in (det_imgs, seg_imgs)):
-            raise ValueError(f"dp x sp: each rank's H rows must be a multiple of "
-                             f"{max(spec.strides)} (image H a multiple of "
-                             f"{max(spec.strides) * mesh.n_model})")
         amp = torch.autocast(dev.type, dtype=cfg.compute_dtype, enabled=low)
+        det_h, seg_h = heights or (None, None)
+        plan = plan_of(det_imgs, det_h)
         with amp:
-            det_raw, _ = _forward(model, _images(det_imgs, dev) / 255.0, rng, cfg.remat, mesh)
-        dloss, ditems = det_loss_fn(gathered(det_raw), torch.as_tensor(det_tgts).to(dev),
+            det_raw, _ = _forward(model, inputs(_images(det_imgs, dev) / 255.0, plan), rng,
+                                  cfg.remat, mesh, plan)
+        dloss, ditems = det_loss_fn(gathered(det_raw, plan), torch.as_tensor(det_tgts).to(dev),
                                     torch.as_tensor(det_mask).to(dev), group=loss_group)
         dloss = dloss * cfg.detgain * (4.0 if cfg.quad else 1.0)
         (dloss * share).backward()
         terms = [dloss.detach()]
         if cfg.seg_enabled and spec.seg_index is not None:
             # second forward: the BN statistics already advanced on the det batch
+            plan = plan_of(seg_imgs, seg_h)
             with amp:
-                _, seg_out = _forward(model, _images(seg_imgs, dev), rng, cfg.remat, mesh)
+                _, seg_out = _forward(model, inputs(_images(seg_imgs, dev), plan), rng,
+                                      cfg.remat, mesh, plan)
             # reference train.py:386 scales the mean CE by the DETECTION
             # batch size (the two tasks share one accumulated optimizer step)
-            sl = seg_loss_fn(gathered(seg_out), gathered(torch.as_tensor(seg_lbls).to(dev))) \
+            sl = seg_loss_fn(gathered(seg_out, plan),
+                             gathered(torch.as_tensor(seg_lbls).to(dev), plan)) \
                 * cfg.batch_size * cfg.seggain
             (sl * share).backward()
             terms.append(sl.detach())

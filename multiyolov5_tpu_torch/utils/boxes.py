@@ -79,6 +79,13 @@ def box_iou(box1, box2):
     return inter / (area1[:, None] + area2[None, :] - inter)
 
 
+def wh_iou(wh1, wh2):
+    """Pairwise IoU of (w, h) pairs as boxes sharing a corner: (N, 2), (M,
+    2) -> (N, M)."""
+    inter = _xp(wh1).minimum(wh1[:, None], wh2[None]).prod(2)
+    return inter / (wh1.prod(1)[:, None] + wh2.prod(1)[None] - inter)
+
+
 def bbox_iou_ciou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     """Elementwise CIoU of xywh boxes (reference utils/general.py:343-385,
     CIoU branch; multiyolov5_tpu/utils/boxes.py:85-113), on torch tensors.

@@ -3,7 +3,11 @@
 ``get_latest_run``, ``colorstr``, ``one_cycle``, ``labels_to_class_weights``,
 ``labels_to_image_weights``, ``check_dataset``, ``clean_str``,
 ``check_file`` and ``print_mutation``, which writes its yaml as JSON:
-JSON is YAML, so ``yaml.safe_load`` reads it, and the port needs no PyYAML)."""
+JSON is YAML, so ``yaml.safe_load`` reads it, and the port needs no PyYAML),
+and the helpers no entry point calls: ``check_requirements``,
+``check_git_status`` (a no-op), ``copy_attr``, ``prune_params`` and
+``sparsity`` (on the port's state dict).  ``check_imshow`` needs cv2's
+windows and is not ported."""
 
 from __future__ import annotations
 
@@ -130,3 +134,79 @@ def print_mutation(hyp: dict, results, yaml_file: str = "hyp_evolved.yaml",
     best = {k: float(x[0, n_metrics + i]) for i, k in enumerate(keys)}
     with open(yaml_file, "w") as f:
         json.dump(best, f, indent=1)
+
+
+def check_requirements(requirements=(), exclude=()) -> None:
+    """Warn about each requirement that does not import (reference
+    utils/general.py check_requirements; it installs nothing)."""
+    import importlib
+
+    for r in requirements:
+        name = re.split(r"[<>=!]", r)[0].strip()
+        if name in exclude:
+            continue
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            print(f"WARNING: requirement {r!r} not installed "
+                  f"(auto-install disabled)")
+
+
+def check_git_status() -> None:
+    """No-op (the reference suggests a ``git pull``)."""
+    return None
+
+
+def copy_attr(a, b, include=(), exclude=()) -> None:
+    """Copy attributes b -> a (reference utils/torch_utils.py copy_attr)."""
+    for k, v in b.__dict__.items():
+        if (include and k not in include) or k.startswith("_") or k in exclude:
+            continue
+        setattr(a, k, v)
+
+
+def _quantile(a: np.ndarray, q: float) -> np.float32:
+    """``jnp.quantile(a, q)`` of a float32 vector (linear interpolation, in
+    float32 as the JAX package computes it on the CPU); the two order statistics by
+    ``np.partition``, which holds at every zoo width (``torch.quantile``
+    refuses more than 2^24 elements)."""
+    n = a.size
+    pos = np.float32(q) * (np.float32(n) - np.float32(1))
+    lo = np.floor(pos)
+    hi_w = np.float32(pos - lo)
+    lo_w = np.float32(1) - hi_w
+    i, j = int(min(max(lo, 0), n - 1)), int(min(max(np.ceil(pos), 0), n - 1))
+    part = np.partition(a, (i, j))
+    # XLA's CPU code fuses the high term: fma(high, w_high, low * w_low)
+    low = np.float64(np.float32(part[i] * lo_w))
+    return np.float32(np.float64(part[j]) * np.float64(hi_w) + low)
+
+
+def prune_params(state_dict: dict, amount: float = 0.3) -> dict:
+    """Magnitude pruning of conv weights (reference utils/torch_utils.py:171-179
+    prune(); JAX multiyolov5_tpu/utils/general.py:169): a new state dict in
+    which each 4-D ``.weight`` has its entries of |w| below the ``amount``
+    quantile of its |w| zeroed."""
+    import torch
+
+    out = {}
+    for k, v in state_dict.items():
+        if k.endswith(".weight") and getattr(v, "ndim", 0) == 4:
+            a = v.detach().abs().float()
+            kth = _quantile(a.reshape(-1).cpu().numpy(), amount)
+            out[k] = torch.where(a < float(kth), torch.zeros((), dtype=v.dtype), v)
+        else:
+            out[k] = v
+    print(f"pruned conv weights to ~{amount:.0%} global sparsity "
+          f"({sparsity(out):.3%} actual zeros)")
+    return out
+
+
+def sparsity(state_dict: dict) -> float:
+    """The share of zeros over every tensor of ``state_dict``."""
+    zeros = total = 0
+    for v in state_dict.values():
+        a = np.asarray(v.detach().cpu() if hasattr(v, "detach") else v)
+        zeros += int((a == 0).sum())
+        total += a.size
+    return zeros / max(total, 1)

@@ -3,8 +3,9 @@ a numpy copy of it; reference utils/metrics.py).
 
 Detection AP bookkeeping runs on host numpy (tiny).  Segmentation eval
 (evaluation.seg_validation) takes the class map from the card and
-accumulates exact integer histograms on the host via SegMetric.  The PR,
-F1 and confusion-matrix plots need matplotlib and are not ported.
+accumulates exact integer histograms on the host via SegMetric;
+``seg_confusion_device`` counts the same on the card.  The PR, F1 and
+confusion-matrix plots need matplotlib and are not ported.
 """
 
 from __future__ import annotations
@@ -161,6 +162,32 @@ def batch_intersection_union(output: np.ndarray, target: np.ndarray,
     area_lab, _ = np.histogram(target, bins=nclass, range=(1, nclass))
     area_union = area_pred + area_lab - area_inter
     return area_inter, area_union
+
+
+def seg_confusion_device(logits, target, nclass: int):
+    """Intersection and union counters on the logits' device (counterpart
+    of the JAX ``seg_confusion_device``), for pipelines that keep the
+    reduction there.
+
+    logits: (B, C, H, W) NCHW tensor (C = ``nclass``); target: (B, H, W)
+    integer tensor, -1 (any negative) ignored; a label of ``nclass`` or
+    more counts in the prediction's area only.  Returns (inter (C,), union
+    (C,)) int64 tensors on the logits' device: ``bincount`` counts, exact
+    at any scale (the JAX float32 sums are exact below 2^24 pixels a
+    class)."""
+    import torch
+
+    predict = logits.argmax(1).reshape(-1)
+    target = torch.as_tensor(target, device=logits.device).reshape(-1).long()
+    valid = target >= 0
+    pred_v, lab_v = predict[valid], target[valid]
+    hit = pred_v[pred_v == lab_v]
+
+    def count(x):
+        return torch.bincount(x, minlength=nclass)[:nclass]
+
+    inter = count(hit)
+    return inter, count(pred_v) + count(lab_v) - inter
 
 
 class SegMetric:

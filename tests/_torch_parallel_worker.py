@@ -20,6 +20,65 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
+class ThreadGroup:
+    """One rank of a group whose ranks are threads of this process (see
+    :func:`run_threads`): ``parallel/comm.Group``'s collectives over shared
+    slots and a barrier, for quick checks of the sharded ops without
+    spawning processes."""
+
+    pg = None
+
+    def __init__(self, size: int, index: int, box: dict):
+        self.ranks, self.size, self.index, self._box = list(range(size)), size, index, box
+
+    def _swap(self, t: torch.Tensor):
+        self._box["slots"][self.index] = t.detach().clone()
+        self._box["barrier"].wait()
+        got = list(self._box["slots"])
+        self._box["barrier"].wait()
+        return got
+
+    def all_reduce_(self, t):
+        got = self._swap(t)
+        t.copy_(sum(got[1:], got[0].clone()))
+        return t
+
+    def all_gather_raw(self, t):
+        return torch.stack(self._swap(t.contiguous()))
+
+    def broadcast_(self, t):
+        t.copy_(self._swap(t)[0])
+        return t
+
+    def sum(self, t):
+        return self.all_reduce_(t.detach().clone())
+
+
+def run_threads(size: int, fn):
+    """``fn(group, index)`` on ``size`` threads, each with its
+    :class:`ThreadGroup`; their results in index order."""
+    import threading
+
+    box = {"slots": [None] * size, "barrier": threading.Barrier(size)}
+    out, errors = [None] * size, []
+
+    def one(i):
+        try:
+            out[i] = fn(ThreadGroup(size, i, box), i)
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errors.append(e)
+            box["barrier"].abort()
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(size)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
 def launch(world: int, jobs, tmp_path, timeout_s: float = 240.0):
     out = os.path.join(str(tmp_path), f"ranks{world}")
     os.makedirs(out, exist_ok=True)
@@ -92,7 +151,7 @@ def job_bn(x, grad, weight, bias, n_data=2, n_model=1):
     sync_bn.convert(bn, mesh).train()
 
     def mine(a):
-        return local_rows(mesh, _rows(torch.from_numpy(a), mesh), axis=2)
+        return local_rows(mesh, _rows(torch.from_numpy(a), mesh), 1, axis=2)
 
     xl = mine(x).requires_grad_(True)
     y = bn(xl)
@@ -146,9 +205,11 @@ def _state(spec_dict, sd, head_cfg):
     return spec, cfg, ts, groups
 
 
-def job_step(spec_dict, sd, cfg_kw, batches, updates, n_data, n_model, seed=None, lr=(0.001, 0.002, 0.9)):
+def job_step(spec_dict, sd, cfg_kw, batches, updates, n_data, n_model, seed=None,
+             lr=(0.001, 0.002, 0.9)):
     """The port's train step over the mesh on this rank's slices of the
-    global ``batches``; the state and each step's metrics."""
+    global ``batches`` (H split in units of the largest stride); the state
+    and each step's metrics."""
     from multiyolov5_tpu_torch.parallel.mesh import shard_train_batch
     from multiyolov5_tpu_torch.train.trainer import make_train_step
 
@@ -158,7 +219,8 @@ def job_step(spec_dict, sd, cfg_kw, batches, updates, n_data, n_model, seed=None
     gen = None if seed is None else torch.Generator().manual_seed(seed)
     metrics = []
     for batch, up in zip(batches, updates):
-        ts, m = step(ts, *shard_train_batch(mesh, batch), *lr, up, rng=gen)
+        ts, m = step(ts, *shard_train_batch(mesh, batch, max(spec.strides)), *lr, up, rng=gen,
+                     heights=(batch[0].shape[1], batch[3].shape[1]))
         metrics.append({k: v.clone() for k, v in m.items()})
     return {"state": ts.state_dict(), "ema": dict(ts.ema), "opt": ts.opt,
             "updates": ts.updates, "metrics": metrics}
@@ -184,7 +246,7 @@ def job_halo(x, top, bottom, fill):
     from multiyolov5_tpu_torch.parallel.mesh import local_rows
 
     mesh = _mesh(1, dist.get_world_size())
-    xl = local_rows(mesh, torch.from_numpy(x), axis=2).requires_grad_(True)
+    xl = local_rows(mesh, torch.from_numpy(x), 1, axis=2).requires_grad_(True)
     y = halo_exchange(xl, top, bottom, mesh.model, fill)
     g = torch.from_numpy(np.random.RandomState(mesh.rank).randn(*y.shape).astype(np.float32))
     (y * torch.where(torch.isfinite(y), g, 0.0)).sum().backward()

@@ -23,8 +23,11 @@ way.  Bounds: outputs within 1e-5 of max(1, max |JAX output|), running
 statistics within 1e-5 of max(1, max |JAX statistic|): float32 rounding
 through at most a dozen convs, the transformer's softmax and the BN
 moments (E[x^2] - mean^2 there, torch's own here).  In a forward whose H
-axis is split over ranks, ZeroPad2d, max pools reaching across rows and
-C3TR raise.
+axis is split unevenly over two ranks (threads of this process), ZeroPad2d,
+max pools reaching across rows and C3TR no longer raise: their gathered
+outputs equal the unsharded row's (the pad and the pools exactly, C3TR
+within 1e-5); only a window op whose stride the shards' rows do not
+align with raises.
 """
 
 import os
@@ -248,18 +251,64 @@ def test_block_matches_jax(case, fused):
     _hold(make(fused), run_jax, xs if n_in > 1 else xs[0], params, state, "m.", fused)
 
 
-@pytest.mark.parametrize("make", [lambda: B.ZeroPad2d([0, 1, 0, 1]), lambda: B.MaxPool2d(3, 2, 1),
-                                  lambda: B.MaxPool2d(2, 1), lambda: B.C3TR(16, 16)],
-                         ids=["zeropad", "maxpool_k3_s2_p1", "maxpool_k2_s1", "c3tr"])
-def test_rows_reaching_across_shards_raise(make):
+SHARD_ROWS = pytest.mark.parametrize(
+    "make", [lambda: B.ZeroPad2d([0, 1, 0, 1]), lambda: B.MaxPool2d(3, 2, 1),
+             lambda: B.MaxPool2d(2, 1), lambda: B.C3TR(16, 16)],
+    ids=["zeropad", "maxpool_k3_s2_p1", "maxpool_k2_s1", "c3tr"])
+
+
+def _drawn(make):
+    torch.manual_seed(0)
+    row = make().eval()
+    with torch.no_grad():               # C3TR's in-projection is allocated, not drawn
+        for p in row.parameters():
+            p.normal_(0.0, 0.2)
+    return row
+
+
+def _sharded_ranks(row, x, plan):
+    """Each of two thread ranks' gathered output of ``row`` on its rows of
+    ``x`` as ``plan`` splits them."""
+    from _torch_parallel_worker import run_threads
+    from multiyolov5_tpu_torch.ops import shard
+    from multiyolov5_tpu_torch.parallel.comm import Group
+
+    def one(g, i):
+        a = sum(plan.rows[:i])
+        with torch.no_grad(), shard.sharded(g, Group([0], 0), plan):
+            return shard.gather_rows(row(x[:, :, a:a + plan.rows[i]]))
+    return run_threads(2, one)
+
+
+@SHARD_ROWS
+def test_rows_reaching_across_shards_match_unsharded(make):
     """In a forward whose H axis is split over ranks (parallel/spatial.py),
-    a row that reads across the shards' rows without a halo raises; a max
-    pool whose windows stay inside a shard runs on its rows alone."""
+    the rows that read across the shards' rows take halos or the gathered
+    map: sharded over 6 + 2 rows, each gathered output equals the
+    unsharded row's."""
+    from multiyolov5_tpu_torch.ops import shard
+
+    row = _drawn(make)
+    x = torch.randn(1, 16, 8, 8)
+    with torch.no_grad():
+        want = row(x)
+    for got in _sharded_ranks(row, x, shard.Plan((6, 2), 8)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@SHARD_ROWS
+def test_rows_reaching_across_shards_raise(make):
+    """What a sharded forward still refuses: each of these rows given a
+    shard whose row count is not the plan's (5 rows where the plan gives
+    6 + 2), and a stride-2 window over shards whose first rows are odd
+    (7 + 1)."""
     from multiyolov5_tpu_torch.ops import shard
     from multiyolov5_tpu_torch.parallel.comm import Group
 
     x = torch.randn(1, 16, 8, 8)
-    with shard.sharded(Group([0, 1], 0, pg=object()), Group([0], 0)):
-        with pytest.raises(NotImplementedError, match="sharded forward"):
-            make().eval()(x)
-        torch.testing.assert_close(B.MaxPool2d(2)(x), torch.nn.functional.max_pool2d(x, 2))
+    with shard.sharded(Group([0, 1], 0, pg=object()), Group([0], 0), shard.Plan((6, 2), 8)):
+        with pytest.raises(ValueError, match="rows where the plan gives"):
+            _drawn(make)(x[:, :, :5])
+    with pytest.raises(NotImplementedError, match="stride-2 window op"):
+        _sharded_ranks(B.MaxPool2d(2), x, shard.Plan((7, 1), 8))
+    torch.testing.assert_close(B.MaxPool2d(2)(x), torch.nn.functional.max_pool2d(x, 2))

@@ -17,7 +17,10 @@ writes every artifact, each of which decodes, and the eval CLI
 Cityscapes-layout seg split through the port's loaders (the dataset file
 in JSON, without PyYAML) and prints its metrics, and hub's ``AutoShape``
 serves a PNG path and a gray array.  PyYAML and pandas are blocked too:
-the card's machine need not have them."""
+the card's machine need not have them.  The host tools run the same way
+(``tools/cityscapes2yolo.py``, ``tools/labelme_convert.py`` with the
+numpy fill of ``data/draw.py``, ``hist_equalize``, ``replicate``,
+``cutout``, ``prune_params``, ``wh_iou``, ``seg_confusion_device``)."""
 
 import json
 import os
@@ -262,6 +265,78 @@ _TRAIN_SCRIPT = _SCRIPT[:_SCRIPT.index("import numpy as np")] + textwrap.dedent(
 
 def test_training_cli_runs_without_jax():
     res = subprocess.run([sys.executable, "-c", _TRAIN_SCRIPT], cwd=ROOT,
+                         env={**os.environ, "TINY_SPEC": json.dumps(TINY),
+                              "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+# the host tools and helpers (tools/cityscapes2yolo.py, tools/labelme_convert.py,
+# data/draw.py, the extra augmentations, utils/general.py's pruning,
+# utils/metrics.seg_confusion_device) with the same modules blocked
+_TOOLS_SCRIPT = _SCRIPT[:_SCRIPT.index("import numpy as np")] + textwrap.dedent("""
+    import base64, contextlib, io, json, os, random, tempfile
+    import numpy as np
+    import torch
+    from multiyolov5_tpu_torch.data import png
+    from multiyolov5_tpu_torch.data.detection import cutout, hist_equalize, replicate
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import seeded_state_dict
+    from multiyolov5_tpu_torch.tools import cityscapes2yolo, labelme_convert
+    from multiyolov5_tpu_torch.utils.boxes import wh_iou
+    from multiyolov5_tpu_torch.utils.general import prune_params, sparsity
+    from multiyolov5_tpu_torch.utils.metrics import seg_confusion_device
+    root = tempfile.mkdtemp()
+    rng = np.random.RandomState(0)
+    for split in ("train", "val"):
+        os.makedirs(f"{root}/c/leftImg8bit/{split}/x")
+        os.makedirs(f"{root}/c/gtFine/{split}/x")
+        png.imwrite(f"{root}/c/leftImg8bit/{split}/x/x_0_leftImg8bit.png",
+                    rng.randint(0, 256, (16, 32, 3)).astype(np.uint8))
+        with open(f"{root}/c/gtFine/{split}/x/x_0_gtFine_polygons.json", "w") as fh:
+            json.dump({"imgWidth": 32, "imgHeight": 16, "objects": [
+                {"label": "car", "polygon": [[1, 2], [20, 3], [9, 14]]}]}, fh)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cityscapes2yolo.main(["--root", f"{root}/c"])
+    assert open(f"{root}/c/labels/val/x_0_leftImg8bit.txt").read().startswith("0 ")
+    os.makedirs(f"{root}/lm")
+    img = rng.randint(0, 256, (20, 30, 3)).astype(np.uint8)
+    with open(f"{root}/lm/a.json", "w") as fh:
+        json.dump({"imageData": base64.b64encode(png.encode(img)).decode(), "shapes": [
+            {"label": "car", "points": [[2, 2], [25, 4], [12, 18]]},
+            {"label": "road", "points": [[28, 18], [3, 1]], "shape_type": "rectangle"},
+            {"label": "car", "points": [[10, 10], [14, 13]], "shape_type": "circle"}]}, fh)
+    with open(f"{root}/labels.txt", "w") as fh:
+        fh.write("__ignore__\\n_background_\\ncar\\nroad\\n")
+    with contextlib.redirect_stdout(io.StringIO()):
+        labelme_convert.main(["labelme2seg", f"{root}/lm", f"{root}/seg", "--labels",
+                              f"{root}/labels.txt"])
+    assert np.array_equal(png.read_rgb(f"{root}/seg/JPEGImages/a.png"), img)
+    assert set(np.unique(png.read_samples(f"{root}/seg/SegmentationClassPNG/a.png"))) == {
+        0, 1, 2}
+    frame = rng.randint(0, 256, (37, 53, 3)).astype(np.uint8)
+    assert hist_equalize(frame).shape == frame.shape
+    labels = np.array([[0, 2, 3, 20, 30], [1, 10, 5, 40, 20]], np.float32)
+    img2, lab2 = replicate(frame.copy(), labels.copy(), random.Random(0))
+    assert len(lab2) == 3 and len(cutout(img2, lab2, random.Random(1))) <= 3
+    spec = load_spec(json.loads(os.environ["TINY_SPEC"]))
+    with contextlib.redirect_stdout(io.StringIO()):
+        pruned = prune_params(seeded_state_dict(spec, 0), 0.3)
+    assert 0.1 < sparsity(pruned) < 0.5
+    assert wh_iou(np.ones((2, 2)), np.ones((3, 2))).shape == (2, 3)
+    inter, union = seg_confusion_device(torch.randn(1, 4, 8, 8), torch.randint(-1, 4, (1, 8, 8)),
+                                        4)
+    assert inter.dtype == torch.int64 and (union >= inter).all()
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "multiyolov5_tpu", "cv2", "PIL",
+                                       "torchvision", "yaml", "pandas")
+                   for m, mod in sys.modules.items() if mod is not None)
+    print("OK")
+""")
+
+
+def test_host_tools_run_without_jax_pil_or_cv2():
+    res = subprocess.run([sys.executable, "-c", _TOOLS_SCRIPT], cwd=ROOT,
                          env={**os.environ, "TINY_SPEC": json.dumps(TINY),
                               "OMP_NUM_THREADS": "1"},
                          capture_output=True, text=True, timeout=300)

@@ -196,7 +196,7 @@ def test_round_batch_for_devices_matches_jax(bs, n):
 def test_shard_train_batch_slices_rows_then_h():
     batch = _batch(1, B=4, sz=64)
     mesh = pmesh.Mesh(2, 2, 3, *[pmesh.Group([3], 3)] * 3)   # rank 3: data 1, model 1
-    det, tg, tm, seg, lb = pmesh.shard_train_batch(mesh, batch)
+    det, tg, tm, seg, lb = pmesh.shard_train_batch(mesh, batch, 32)
     np.testing.assert_array_equal(det, batch[0][2:, 32:])
     np.testing.assert_array_equal(tg, batch[1][2:])
     np.testing.assert_array_equal(lb, batch[4][2:, 32:])
@@ -293,7 +293,7 @@ def test_seg_losses_global_batch_match_jax(ranks2, kind):
 # The steps and the spatial forward
 # ---------------------------------------------------------------------------
 
-def _jax_mesh_run(jax_state, n_data, n_model):
+def _jax_mesh_run(jax_state, n_data, n_model, batches=None):
     import jax
     import jax.numpy as jnp
     from multiyolov5_tpu.parallel.mesh import make_mesh, replicate, shard_train_batch
@@ -304,7 +304,7 @@ def _jax_mesh_run(jax_state, n_data, n_model):
     step = jax_make_step(jspec, jcfg, groups, mesh=mesh, donate=False)
     ts = replicate(mesh, ts)
     out = []
-    for i, (batch, up) in enumerate(zip(_batches(), UPDATES)):
+    for i, (batch, up) in enumerate(zip(batches or _batches(), UPDATES)):
         args = shard_train_batch(mesh, tuple(jnp.asarray(a) for a in batch))
         ts, m = step(ts, *args, replicate(mesh, jax.random.PRNGKey(i)), *map(jnp.float32, LR),
                      jnp.asarray(up))
@@ -331,9 +331,10 @@ def _ranks_equal(r):
         assert all(torch.equal(a[part][k], b[part][k]) for k in a[part]), part
 
 
-def held_step(r, jax_state, n_data, n_model):
-    """A port step's ranks against the JAX step jitted over the same mesh shape."""
-    jts, jm = _jax_mesh_run(jax_state, n_data, n_model)
+def held_step(r, jax_state, n_data, n_model, batches=None):
+    """A port step's ranks against the JAX step jitted over the same mesh
+    shape (on ``batches``, default ``_batches()``)."""
+    jts, jm = _jax_mesh_run(jax_state, n_data, n_model, batches)
     _ranks_equal(r)
     for got, want in zip(r[0]["metrics"], jm):
         for k in ("total", "seg_loss", "det_items"):

@@ -18,7 +18,8 @@ train and 2 val frames, the dataset file in JSON.
   ``--resume`` read the port's ``last.npz``, and the port's ``--resume``
   continues the JAX CLI's interrupted run;
 * ``--num-processes 2`` and ``--model-parallel 2`` (two spawned ranks,
-  gloo): rank 0 writes the one run directory;
+  gloo): rank 0 writes the one run directory; ``--rect`` under
+  ``--model-parallel 2`` trains on batch heights that split unevenly;
 * the options the port does not have raise ``NotImplementedError`` up
   front.
 """
@@ -281,6 +282,25 @@ def test_cli_multi_process(tree, tmp_path, extra):
                            "--coordinator", f"file://{tmp_path}/store2"], tmp_path)
     assert res[0][0] == res[1][0] == run
     assert [r[0] for r in _rows(run)] == ["0", "1"]
+
+
+def test_cli_rect_under_model_parallel(tree, tmp_path):
+    """``--rect`` under ``--model-parallel 2`` at 96: the rect batches of the
+    taller frames are 96 rows high, 3 units of the stride, which the two
+    ranks split 64 + 32 (mesh.split_rows); the epoch trains and its losses
+    are finite."""
+    from multiyolov5_tpu_torch.data.detection import DetectionDataset
+
+    ds = DetectionDataset(str(json.loads(tree["det"].read_text())["train"]), img_size=96,
+                          batch_size=4, augment=True, rect=True, stride=32)
+    assert 96 in {int(h) for h, _ in ds.batch_shapes}
+    argv = _argv(tree, tmp_path, "joint", "SegMaskPSP", 1, "--coordinator",
+                 f"file://{tmp_path}/store", "--model-parallel", "2", "--rect")
+    argv[argv.index("--img-size") + 1:argv.index("--img-size") + 3] = ["96", "96"]
+    res = W.launch_cli(2, argv, tmp_path)
+    assert res[0][0] == res[1][0]
+    rows = _rows(res[0][0])
+    assert [r[0] for r in rows] == ["0"] and float(rows[0][5]) > 0
 
 
 def test_cli_model_parallel_must_divide_the_world(tree, tmp_path):
