@@ -124,6 +124,20 @@ unless named), on the card and, for reference, on the CPU:
   ``replicate``, ``cutout``, ``hist_equalize``, ``prune_params`` and
   ``wh_iou``, with no PIL or cv2; ``seg_confusion_device`` on the card at
   (2, 19, 1024, 2048) against the host ``SegMetric`` counts.
+* JPEG [18]: (a) the port's codec (``data/jpeg.py``) at cv2's and PIL's
+  default settings on seeded 2048x1024 and 1280x720 frames, its encoded
+  bytes and its decodes held against SHA-256 constants of libjpeg-turbo's
+  (tests/test_torch_jpeg.py holds the constants to cv2 and PIL); (b)
+  ``cli.detect.main`` (bf16, ``--img-size 1024``) on two JPEG frames, at
+  PIL's defaults and at cv2's with EXIF orientation 6, against the same
+  app on PNG copies of the port's decoded, turned frames: txt lines
+  equal, each ``.jpg`` artifact the bytes cv2 would write of the PNG
+  run's (K1-K4 launch as on PNG); (c)
+  ``cli.test.main`` (fp32) on a JPEG detection split and a ``citysbdd``
+  split with BDD-style ``.jpg`` frames, metrics equal to the run on PNG
+  copies (K1 both modes, K2, K7, K5, K4), and the citysbdd training
+  loader's first batch; (d) the codec's host ms a frame on one thread
+  beside cv2's and PIL's where they import.
   Each phase's wall seconds go to chip_smoke.json (``phase_s``).
 
 It checks that every kernel ran on its path, holds each kernel against its
@@ -202,7 +216,7 @@ HUB_SIZE = 1024
 M_CFG = "yolov5m_city_seg"
 X_CFG = "yolov5x_city_seg"     # pspv5x: [6] times K2's float32 form at its 22 bs1 sites
 # [13] profiling, export and .pt: cli/profile.py at bs1 (K2) and bs8 (K7 too)
-PROFILE_BATCHES, PROFILE_ITERS = (1, 8), 5
+PROFILE_BATCHES, PROFILE_ITERS = (1, 8), 3
 # the JAX package's estimate_gflops for pspv5s at 512x1024 (bench.py:273's
 # 28.79 GF/frame), which leaves out the Focus conv, and that conv's 2 x MACs
 # (3x3x12 -> 32 at 256x512); the port's counter must give their sum
@@ -261,7 +275,7 @@ TRAIN_BS, TRAIN_DET_HW, TRAIN_SEG_HW = 8, (832, 832), (512, 1024)
 TRAIN_TARGETS, TRAIN_MAX_T = 20, 128
 TRAIN_STEP_ARGS = (0.01, 0.01, 0.9)
 TRAIN_RUN_STEPS = 20     # the scheduled run, as cli/train.py:379-381 drives it
-TRAIN_REPS, TRAIN_REP_STEPS = 2, 5
+TRAIN_REPS, TRAIN_REP_STEPS = 1, 5
 # K6 against its plain version on the step's own arguments: both read the
 # same logits and compute in float32, so the loss differs by summation order
 # only; dz by that and, in bf16, one rounding of each side's float32 value
@@ -294,7 +308,7 @@ TC_BOXES = 12          # seeded boxes a detection frame
 FAMILY_CFGS = ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
                X_CFG, "yolov5s", "yolov5s6")
 BISE_CFG, DET_CFG, L_CFG = "yolov5s_city_seg_bise", "yolov5s", "yolov5l_city_seg"
-FAMILY_REPS, FAMILY_ITERS = 2, 5
+FAMILY_REPS, FAMILY_ITERS = 2, 3
 # [9] holds each network's float32 output against the same network in
 # float64 on the CPU: rounding errors grow with depth and activation
 # scale, past NET_REL on the deepest model.  Measured by this phase at
@@ -364,7 +378,7 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
     """Mean device milliseconds per call: ``iters`` calls captured in one
     CUDA graph and replayed, so the host's launch time does not count."""
     side = torch.cuda.Stream()
@@ -2074,10 +2088,11 @@ def phase_app(eng32, eng16, cpu_eng, frames, card: str):
             f"launches {launches}")
         log(f"  app ms/frame (read, letterbox, Engine, draw, write {len(arts)} PNGs): "
             f"{res[tag]['ms_per_frame']:.1f} on {card}")
-        stages = app_stages(argv)
-        res[tag]["stages_ms_per_frame"] = stages
-        log("  its stages, ms/frame (another run): " + ", ".join(
-            f"{k} {v:.1f}" for k, v in stages.items()))
+        if submit:                      # the stages of the run that writes every artifact
+            stages = app_stages(argv)
+            res[tag]["stages_ms_per_frame"] = stages
+            log("  its stages, ms/frame (another run): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in stages.items()))
 
     log(f"  Engine's arguments, fp32 card vs CPU on a {IN_HW} frame -> {ORIG_HW}, conf {CONF}")
     frame = frames[0]
@@ -2117,14 +2132,20 @@ def phase_app(eng32, eng16, cpu_eng, frames, card: str):
     return res
 
 
-def smoke_weights(work: str, seed: int = SEED) -> str:
-    """The smoke's seeded pspv5s weights as a native ``.npz`` under ``work``."""
+WEIGHTS_DIR = os.path.join(ROOT, "build", "chip_smoke_weights")
+
+
+@functools.lru_cache(maxsize=None)
+def smoke_weights(seed: int = SEED) -> str:
+    """The smoke's seeded pspv5s weights as a native ``.npz``, written at the
+    first call of a run and shared by the phases that load them."""
     from multiyolov5_tpu_torch.models.config import load_spec
     from multiyolov5_tpu_torch.models.model import seeded_state_dict
     from multiyolov5_tpu_torch.utils.checkpoint import save_npz, to_jax_params
     spec = load_spec(CFG)
     params, state = to_jax_params(seeded_state_dict(spec, seed))
-    path = os.path.join(work, f"w{seed}.npz")
+    os.makedirs(WEIGHTS_DIR, exist_ok=True)
+    path = os.path.join(WEIGHTS_DIR, f"w{seed}.npz")
     save_npz(path, {"params": params, "state": state, "spec_yaml": json.dumps(spec.yaml)})
     return path
 
@@ -2275,6 +2296,7 @@ def loader_stages(work: str) -> dict:
     from multiyolov5_tpu_torch.data import png
     from multiyolov5_tpu_torch.data.letterbox import letterbox
     from multiyolov5_tpu_torch.data.resize import resize_area, resize_bilinear_pil
+    stage_ms = functools.partial(host_ms, reps=1)     # one call a stage
     det = png.imread(os.path.join(work, "det", "images", "val", "frankfurt_000000.png"))
     other = png.imread(os.path.join(work, "det", "images", "val",
                                     f"frankfurt_{CLI_FRAMES:06d}.png"))
@@ -2286,29 +2308,29 @@ def loader_stages(work: str) -> dict:
     half = (det.shape[1] // 2, det.shape[0] // 2)
     frac = (CLI_IMG, other.shape[0] * CLI_IMG // other.shape[1])
     small = resize_area(det, half)
-    out = {"png_imread_2048x1024": host_ms(lambda: png.imread(seg_path)),
-           "resize_area_by_2": host_ms(lambda: resize_area(det, half)),
-           "resize_area_fractional": host_ms(lambda: resize_area(other, frac)),
-           "letterbox_to_544x1056": host_ms(lambda: letterbox(
+    out = {"png_imread_2048x1024": stage_ms(lambda: png.imread(seg_path)),
+           "resize_area_by_2": stage_ms(lambda: resize_area(det, half)),
+           "resize_area_fractional": stage_ms(lambda: resize_area(other, frac)),
+           "letterbox_to_544x1056": stage_ms(lambda: letterbox(
                small, (math.ceil(CLI_IMG / 64 + 0.5) * 32, math.ceil(CLI_IMG / 32 + 0.5) * 32),
                auto=False, scaleup=False)),
-           "png_read_rgb_2048x1024": host_ms(lambda: png.read_rgb(seg_path)),
-           "resize_bilinear_pil_to_1024x512": host_ms(lambda: resize_bilinear_pil(seg, half)),
-           "png_read_samples_mask": host_ms(lambda: png.read_samples(mask_path)),
+           "png_read_rgb_2048x1024": stage_ms(lambda: png.read_rgb(seg_path)),
+           "resize_bilinear_pil_to_1024x512": stage_ms(lambda: resize_bilinear_pil(seg, half)),
+           "png_read_samples_mask": stage_ms(lambda: png.read_samples(mask_path)),
            "cv2_inter_area_by_2": None, "cv2_inter_area_fractional": None,
            "pil_bilinear_to_1024x512": None}
     try:
         import cv2
-        out["cv2_inter_area_by_2"] = host_ms(
+        out["cv2_inter_area_by_2"] = stage_ms(
             lambda: cv2.resize(det, half, interpolation=cv2.INTER_AREA))
-        out["cv2_inter_area_fractional"] = host_ms(
+        out["cv2_inter_area_fractional"] = stage_ms(
             lambda: cv2.resize(other, frac, interpolation=cv2.INTER_AREA))
     except ImportError:
         pass
     try:
         from PIL import Image
         im = Image.fromarray(seg)
-        out["pil_bilinear_to_1024x512"] = host_ms(lambda: im.resize(half, Image.BILINEAR))
+        out["pil_bilinear_to_1024x512"] = stage_ms(lambda: im.resize(half, Image.BILINEAR))
     except ImportError:
         pass
     return out
@@ -2328,7 +2350,7 @@ def phase_eval_cli(eng32, card: str):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     t0 = time.perf_counter()
-    weights = smoke_weights(work)
+    weights = smoke_weights()
     data = cli_tree(eng32, work, np.random.RandomState(SEED + 31))
     log(f"  trees written in {time.perf_counter() - t0:.1f} s")
     argv = ["--weights", weights, "--data", data, "--img-size", str(CLI_IMG), "--base-size",
@@ -2448,7 +2470,7 @@ def phase_hub(card: str):
     work = os.path.join(ROOT, "build", "chip_smoke_hub")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    weights = smoke_weights(work)
+    weights = smoke_weights()
     inputs = hub_inputs(work, np.random.RandomState(SEED + 41))
     shape32 = hub.yolov5s_city_seg(pretrained=weights, device=DEVICE, half=False)
     shape16 = hub.yolov5s_city_seg(pretrained=weights, device=DEVICE)
@@ -2472,7 +2494,7 @@ def phase_hub(card: str):
     log(f"  {ms:.1f} ms for the list (fp32) on {card}")
     ref = ref_shape(inputs, size=HUB_SIZE)
     hws = [im.shape[:2] for im in got.imgs]
-    if hws != [im.shape[:2] for im in ref.imgs] or got.files[0] != "street.png":
+    if hws != [im.shape[:2] for im in ref.imgs] or got.files[0] != "street.jpg":
         raise AssertionError(f"hub images {hws}, files {got.files}")
     compare_runs("hub fp32 card vs CPU", (got.pred, got.masks), (ref.pred, ref.masks),
                  E2E_MATCH_SHARE, BOX_PX, E2E_SCORE_ABS, E2E_MASK_SHARE, mask_hws=hws)
@@ -2488,10 +2510,10 @@ def phase_hub(card: str):
                  None, None, None, BF16_MASK_SHARE, match_px=16.0, mask_hws=hws)
     part = got.tolist()[3]
     quiet(part.save, os.path.join(work, "saved"))
-    from multiyolov5_tpu_torch.data import png
-    if not np.array_equal(png.read_rgb(os.path.join(work, "saved", "image3.png")),
-                          part.imgs[0]):
-        raise AssertionError("Detections.save did not write the rendered image")
+    from multiyolov5_tpu_torch.data import jpeg
+    with open(os.path.join(work, "saved", "image3.jpg"), "rb") as fh:   # PIL's save of it
+        if fh.read() != jpeg.encode(part.imgs[0], *JPEG_SETTINGS["pil"]):
+            raise AssertionError("Detections.save did not write the rendered image")
     shutil.rmtree(work, ignore_errors=True)
     return {"launches": launches, "bf16_launches": launches16, "ms_fp32": ms,
             "errs": errs, "detections": [len(p) for p in got.pred], "card": card}
@@ -2633,7 +2655,7 @@ def phase_profile_export(eng32, eng16, frames, card: str):
         res["profile"][f"bs{bs}"] = pr
 
     # export: the plain build, fp32, traced on the card
-    weights = smoke_weights(work)
+    weights = smoke_weights()
     exp_dir = os.path.join(work, "export")
     made = {}
     t0 = time.perf_counter()
@@ -4729,7 +4751,7 @@ def phase_tools(card: str):
     SegMetric counts, with both times."""
     import base64
     import random
-    from multiyolov5_tpu_torch.data import draw, png
+    from multiyolov5_tpu_torch.data import draw, jpeg, png
     from multiyolov5_tpu_torch.data.detection import (DetectionDataset, cutout, hist_equalize,
                                                       replicate)
     from multiyolov5_tpu_torch.data.hyps import load_hyp
@@ -4822,9 +4844,9 @@ def phase_tools(card: str):
     for name in ("a", "b"):
         mask = png.read_samples(os.path.join(work, "seg", "SegmentationClassPNG", f"{name}.png"))
         bad += int(not np.array_equal(mask, want))
-        for folder in ("seg/JPEGImages", "det/images"):
-            bad += int(not np.array_equal(png.read_rgb(os.path.join(work, folder,
-                                                                    f"{name}.png")), img))
+        for folder in ("seg/JPEGImages", "det/images"):     # PIL's save of the source
+            with open(os.path.join(work, folder, f"{name}.jpg"), "rb") as fh:
+                bad += int(fh.read() != jpeg.encode(img, *JPEG_SETTINGS["pil"]))
         bad += int(len(open(os.path.join(work, "det", "labels", f"{name}.txt")).read()
                        .splitlines()) != 5)
     circle = draw.ellipse((h, w), [100 - 36.05551, 100 - 36.05551, 100 + 36.05551,
@@ -4909,6 +4931,287 @@ def phase_tools(card: str):
     return res
 
 
+# [18] JPEG: the port's codec (data/jpeg.py, csrc/host/jpeg.cpp) against
+# libjpeg-turbo's bytes and pixels (SHA-256s taken with cv2 and PIL, which
+# tests/test_torch_jpeg.py holds them to: the card's machine need not have
+# either), the detect app and the eval CLI on JPEG inputs against the same
+# CLIs on PNG copies of the port's decodes, the citysbdd training loader on
+# BDD-style .jpg frames, and the codec's host times
+JPEG_HW = ((1024, 2048), (720, 1280))
+JPEG_SETTINGS = {"cv2": (95, "4:2:0"), "pil": (75, "4:2:0")}   # their defaults
+JPEG_DIGESTS = {    # (encoded bytes, RGB decode of those bytes)
+    ("cv2", 1024, 2048): ("278b33f7a033dcc1527d08d8b5c1fc08b1d0f05de6153a33f7f134e778840348",
+                          "23595b608cc932f54fb96cd6fa635d5b8756b5c9d3ef53c52d9b785dda66939c"),
+    ("pil", 1024, 2048): ("bbba28671c53e9ac65ec4004063125bc94afff4503327bc2ee0a0e6183eac468",
+                          "a8d1c65deed5bfb153d435d1fce70e2a02f7d3a0c6aacc409ddd0f9bd13d3f47"),
+    ("cv2", 720, 1280): ("fdfdb0e8c9f5df28a5a3d87db1cb0a3d1b9a30759722925759dc2c241b1a14af",
+                         "390d2ebbc140e21d9fe303eb24918935dca8753d955329d61be5568fee0e6383"),
+    ("pil", 720, 1280): ("e0e85ee631119dc439c432f59edb0f473e05821203a6d324ab19596eeb56cb99",
+                         "c02207da12229a6e03d01062eb6f0c42d3c6edd8d4a82fab2dadabb3695ba0c4"),
+}
+JPEG_DET_FRAMES, JPEG_BDD_HW = 4, (720, 1280)
+
+
+def jpeg_frame(h: int, w: int, seed: int = SEED + 90) -> np.ndarray:
+    """A seeded (h, w, 3) RGB frame from integer arithmetic only (ramps and
+    uniform noise), so that every numpy gives the same bytes."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx // 4 + yy // 2, (yy // 3) * 2 + xx // 8, (xx + 3 * yy) // 7], -1)
+    return ((base + rng.randint(0, 24, (h, w, 3))) % 256).astype(np.uint8)
+
+
+def with_exif(data: bytes, orientation: int) -> bytes:
+    """JPEG bytes with an APP1 Exif segment (IFD0 orientation) after SOI."""
+    tiff = b"II*\x00" + np.array([8], "<u4").tobytes() + np.array([1], "<u2").tobytes()
+    tiff += np.array([0x0112, 3], "<u2").tobytes() + np.array([1], "<u4").tobytes()
+    tiff += np.array([orientation, 0], "<u2").tobytes() + b"\x00" * 4
+    body = b"Exif\x00\x00" + tiff
+    return data[:2] + b"\xff\xe1" + (len(body) + 2).to_bytes(2, "big") + body + data[2:]
+
+
+def jpeg_digests() -> dict:
+    """[18] (a) and (d): the port's encoder at cv2's and PIL's defaults and
+    its decoder on those bytes, each against its SHA-256 constant, with
+    their host ms on this thread (one call each); cv2's and PIL's own
+    times beside, one call each, where they import (used nowhere in the
+    port)."""
+    import hashlib
+
+    from multiyolov5_tpu_torch.data import jpeg
+    t0 = time.perf_counter()
+    jpeg.library()                      # g++ builds the host part here, before any timing
+    out = {"build_s": time.perf_counter() - t0}
+    log(f"  the codec's host library ready in {out['build_s']:.1f} s (g++ at first use)")
+    try:        # PIL's first decode loads its plugins: done here, outside the one-call timings
+        from PIL import Image
+        Image.open(io.BytesIO(jpeg.encode(np.zeros((8, 8, 3), np.uint8)))).convert("RGB")
+    except ImportError:
+        pass
+    for (h, w) in JPEG_HW:
+        rgb = jpeg_frame(h, w)
+        for who, (q, sub) in JPEG_SETTINGS.items():
+            t0 = time.perf_counter()
+            data = jpeg.encode(rgb, q, sub)
+            t1 = time.perf_counter()
+            dec = jpeg.decode_rgb(data)
+            t2 = time.perf_counter()
+            enc_want, dec_want = JPEG_DIGESTS[(who, h, w)]
+            if hashlib.sha256(data).hexdigest() != enc_want:
+                raise AssertionError(f"[18] JPEG encode at {who}'s defaults {h}x{w}: its "
+                                     "SHA-256 is not libjpeg-turbo's")
+            if hashlib.sha256(np.ascontiguousarray(dec).tobytes()).hexdigest() != dec_want:
+                raise AssertionError(f"[18] JPEG decode of {who}'s {h}x{w} bytes: its SHA-256 "
+                                     "is not libjpeg-turbo's")
+            out[f"{who}_{h}x{w}"] = {"bytes": len(data), "encode_ms": (t1 - t0) * 1e3,
+                                     "decode_ms": (t2 - t1) * 1e3}
+            lib = {}
+            try:
+                import cv2
+                bgr = np.ascontiguousarray(rgb[..., ::-1])
+                arr = np.frombuffer(data, np.uint8)
+                if who == "cv2":
+                    lib["cv2_encode_ms"] = host_ms(lambda: cv2.imencode(".jpg", bgr), reps=1)
+                lib["cv2_decode_ms"] = host_ms(lambda: cv2.imdecode(arr, cv2.IMREAD_COLOR),
+                                               reps=1)
+            except ImportError:
+                lib["cv2"] = "does not import"
+            try:
+                from PIL import Image
+                im = Image.fromarray(rgb)
+                if who == "pil":
+                    lib["pil_encode_ms"] = host_ms(lambda: im.save(io.BytesIO(), "JPEG"), reps=1)
+                lib["pil_decode_ms"] = host_ms(
+                    lambda: Image.open(io.BytesIO(data)).convert("RGB").load(), reps=1)
+            except ImportError:
+                lib["PIL"] = "does not import"
+            out[f"{who}_{h}x{w}"].update(lib)
+            log(f"  (a) {who} defaults q{q} {sub} {h}x{w}: {len(data)} bytes, encode and decode "
+                f"SHA-256 equal libjpeg-turbo's; (d) host ms encode "
+                f"{out[f'{who}_{h}x{w}']['encode_ms']:.1f}, decode "
+                f"{out[f'{who}_{h}x{w}']['decode_ms']:.1f}; libraries: "
+                + ", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                            for k, v in lib.items()))
+    return out
+
+
+def jpeg_app(weights: str, work: str) -> dict:
+    """[18] (b): cli.detect on two JPEG frames (PIL's defaults, and cv2's
+    with EXIF orientation 6) against the same app on PNG copies of the
+    port's decoded, turned frames: equal txt lines, and each JPEG artifact
+    the bytes cv2.imwrite would give the PNG run's artifact."""
+    from multiyolov5_tpu_torch.data import images, jpeg, png
+    from multiyolov5_tpu_torch.ops import kernels as K
+    src, copies = os.path.join(work, "app_jpg"), os.path.join(work, "app_png")
+    os.makedirs(src)
+    os.makedirs(copies)
+    for i, (who, o) in enumerate((("pil", 0), ("cv2", 6))):
+        rgb = jpeg_frame(*ORIG_HW, seed=SEED + 91 + i)
+        data = with_exif(jpeg.encode(rgb, *JPEG_SETTINGS[who]), o) if o else \
+            jpeg.encode(rgb, *JPEG_SETTINGS[who])
+        path = os.path.join(src, f"frame{i}.jpg")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        png.imwrite(os.path.join(copies, f"frame{i}.png"), images.imread(path))
+    n = 2
+    runs = {}
+    for tag, d in (("jpg", src), ("png", copies)):
+        argv = ["--weights", weights, "--source", d, "--img-size", str(APP_IMG), "--save-txt",
+                "--save-conf", "--project", work, "--name", f"out_{tag}", "--exist-ok",
+                "--device", "" if DEVICE == "cuda" else DEVICE]
+        K.reset_launches()
+        out, loop_s = run_app(argv)
+        torch.cuda.synchronize()
+        runs[tag] = (out, K.launch_counts(), loop_s)
+    launches = runs["jpg"][1]
+    want = {"stem": n, "stem_float": 0, "conv3x3": 10 * n, "nms": n, "upsample_argmax": n,
+            "nms_greedy": 0, "c3": 0}
+    if {k: launches[k] for k in want} != want or runs["png"][1] != launches:
+        raise AssertionError(f"[18] app launches on JPEG {launches}, on PNG {runs['png'][1]}, "
+                             f"want {want} on both")
+    jo, po = runs["jpg"][0], runs["png"][0]
+    for i in range(n):
+        stem = f"frame{i}"
+        with open(os.path.join(jo, "labels", f"{stem}.txt")) as a, \
+                open(os.path.join(po, "labels", f"{stem}.txt")) as b:
+            if a.read() != b.read():
+                raise AssertionError(f"[18] app: labels/{stem}.txt differs between JPEG and PNG")
+        for art in ("", "_mask", "_dst"):
+            got = open(os.path.join(jo, f"{stem}{art}.jpg"), "rb").read()
+            want_bytes = jpeg.encode(png.imread(os.path.join(po, f"{stem}{art}.png"))[..., ::-1],
+                                     *JPEG_SETTINGS["cv2"])
+            if got != want_bytes:
+                raise AssertionError(f"[18] app: {stem}{art}.jpg is not cv2.imwrite of the PNG "
+                                     f"run's {stem}{art}.png")
+    turned = images.imread(os.path.join(src, "frame1.jpg")).shape
+    if turned[:2] != ORIG_HW[::-1]:
+        raise AssertionError(f"[18] the EXIF-6 frame reads as {turned}, not turned")
+    log(f"  (b) cli.detect on {n} JPEG {ORIG_HW} frames (one EXIF 6 -> {turned[:2]}): txt, "
+        f"image, _mask and _dst equal the PNG copies' run; launches {launches}; app ms/frame "
+        f"JPEG {runs['jpg'][2] * 1e3 / n:.1f}, PNG {runs['png'][2] * 1e3 / n:.1f}")
+    return {"launches": launches, "ms_per_frame_jpg": runs["jpg"][2] * 1e3 / n,
+            "ms_per_frame_png": runs["png"][2] * 1e3 / n}
+
+
+def jpeg_eval(eng32, weights: str, work: str) -> dict:
+    """[18] (c): cli.test (fp32) on a JPEG detection split (one frame with
+    EXIF 6) and a citysbdd seg split (Cityscapes .png frames with labelIds,
+    BDD .jpg frames with trainIds), against the same CLI on PNG copies of
+    the port's decodes (BDD masks as labelIds); then the citysbdd training
+    loader's first batch."""
+    from multiyolov5_tpu_torch.data import images, jpeg, png
+    from multiyolov5_tpu_torch.data.cityscapes import CITYSCAPES_IDMAP
+    from multiyolov5_tpu_torch.data.segmentation import get_citysbdd_loader
+    from multiyolov5_tpu_torch.ops import kernels as K
+    rng = np.random.RandomState(SEED + 95)
+    trees = {}
+    for tag in ("jpg", "png"):
+        root = os.path.join(work, f"eval_{tag}")
+        trees[tag] = root
+        for d in ("det/images/val", "det/labels/val"):
+            os.makedirs(os.path.join(root, d))
+    jdet = os.path.join(trees["jpg"], "det", "images", "val")
+    for i in range(JPEG_DET_FRAMES + 1):    # noise, as [11]'s, so its labelling gives a mAP
+        data = jpeg.encode(rng.randint(0, 256, (*ORIG_HW, 3)).astype(np.uint8),
+                           *JPEG_SETTINGS["cv2"])
+        path = os.path.join(jdet, f"munich_{i:06d}.jpg")
+        with open(path, "wb") as fh:
+            fh.write(with_exif(data, 6) if i == JPEG_DET_FRAMES else data)
+    label_split(eng32, jdet, os.path.join(trees["jpg"], "det", "labels", "val"), rng, CLI_IMG,
+                JPEG_DET_FRAMES)
+    for f in sorted(os.listdir(jdet)):
+        stem = f[:-4]
+        png.imwrite(os.path.join(trees["png"], "det", "images", "val", stem + ".png"),
+                    images.imread(os.path.join(jdet, f)))
+        shutil.copy(os.path.join(trees["jpg"], "det", "labels", "val", stem + ".txt"),
+                    os.path.join(trees["png"], "det", "labels", "val", stem + ".txt"))
+    for split, n in (("val", 4), ("train", 2)):
+        for i in range(n):
+            bdd = i % 2 == 1
+            city = "bdd" if bdd else "munich"
+            stem = f"{city}_{i:06d}_000019"
+            hw = JPEG_BDD_HW if bdd else ORIG_HW
+            rgb = jpeg_frame(*hw, seed=SEED + 110 + i)
+            train_ids = rng.randint(0, 19, hw).astype(np.uint8)
+            train_ids[rng.rand(*hw) < 0.1] = 255
+            label_ids = np.where(train_ids == 255, 255,
+                                 CITYSCAPES_IDMAP[train_ids % 255]).astype(np.uint8)
+            for tag in ("jpg", "png") if split == "val" else ("jpg",):
+                idir = os.path.join(trees[tag], "citys", "leftImg8bit", split, city)
+                mdir = os.path.join(trees[tag], "citys", "gtFine", split, city)
+                os.makedirs(idir, exist_ok=True)
+                os.makedirs(mdir, exist_ok=True)
+                ipath = os.path.join(idir, f"{stem}_leftImg8bit")
+                mpath = os.path.join(mdir, f"{stem}_gtFine_labelIds.png")
+                if tag == "jpg" and bdd:       # BDD: a .jpg frame, its mask trainIds
+                    jpeg.pil_save(ipath + ".jpg", rgb)
+                    png.imwrite(mpath, train_ids)
+                elif tag == "png" and bdd:     # its PNG copy: the port's decode, labelIds
+                    decoded = images.read_rgb(os.path.join(
+                        trees["jpg"], "citys", "leftImg8bit", split, city,
+                        f"{stem}_leftImg8bit.jpg"))
+                    png.imwrite(ipath + ".png", decoded[..., ::-1])
+                    png.imwrite(mpath, label_ids)
+                else:
+                    png.imwrite(ipath + ".png", rgb[..., ::-1])
+                    png.imwrite(mpath, label_ids)
+    res = {}
+    for tag in ("jpg", "png"):
+        data = os.path.join(trees[tag], "data.json")
+        with open(data, "w") as fh:
+            json.dump({"val": os.path.join(trees[tag], "det", "images", "val"),
+                       "segval": os.path.join(trees[tag], "citys"), "nc": eng32.spec.nc,
+                       "names": eng32.names}, fh)
+        argv = ["--weights", weights, "--data", data, "--img-size", str(CLI_IMG), "--base-size",
+                str(CLI_IMG), "--batch-size", str(JPEG_DET_FRAMES), "--seg-data-kind",
+                "citysbdd", "--device", "" if DEVICE == "cuda" else DEVICE]
+        K.reset_launches()
+        metrics, _, _, spent, count, wall = run_cli(argv, kernels=False)
+        torch.cuda.synchronize()
+        res[tag] = {"metrics": metrics, "launches": K.launch_counts(), "cli_s": wall,
+                    "loader_det_host_ms_per_image": spent["det"] * 1e3 / max(count["det"], 1)}
+    for k in ("stem", "stem_float", "conv3x3", "c3", "nms_greedy", "upsample_argmax"):
+        if res["jpg"]["launches"][k] <= 0:
+            raise AssertionError(f"[18] kernel {k} was not launched on the JPEG eval CLI's path")
+    if res["jpg"]["launches"] != res["png"]["launches"]:
+        raise AssertionError(f"[18] eval launches on JPEG {res['jpg']['launches']}, on PNG "
+                             f"{res['png']['launches']}")
+    for k in ("P", "R", "mAP50", "mAP", "pixAcc", "mIoU"):
+        check(f"[18] eval CLI on JPEG vs on its PNG copies: {k} |diff|",
+              abs(res["jpg"]["metrics"][k] - res["png"]["metrics"][k]), 0)
+    if not 0.05 < res["jpg"]["metrics"]["mAP50"] < 0.95:     # as [11]'s labels give
+        raise AssertionError(f"[18] degenerate detection metrics: {res['jpg']['metrics']}")
+    loader = get_citysbdd_loader(root=os.path.join(trees["jpg"], "citys"), split="train",
+                                 mode="train", batch_size=2, workers=2)
+    imgs, masks = next(iter(loader))
+    if imgs.shape != (2, 512, 1024, 3) or masks.shape != (2, 512, 1024) or \
+            not (masks == -1).any() or masks.max() > 18:
+        raise AssertionError(f"[18] citysbdd train batch {imgs.shape} {masks.shape}")
+    log(f"  (c) cli.test on {JPEG_DET_FRAMES + 1} JPEG detection frames (one EXIF 6) and a "
+        f"citysbdd split (2 BDD .jpg {JPEG_BDD_HW}, 2 Cityscapes .png): metrics equal the "
+        f"PNG copies' {res['jpg']['metrics']}; launches {res['jpg']['launches']}; detection "
+        f"loader host ms an image JPEG {res['jpg']['loader_det_host_ms_per_image']:.1f}, PNG "
+        f"{res['png']['loader_det_host_ms_per_image']:.1f}; the citysbdd training loader "
+        f"gave {tuple(imgs.shape)} images, {tuple(masks.shape)} trainId masks")
+    return res
+
+
+def phase_jpeg(eng32, card: str):
+    """[18] the JPEG codec and its callers: (a) digests, (b) the detect app,
+    (c) the eval CLI and the citysbdd training loader, (d) host times."""
+    log(f"[18] JPEG: the port's codec against libjpeg-turbo's digests at {JPEG_HW}, "
+        f"cli.detect and cli.test on JPEG inputs against PNG copies, the citysbdd loader")
+    work = os.path.join(ROOT, "build", "chip_smoke_jpeg")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    res = {"card": card, "codec": jpeg_digests()}
+    weights = smoke_weights()
+    res["app"] = jpeg_app(weights, work)
+    res["eval"] = jpeg_eval(eng32, weights, work)
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 PHASE_S = {}
 
 
@@ -4958,6 +5261,7 @@ def main() -> int:
     cli = timed("[11]", phase_eval_cli, eng32, smi)
     hb = timed("[12]", phase_hub, smi)
     pe = timed("[13]", phase_profile_export, eng32, eng16, frames, smi)
+    jp = timed("[18]", phase_jpeg, eng32, smi)
     del eng32, eng16, cpu_eng
     tr = timed("[7]", phase_train)
     tc = timed("[14]", phase_train_cli, smi)
@@ -5029,6 +5333,8 @@ def main() -> int:
                     tc["run_a"]["launches"]["seg_ce_bwd"] if k == "seg_ce" else 0),
                 "dsl_launches": dsl["launches"][k] + (
                     dsl["launches"]["seg_ce_bwd"] if k == "seg_ce" else 0),
+                "jpeg_app_launches": jp["app"]["launches"][k],
+                "jpeg_eval_cli_launches": jp["eval"]["jpg"]["launches"][k],
                 "err_dtype": "float32",
                 "ms_dtype": ("float32" if k.startswith("nms") or k == "stem_float"
                              else "bfloat16")}
@@ -5092,9 +5398,10 @@ def main() -> int:
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
                    "serving_bs8": sv, "families": fam, "app": app, "eval_cli": cli,
                    "hub": hb, "profile_export": pe, "train_cli": tc, "parallel": par,
-                   "dsl": dsl, "tools": tools, "phase_s": PHASE_S,
+                   "dsl": dsl, "tools": tools, "jpeg": jp, "phase_s": PHASE_S,
                    "total_s": time.perf_counter() - t_start}, fh,
                   indent=1)
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

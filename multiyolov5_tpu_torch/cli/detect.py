@@ -6,8 +6,11 @@ the JAX app: the annotated image, the colourised mask (``*_mask``), the
 0.4/0.6 overlay (``*_dst``), optional yolo-format txt lines
 (``--save-txt``, ``--save-conf``), and with ``--submit`` the
 trainId->labelId Cityscapes export ``results/*_pred.png``.  Images are
-read and written with the port's PNG codec (``data/png.py``), boxes drawn
-by ``utils/plots.py``; nothing here needs cv2.  ``--view-img``,
+read and written with the port's PNG and JPEG codecs (``data/images.py``:
+the annotated image, ``_mask`` and ``_dst`` keep the source's suffix, so a
+``.jpg`` source gives ``.jpg`` artifacts at cv2's defaults; the
+``--submit`` exports stay PNG), boxes drawn by ``utils/plots.py``; nothing
+here needs cv2.  ``--view-img``,
 ``--save-as-video`` and video, webcam or stream sources need cv2 and
 raise ``NotImplementedError`` before anything runs.
 
@@ -26,7 +29,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..data import png
+from ..data import images, png
 from ..data.cityscapes import CITYSCAPES_COLORMAP, CITYSCAPES_IDMAP, label2image, trainid2id
 from ..data.letterbox import check_img_size
 from ..data.sources import LoadImages
@@ -117,10 +120,10 @@ def detect(opt):
             sub_path = sub_path[:-4] + "_pred.png"
             png.imwrite(sub_path, trainid2id(mask_map, CITYSCAPES_IDMAP))
         if save_img:
-            png.imwrite(save_path, im0)
+            images.imwrite(save_path, im0)
             if mask is not None:
-                png.imwrite(save_path[:-4] + "_mask" + save_path[-4:], mask)
-                png.imwrite(save_path[:-4] + "_dst" + save_path[-4:], dst)
+                images.imwrite(save_path[:-4] + "_mask" + save_path[-4:], mask)
+                images.imwrite(save_path[:-4] + "_dst" + save_path[-4:], dst)
 
     if save_txt or save_img:
         print(f"Results saved to {save_dir}")

@@ -27,9 +27,12 @@ derives each item's generators from (seed, epoch, position in the epoch)
 and each quad group's from (seed, epoch, batch): a batch is the same
 whatever the worker count.
 
-Images are PNG files, read by ``data/png.py``: any other image in a split
-raises ``NotImplementedError`` naming it before anything is loaded (the
-JAX cache would drop it as corrupted, and so change the metric).
+Images are PNG and JPEG files, read by ``data/images.py``: ``load_image``
+as ``cv2.imread`` reads (a JPEG's EXIF orientation applied), the label
+cache's shapes as the JAX ``exif_size(Image.open(f))`` takes them (swapped
+for EXIF orientations 6 and 8 only).  Any other image in a split raises
+``NotImplementedError`` naming it before anything is loaded (the JAX
+cache would drop it as corrupted, and so change the metric).
 The augmentations the JAX CLI never calls are here too, on the same
 generators: ``load_mosaic9`` (a method beside ``load_mosaic``),
 ``replicate``, ``cutout`` and ``hist_equalize`` (cv2's YUV conversions,
@@ -51,7 +54,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..utils.boxes import xywhn2xyxy, xyxy2xywh
-from . import png
+from . import images
 from .augment import augment_hsv, equalize_hist, random_perspective, resize_linear, rgb2yuv, yuv2rgb
 from .augment import clahe as augment_clahe
 from .letterbox import letterbox
@@ -112,7 +115,7 @@ class DetectionDataset:
             x for x in f if x.rsplit(".", 1)[-1].lower() in IMG_FORMATS)
         if not self.img_files:
             raise FileNotFoundError(f"{prefix}No images found in {path}")
-        png.require_png(self.img_files, "detection split")
+        images.require_readable(self.img_files, "detection split")
         self.label_files = img2label_paths(self.img_files)
 
         p0 = Path(path if isinstance(path, str) else path[0])
@@ -177,14 +180,14 @@ class DetectionDataset:
                 self.imgs[i], self.img_hw0[i], self.img_hw[i] = self.load_image(i)
 
     def _cache_labels(self, path: Path, prefix: str = ""):
-        """Each image's size (its PNG header) and labels; an image whose
-        header or labels fail the checks is dropped, as the JAX package
-        drops it."""
+        """Each image's size (its header, EXIF-swapped as the JAX
+        ``exif_size``) and labels; an image whose header or labels fail the
+        checks is dropped, as the JAX package drops it."""
         files, labels, shapes = [], [], []
         nf = nm = ne = nc = 0
         for im_file, lb_file in zip(self.img_files, self.label_files):
             try:
-                shape = png.size(im_file)
+                shape = images.exif_size(im_file)
                 if shape[0] <= 9 or shape[1] <= 9:
                     raise ValueError(f"image size {shape} <10px")
                 if os.path.isfile(lb_file):
@@ -242,7 +245,7 @@ class DetectionDataset:
         ``INTER_AREA`` to shrink in eval mode, ``INTER_LINEAR`` otherwise."""
         if self.imgs[index] is not None:
             return self.imgs[index], self.img_hw0[index], self.img_hw[index]
-        img = png.imread(self.img_files[index])
+        img = images.imread(self.img_files[index])
         h0, w0 = img.shape[:2]
         r = self.img_size / max(h0, w0)
         if r != 1:

@@ -17,9 +17,6 @@ multiyolov5_tpu/cli/detect.py:132-138), so it needs no cv2 or PIL.
 * :func:`read_rgb` returns ``np.asarray(Image.open(path).convert("RGB"))``:
   (H, W, 3) uint8 RGB, gray replicated, a palette expanded, alpha dropped
   (:func:`decode_rgb` the same of PNG bytes).
-* :func:`require_png` raises ``NotImplementedError`` naming the first
-  path of a list that is not a ``.png`` file: the loaders and hub check
-  their inputs with it before they read any.
 * :func:`size` reads the IHDR chunk only: ``(width, height)``, as PIL's
   ``Image.open(path).size``.  An ``eXIf`` chunk's rotation, which the JAX
   loader's ``exif_size`` applies through PIL, is not honoured.
@@ -33,7 +30,7 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import List, Sequence, Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -139,15 +136,6 @@ def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
     + alpha, 3 RGB, 4 RGBA; a palette expanded to RGB)."""
     px, pal = _samples(data, path)
     return px if pal is None else pal[px[..., 0]]
-
-
-def require_png(paths: Sequence, what: str) -> None:
-    """Raise ``NotImplementedError`` naming the first non-PNG image."""
-    for p in paths:
-        if not str(p).lower().endswith(".png"):
-            raise NotImplementedError(
-                f"{p}: the port reads PNG images only ({what}); other formats need a "
-                "decoder the port does not have")
 
 
 def _read(path: str) -> bytes:

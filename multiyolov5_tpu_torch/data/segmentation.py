@@ -26,9 +26,11 @@ it in the same order (flip, long side, crop x and y, jitter factors,
 shuffle), so seeded alike the two items are equal.  ``SegLoader`` derives
 each item's generator from (seed, epoch, position in the epoch).
 
-Images are PNG files: a split holding any other image (BDD100k's ``.jpg``
-frames in ``citysbdd``) raises ``NotImplementedError`` naming it when the
-dataset is built.
+Images are PNG and JPEG files, read as ``Image.open(...).convert("RGB")``
+reads them (``data/images.py``; no EXIF orientation applied): a split
+holding any other image raises ``NotImplementedError`` naming it when the
+dataset is built.  ``CityBddSegmentation`` mixes Cityscapes with BDD100k,
+whose frames are ``.jpg``.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from typing import Optional
 import numpy as np
 
 from ..ops.nn import make_divisible
-from . import pil_ops, png
+from . import images, pil_ops, png
 from .detection import generators, ordered_batches
 from .resize import resize_bilinear_pil
 
@@ -169,7 +171,7 @@ class BaseSegDataset:
     def _read(self, index, rnd: Optional[random.Random]):
         """(the image as uint8 RGB after the mode's transform, its mask's
         stored samples after it, or None in test mode)."""
-        img = png.read_rgb(self.images[index])
+        img = images.read_rgb(self.images[index])
         if self.mode == "test":
             return img, None
         mask = png.read_samples(self.mask_paths[index])
@@ -198,7 +200,7 @@ class CitySegmentation(BaseSegDataset):
         self.images, self.mask_paths = get_city_pairs(self.root, self.split)
         if not self.images:
             raise RuntimeError(f"Found 0 images in {self.root}")
-        png.require_png(self.images, "seg split")
+        images.require_readable(self.images, "seg split")
         # labelId -> trainId (reference SegmentationDataset.py:174-182)
         self._key = np.array([-1, -1, -1, -1, -1, -1,
                               -1, -1, 0, 1, -1, -1,
@@ -223,6 +225,29 @@ class CitySegmentation(BaseSegDataset):
         return self._finish_img(img, rnd), self._class_to_index(mask.astype("int32"))
 
 
+class CityBddSegmentation(CitySegmentation):
+    """Cityscapes + BDD100k mix (JAX ``segmentation.py:208-233``; reference
+    SegmentationDataset.py:236-324): a ``.jpg`` frame is BDD's, its ``.png``
+    mask already trainIds (255 -> -1 only); a ``.png`` frame's labelIds go
+    through the trainId key.  Every mode draws as :class:`CitySegmentation`
+    does; like the JAX dataset it has no ``test`` mode."""
+
+    def __init__(self, root="data/citys/", split="train", mode=None, NUM_CLASS=19, **kw):
+        super().__init__(root, split, mode, **kw)
+        self.NUM_CLASS = NUM_CLASS
+
+    def item(self, index, rnd: Optional[random.Random]):
+        if self.mode == "test":
+            raise ValueError("CityBddSegmentation has no test mode (nor has the JAX dataset)")
+        img, mask = self._read(index, rnd)
+        m = mask.astype("int32")
+        if self.images[index].endswith(".jpg"):
+            m[m == 255] = -1
+        else:
+            m = self._class_to_index(m)
+        return self._finish_img(img, rnd), m
+
+
 class CustomSegmentation(BaseSegDataset):
     """User datasets already in trainId format; 255 -> -1
     (reference SegmentationDataset.py:327-373)."""
@@ -233,7 +258,7 @@ class CustomSegmentation(BaseSegDataset):
         self.images, self.mask_paths = get_custom_pairs(self.root, self.split)
         if not self.images:
             raise RuntimeError(f"Found 0 images in {self.root}")
-        png.require_png(self.images, "seg split")
+        images.require_readable(self.images, "seg split")
 
     def item(self, index, rnd: Optional[random.Random]):
         img, mask = self._read(index, rnd)
@@ -354,12 +379,10 @@ def get_citys_loader(root="data/citys/", split="train", mode="train",
 def get_citysbdd_loader(root="data/citys/", split="train", mode="train",
                         base_size=1024, crop_size=(1024, 512), batch_size=32,
                         workers=4, **kw):
-    """The Cityscapes + BDD100k mix (reference SegmentationDataset.py:236-324).
-    BDD's frames are ``.jpg``, so a split holding one raises when it is
-    built, and every frame read is a Cityscapes one: the dataset is
-    :class:`CitySegmentation`'s, with this mix's jitter and scale range."""
+    """The Cityscapes + BDD100k mix (reference SegmentationDataset.py:236-324):
+    :class:`CityBddSegmentation` with this mix's jitter and scale range."""
     jitter = (0.4, 0.4, 0.4, 0.05) if mode == "train" else None
-    ds = CitySegmentation(root=root, split=split, mode=mode,
+    ds = CityBddSegmentation(root=root, split=split, mode=mode,
                           base_size=base_size, crop_size=crop_size,
                           low=0.65, high=2, sample_std=40, jitter=jitter)
     return SegLoader(ds, batch_size, shuffle=(mode == "train"),

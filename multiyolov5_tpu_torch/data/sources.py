@@ -1,14 +1,15 @@
 """Inference input sources (counterpart of ``multiyolov5_tpu/data/sources.py``;
 reference utils/datasets.py:122-338).
 
-``LoadImages`` reads PNG files, directories and globs with the port's own
-codec (``data/png.py``) and letterboxes each frame with ``data/letterbox.py``
-(cv2's ``INTER_LINEAR`` in integer torch ops) on the host, numpy in and
-out, as the JAX loader does with cv2.  What needs cv2 or another decoder
-raises ``NotImplementedError`` when the source is built, naming what is
-missing: video files, ``LoadWebcam`` and ``LoadStreams`` (cv2's
-``VideoCapture``), and images other than PNG (a decoder for JPEG, BMP,
-...).  No file is skipped.
+``LoadImages`` reads PNG and JPEG files, directories and globs with the
+port's own codecs (``data/images.py``: ``cv2.imread``'s pixels, a JPEG's
+EXIF orientation applied) and letterboxes each frame with
+``data/letterbox.py`` (cv2's ``INTER_LINEAR`` in integer torch ops) on the
+host, numpy in and out, as the JAX loader does with cv2.  What needs cv2
+or another decoder raises ``NotImplementedError`` when the source is
+built, naming what is missing: video files, ``LoadWebcam`` and
+``LoadStreams`` (cv2's ``VideoCapture``), and images other than PNG and
+JPEG (a decoder for BMP, TIFF, ...).  No file is skipped.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import png
+from . import images as images_mod
 from .letterbox import letterbox
 
 IMG_FORMATS = ("bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp", "mpo")
@@ -44,11 +45,7 @@ class LoadImages:
         if videos:
             raise NotImplementedError(
                 f"video sources need cv2's VideoCapture, which the port does not use: {videos[0]}")
-        other = [x for x in images if x.split(".")[-1].lower() != "png"]
-        if other:
-            kind = other[0].split(".")[-1].upper()
-            raise NotImplementedError(
-                f"the port decodes PNG only; {other[0]} needs a decoder for {kind}")
+        images_mod.require_readable(images, "image source")
         self.img_size = img_size
         self.stride = stride
         self.auto = auto
@@ -66,7 +63,7 @@ class LoadImages:
             raise StopIteration
         path = self.files[self.count]
         self.count += 1
-        img0 = png.imread(path)  # BGR
+        img0 = images_mod.imread(path)  # BGR
         img = letterbox(img0, self.img_size, auto=self.auto, stride=self.stride)[0].numpy()
         img = img[:, :, ::-1]  # BGR -> RGB (HWC; the engine takes NHWC)
         return path, np.ascontiguousarray(img), img0, None

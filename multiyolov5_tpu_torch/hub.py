@@ -6,14 +6,16 @@ models/common.py:605-765 autoShape / Detections).
 card by default; ``classes`` other than 80 rebuilds the Detect head and
 copies in the ``pretrained`` tensors whose names and shapes match.
 Weights are the port's native ``.npz`` or a reference ``.pt``
-(utils/checkpoint.load_checkpoint).  ``AutoShape`` takes PNG
-paths (read by ``data/png.py``: another format raises
-``NotImplementedError`` naming the file), numpy HWC, CHW and
+(utils/checkpoint.load_checkpoint).  ``AutoShape`` takes PNG and JPEG
+paths (read by ``data/images.py`` as PIL reads them, no EXIF orientation
+applied; another format raises ``NotImplementedError`` naming the file),
+numpy HWC, CHW and
 2-D gray arrays, and PIL images where PIL imports; it letterboxes every
 image to one shape on the engine's device and runs each group of
 same-size images as one batched ``Engine`` call.  ``Detections`` holds the
-boxes and class maps: ``print``, ``render``, ``save`` (PNG files: the port
-writes no JPEG), ``tolist``, ``pandas`` (where pandas imports); ``show``
+boxes and class maps: ``print``, ``render``, ``save`` (``<name>.jpg``
+files as PIL's ``save`` writes them, ``data/jpeg.py`` ``pil_save``),
+``tolist``, ``pandas`` (where pandas imports); ``show``
 raises, as the card's machine has no display.
 """
 
@@ -27,7 +29,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from .data import png
+from .data import images, jpeg
 from .data.letterbox import letterbox
 from .engine import Engine
 from .models.config import load_spec
@@ -113,13 +115,14 @@ class AutoShape:
     def __call__(self, imgs, size: int = 640, augment: bool = False):
         pil_image = _pil_image_class()
         n, items = (len(imgs), list(imgs)) if isinstance(imgs, list) else (1, [imgs])
-        png.require_png([im for im in items if isinstance(im, (str, os.PathLike))], "hub input")
+        images.require_readable([im for im in items if isinstance(im, (str, os.PathLike))],
+                                "hub input")
         shape0, files, loaded = [], [], []
         for i, im in enumerate(items):
             f = f"image{i}"
             if isinstance(im, (str, os.PathLike)):
                 f = str(im)
-                im = png.read_rgb(f)
+                im = images.read_rgb(f)
             elif pil_image is not None and isinstance(im, pil_image):
                 f = getattr(im, "filename", f) or f
                 im = np.asarray(im.convert("RGB"))
@@ -127,7 +130,7 @@ class AutoShape:
             if im.shape[0] < 5:  # CHW -> HWC
                 im = im.transpose(1, 2, 0)
             im = im[:, :, :3] if im.ndim == 3 else np.tile(im[:, :, None], 3)
-            files.append(Path(f).with_suffix(".png").name)
+            files.append(Path(f).with_suffix(".jpg").name)
             shape0.append(im.shape[:2])
             loaded.append(im)
         stride = self.engine.stride
@@ -191,8 +194,7 @@ class Detections:
                 print(s.rstrip(", "))
             if save:
                 Path(save_dir).mkdir(parents=True, exist_ok=True)
-                png.imwrite(str(Path(save_dir) / self.files[i]),
-                            self.imgs[i].astype(np.uint8)[..., ::-1])   # RGB, written as BGR
+                jpeg.pil_save(str(Path(save_dir) / self.files[i]), self.imgs[i].astype(np.uint8))
 
     def print(self):
         self.display(pprint=True)
@@ -201,7 +203,7 @@ class Detections:
         raise NotImplementedError("show needs a display (PIL's Image.show); use save or render")
 
     def save(self, save_dir="runs/hub/exp"):
-        """Write each image with its boxes drawn as ``save_dir/<name>.png``."""
+        """Write each image with its boxes drawn as ``save_dir/<name>.jpg``."""
         save_dir = increment_path(save_dir, exist_ok=save_dir != "runs/hub/exp")
         self.display(save=True, save_dir=save_dir)
 

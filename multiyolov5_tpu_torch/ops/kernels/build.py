@@ -6,39 +6,28 @@ interface, loaded with ctypes.  The build runs at the first kernel
 launch of a process, into ``build/kernels/`` at the repository root, under
 a name that carries a hash of the sources and flags, so an edited source is
 never served by a stale library.  A failed build raises with nvcc's output.
+
+The caching rule is ``utils/shared_library.py``'s, which the host JPEG
+codec (``data/jpeg.py``, g++ into ``build/host/``) shares.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
+
+from ...utils.shared_library import CachedLibrary
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_LOCK = threading.Lock()
-
-
-class _Library:
-    """The process's loaded kernel library (built on first use)."""
-
-    def __init__(self):
-        self.cdll: Optional[ctypes.CDLL] = None
-        self.build_log = ""
-        self.path: Optional[Path] = None
-
-
-_LIB = _Library()
 
 
 def _nvcc() -> str:
@@ -56,55 +45,48 @@ def _sources():
     return srcs, deps
 
 
-def library() -> ctypes.CDLL:
-    """The kernel library, built from the sources if this process has not
-    loaded it yet."""
-    with _LOCK:
-        if _LIB.cdll is not None:
-            return _LIB.cdll
-        srcs, deps = _sources()
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in srcs + deps:
-            h.update(p.name.encode())
-            h.update(p.read_bytes())
-        path = BUILD_DIR / f"libmultiyolov5_kernels_{h.hexdigest()[:16]}.so"
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            _LIB.build_log = _compile(srcs, path)
-        _LIB.cdll = ctypes.CDLL(str(path))
-        _LIB.path = path
-        return _LIB.cdll
+def _inputs() -> bytes:
+    srcs, deps = _sources()
+    return b"".join([" ".join(NVCC_FLAGS).encode()]
+                    + [p.name.encode() + p.read_bytes() for p in srcs + deps])
 
 
-def _compile(srcs, path: Path) -> str:
-    """nvcc each source to an object in parallel, then link ``path``;
+def _compile(out: Path) -> str:
+    """nvcc each source to an object in parallel, then link ``out``;
     returns nvcc's output (the ptxas report), raises on a failure."""
-    tag = f"{os.getpid()}.tmp"
-    objs = [path.with_name(f"{path.stem}.{p.stem}.{tag}.o") for p in srcs]
+    srcs, _ = _sources()
+    objs = [out.with_name(f"{out.name}.{p.stem}.o") for p in srcs]
     procs = [(subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
               p) for p, o in zip(srcs, objs)]
     log, failed = [], []
     for proc, src in procs:
-        out, _ = proc.communicate()
-        log.append(f"== {src.name}\n{out}")
+        text, _ = proc.communicate()
+        log.append(f"== {src.name}\n{text}")
         if proc.returncode != 0:
             failed.append(src.name)
-    tmp = path.with_suffix(f".{tag}")
     try:
         if failed:
             raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n" + "".join(log))
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-               "-o", str(tmp), *map(str, objs)]
+               "-o", str(out), *map(str, objs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n"
                                f"{res.stdout}{res.stderr}")
-        os.replace(tmp, path)
     finally:
         for o in objs:
             o.unlink(missing_ok=True)
     return "".join(log)
+
+
+_LIB = CachedLibrary(BUILD_DIR, "libmultiyolov5_kernels", _inputs, _compile)
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built from the sources if this process has not
+    loaded it yet."""
+    return _LIB.load()
 
 
 def build_info():

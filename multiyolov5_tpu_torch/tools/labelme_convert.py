@@ -12,12 +12,13 @@ Workflow (reference data/customdata/README.md): annotate with labelme ->
 convert -> drop into detdata/{images,labels} and {segimages,seglabels}.
 
 Without PIL: the shapes are filled by data/draw.py, Pillow's fill in
-numpy; images are read and written by data/png.py.  So an ``imageData`` or
-``imagePath`` that is not PNG raises ``NotImplementedError`` naming it,
-and the image goes out as PNG under the JAX tool's stem and folder
-(``JPEGImages/<stem>.png``, ``images/<stem>.png``; the JAX tool writes
-``.jpg``), its pixels the source's.  ``kitti2yolo`` reads an image's size
-from its PNG IHDR or JPEG SOF header, as ``Image.open(p).size`` gives it.
+numpy; a PNG or JPEG ``imageData`` or ``imagePath`` is read as PIL's
+``convert("RGB")`` reads it (data/images.py), and the image goes out as
+the JAX tool writes it, ``JPEGImages/<stem>.jpg`` and ``images/<stem>.jpg``
+at PIL's ``save`` defaults (data/jpeg.py ``pil_save``).  Another image
+format raises ``NotImplementedError`` naming it.  ``kitti2yolo`` reads an
+image's size from its PNG IHDR or JPEG frame header, as
+``Image.open(p).size`` gives it.
 
 Run: python -m multiyolov5_tpu_torch.tools.labelme_convert labelme2seg IN OUT --labels labels.txt
 """
@@ -30,16 +31,11 @@ import glob
 import json
 import os
 import os.path as osp
-import struct
 from typing import Dict, List, Tuple
 
 import numpy as np
 
-from ..data import draw, png
-
-# JPEG start-of-frame markers (baseline, progressive, lossless, arithmetic)
-SOF = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF}
-
+from ..data import draw, images, jpeg, png
 
 def _load_labels(labels_file: str) -> Dict[str, int]:
     """labels file: '__ignore__' -> -1, '_background_' -> 0, rest 1.."""
@@ -53,13 +49,13 @@ def _labelme_image(data: dict, json_path: str) -> np.ndarray:
     """The shape file's image, (H, W, 3) uint8 RGB (PIL's ``convert("RGB")``)."""
     if data.get("imageData"):
         raw = base64.b64decode(data["imageData"])
-        if raw[:8] != png.SIGNATURE:
+        if raw[:8] != png.SIGNATURE and raw[:3] != images.JPEG_SIGNATURE:
             raise NotImplementedError(
-                f"{json_path}: imageData is not PNG; the port decodes PNG images only")
-        return png.decode_rgb(raw, json_path)
+                f"{json_path}: imageData is neither PNG nor JPEG; the port decodes those only")
+        return images.decode_rgb(raw, json_path)
     p = osp.join(osp.dirname(json_path), data["imagePath"])
-    png.require_png([p], "labelme imagePath")
-    return png.read_rgb(p)
+    images.require_readable([p], "labelme imagePath")
+    return images.read_rgb(p)
 
 
 def _shape_to_mask(size_hw, points, shape_type="polygon") -> np.ndarray:
@@ -86,7 +82,7 @@ def labelme2seg(input_dir: str, output_dir: str, labels_file: str) -> None:
         data = json.load(open(jf))
         img = _labelme_image(data, jf)
         base = osp.splitext(osp.basename(jf))[0]
-        png.imwrite(osp.join(output_dir, "JPEGImages", base + ".png"), img[..., ::-1])
+        jpeg.pil_save(osp.join(output_dir, "JPEGImages", base + ".jpg"), img)
         h, w = img.shape[:2]
         cls_map = np.zeros((h, w), np.int32)
         for shape in data.get("shapes", []):
@@ -110,7 +106,7 @@ def labelme2det(input_dir: str, output_dir: str, labels_file: str) -> None:
         data = json.load(open(jf))
         img = _labelme_image(data, jf)
         base = osp.splitext(osp.basename(jf))[0]
-        png.imwrite(osp.join(output_dir, "images", base + ".png"), img[..., ::-1])
+        jpeg.pil_save(osp.join(output_dir, "images", base + ".jpg"), img)
         h, w = img.shape[:2]
         lines = []
         for shape in data.get("shapes", []):
@@ -172,36 +168,9 @@ def coco2yolo(json_file: str, output_dir: str) -> None:
             fh.writelines(lines)
 
 
-def jpeg_size(path: str) -> Tuple[int, int]:
-    """(width, height) of a JPEG from its start-of-frame segment, the image
-    data unread."""
-    with open(path, "rb") as fh:
-        if fh.read(2) != b"\xff\xd8":
-            raise ValueError(f"{path}: not a JPEG file")
-        while True:
-            byte = fh.read(1)
-            if not byte:
-                raise ValueError(f"{path}: JPEG without a start-of-frame segment")
-            if byte != b"\xff":
-                continue
-            marker = fh.read(1)
-            while marker == b"\xff":              # fill bytes
-                marker = fh.read(1)
-            m = marker[0] if marker else 0
-            if m in (0x01, 0xD8) or 0xD0 <= m <= 0xD7:
-                continue                          # markers without a length
-            (n,) = struct.unpack(">H", fh.read(2))
-            if m in SOF:
-                _, h, w = struct.unpack(">BHH", fh.read(5))
-                return w, h
-            fh.seek(n - 2, 1)
-
-
 def image_size(path: str) -> Tuple[int, int]:
-    """(width, height) of a PNG or JPEG file."""
-    with open(path, "rb") as fh:
-        head = fh.read(8)
-    return png.size(path) if head == png.SIGNATURE else jpeg_size(path)
+    """(width, height) of a PNG or JPEG file (``Image.open(path).size``)."""
+    return images.size(path)
 
 
 def kitti2yolo(label_dir: str, output_dir: str, names: List[str],

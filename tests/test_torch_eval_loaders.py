@@ -17,9 +17,11 @@ port's codec:
 
 The port must give the JAX loaders' ``img_files``, ``labels``, ``shapes``
 and ``batch_shapes``, and every batch (images, targets, mask, paths,
-``shapes``; seg images float32 and masks) exactly.  A ``.jpg`` in a split
-raises ``NotImplementedError`` up front; the training modes and options
-build (tests/test_torch_train_data.py holds them).
+``shapes``; seg images float32 and masks) exactly.  A ``.jpg`` in a
+detection split (one with EXIF orientation 6) and a BDD-style ``.jpg``
+frame in a citysbdd split are read as the JAX loaders read them; a
+``.bmp`` raises ``NotImplementedError`` up front; the training modes and
+options build (tests/test_torch_train_data.py holds them).
 """
 
 import numpy as np
@@ -171,7 +173,9 @@ def test_detection_training_parts_and_jpeg_raise(det_tree, tmp_path):
     """The training parts build (tests/test_torch_train_data.py holds their
     items): ``augment`` and ``image_weights`` datasets, a quad loader, a
     shuffled rect loader that keeps the bins in order, as the JAX one;
-    a quad batch not divisible by 4 and a ``.jpg`` in a split raise."""
+    a quad batch not divisible by 4 and a ``.bmp`` in a split raise; a
+    ``.jpg`` (EXIF orientation 6: the cache swaps its shape, ``load_image``
+    turns it, as in the JAX loader) is read as the JAX loader reads it."""
     path = str(det_tree / "images" / "val")
     for kw in (dict(augment=True), dict(image_weights=True)):
         pds = port_det.DetectionDataset(path, img_size=IMG_SIZE, **kw)
@@ -188,9 +192,24 @@ def test_detection_training_parts_and_jpeg_raise(det_tree, tmp_path):
     d = tmp_path / "images" / "val"
     d.mkdir(parents=True)
     png.imwrite(str(d / "a.png"), _frame(np.random.RandomState(1), 64, 64))
-    Image.fromarray(_frame(np.random.RandomState(2), 64, 64)).save(d / "b.jpg")
-    with pytest.raises(NotImplementedError, match="b.jpg"):
-        port_det.DetectionDataset(str(d), img_size=IMG_SIZE)
+    exif = Image.Exif()
+    exif[274] = 6
+    Image.fromarray(_frame(np.random.RandomState(2), 48, 80)).save(d / "b.jpg",
+                                                                   exif=exif.tobytes())
+    jds = jax_det.DetectionDataset(str(d), img_size=IMG_SIZE)
+    pds = port_det.DetectionDataset(str(d), img_size=IMG_SIZE)
+    assert pds.img_files == jds.img_files and len(pds.img_files) == 2
+    np.testing.assert_array_equal(pds.shapes, jds.shapes)
+    assert pds.shapes.tolist()[1] == [48, 80]
+    for i in range(2):
+        for a, b in zip(pds.load_image(i), jds.load_image(i)):
+            np.testing.assert_array_equal(a, b)
+    assert pds.load_image(1)[1] == (80, 48)
+    e = tmp_path / "bmp" / "images"
+    e.mkdir(parents=True)
+    Image.fromarray(_frame(np.random.RandomState(3), 64, 64)).save(e / "c.bmp")
+    with pytest.raises(NotImplementedError, match="c.bmp"):
+        port_det.DetectionDataset(str(e), img_size=IMG_SIZE)
 
 
 def test_detection_drops_what_jax_drops(tmp_path):
@@ -306,9 +325,15 @@ def test_seg_pairs_and_raises(seg_tree, tmp_path):
     idir.mkdir(parents=True)
     mdir.mkdir(parents=True)
     Image.fromarray(_frame(np.random.RandomState(4), 64, 64)).save(idir / "x_leftImg8bit.jpg")
-    png.imwrite(str(mdir / "x_gtFine_labelIds.png"), np.zeros((64, 64), np.uint8))
-    with pytest.raises(NotImplementedError, match="x_leftImg8bit.jpg"):
-        port_seg.get_citysbdd_loader(root=str(tmp_path), split="val", mode="testval")
+    trainids = np.random.RandomState(5).randint(0, 19, (64, 64)).astype(np.uint8)
+    trainids[::7] = 255
+    png.imwrite(str(mdir / "x_gtFine_labelIds.png"), trainids)
+    args = dict(root=str(tmp_path), split="val", mode="testval", base_size=64, batch_size=1,
+                workers=1)
+    pl = port_seg.get_citysbdd_loader(**args)
+    (img, mask), = _same_batches(jax_seg.get_citysbdd_loader(**args), pl)
+    assert type(pl.ds).__name__ == "CityBddSegmentation"
+    np.testing.assert_array_equal(mask[0], np.where(trainids == 255, -1, trainids.astype(int)))
 
 
 def test_seg_loader_refuses_mixed_shapes(tmp_path):

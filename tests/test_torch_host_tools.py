@@ -11,8 +11,9 @@
   every order, circles, an ``__ignore__`` label and an unknown one; VOC
   xml, COCO json and KITTI txt with PNG and JPEG (baseline and progressive)
   images.  Masks pixel-equal, labels, lists and class names byte-equal;
-  each image the port writes (PNG where the JAX tool writes JPEG) decodes
-  to the source's pixels.  A JPEG ``imageData`` or ``imagePath`` raises
+  each image the port writes has the JAX tool's name (``.jpg``) and bytes
+  and decodes (in cv2) to the same pixels.  A JPEG ``imageData`` or
+  ``imagePath`` is read as the JAX tool reads it; a ``.bmp`` raises
   ``NotImplementedError``.
 * ``data/draw.py`` against Pillow (12.1) directly: 300 seeded polygons
   (float and integer vertices, convex, concave, self-intersecting, off the
@@ -29,6 +30,7 @@ import json
 import os
 import shutil
 
+import cv2
 import numpy as np
 import pytest
 from PIL import Image, ImageDraw
@@ -188,26 +190,53 @@ def test_labelme_convert_matches_jax(tmp_path):
                                    / f"{stem}.png"))
         assert got.dtype == np.uint8 and np.array_equal(got, want), stem
         for folder in ("seg/JPEGImages", "det/images"):
-            assert f"{folder}/{stem}.jpg" in tj and f"{folder}/{stem}.png" in tp
-            assert np.array_equal(png.read_rgb(str(tmp_path / "port" / folder / f"{stem}.png")),
-                                  rgb), (folder, stem)
+            k = f"{folder}/{stem}.jpg"
+            assert k in tj and k in tp and tp[k] == tj[k], k
+            got = cv2.imdecode(np.frombuffer(tp[k], np.uint8), cv2.IMREAD_COLOR)
+            want = cv2.imdecode(np.frombuffer(tj[k], np.uint8), cv2.IMREAD_COLOR)
+            assert got.shape == rgb.shape and np.array_equal(got, want), k
+    assert sorted(tp) == sorted(tj)
     seg_a = png.read_samples(str(tmp_path / "port" / "seg" / "SegmentationClassPNG" / "a.png"))
     assert set(np.unique(seg_a)) == {0, 1, 2, 3, 255}
 
 
 def test_non_png_images_raise(tmp_path):
+    """A JPEG ``imageData`` (EXIF orientation 6, not applied) and a JPEG
+    ``imagePath`` give the JAX tool's output; a ``.bmp`` ``imagePath``
+    raises, naming it; JPEG sizes come from the frame header."""
+    rng = np.random.RandomState(5)
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="JPEG")
+    exif = Image.Exif()
+    exif[274] = 6
+    Image.fromarray(rng.randint(0, 256, (24, 40, 3)).astype(np.uint8)).save(
+        buf, format="JPEG", exif=exif.tobytes())
     (tmp_path / "in").mkdir()
     (tmp_path / "labels.txt").write_text("\n".join(LABELS))
+    shapes = [{"label": "car", "points": [[2, 3], [30, 5], [12, 20]]}]
     with open(tmp_path / "in" / "j.json", "w") as fh:
-        json.dump({"imageData": base64.b64encode(buf.getvalue()).decode(), "shapes": []}, fh)
-    with pytest.raises(NotImplementedError, match="j.json"):
-        lc.labelme2seg(str(tmp_path / "in"), str(tmp_path / "out"), str(tmp_path / "labels.txt"))
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "in" / "p.jpg")
-    with open(tmp_path / "in" / "j.json", "w") as fh:
-        json.dump({"imageData": None, "imagePath": "p.jpg", "shapes": []}, fh)
-    with pytest.raises(NotImplementedError, match="p.jpg"):
+        json.dump({"imageData": base64.b64encode(buf.getvalue()).decode(), "shapes": shapes}, fh)
+    Image.fromarray(rng.randint(0, 256, (30, 20, 3)).astype(np.uint8)).save(
+        tmp_path / "in" / "p.jpg", progressive=True)
+    with open(tmp_path / "in" / "k.json", "w") as fh:
+        json.dump({"imageData": None, "imagePath": "p.jpg", "shapes": shapes}, fh)
+    for pkg, mod in (("jax", jax_lc), ("port", lc)):
+        with contextlib.redirect_stdout(io.StringIO()):
+            mod.labelme2seg(str(tmp_path / "in"), str(tmp_path / pkg / "seg"),
+                            str(tmp_path / "labels.txt"))
+            mod.labelme2det(str(tmp_path / "in"), str(tmp_path / pkg / "det"),
+                            str(tmp_path / "labels.txt"))
+    tj, tp = _tree_files(tmp_path / "jax"), _tree_files(tmp_path / "port")
+    assert sorted(tp) == sorted(tj) and "seg/JPEGImages/j.jpg" in tp
+    for k in tj:                       # images and labels byte-equal, masks pixel-equal
+        if k.endswith(".png"):
+            assert np.array_equal(png.read_samples(str(tmp_path / "port" / k)),
+                                  np.asarray(Image.open(tmp_path / "jax" / k))), k
+        else:
+            assert tp[k] == tj[k], k
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "in" / "b.bmp")
+    with open(tmp_path / "in" / "k.json", "w") as fh:
+        json.dump({"imageData": None, "imagePath": "b.bmp", "shapes": []}, fh)
+    with pytest.raises(NotImplementedError, match="b.bmp"):
         lc.labelme2det(str(tmp_path / "in"), str(tmp_path / "out"), str(tmp_path / "labels.txt"))
     for progressive in (False, True):
         Image.fromarray(np.zeros((29, 53, 3), np.uint8)).save(tmp_path / "s.jpg",

@@ -10,9 +10,11 @@ another of its size (128x256, one batched call of two), a CHW frame
 tests/test_torch_serving.py's bounds: equal counts, boxes within 1e-3
 (whole pixels on both sides), scores within 1e-5, at most 1e-4 of the
 class-map pixels differing.  ``Detections``' views, ``print``,
-``tolist``, ``pandas``, ``render`` and ``save`` (PNG files) are checked
-too; ``create(classes=N, pretrained=npz)`` must copy exactly the tensors
-whose names and shapes match, as the JAX ``intersect_load`` does.
+``tolist``, ``pandas``, ``render`` and ``save`` (``.jpg`` files, byte
+for byte PIL's ``save``) are checked too; a ``.jpg`` path serves as in
+the JAX hub, its saved file's name and bytes included; a ``.bmp`` path
+raises; ``create(classes=N, pretrained=npz)`` must copy exactly the
+tensors whose names and shapes match, as the JAX ``intersect_load`` does.
 """
 
 import json
@@ -20,6 +22,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import multiyolov5_tpu.hub as jax_hub
 import multiyolov5_tpu_torch.hub as port_hub
@@ -27,13 +30,13 @@ from multiyolov5_tpu.engine import Engine as JaxEngine
 from multiyolov5_tpu.models.config import load_spec as jax_load_spec
 from multiyolov5_tpu.models.model import init_model
 from multiyolov5_tpu.utils import checkpoint as jax_ckpt
-from multiyolov5_tpu_torch.data import png
+from multiyolov5_tpu_torch.data import images, png
 from multiyolov5_tpu_torch.engine import Engine
 from multiyolov5_tpu_torch.utils.checkpoint import load_checkpoint
 from test_torch_engine_args import _weights
 
 SIZE = 256
-FILES = ["frame.png", "image1.png", "image2.png", "image3.png", "image4.png"]
+FILES = ["frame.jpg", "image1.jpg", "image2.jpg", "image3.jpg", "image4.jpg"]
 
 
 @pytest.fixture(scope="module")
@@ -95,8 +98,7 @@ def test_autoshape_matches_jax(results):
         assert a.shape == b.shape == im.shape[:2] and a.dtype == np.uint8
         assert (a != b).mean() <= 1e-4
         assert len(np.unique(a)) >= 2
-    assert got.files == FILES
-    assert [f.rsplit(".", 1)[0] for f in got.files] == [f.rsplit(".", 1)[0] for f in want.files]
+    assert got.files == want.files == FILES
 
 
 def test_detections_views_match_jax(results):
@@ -128,8 +130,10 @@ def test_print_render_and_save(results, tmp_path, capsys):
     assert (rendered[0] != before[1]).any()
     save_dir = tmp_path / "exp"
     parts[4].save(str(save_dir))
-    saved = png.read_rgb(str(save_dir / "image4.png"))
-    np.testing.assert_array_equal(saved, parts[4].imgs[0])
+    Image.fromarray(parts[4].imgs[0]).save(tmp_path / "pil.jpg")
+    assert (save_dir / "image4.jpg").read_bytes() == (tmp_path / "pil.jpg").read_bytes()
+    saved = images.read_rgb(str(save_dir / "image4.jpg"))
+    np.testing.assert_array_equal(saved, np.asarray(Image.open(save_dir / "image4.jpg")))
     assert (saved != before[4]).any()
     with pytest.raises(NotImplementedError, match="display"):
         got.show()
@@ -152,8 +156,8 @@ def test_factories_and_create(staged):
                              device="cpu", half=False)
     for k, v in eng.model.state_dict().items():
         assert torch.equal(eng_pt.model.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match="frame.jpg"):
-        shape([inputs[1], str(staged[0] / "frame.jpg")])
+    with pytest.raises(NotImplementedError, match="frame.bmp"):
+        shape([inputs[1], str(staged[0] / "frame.bmp")])
 
 
 def test_create_with_classes_copies_matching_tensors(staged, monkeypatch):
@@ -184,3 +188,35 @@ def test_create_with_classes_copies_matching_tensors(staged, monkeypatch):
     assert out.masks[0].shape == (128, 256)
     assert all((p[:, 5] < 3).all() for p in out.pred)
 
+
+
+def test_autoshape_jpeg_path_matches_jax(staged, tmp_path):
+    """A ``.jpg`` path is read as PIL reads it (EXIF orientation 6 not
+    applied): its boxes, class map and file name are the JAX hub's, and
+    ``save`` writes it under that name as PIL's ``save`` would."""
+    _, ckpt, _, _ = staged
+    path = tmp_path / "photo.jpg"
+    exif = Image.Exif()
+    exif[274] = 6
+    Image.fromarray((np.random.RandomState(4).rand(72, 120, 3) * 255).astype(np.uint8)).save(
+        path, quality=90, exif=exif.tobytes())
+    runs = []
+    want_px = np.asarray(Image.open(path).convert("RGB"))
+    np.testing.assert_array_equal(images.read_rgb(str(path)), want_px)
+    for shape in (jax_hub.AutoShape(JaxEngine(ckpt, half=False)),
+                  port_hub.AutoShape(Engine(ckpt, device="cpu", half=False))):
+        shape.conf = 0.001
+        runs.append(shape(str(path), size=128))
+    got, want = runs[1], runs[0]
+    assert got.imgs[0].shape == want.imgs[0].shape == (72, 120, 3)
+    assert got.files == want.files == ["photo.jpg"]
+    a, b = got.pred[0], want.pred[0]
+    assert a.shape == b.shape and len(a)
+    np.testing.assert_allclose(a[:, :4], b[:, :4], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(a[:, 4:], b[:, 4:], rtol=0, atol=1e-5)
+    assert (got.masks[0] != want.masks[0]).mean() <= 1e-4
+    # saved under the JAX name, its bytes PIL's save of the drawn image (the
+    # JAX hub cannot draw on the read-only array it reads a path into)
+    got.save(str(tmp_path / "port"))
+    Image.fromarray(got.imgs[0]).save(tmp_path / "pil.jpg")
+    assert (tmp_path / "port" / "photo.jpg").read_bytes() == (tmp_path / "pil.jpg").read_bytes()

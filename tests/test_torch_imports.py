@@ -19,8 +19,12 @@ in JSON, without PyYAML) and prints its metrics, and hub's ``AutoShape``
 serves a PNG path and a gray array.  PyYAML and pandas are blocked too:
 the card's machine need not have them.  The host tools run the same way
 (``tools/cityscapes2yolo.py``, ``tools/labelme_convert.py`` with the
-numpy fill of ``data/draw.py``, ``hist_equalize``, ``replicate``,
-``cutout``, ``prune_params``, ``wh_iou``, ``seg_confusion_device``)."""
+numpy fill of ``data/draw.py`` and its JPEG output, ``hist_equalize``,
+``replicate``, ``cutout``, ``prune_params``, ``wh_iou``,
+``seg_confusion_device``), and so does the JPEG codec (``data/jpeg.py``,
+``data/images.py``): a frame written and read back.  Every module of the
+port, ``data/jpeg.py`` and ``data/images.py`` among them, imports with
+those modules blocked."""
 
 import json
 import os
@@ -72,7 +76,7 @@ _SCRIPT = textwrap.dedent("""
            "data.detection", "data.segmentation", "cli.test", "hub", "utils.profiling",
            "cli.profile", "cli.export", "tools.trace_report", "tools.convert_pt",
            "parallel.comm", "parallel.mesh", "parallel.sync_bn", "parallel.spatial",
-           "ops.shard"}
+           "ops.shard", "data.jpeg", "data.images"}
     assert {pkg.__name__ + "." + m for m in new} <= set(names)
     from multiyolov5_tpu_torch.models import zoo
     for name in ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
@@ -186,10 +190,11 @@ _SCRIPT = textwrap.dedent("""
     shape.conf = 0.001
     out = shape([f"{tmp}/det/images/val/d0.png", rng.randint(0, 256, (40, 80)).astype(np.uint8)],
                 size=64)
-    assert len(out) == 2 and out.files[0] == "d0.png" and out.masks[1].shape == (40, 80)
+    assert len(out) == 2 and out.files[0] == "d0.jpg" and out.masks[1].shape == (40, 80)
     with contextlib.redirect_stdout(io.StringIO()):
         out.save(tmp + "/hub")
-    assert png.read_rgb(tmp + "/hub/d0.png").shape == (48, 96, 3)
+    from multiyolov5_tpu_torch.data import images
+    assert images.read_rgb(tmp + "/hub/d0.jpg").shape == (48, 96, 3)
     from multiyolov5_tpu_torch.cli.export import main as export_main
     from multiyolov5_tpu_torch.tools.convert_pt import convert
     from multiyolov5_tpu_torch.utils.profiling import estimate_gflops
@@ -312,7 +317,14 @@ _TOOLS_SCRIPT = _SCRIPT[:_SCRIPT.index("import numpy as np")] + textwrap.dedent(
     with contextlib.redirect_stdout(io.StringIO()):
         labelme_convert.main(["labelme2seg", f"{root}/lm", f"{root}/seg", "--labels",
                               f"{root}/labels.txt"])
-    assert np.array_equal(png.read_rgb(f"{root}/seg/JPEGImages/a.png"), img)
+    from multiyolov5_tpu_torch.data import images, jpeg
+    assert images.read_rgb(f"{root}/seg/JPEGImages/a.jpg").shape == img.shape
+    # the JPEG codec (its g++-built host part and numpy) round-trips a frame
+    ramp = np.repeat((np.add.outer(np.arange(24), np.arange(40)) * 3)[..., None], 3, 2)
+    ramp = ramp.astype(np.uint8)
+    jpeg.imwrite(f"{root}/f.jpg", ramp)
+    got = images.imread(f"{root}/f.jpg")
+    assert got.shape == ramp.shape and np.abs(got.astype(int) - ramp).max() <= 4
     assert set(np.unique(png.read_samples(f"{root}/seg/SegmentationClassPNG/a.png"))) == {
         0, 1, 2}
     frame = rng.randint(0, 256, (37, 53, 3)).astype(np.uint8)
