@@ -294,12 +294,15 @@ TRAIN_UPDATE_REL = 5e-2  # of each tensor's own change, + 2 float32 ulps of its 
 
 # the training CLI [14]: cli/train.py on pspv5s at full width on seeded PNG
 # trees in the Cityscapes layout (2048x1024 frames: 16 detection training
-# frames, 8 val; 8 seg training and 4 val frames with labelId masks); run A
-# two epochs at --img-size 832 1024 --batch-size 8 (2 steps an epoch, one
-# seg batch), run B two epochs interrupted at epoch 1 and resumed, run C
-# one epoch of the BiSe head with quad, multi-scale, remat and OHEM at 512
+# frames, 4 val; 8 seg training and 2 val frames with labelId masks); run A
+# two epochs at --img-size 832 1024 --batch-size 8 (2 steps an epoch, so
+# three batches' mosaics, one seg batch), run B two epochs interrupted at
+# epoch 1 and resumed, run C one epoch of the BiSe head with quad,
+# multi-scale, remat and OHEM at 512; B, C and [15] (d) train on the first
+# TC_SHORT detection frames (a list file: one step an epoch)
 TC_ORIG_HW = (1024, 2048)
-TC_DET, TC_VAL, TC_SEG, TC_SEG_VAL = 16, 8, 8, 4
+TC_DET, TC_VAL, TC_SEG, TC_SEG_VAL = 16, 4, 8, 2
+TC_SHORT = 8
 TC_IMG, TC_BS, TC_WORKERS = (832, 1024), 8, 8
 TC_C_CFG, TC_C_IMG = "yolov5s_city_seg_bise", (512, 1024)
 TC_BOXES = 12          # seeded boxes a detection frame
@@ -363,11 +366,26 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the time a timing loop aims at: a call slower than TIMED_MS / iters is
+# timed over fewer calls (at least one a replay), which its length makes as
+# accurate
+TIMED_MS = 100.0
+
+
+def _calls(fn, n: int) -> float:
+    """Host ms a call of ``fn`` over ``n`` synchronised calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean milliseconds per call between CUDA events, host gaps included:
     for work that synchronises with the host (the plain NMS)."""
-    for _ in range(warmup):
-        fn()
+    iters = max(1, min(iters, int(TIMED_MS / max(_calls(fn, warmup), 1e-3))))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -384,8 +402,7 @@ def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        iters = max(1, min(iters, int(TIMED_MS / max(_calls(fn, 3), 1e-3))))
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -2357,10 +2374,20 @@ def phase_eval_cli(eng32, card: str):
             str(CLI_IMG), "--batch-size", str(CLI_BS), "--save-dir", os.path.join(work, "out")]
     card_argv = argv + ["--device", "" if DEVICE == "cuda" else DEVICE]  # "": the card
 
+    from multiyolov5_tpu_torch.utils import plots
+    out, plot_ms = os.path.join(work, "out"), {}
+    os.makedirs(out)
     K.reset_launches()
-    got, rec, _, _, _, _ = run_cli(card_argv, kernels=True)
+    with timed_calls(chart_pairs(plots), plot_ms):
+        plotted, rec, _, _, _, _ = run_cli(card_argv + ["--plots"], kernels=True)
     torch.cuda.synchronize()
     launches = K.launch_counts()
+    for f in ("PR_curve.png", "F1_curve.png", "P_curve.png", "R_curve.png"):
+        read_plot(os.path.join(out, f), (1500, 2250))
+    read_plot(os.path.join(out, "confusion_matrix.png"), (2250, 3000))
+    log(f"  --plots: the PR, F1, P and R curves and confusion_matrix.png decode at their "
+        f"sizes; host ms " + ", ".join(f"{k} {np.median(v):.1f}" + (
+            f" (x{len(v)})" if len(v) > 1 else "") for k, v in plot_ms.items()))
     log(f"  launches on the CLI's path: {launches}")
     det_shapes = sorted({tuple(a[0].shape) for a, _ in rec["stem"]
                          if not a[0].is_floating_point()})
@@ -2381,6 +2408,9 @@ def phase_eval_cli(eng32, card: str):
     del rec
 
     got, _, (t_inf, t_nms, seen), spent, count, wall = run_cli(card_argv, kernels=False)
+    for k in ("P", "R", "mAP50", "mAP", "pixAcc", "mIoU"):   # --plots leaves them as they are
+        check(f"eval CLI with --plots vs without: {k} |diff|", abs(plotted[k] - got[k]),
+              SEG_METRIC_ABS if k in ("pixAcc", "mIoU") else EVAL_METRIC_ABS)
     t0 = time.perf_counter()
     ref, _, _, _, _, cpu_wall = run_cli(argv + ["--device", "cpu"], kernels=False)
     for k in ("P", "R", "mAP50", "mAP", "pixAcc", "mIoU"):
@@ -2409,7 +2439,7 @@ def phase_eval_cli(eng32, card: str):
     return {"launches": launches, "errs": errs, "det_batches": [list(s) for s in det_shapes],
             "seg_batches": [list(s) for s in seg_shapes],
             "metrics": {"card": got, "cpu": ref}, "times": times, "loader_stages": stages,
-            "card": card}
+            "plot_host_ms": plot_ms, "card": card}
 
 
 def hub_inputs(work: str, rng):
@@ -3574,13 +3604,23 @@ def tc_tree(work: str, rng, nc: int) -> str:
             ids[rng.rand(h, w) < 0.05] = 255
             png.imwrite(os.path.join(mdir, f"aachen_{i:06d}_gtFine_labelIds.png"),
                         ids.astype(np.uint8))
-    data = os.path.join(work, "data.json")
-    with open(data, "w") as fh:
-        json.dump({"train": os.path.join(work, "det", "images", "train"),
-                   "val": os.path.join(work, "det", "images", "val"),
-                   "segtrain": os.path.join(work, "citys"),
-                   "segval": os.path.join(work, "citys"), "nc": nc}, fh)
-    return data
+    short = os.path.join(work, "det", "train_short.txt")
+    with open(short, "w") as fh:
+        fh.write("".join(os.path.join(work, "det", "images", "train", f"f{i:03d}.png\n")
+                         for i in range(TC_SHORT)))
+    for name, train in (("data.json", os.path.join(work, "det", "images", "train")),
+                        ("data_short.json", short)):
+        with open(os.path.join(work, name), "w") as fh:
+            json.dump({"train": train, "val": os.path.join(work, "det", "images", "val"),
+                       "segtrain": os.path.join(work, "citys"),
+                       "segval": os.path.join(work, "citys"), "nc": nc,
+                       "names": [f"class{i}" for i in range(nc)]}, fh)
+    return os.path.join(work, "data.json")
+
+
+def short_data(data: str) -> str:
+    """tc_tree's dataset file that trains on the first TC_SHORT frames."""
+    return os.path.join(os.path.dirname(data), "data_short.json")
 
 
 class TcSteps:
@@ -3731,6 +3771,186 @@ def tc_peak(spec, sd, remat: bool, batch) -> int:
     return peak
 
 
+# [14] run A's W&B: a recording stand-in for the wandb module, installed in
+# sys.modules (the card's machine has no wandb), and the libraries the port
+# must not load while the run goes (their entries in sys.modules are set to
+# None for the run, so that importing any of them would raise)
+NOT_LOADED = ("matplotlib", "seaborn", "cv2", "PIL", "wandb")
+
+
+class RecArtifact:
+    def __init__(self, name=None, type=None, metadata=None):
+        self.name, self.type, self.metadata = name, type, dict(metadata or {})
+        self.files, self.objects = [], {}
+
+    def add_file(self, path, name=None):
+        self.files.append((str(path), name))
+
+    def add(self, obj, name):
+        self.objects[name] = obj
+
+    def wait(self):
+        return self
+
+    def get(self, name):
+        return self.objects.get(name)
+
+    def download(self):
+        return None
+
+
+class RecTable:
+    def __init__(self, columns=None):
+        self.columns, self.data = list(columns or []), []
+
+    def add_data(self, *row):
+        self.data.append(list(row))
+
+
+class RecRun:
+    def __init__(self, **kw):
+        self.id, self.kw = kw.get("id") or "smoke", kw
+        self.config = {}
+        self.artifacts, self.used, self.finished = [], [], False
+
+    def log_artifact(self, art, aliases=None):
+        self.artifacts.append((art, list(aliases or [])))
+
+    def use_artifact(self, art):
+        self.used.append(art)
+        return art
+
+    def finish(self):
+        self.finished = True
+
+
+class RecordingWandb:
+    """What the port's WandbLogger calls of wandb, recorded."""
+    Artifact, Table = RecArtifact, RecTable
+
+    def __init__(self):
+        self.run, self.logged = None, []
+
+    def init(self, **kw):
+        self.run = RecRun(**kw)
+        return self.run
+
+    def log(self, d, step=None):
+        self.logged.append(dict(d))
+
+    @staticmethod
+    def Image(src, classes=None, boxes=None):
+        return ("image", src, boxes)
+
+    @staticmethod
+    def Classes(items):
+        return [i["id"] for i in items]
+
+    @staticmethod
+    def JoinedTable(a, b, key):
+        return ("joined", a, b, key)
+
+
+@contextlib.contextmanager
+def without_libraries(stand_in):
+    """For the duration: every module of NOT_LOADED (and its submodules)
+    unloadable, but ``stand_in`` as wandb; yields a list that holds, after,
+    the modules of NOT_LOADED loaded in the meantime."""
+    saved = {k: v for k, v in sys.modules.items() if k.split(".")[0] in NOT_LOADED}
+    for k in saved:
+        sys.modules[k] = None
+    for k in NOT_LOADED:
+        sys.modules[k] = None
+    sys.modules["wandb"] = stand_in
+    loaded = []
+    try:
+        yield loaded
+    finally:
+        loaded += sorted(k for k, v in sys.modules.items() if k.split(".")[0] in NOT_LOADED
+                         and v is not None and v is not stand_in)
+        for k in [k for k in sys.modules if k.split(".")[0] in NOT_LOADED]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+
+
+@contextlib.contextmanager
+def timed_calls(pairs, store: dict):
+    """Each (owner, name) of ``pairs`` wrapped for the duration: its host ms
+    a call appended to ``store[name]``."""
+    def timing(name, real):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                store.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return wrapper
+    with contextlib.ExitStack() as stack:
+        for owner, name in pairs:
+            stack.enter_context(replaced(owner, name, timing(name, getattr(owner, name))))
+        yield store
+
+
+CHARTS = ("plot_images", "plot_labels", "plot_results", "plot_evolution", "plot_pr_curve",
+          "plot_mc_curve", "plot_confusion_matrix")
+
+
+def chart_pairs(*owners):
+    """(owner, name) of every chart function that ``owners`` hold."""
+    return [(o, n) for o in owners for n in CHARTS if hasattr(o, n)]
+
+
+def read_plot(path: str, hw) -> None:
+    """``path`` decodes through the port's readers at ``hw`` (H, W)."""
+    from multiyolov5_tpu_torch.data import images
+    got = images.imread(path).shape
+    if got != (*hw, 3):
+        raise AssertionError(f"{path}: {got}, want {(*hw, 3)}")
+
+
+def hold_wandb(fw, panels_want, nb_epochs: int, n_val: int) -> dict:
+    """[14] run A's W&B record against the run: two model artifacts (latest,
+    epoch N, best where fitness rose), two joined result tables, the
+    dataset artifacts, and per epoch one panel a val image whose boxes are
+    the rows evaluate_detection counted with conf >= 0.25."""
+    run = fw.run
+    models = [(a, al) for a, al in run.artifacts if a.type == "model"]
+    evals = [(a, al) for a, al in run.artifacts if a.type == "evaluation"]
+    best = 0.0
+    for e, (art, aliases) in enumerate(models):
+        fit = art.metadata["fitness_score"]
+        want = ["latest", f"epoch {e}"] + (["best"] if fit > best else [])
+        best = max(best, fit)
+        if aliases != want or art.files != [(art.metadata["original_url"], "last.npz")] \
+                or art.metadata["epochs_trained"] != e + 1:
+            raise AssertionError(f"model artifact {e}: aliases {aliases} (want {want}), "
+                                 f"files {art.files}, metadata {art.metadata}")
+    if len(models) != nb_epochs or len(evals) != nb_epochs or any(
+            a.objects["result"][0] != "joined" for a, _ in evals):
+        raise AssertionError(f"{len(models)} model artifacts and {len(evals)} joined tables, "
+                             f"want {nb_epochs} each")
+    used = [a.name for a in run.used if isinstance(a, RecArtifact)]
+    if sorted(used) != ["train", "val"] or len(fw.logged) != nb_epochs or not run.finished:
+        raise AssertionError(f"dataset artifacts used {used}, {len(fw.logged)} scalar logs, "
+                             f"finished {run.finished}")
+    panels = [row for a, _ in evals for row in a.objects["result"][2].data]
+    if len(panels) != nb_epochs * n_val or len(panels) != len(panels_want):
+        raise AssertionError(f"{len(panels)} panels, want {nb_epochs} x {n_val} (counted "
+                             f"{len(panels_want)})")
+    n_boxes = 0
+    for (epoch, rid, (_, _, boxes), avg), want in zip(panels, panels_want):
+        got = [[*(b["position"][k] for k in ("minX", "minY", "maxX", "maxY")),
+                b["scores"]["class_score"], b["class_id"]]
+               for b in boxes["predictions"]["box_data"]]
+        want = [r for r in want.tolist() if r[4] >= 0.25]
+        if got != [[*r[:5], int(r[5])] for r in want]:
+            raise AssertionError(f"epoch {epoch} panel {rid}: {len(got)} boxes, not the "
+                                 f"{len(want)} evaluate_detection counted with conf >= 0.25")
+        n_boxes += len(got)
+    return {"model_artifacts": [al for _, al in models], "joined_tables": len(evals),
+            "panels": len(panels), "panel_boxes": n_boxes}
+
+
 def phase_train_cli(card: str):
     """[14] the training CLI at full width on the card: runs A (two epochs,
     K6 each step, the eval kernels each epoch held against their plain
@@ -3758,20 +3978,49 @@ def phase_train_cli(card: str):
     data_path = tc_tree(work, np.random.RandomState(SEED + 41), nc)
     with open(data_path) as fh:
         data = json.load(fh)
-    log(f"  trees written in {time.perf_counter() - t0:.1f} s")
+    parts = {"trees": time.perf_counter() - t0}
+    log(f"  trees written in {parts['trees']:.1f} s")
     base = ["--data", data_path, "--cfg", CFG, "--img-size", str(TC_IMG[0]), str(TC_IMG[1]),
             "--batch-size", str(TC_BS), "--seg-eval-interval", "1", "--workers",
             str(TC_WORKERS), "--seed", str(SEED), "--no-tb",
             "--device", "" if DEVICE == "cuda" else DEVICE]
     nb = TC_DET // TC_BS
+    # B, C and [15] (d) pass --no-wandb: the card's machine may have a real
+    # wandb, whose init reaches for the network; run A has the stand-in
+    short = ["--data", short_data(data_path)] + base[2:] + ["--no-wandb"]
     res = {"card": card}
 
-    # run A: two epochs, every step's K6 and every epoch's eval kernels
+    # run A: two epochs, every step's K6 and every epoch's eval kernels; the
+    # W&B options under the recording stand-in, with the plots, and none of
+    # matplotlib, seaborn, cv2, PIL or a real wandb loadable
+    from multiyolov5_tpu_torch import evaluation as E
+    from multiyolov5_tpu_torch.utils import loggers, plots
     K.reset_launches()
     steps, evals = TcSteps(cli), {}
+    fw, counted, plot_ms, wandb_ms = RecordingWandb(), [], {}, {}
+    wb_calls = [(loggers.WandbLogger, n) for n in ("__init__", "log", "end_epoch", "log_model",
+                                                   "log_training_progress", "finish")]
     t0 = time.perf_counter()
-    run_a, _ = tc_run(base + ["--epochs", "2", "--project", work, "--name", "a"], steps, evals)
-    wall_a = time.perf_counter() - t0
+    with without_libraries(fw) as loaded, timed_calls(chart_pairs(cli, plots), plot_ms), \
+            timed_calls(wb_calls, wandb_ms), spied(E, "_match_predictions", before=lambda d, *a:
+                                                   counted.append(np.array(d, copy=True))):
+        run_a, _ = tc_run(base + ["--epochs", "2", "--project", work, "--name", "a",
+                                  "--upload-dataset", "--bbox-interval", "1", "--save-period",
+                                  "1"], steps, evals)
+    wall_a = parts["run_a"] = time.perf_counter() - t0
+    if loaded:
+        raise AssertionError(f"run A loaded {loaded}")
+    tile = math.ceil(TC_BS ** 0.5) * min(TC_IMG[0], 640)   # 3 x 3 tiles of 832 shrunk to 640
+    mosaic_hw = (tile, tile)
+    for f, hw in (("labels.jpg", (1600, 1600)), ("results.png", (1200, 2400)),
+                  *((f"train_batch{i}.jpg", mosaic_hw) for i in range(3))):
+        read_plot(os.path.join(run_a, f), hw)
+    wb = hold_wandb(fw, counted, 2, TC_VAL)
+    log(f"  run A's W&B (the recording stand-in): model artifacts {wb['model_artifacts']}, "
+        f"{wb['joined_tables']} joined tables, {wb['panels']} panels of {wb['panel_boxes']} "
+        f"boxes, each the rows evaluate_detection counted with conf >= 0.25; labels.jpg, "
+        f"train_batch0-2.jpg and results.png decode at their sizes; none of {NOT_LOADED} "
+        f"loaded (wandb: the stand-in)")
     launches = K.launch_counts()
     log(f"  run A: {len(steps.ms)} steps in {wall_a:.1f} s; launches {launches}; per step "
         f"K6 (fwd, bwd) {steps.k6}; per epoch's eval {evals['launches']}")
@@ -3811,13 +4060,30 @@ def phase_train_cli(card: str):
         f"det loss {rows[:, 4].tolist()}, seg {rows[:, 5].tolist()}, mAP@.5 "
         f"{rows[:, 8].tolist()}, mIoU {rows[:, 10].tolist()}; last/best.npz stripped, "
         f"served ({served} detections)")
+    # the charts' host ms (evolve.png on a seeded 10-generation evolve.txt)
+    ev_txt = os.path.join(work, "evolve.txt")
+    keys = [k for k in cli.EVOLVE_META if k in cli.load_hyp("scratch")]
+    np.savetxt(ev_txt, np.random.RandomState(SEED + 47).rand(10, 5 + len(keys)))
+    with timed_calls(chart_pairs(plots), plot_ms):
+        quiet(plots.plot_evolution, ev_txt, keys)
+    read_plot(os.path.join(work, "evolve.png"), (2400, 2400))
+    epoch_wb = sum(sum(wandb_ms.get(k, [])) for k in ("log", "end_epoch", "log_model",
+                                                      "log_training_progress")) / 1e3
+    wb.update(host_ms=wandb_ms, epoch_share=epoch_wb / sum(evals["walls"]))
+    log(f"  on {card}: host ms a plot: " + ", ".join(
+        f"{k} {np.median(v):.1f}" + (f" (x{len(v)})" if len(v) > 1 else "")
+        for k, v in plot_ms.items()) + f"; the W&B wiring {epoch_wb:.3f} s of the epochs' "
+        f"{sum(evals['walls']):.1f} s ({100 * wb['epoch_share']:.2f}%), its set-up (the "
+        f"dataset artifacts) {sum(wandb_ms.get('__init__', [0])) / 1e3:.2f} s")
     res["run_a"] = {"launches": launches, "eval_launches": evals["launches"],
                     "k6_per_step": steps.k6, "step_ms": steps.ms, "epoch_walls_s": evals["walls"],
                     "wall_s": wall_a, "results": rows.tolist(), "errs": errs,
-                    "k6": {"loss_rel": dl, "dz_max_abs": dabs, "dz_rel": drel}}
+                    "k6": {"loss_rel": dl, "dz_max_abs": dabs, "dz_rel": drel},
+                    "wandb": wb, "plot_host_ms": plot_ms}
     del evals, steps
 
     # the loaders: the first batches with 1 and TC_WORKERS threads
+    t0 = time.perf_counter()
     (d1, s1, ds), (d8, s8, _) = tc_batches(data, 1), tc_batches(data, TC_WORKERS)
     same = (all(np.array_equal(a, b) for a, b in zip(d1[:3], d8[:3]))
             and np.array_equal(s1[0], s8[0]) and np.array_equal(s1[1], s8[1]))
@@ -3830,12 +4096,12 @@ def phase_train_cli(card: str):
     if not (same and ok):
         raise AssertionError("the loaders' first batches differ across worker counts, or a "
                              "label is out of [0, 1] or empty")
-    det_ms = host_ms(lambda: ds.item(0, *generators(SEED, 0, 0)))
+    det_ms = host_ms(lambda: ds.item(0, *generators(SEED, 0, 0)), reps=1)
     from multiyolov5_tpu_torch.data.segmentation import get_citys_loader
     seg_ds = get_citys_loader(root=data["segtrain"], split="train", mode="train",
                               batch_size=TC_BS, base_size=TC_IMG[1],
                               crop_size=(TC_IMG[0], TC_IMG[0] // 2)).ds
-    seg_ms = host_ms(lambda: seg_ds.item(0, generators(SEED, 0, 0)[0]))
+    seg_ms = host_ms(lambda: seg_ds.item(0, generators(SEED, 0, 0)[0]), reps=1)
     step_ms = float(np.median(res["run_a"]["step_ms"][1:]))
     log(f"  on {card}: one det training item (mosaic, {TC_IMG[0]}) {det_ms:.1f} host ms, one "
         f"seg training item {seg_ms:.1f} host ms (one thread each); step {step_ms:.1f} ms "
@@ -3844,10 +4110,14 @@ def phase_train_cli(card: str):
     res["times"] = {"det_item_host_ms": det_ms, "seg_item_host_ms": seg_ms,
                     "step_ms": step_ms, "epoch_walls_s": res["run_a"]["epoch_walls_s"]}
 
+    parts["loaders"] = time.perf_counter() - t0
+
     # run B: two epochs, interrupted at epoch 1's first step, then resumed
+    t0 = time.perf_counter()
     with contextlib.suppress(KeyboardInterrupt):
-        tc_run(base + ["--epochs", "2", "--project", work, "--name", "b"],
-               TcSteps(cli, stop_at=nb + 1))
+        tc_run(short + ["--epochs", "2", "--project", work, "--name", "b"],
+               TcSteps(cli, stop_at=TC_SHORT // TC_BS + 1))
+    parts["run_b_interrupted"] = time.perf_counter() - t0
     last_b = os.path.join(work, "b", "weights", "last.npz")
     held = load_npz(last_b)
     if held["epoch"] != 0 or held.get("opt") is None:
@@ -3865,7 +4135,8 @@ def phase_train_cli(card: str):
         restored.append(({k: v.detach().cpu().clone() for k, v in ts.opt["momentum"].items()},
                          {k: v.detach().cpu().clone() for k, v in ts.ema.items()}, ts.updates))
     with replaced(cli, "_restore", spy):
-        run_b, _ = tc_run(["--resume", last_b, "--device", base[-1]], TcSteps(cli))
+        run_b, _ = tc_run(["--resume", last_b, "--device", base[-1], "--no-wandb"],
+                          TcSteps(cli))
     mom, ema, updates = restored[0]
     want_mom = from_jax_params(held["opt"], {})
     want_ema = from_jax_params(held["ema_params"], held["ema_state"])
@@ -3880,10 +4151,14 @@ def phase_train_cli(card: str):
           "file's", diff, 0)
     res["run_b"] = {"updates_held": int(held["updates"]), "epochs": rows_b[:, 0].tolist()}
 
+    parts["run_b"] = time.perf_counter() - t0
+
     # run C: BiSe with quad, multi-scale, remat and OHEM; no K6
+    t0 = time.perf_counter()
     K.reset_launches()
     steps = TcSteps(cli)
-    run_c, _ = tc_run(["--data", data_path, "--cfg", TC_C_CFG, "--img-size", str(TC_C_IMG[0]),
+    run_c, _ = tc_run(["--no-wandb", "--data", short_data(data_path), "--cfg", TC_C_CFG,
+                       "--img-size", str(TC_C_IMG[0]),
                        str(TC_C_IMG[1]), "--batch-size", str(TC_BS), "--epochs", "1",
                        "--quad", "--multi-scale", "--remat", "--seg-loss", "ohem",
                        "--seg-eval-interval", "1", "--workers", str(TC_WORKERS), "--seed",
@@ -3899,6 +4174,8 @@ def phase_train_cli(card: str):
              *(torch.as_tensor(a).to(DEVICE) for a in train_batch(rng, TC_BS // 4, nc, 19)[1:3]),
              torch.from_numpy(rng.rand(TC_BS, img // 2, img, 3).astype(np.float32)).to(DEVICE),
              torch.from_numpy(rng.randint(-1, 19, (TC_BS, img // 2, img))).to(DEVICE))
+    parts["run_c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     peaks = {}
     if DEVICE == "cuda":
         from multiyolov5_tpu_torch.models.model import seeded_state_dict
@@ -3913,7 +4190,12 @@ def phase_train_cli(card: str):
         f"without {peaks.get('plain', 0) / 2**30:.2f} GiB")
     res["run_c"] = {"launches": launches_c, "results": rows_c.tolist(), "peak_bytes": peaks,
                     "step_ms": steps.ms}
-    shutil.rmtree(work, ignore_errors=True)
+    parts["peaks"] = time.perf_counter() - t0
+    res["part_s"] = parts
+    log("  [14]'s parts, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    for name in ("a", "b", "c"):      # [15] (d) trains on the trees; it removes them
+        shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+    res["tree"] = data_path
     return res
 
 
@@ -4214,7 +4496,7 @@ def _held_step(what, r, ref, init, metrics, ref_metrics):
     return worst
 
 
-def phase_parallel(card: str):
+def phase_parallel(card: str, tree: str = None):
     """[15] parallelism on the card: (a) the data-parallel step over two
     ranks sharing the card (gloo), K6 held on each rank's arguments with
     the global D, against the one-process step, and the same step at world
@@ -4224,7 +4506,8 @@ def phase_parallel(card: str):
     round trip; (f) the spatial forward of yolov3-tiny, yolov5s-transformer
     and pspv5s at an uneven H against the one-process forward; (g) the dp1
     x sp2 step at an uneven H against the one-process step; readings of ms
-    a step and a frame, and of the collectives."""
+    a step and a frame, and of the collectives.  (d) trains on ``tree``
+    ([14]'s dataset file; its directory is removed at the end) where given."""
     from multiyolov5_tpu_torch.engine import Engine
     from multiyolov5_tpu_torch.models.config import load_spec
     from multiyolov5_tpu_torch.models.model import Model, seeded_state_dict
@@ -4358,31 +4641,43 @@ def phase_parallel(card: str):
     del model, fn
 
     # (d) the training CLI as two ranks: --num-processes 2, then --model-parallel 2,
-    # spawned from a thread while this process computes (g)'s and (f)'s
-    # one-process references (so (d)'s walls share the card with them)
-    data_path = tc_tree(os.path.join(work, "tree"), np.random.RandomState(SEED + 61), spec.nc)
+    # both runs spawned from threads at once while this process computes
+    # (g)'s and (f)'s one-process references (so (d)'s walls share the card
+    # with them)
+    data_path = tree or tc_tree(os.path.join(work, "tree"), np.random.RandomState(SEED + 61),
+                                spec.nc)
     cli_runs, cli_errors = {}, []
+    ports = set()
+    while len(ports) < 2:
+        ports.add(_free_port())
 
-    def cli_ranks():
+    def cli_ranks(name, extra, port):
+        """One run of the CLI's ranks; the two runs go at once."""
         try:
-            for name, extra in (("dp2", []), ("dp1_sp2", ["--model-parallel", str(PAR_WORLD)])):
-                argv = ["--data", data_path, "--cfg", CFG, "--img-size", str(PAR_CLI_IMG),
-                        str(PAR_CLI_IMG), "--batch-size", str(TC_BS), "--epochs", "1", "--noval",
-                        "--seg-eval-interval", "1", "--workers", str(TC_WORKERS), "--seed",
-                        str(SEED), "--no-tb", "--project", os.path.join(work, "runs"), "--name",
-                        name, "--coordinator", f"localhost:{_free_port()}",
-                        "--device", "" if DEVICE == "cuda" else DEVICE, *extra]
-                t0 = time.perf_counter()
-                spawn(par_cli_rank, PAR_WORLD, (argv, work))
-                cli_runs[name] = (extra, time.perf_counter() - t0,
-                                  [torch.load(os.path.join(work, f"cli{r}.pt"),
-                                              weights_only=False)[0] for r in range(PAR_WORLD)])
+            argv = ["--data", short_data(data_path), "--no-wandb", "--cfg", CFG, "--img-size",
+                    str(PAR_CLI_IMG), str(PAR_CLI_IMG), "--batch-size", str(TC_BS), "--epochs",
+                    "1", "--noval",
+                    "--seg-eval-interval", "1", "--workers", str(TC_WORKERS), "--seed",
+                    str(SEED), "--no-tb", "--project", os.path.join(work, "runs"), "--name",
+                    name, "--coordinator", f"localhost:{port}",
+                    "--device", "" if DEVICE == "cuda" else DEVICE, *extra]
+            out = os.path.join(work, name)
+            os.makedirs(out)
+            t0 = time.perf_counter()
+            spawn(par_cli_rank, PAR_WORLD, (argv, out))
+            cli_runs[name] = (extra, time.perf_counter() - t0,
+                              [torch.load(os.path.join(out, f"cli{r}.pt"),
+                                          weights_only=False)[0] for r in range(PAR_WORLD)])
         except BaseException as e:  # noqa: BLE001 (raised in the main thread)
             cli_errors.append(e)
 
     import threading
-    cli_thread = threading.Thread(target=cli_ranks)
-    cli_thread.start()
+    cli_threads = [threading.Thread(target=cli_ranks, args=(name, extra, port))
+                   for (name, extra), port in zip(
+                       (("dp2", []), ("dp1_sp2", ["--model-parallel", str(PAR_WORLD)])),
+                       sorted(ports))]
+    for t in cli_threads:
+        t.start()
     try:
         # (g) the dp1 x sp2 step at an uneven H against the one-process step on
         # the same global batch
@@ -4437,7 +4732,8 @@ def phase_parallel(card: str):
                 cfg]["ms"], "collectives": ranks[0]["uneven"][cfg].get("collectives")}
 
     finally:
-        cli_thread.join()
+        for t in cli_threads:
+            t.join()
     if cli_errors:
         raise cli_errors[0]
     for cfg, fn in fns.items():           # (f)'s one-process time, the card to itself
@@ -4493,6 +4789,8 @@ def phase_parallel(card: str):
             + "; ".join(f"{kind} {n} calls, {b / 2**20:.2f} MiB, {ms:.1f} ms"
                         for kind, (n, b, ms) in v.items()))
     shutil.rmtree(work, ignore_errors=True)
+    if tree:
+        shutil.rmtree(os.path.dirname(tree), ignore_errors=True)
     return res
 
 
@@ -5235,6 +5533,11 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the card's machine may have a real wandb: no run of this script may
+    # reach for the network through it ([14] run A uses a stand-in, the
+    # other CLI runs --no-wandb; these hold for any wandb imported anyway)
+    os.environ["WANDB_MODE"] = "disabled"
+    os.environ["WANDB_ERROR_REPORTING"] = "false"
     t_start = time.perf_counter()
     smi, sass = timed("[1]", phase_card)
     rng = np.random.RandomState(SEED)
@@ -5265,7 +5568,8 @@ def main() -> int:
     del eng32, eng16, cpu_eng
     tr = timed("[7]", phase_train)
     tc = timed("[14]", phase_train_cli, smi)
-    par = timed("[15]", phase_parallel, smi)
+    torch.cuda.empty_cache()        # [15]'s ranks share the card with this process
+    par = timed("[15]", phase_parallel, smi, tc["tree"])
     dsl = timed("[16]", phase_dsl, frames, smi)
     tools = timed("[17]", phase_tools, smi)
     check_sass(sass)

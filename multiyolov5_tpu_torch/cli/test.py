@@ -12,8 +12,9 @@ It prints the rounded metrics as one JSON line and returns them.
 ``cuda:N``, ``cpu`` runs every kernel's plain version on the CPU.  The
 default is float32 (``--half`` for bfloat16).  ``--task``, ``--augment``
 and ``--save-hybrid`` are accepted and ignored, as in the JAX CLI.
-``--plots`` (matplotlib) raises ``NotImplementedError`` before anything
-runs; so do non-PNG images in a split.
+``--plots`` writes the PR, F1, P and R curves and the confusion matrix
+into ``--save-dir`` (``utils/plots.py``, no matplotlib).  An image that is
+neither PNG nor JPEG in a split raises ``NotImplementedError``.
 
 Run: ``python -m multiyolov5_tpu_torch.cli.test --weights w.npz --data d.yaml``
 (``--data`` may be a JSON file, which needs no PyYAML).
@@ -34,9 +35,6 @@ from .detect import select_device
 
 
 def run(opt):
-    if opt.plots:
-        raise NotImplementedError("--plots: PR curves and the confusion matrix need "
-                                  "matplotlib, which the port does not use")
     set_logging()
     data = read_yaml(opt.data)        # JSON needs no PyYAML
     w = opt.weights[0] if isinstance(opt.weights, list) else opt.weights
@@ -54,7 +52,8 @@ def run(opt):
         names = data.get("names", spec.names)
         (mp, mr, map50, map_, *_), _, _ = evaluate_detection(
             eng, loader, names=names, conf_thres=opt.conf_thres, iou_thres=opt.iou_thres,
-            single_cls=opt.single_cls, verbose=opt.verbose, save_dir=opt.save_dir,
+            single_cls=opt.single_cls, verbose=opt.verbose, plots=opt.plots,
+            save_dir=opt.save_dir,
             save_txt=opt.save_txt, save_conf=opt.save_conf, save_json=opt.save_json,
             anno_json=(opt.anno_json or data.get("anno_json")))
         results.update(P=mp, R=mr, mAP50=map50, mAP=map_)
@@ -101,7 +100,7 @@ def build_parser():
                    default="citys")
     p.add_argument("--workers", type=int, default=4)
     p.add_argument("--max-targets", type=int, default=300)
-    p.add_argument("--plots", action="store_true", help="unsupported (needs matplotlib)")
+    p.add_argument("--plots", action="store_true")
     p.add_argument("--save-txt", action="store_true")
     p.add_argument("--save-conf", action="store_true")
     p.add_argument("--save-json", action="store_true",

@@ -20,7 +20,19 @@ epochs and in the last ``--seg-eval-tail``, ``evaluate_detection`` (conf
 update count restored; a finished run fine-tunes ``--epochs`` more) and
 ``--evolve``.  ``hyp.yaml`` and ``opt.yaml`` are written as JSON (JSON is
 YAML); ``--data``, ``--hyp`` and ``--cfg`` files are read as JSON, or as
-yaml where PyYAML is installed.
+yaml where PyYAML is installed.  Unless ``--nosave``, ``labels.jpg`` and
+the first three batches' mosaics (``train_batch{0,1,2}.jpg``); at the end
+``results.png``, and ``evolve.png`` after ``--evolve`` (utils/plots.py, no
+matplotlib).
+
+Weights & Biases (utils/loggers.py, where wandb imports; else one printed
+line says it is off): the run's scalars each epoch, ``--upload-dataset``
+(dataset artifacts with ground-truth tables), box panels of the val
+images every ``--bbox-interval`` epochs joined on the val table, model
+artifacts of ``last.npz`` every ``--save-period`` epochs and at the end,
+and ``--resume wandb-artifact://project/run_id``, which trains on from the
+run's model artifact (the JAX checkpoint format: either CLI's artifact
+resumes in the other).
 
 The step's dropout (the Base and BiSe heads) draws from a
 ``torch.Generator`` on the device seeded from ``--seed``, as the JAX CLI
@@ -39,12 +51,8 @@ evaluates and writes ``results.txt``, the checkpoints and the run files.
 ``--sync-bn`` is the JAX no-op: the global-batch BN is always on.
 
 Not here: ``--no-pack-stem`` is accepted (the packed stem is TPU layout
-work); the wandb artifact options (``--upload-dataset``,
-``--bbox-interval``, ``--save-period``, a ``wandb-artifact://`` resume):
-they raise, the card's machine has no wandb.  TensorBoard writes through
-``torch.utils.tensorboard`` where it imports; the matplotlib plots
-(labels, first batches, results, evolution) are skipped, each with one
-printed line.
+work).  TensorBoard writes through ``torch.utils.tensorboard`` where it
+imports, else one printed line says it is off.
 
 Run: ``python -m multiyolov5_tpu_torch.cli.train --data d.json --cfg
 yolov5s_city_seg --epochs 2 --device cpu``.
@@ -79,11 +87,10 @@ from ..utils import checkpoint as ckpt_lib
 from ..utils.autoanchor import check_anchors
 from ..utils.general import (get_latest_run, increment_path, labels_to_class_weights,
                              labels_to_image_weights, print_mutation, set_logging)
-from ..utils.loggers import WandbLogger, check_wandb_resume
+from ..utils.loggers import WandbLogger, check_wandb_resume, wandb_module
 from ..utils.metrics import fitness2
+from ..utils.plots import plot_evolution, plot_images, plot_labels, plot_results
 from .detect import select_device
-
-NO_WANDB = "needs wandb, which the port does not use"
 
 
 def multiscale_resize(imgs: np.ndarray, sf: float, gs: int) -> np.ndarray:
@@ -97,17 +104,12 @@ def multiscale_resize(imgs: np.ndarray, sf: float, gs: int) -> np.ndarray:
     return np.stack([resize_linear(im, (nw, nh)) for im in imgs], 0)
 
 
-def _skip_plot(what: str) -> None:
-    print(f"{what}: skipped (matplotlib plots are not ported)")
-
-
-def _check_options(opt) -> None:
-    """Raise up front on what the port does not have."""
-    if check_wandb_resume(opt):
-        raise NotImplementedError(f"--resume wandb-artifact://: {NO_WANDB}")
-    if opt.upload_dataset or opt.bbox_interval != -1 or opt.save_period != -1:
-        raise NotImplementedError(f"--upload-dataset / --bbox-interval / --save-period "
-                                  f"(W&B artifacts): {NO_WANDB}")
+def _batch_targets(n: int, tgts: np.ndarray, tmask: np.ndarray) -> np.ndarray:
+    """A batch's padded targets as ``plot_images`` takes them: (k, 6) rows
+    of [image, cls, xywh]."""
+    if not tmask.any():
+        return np.zeros((0, 6))
+    return np.concatenate([np.repeat(np.arange(n), tmask.sum(1))[:, None], tgts[tmask]], 1)
 
 
 def _opt_dict(opt) -> dict:
@@ -203,7 +205,16 @@ def _train(opt, rank: int):
     results_file = save_dir / "results.txt"
 
     data = read_yaml(opt.data)
-    wandb_logger = WandbLogger(opt, save_dir.stem, None, data)
+    # W&B (reference train.py:40, wandb_utils.py:80-157), on rank 0: may swap
+    # the dataset's splits for downloaded artifacts and, on a
+    # wandb-artifact:// resume, point opt.weights at the pulled last.npz
+    wandb_logger = None
+    if main_rank:
+        wandb_logger = WandbLogger(opt, save_dir.stem, None, data)
+        if wandb_logger.enabled and wandb_logger.data_dict:
+            data = wandb_logger.data_dict
+        elif not opt.no_wandb and wandb_module() is None:
+            print("W&B: off (wandb does not import)")
     nc = 1 if opt.single_cls else int(data["nc"])
     names = ["item"] if opt.single_cls else data.get("names", [str(i) for i in range(nc)])
     spec = load_spec(opt.cfg, nc=nc)
@@ -310,8 +321,10 @@ def _train(opt, rank: int):
     if not seg_enabled:
         print("detection-only training (no segtrain in the dataset file or no seg "
               "head in the model)")
-    if not opt.nosave:
-        _skip_plot("label plot (labels.jpg)")
+    if not opt.nosave and main_rank:     # reference train.py:217-218
+        labelled = [lb for lb in train_ds.labels if len(lb)]
+        plot_labels(np.concatenate(labelled, 0) if labelled else np.zeros((0, 5)), names,
+                    save_dir)
 
     if not opt.noautoanchor:    # reference train.py:224
         old = [list(a) for a in spec.anchors]
@@ -376,7 +389,6 @@ def _train(opt, rank: int):
     maps = np.zeros(nc)
     results = (0, 0, 0, 0, 0, 0, 0)
     dummy_seg = (np.zeros((2, 64, 64, 3), np.float32), np.full((2, 64, 64), -1, np.int64))
-    plotted = False
     for epoch in range(start_epoch, opt.epochs):
         # the loaders' epochs follow the run's, so a resumed run draws what
         # an uninterrupted one would
@@ -411,14 +423,14 @@ def _train(opt, rank: int):
                 # sizes stay whole multiples of the stride on every H shard
                 sf = (0.5, 0.75, 1.0, 1.25, 1.5)[ms_rng.randint(5)]
                 imgs = multiscale_resize(imgs, sf, gs * n_mp)
+            ni = i + ni_base
+            if ni < 3 and not opt.nosave and main_rank:     # reference train.py:413-415
+                plot_images(imgs.astype(np.float32), _batch_targets(len(imgs), tgts, tmask),
+                            fname=save_dir / f"train_batch{ni}.jpg", names=names)
             heights = (imgs.shape[1], seg_imgs.shape[1])
             if n_mp > 1:        # this rank's H rows of its data slice
                 imgs, seg_imgs, seg_masks = (local_rows(mesh, a, gs) for a in
                                              (imgs, seg_imgs, seg_masks))
-            ni = i + ni_base
-            if ni < 3 and not opt.nosave and not plotted:
-                _skip_plot("first-batch mosaics (train_batch*.jpg)")
-                plotted = True
             lr, lr_bias, mom = sched.at(ni, epoch)
             accumulate = sched.accumulate_at(ni, nbs, bs)
             ts, metrics = step(ts, imgs, tgts, tmask, seg_imgs, seg_masks, lr, lr_bias,
@@ -449,8 +461,14 @@ def _train(opt, rank: int):
                                 or epoch >= opt.epochs - opt.seg_eval_tail):
                 _, miou = seg_validation(eng, segval_loader, nclass=spec.n_segcls or 1)
             if val_loader is not None:
+                wl = None
+                if wandb_logger is not None and wandb_logger.enabled:
+                    wandb_logger.current_epoch = epoch
+                    if wandb_logger.bbox_interval > 0 and epoch % wandb_logger.bbox_interval == 0:
+                        wl = wandb_logger       # this epoch's box panels
                 results, maps, _ = evaluate_detection(eng, val_loader, names=names,
-                                                      conf_thres=0.001, iou_thres=0.6)
+                                                      conf_thres=0.001, iou_thres=0.6,
+                                                      wandb_logger=wl)
             del eng
         fi = float(fitness2(np.array(results[:4]).reshape(1, -1), miou)[0])
         tags = ["train/box_loss", "train/obj_loss", "train/cls_loss", "train/seg_loss",
@@ -461,6 +479,9 @@ def _train(opt, rank: int):
         if tb is not None:
             for tag, val in zip(tags, vals):
                 tb.add_scalar(tag, float(val), epoch)
+        if wandb_logger is not None and wandb_logger.enabled:
+            wandb_logger.log({t: float(v) for t, v in zip(tags, vals)})
+            wandb_logger.end_epoch(best_result=fi > best_fitness)
         if main_rank:
             with open(results_file, "a") as fh:
                 fh.write(f"{epoch} " + " ".join(
@@ -475,6 +496,10 @@ def _train(opt, rank: int):
             ckpt_lib.save_npz(str(last), ck)
             if fi > best_fitness:
                 ckpt_lib.save_npz(str(best), ck)
+            if wandb_logger is not None and wandb_logger.enabled and (
+                    final_epoch or (opt.save_period > 0 and epoch % opt.save_period == 0)):
+                # the model artifact (reference wandb_utils.py:179-191)
+                wandb_logger.log_model(str(last), opt, epoch, fi, best=fi > best_fitness)
         best_fitness = max(best_fitness, fi)
         if main_rank:
             print(f"epoch {epoch} done: fitness2 {fi:.4f} (best {best_fitness:.4f}) "
@@ -484,10 +509,11 @@ def _train(opt, rank: int):
         for f in (last, best):      # finalize (reference strip_optimizer)
             if f.exists():
                 ckpt_lib.strip_optimizer(str(f))
-        _skip_plot("results plot (results.png)")
+        plot_results(results_file, save_dir)
     if tb is not None:
         tb.close()
-    wandb_logger.finish()
+    if wandb_logger is not None:
+        wandb_logger.finish()
     host_barrier()          # rank 0's files are written before any rank returns
     if main_rank:
         print(f"{opt.epochs - start_epoch} epochs completed in "
@@ -543,7 +569,7 @@ def evolve(opt, generations: int = 300):
                        yaml_file=str(Path(opt.project) / "hyp_evolved.yaml"),
                        evolve_txt=str(evolve_file))
         print(f"evolve gen {gen}: fitness {fi:.4f} -> {evolve_file}")
-    _skip_plot("evolution plot (evolve.png)")
+    plot_evolution(str(evolve_file), keys)
 
 
 def build_parser():
@@ -609,23 +635,26 @@ def build_parser():
                         "the port does not have")
     p.add_argument("--log-interval", type=int, default=10)
     p.add_argument("--no-tb", action="store_true", help="disable TensorBoard")
-    p.add_argument("--no-wandb", action="store_true", help="disable W&B (always off)")
+    p.add_argument("--no-wandb", action="store_true", help="disable W&B")
     p.add_argument("--upload-dataset", action="store_true",
-                   help="raises: W&B artifacts need wandb")
+                   help="upload dataset as a W&B artifact")
     p.add_argument("--bbox-interval", type=int, default=-1,
-                   help="raises unless -1: W&B bbox panels need wandb")
+                   help="W&B bbox-debug-panel epoch interval (-1 = epochs/10)")
     p.add_argument("--artifact-alias", type=str, default="latest",
                    help="dataset artifact version to use")
     p.add_argument("--save-period", type=int, default=-1,
-                   help="raises unless -1: W&B model artifacts need wandb")
+                   help="log model artifact every N epochs (-1 = final only)")
     p.add_argument("--img-size-test", type=int, default=1024)
     return p
 
 
 def main(argv=None):
     opt = build_parser().parse_args(argv)
-    _check_options(opt)
-    if opt.resume and not opt.weights:
+    if check_wandb_resume(opt):
+        # wandb-artifact:// resume: WandbLogger pulls the checkpoint and the
+        # stored run config inside train() (reference wandb_utils.py:42-53)
+        pass
+    elif opt.resume and not opt.weights:
         # resolve the checkpoint and reuse the run's saved settings
         # (reference train.py:596-603)
         ckpt = opt.resume if isinstance(opt.resume, str) else get_latest_run(opt.project)

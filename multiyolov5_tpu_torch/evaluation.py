@@ -31,7 +31,7 @@ from .engine import Engine
 from .ops.kernels import upsample_argmax
 from .ops.nms import non_max_suppression
 from .utils.boxes import box_iou, scale_coords, xywh2xyxy, xyxy2xywh
-from .utils.metrics import SegMetric, ap_per_class
+from .utils.metrics import ConfusionMatrix, SegMetric, ap_per_class
 
 
 def _engine(engine: Union[Engine, str, None], cfg, device, half) -> Engine:
@@ -96,11 +96,12 @@ def evaluate_detection(engine: Union[Engine, str, None], loader, names=None,
     (t_inf, t_nms, seen)); the times are host seconds around synchronised
     work.  Given ``loss_hyp``, (vbox, vobj, vcls) are the mean over the
     batches of ``DetectionLoss``'s (lbox, lobj, lcls) on Detect's raw maps
-    (multiyolov5_tpu/evaluation.py:85-93, :114-117), else 0."""
-    if wandb_logger is not None:
-        raise NotImplementedError("wandb is not available to the port")
-    if plots:
-        raise NotImplementedError("PR curves and the confusion matrix need matplotlib")
+    (multiyolov5_tpu/evaluation.py:85-93, :114-117), else 0.
+
+    ``plots`` fills a ``ConfusionMatrix`` and writes it and the PR, F1, P
+    and R curves into ``save_dir``; a ``wandb_logger`` with a val table gets
+    each of the first ``log_imgs`` images' boxes in original pixels
+    (``log_training_progress``)."""
     eng = _engine(engine, cfg, device, half)
     spec = eng.spec
     nc = spec.nc
@@ -108,6 +109,7 @@ def evaluate_detection(engine: Union[Engine, str, None], loader, names=None,
     stats: List = []
     seen = 0
     t_inf = t_nms = 0.0
+    confusion = ConfusionMatrix(nc=nc) if plots else None
     det_loss = None
     if loss_hyp is not None:
         from .train.losses import DetectionLoss
@@ -164,6 +166,11 @@ def evaluate_detection(engine: Union[Engine, str, None], loader, names=None,
                 (h0, w0), ratio_pad = shapes[si]
                 predn[:, :4] = np.asarray(scale_coords(
                     (h, w), predn[:, :4], (h0, w0), ratio_pad))[:, :4]
+            if wandb_logger is not None and wandb_logger.val_table_map \
+                    and seen <= wandb_logger.log_imgs:
+                # each image's box panel (reference test.py:220-221)
+                wandb_logger.log_training_progress(
+                    predn, paths[si], dict(enumerate(names or map(str, range(nc)))))
             if save_txt and shapes[si] is not None:
                 (h0, w0), _ = shapes[si]
                 gn = np.array([w0, h0, w0, h0])
@@ -191,6 +198,8 @@ def evaluate_detection(engine: Union[Engine, str, None], loader, names=None,
                                                    ratio_pad))[:, :4]
                 labelsn = np.concatenate([lab[:, 0:1], tbox], 1)
                 correct = _match_predictions(predn, labelsn, iouv)
+                if confusion is not None:
+                    confusion.process_batch(predn, labelsn)
             else:
                 correct = np.zeros((pred.shape[0], iouv.size), bool)
             stats.append((correct, pred[:, 4], pred[:, 5], tcls))
@@ -199,7 +208,8 @@ def evaluate_detection(engine: Union[Engine, str, None], loader, names=None,
                                 else np.zeros((0, iouv.size) if i == 0 else 0)
                                 for x in stats], 0) for i in range(4)]
     if len(stats_np[0]) and stats_np[0].any():
-        p, r, ap, f1, ap_class = ap_per_class(*stats_np, names=names or [])
+        p, r, ap, f1, ap_class = ap_per_class(*stats_np, plot=plots, save_dir=save_dir,
+                                              names=names or [])
         ap50, ap_m = ap[:, 0], ap.mean(1)
         mp, mr, map50, map_ = p.mean(), r.mean(), ap50.mean(), ap_m.mean()
         nt = np.bincount(stats_np[3].astype(np.int64), minlength=nc)
@@ -218,6 +228,8 @@ def evaluate_detection(engine: Union[Engine, str, None], loader, names=None,
         for i, c in enumerate(ap_class):
             print(f"{names[int(c)]:>20s}{int(nt[int(c)]):>9d}{p[i]:>10.3g}"
                   f"{r[i]:>10.3g}{ap50[i]:>10.3g}{ap_m[i]:>11.3g}")
+    if confusion is not None:
+        confusion.plot(save_dir=save_dir, names=names or [])
     loss_avg = loss_items / max(n_batches, 1)
     if save_json and jdict:
         import json as json_lib

@@ -4,12 +4,14 @@ a numpy copy of it; reference utils/metrics.py).
 Detection AP bookkeeping runs on host numpy (tiny).  Segmentation eval
 (evaluation.seg_validation) takes the class map from the card and
 accumulates exact integer histograms on the host via SegMetric;
-``seg_confusion_device`` counts the same on the card.  The PR, F1 and
-confusion-matrix plots need matplotlib and are not ported.
+``seg_confusion_device`` counts the same on the card.  The PR, F1, P and R
+curves and the confusion matrix are drawn by ``utils/plots.py``, without
+matplotlib.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
@@ -52,14 +54,12 @@ def ap_per_class(tp, conf, pred_cls, target_cls, plot=False, save_dir=".",
 
     Returns (p, r, ap (nc, niou), f1, unique_classes) at the max-F1 threshold.
     """
-    if plot:
-        raise NotImplementedError("PR/F1 curve plots need matplotlib")
     i = np.argsort(-conf)
     tp, conf, pred_cls = tp[i], conf[i], pred_cls[i]
     unique_classes = np.unique(target_cls)
     nc = unique_classes.shape[0]
 
-    px = np.linspace(0, 1, 1000)
+    px, py = np.linspace(0, 1, 1000), []
     ap = np.zeros((nc, tp.shape[1]))
     p = np.zeros((nc, 1000))
     r = np.zeros((nc, 1000))
@@ -77,8 +77,16 @@ def ap_per_class(tp, conf, pred_cls, target_cls, plot=False, save_dir=".",
         p[ci] = np.interp(-px, -conf[ii], precision[:, 0], left=1)
         for j in range(tp.shape[1]):
             ap[ci, j], mpre, mrec = compute_ap(recall[:, j], precision[:, j])
+            if plot and j == 0:
+                py.append(np.interp(px, mrec, mpre))
 
     f1 = 2 * p * r / (p + r + 1e-16)
+    if plot:
+        from . import plots
+        plots.plot_pr_curve(px, py, ap, Path(save_dir) / "PR_curve.png", names)
+        plots.plot_mc_curve(px, f1, Path(save_dir) / "F1_curve.png", names, ylabel="F1")
+        plots.plot_mc_curve(px, p, Path(save_dir) / "P_curve.png", names, ylabel="Precision")
+        plots.plot_mc_curve(px, r, Path(save_dir) / "R_curve.png", names, ylabel="Recall")
     i = f1.mean(0).argmax()
     return p[:, i], r[:, i], ap, f1[:, i], unique_classes.astype("int32")
 
@@ -125,7 +133,9 @@ class ConfusionMatrix:
                     self.matrix[dc, self.nc] += 1
 
     def plot(self, save_dir="", names=()):
-        raise NotImplementedError("the confusion-matrix plot needs matplotlib")
+        """confusion_matrix.png in ``save_dir`` (utils/plots.py)."""
+        from . import plots
+        return plots.plot_confusion_matrix(self.matrix, self.nc, save_dir, names)
 
     def print(self):
         for i in range(self.nc + 1):

@@ -26,6 +26,8 @@ letterboxed from 256x512 originals.
 
 import jax
 import jax.numpy as jnp
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -192,7 +194,7 @@ def test_match_predictions_copy_is_exact():
                                       jax_eval._match_predictions(dets, labels, iouv))
 
 
-def test_ap_per_class_and_fitness_copy_is_exact():
+def test_ap_per_class_and_fitness_copy_is_exact(tmp_path):
     rng = np.random.RandomState(11)
     n = 400
     tp = rng.rand(n, 10) < np.linspace(0.7, 0.2, 10)
@@ -206,8 +208,13 @@ def test_ap_per_class_and_fitness_copy_is_exact():
     x = rng.rand(3, 7)
     np.testing.assert_array_equal(port_metrics.fitness(x), jax_metrics.fitness(x))
     np.testing.assert_array_equal(port_metrics.fitness2(x, 0.4), jax_metrics.fitness2(x, 0.4))
-    with pytest.raises(NotImplementedError):
-        port_metrics.ap_per_class(tp, conf, pred_cls, target_cls, plot=True)
+    # plot=True (once raising) returns the same and writes the four curves
+    names = [f"c{i}" for i in range(7)]
+    for g, w in zip(port_metrics.ap_per_class(tp, conf, pred_cls, target_cls, plot=True,
+                                              save_dir=str(tmp_path), names=names), want):
+        np.testing.assert_array_equal(g, w)
+    assert sorted(os.listdir(tmp_path)) == ["F1_curve.png", "PR_curve.png", "P_curve.png",
+                                            "R_curve.png"]
 
 
 def test_seg_metric_and_confusion_copy_is_exact():

@@ -20,8 +20,9 @@ P, R, mAP@.5, mAP@.5:.95, pixAcc and mIoU agree within
 tests/test_torch_eval.py's 1e-4; the ``--save-txt --save-conf``
 files hold equal classes, boxes within 1e-3 px of the frame and scores
 within 1e-5 (plus ``%g``'s six digits).  The parsers have the same flags
-and defaults, ``--det-only`` runs no seg loader, and ``--plots`` raises
-before anything runs.
+and defaults, ``--det-only`` runs no seg loader, and ``--plots`` writes
+the JAX CLI's five plots (PR, F1, P and R curves, the confusion matrix) at
+matplotlib's pixel sizes, with the same metrics.
 """
 
 import contextlib
@@ -157,11 +158,29 @@ def test_eval_cli_det_only(staged, tmp_path, monkeypatch):
     assert sorted(got) == ["P", "R", "mAP", "mAP50"]
 
 
+PLOTS = ("F1_curve.png", "PR_curve.png", "P_curve.png", "R_curve.png", "confusion_matrix.png")
+
+
 def test_parsers_match_and_plots_raises(staged, tmp_path):
+    """The parsers match; ``--plots`` (once raising, now drawn without
+    matplotlib) writes the JAX CLI's files at its pixel sizes and leaves
+    the metrics as they are."""
+    import cv2
+
     jp, pp = jax_cli.build_parser(), port_cli.build_parser()
     flags = lambda p: sorted(o for a in p._actions for o in a.option_strings)  # noqa: E731
     assert flags(pp) == flags(jp)
     assert vars(pp.parse_args([])) == vars(jp.parse_args([]))
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        port_cli.main(_argv(staged, tmp_path, "--plots", "--device", "cpu"))
-    assert not (tmp_path / "labels").exists()
+    for d in ("port", "jax"):
+        (tmp_path / d).mkdir()
+    got = port_cli.main(_argv(staged, tmp_path / "port", "--plots", "--det-only",
+                              "--device", "cpu"))
+    want = jax_cli.main(_argv(staged, tmp_path / "jax", "--plots", "--det-only"))
+    for k in ("P", "R", "mAP50", "mAP"):
+        assert abs(float(got[k]) - float(want[k])) <= 1e-4, (k, got[k], want[k])
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax")) \
+        == sorted(PLOTS)
+    for f in PLOTS:
+        assert png.imread(str(tmp_path / "port" / f)).shape == \
+            cv2.imread(str(tmp_path / "jax" / f)).shape, f
+    assert not (tmp_path / "port" / "labels").exists()

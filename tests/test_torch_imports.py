@@ -1,6 +1,7 @@
 """The port stands without JAX: in a fresh interpreter where importing
-``jax``, ``multiyolov5_tpu``, ``cv2``, ``PIL`` or ``torchvision`` raises
-(the card's machine has none of them), every module of the port imports (and
+``jax``, ``multiyolov5_tpu``, ``cv2``, ``PIL``, ``torchvision``,
+``matplotlib``, ``seaborn`` or ``wandb`` raises (the card's machine has none
+of them), every module of the port imports (and
 so do chip_smoke.py and the ``prof_*_torch.py`` scripts), a
 tiny seeded Engine serves one frame on the CPU, so does each other model
 family (the Base, BiSe and Lab seg heads, detection-only, P6; narrowed) on
@@ -15,7 +16,8 @@ and closes, and the detect app (``cli/detect.py``) on the TINY spec
 writes every artifact, each of which decodes, and the eval CLI
 (``cli/test.py``) on the TINY spec reads a PNG detection split and a
 Cityscapes-layout seg split through the port's loaders (the dataset file
-in JSON, without PyYAML) and prints its metrics, and hub's ``AutoShape``
+in JSON, without PyYAML) and prints its metrics, with ``--plots`` writing
+its five plots (``utils/charts.py``, no matplotlib), and hub's ``AutoShape``
 serves a PNG path and a gray array.  PyYAML and pandas are blocked too:
 the card's machine need not have them.  The host tools run the same way
 (``tools/cityscapes2yolo.py``, ``tools/labelme_convert.py`` with the
@@ -23,8 +25,10 @@ numpy fill of ``data/draw.py`` and its JPEG output, ``hist_equalize``,
 ``replicate``, ``cutout``, ``prune_params``, ``wh_iou``,
 ``seg_confusion_device``), and so does the JPEG codec (``data/jpeg.py``,
 ``data/images.py``): a frame written and read back.  Every module of the
-port, ``data/jpeg.py`` and ``data/images.py`` among them, imports with
-those modules blocked."""
+port, ``data/jpeg.py``, ``data/images.py``, ``utils/charts.py`` and
+``utils/loggers.py`` among them, imports with those modules blocked, and
+none of them is loaded after any of these runs.  The training CLI's run
+writes its plots and says W&B is off."""
 
 import json
 import os
@@ -42,7 +46,8 @@ _SCRIPT = textwrap.dedent("""
     class Block:
         def find_spec(self, name, path=None, target=None):
             if name.split(".")[0] in ("jax", "jaxlib", "multiyolov5_tpu", "cv2", "PIL",
-                                      "torchvision", "yaml", "pandas"):
+                                      "torchvision", "yaml", "pandas", "matplotlib",
+                                      "seaborn", "wandb"):
                 raise ImportError("blocked: " + name)
             return None
 
@@ -51,7 +56,7 @@ _SCRIPT = textwrap.dedent("""
     # (torch._dynamo, reached by FlopCounterMode and torch.export): None, as
     # on a machine without them, where the finder above would raise
     for name in ("jax", "jaxlib", "multiyolov5_tpu", "cv2", "PIL", "torchvision", "yaml",
-                 "pandas"):
+                 "pandas", "matplotlib", "seaborn", "wandb"):
         sys.modules[name] = None
     import numpy as np
     import multiyolov5_tpu_torch as pkg
@@ -76,7 +81,7 @@ _SCRIPT = textwrap.dedent("""
            "data.detection", "data.segmentation", "cli.test", "hub", "utils.profiling",
            "cli.profile", "cli.export", "tools.trace_report", "tools.convert_pt",
            "parallel.comm", "parallel.mesh", "parallel.sync_bn", "parallel.spatial",
-           "ops.shard", "data.jpeg", "data.images"}
+           "ops.shard", "data.jpeg", "data.images", "utils.charts", "utils.loggers"}
     assert {pkg.__name__ + "." + m for m in new} <= set(names)
     from multiyolov5_tpu_torch.models import zoo
     for name in ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
@@ -178,11 +183,20 @@ _SCRIPT = textwrap.dedent("""
                     rng.randint(0, 34, (64, 128)).astype(np.uint8))
     with open(tmp + "/data.json", "w") as fh:
         json.dump({"val": tmp + "/det/images/val", "segval": tmp + "/citys"}, fh)
+    os.makedirs(tmp + "/plots")
     with contextlib.redirect_stdout(io.StringIO()):
         res = test_main(["--weights", tmp + "/w.npz", "--data", tmp + "/data.json",
                          "--img-size", "64", "--base-size", "64", "--batch-size", "8",
-                         "--device", "cpu", "--workers", "2"])
+                         "--device", "cpu", "--workers", "2", "--plots", "--save-dir",
+                         tmp + "/plots", "--conf-thres", "0.0001"])
     assert sorted(res) == ["P", "R", "mAP", "mAP50", "mIoU", "pixAcc"]
+    assert os.listdir(tmp + "/plots") == ["confusion_matrix.png"]     # no true positive
+    from multiyolov5_tpu_torch.utils.metrics import ap_per_class
+    ap_per_class(np.repeat([[True], [False]], 10, 1), np.array([0.9, 0.5]), np.array([0., 1.]),
+                 np.array([0., 1.]), plot=True, save_dir=tmp + "/plots", names=["a", "b"])
+    assert sorted(os.listdir(tmp + "/plots")) == ["F1_curve.png", "PR_curve.png",
+                                                  "P_curve.png", "R_curve.png",
+                                                  "confusion_matrix.png"]
     assert all(0 <= float(v) <= 1 for v in res.values())
 
     from multiyolov5_tpu_torch.hub import AutoShape
@@ -208,7 +222,7 @@ _SCRIPT = textwrap.dedent("""
                             "torchscript", "--device", "cpu", "--output", tmp + "/export"])
     assert torch.jit.load(made[0])(torch.zeros(1, 3, 64, 64))[0].shape[-1] == spec.nc + 5
     assert not any(m.split(".")[0] in ("jax", "multiyolov5_tpu", "cv2", "PIL", "torchvision",
-                                       "yaml", "pandas")
+                                       "yaml", "pandas", "matplotlib", "seaborn", "wandb")
                    for m, mod in sys.modules.items() if mod is not None)
     print("OK", len(names))
 """)
@@ -254,15 +268,23 @@ _TRAIN_SCRIPT = _SCRIPT[:_SCRIPT.index("import numpy as np")] + textwrap.dedent(
                    "segtrain": f"{root}/seg", "segval": f"{root}/seg"}, fh)
     with open(f"{root}/tiny.json", "w") as fh:
         fh.write(os.environ["TINY_SPEC"])
-    run, _ = train.main(["--data", f"{root}/data.json", "--cfg", f"{root}/tiny.json",
-                         "--epochs", "1", "--batch-size", "4", "--img-size", "64", "64",
-                         "--base-size", "64", "--seg-data-kind", "custom", "--workers", "2",
-                         "--device", "cpu", "--fp32", "--project", f"{root}/runs"])
+    import contextlib, io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run, _ = train.main(["--data", f"{root}/data.json", "--cfg", f"{root}/tiny.json",
+                             "--epochs", "1", "--batch-size", "4", "--img-size", "64", "64",
+                             "--base-size", "64", "--seg-data-kind", "custom", "--workers",
+                             "2", "--device", "cpu", "--fp32", "--project", f"{root}/runs",
+                             "--save-period", "1", "--bbox-interval", "1"])
+    assert "W&B: off (wandb does not import)" in out.getvalue()
     rows = open(f"{run}/results.txt").read().split()
     assert len(rows) == 12 and np.isfinite([float(v) for v in rows]).all()
+    for f in ("labels.jpg", "train_batch0.jpg", "train_batch1.jpg", "results.png"):
+        assert os.path.isfile(f"{run}/{f}"), f
     assert resume.main(["--dir", f"{root}/runs", "--dry-run"]) == []
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "multiyolov5_tpu", "cv2", "PIL",
-                                       "torchvision", "yaml", "pandas")
+                                       "torchvision", "yaml", "pandas", "matplotlib",
+                                       "seaborn", "wandb")
                    for m, mod in sys.modules.items() if mod is not None)
     print("OK")
 """)
