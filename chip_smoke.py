@@ -138,6 +138,22 @@ unless named), on the card and, for reference, on the CPU:
   copies (K1 both modes, K2, K7, K5, K4), and the citysbdd training
   loader's first batch; (d) the codec's host ms a frame on one thread
   beside cv2's and PIL's where they import.
+* still-image forms [19]: (a) the port's PNG (Adam7 16-bit RGB, 16-bit
+  gray, 4-bit palette, ``eXIf`` 6), BMP (24-bit, RLE8), MPO (two frames)
+  and TIFF (LZW + predictor 2 in strips, Deflate in tiles) decoders on
+  seeded 2048x1024 files, each of ``imread`` / ``read_rgb`` /
+  ``read_samples`` held to SHA-256s of cv2's and PIL's arrays
+  (tests/test_torch_image_callers.py holds the constants to both), and the
+  BMP writer's bytes to cv2's; (b) ``cli.detect.main`` (bf16, ``--img-size
+  1024``) on a BMP, an Adam7 16-bit PNG, an ``eXIf``-6 PNG and a TIFF
+  against the same app on PNG copies of the port's decoded, turned frames
+  (txt equal, ``.bmp`` artifacts cv2's bytes of the PNG run's pixels,
+  ``.tif`` ones decoding to them, K1-K4 as on PNG), an MPO source raising
+  at its first save and giving its PNG copy's txt under ``--nosave``; (c)
+  ``cli.test.main`` (fp32) on a detection split of those forms and a
+  Cityscapes split with Adam7 frames and 16-bit masks, metrics equal to
+  the PNG copies' (K1 both modes, K2, K7, K5, K4); (d) each read's host ms
+  on one frame beside cv2's and PIL's where they import.
   Each phase's wall seconds go to chip_smoke.json (``phase_s``).
 
 It checks that every kernel ran on its path, holds each kernel against its
@@ -5510,6 +5526,369 @@ def phase_jpeg(eng32, card: str):
     return res
 
 
+# [19] the other still-image forms: every PNG form, BMP, MPO and baseline
+# TIFF (data/png.py, bmp.py, tiff.py, jpeg.py; csrc/host/codecs.cpp) against
+# SHA-256s of cv2's and PIL's decodes of seeded files (taken with both
+# libraries in tests/test_torch_image_callers.py: the card's machine need
+# not have either), the detect app and the eval CLI on those forms against
+# the same CLIs on PNG copies of the port's decodes, and the decoders' times
+FORM_HW = ORIG_HW
+FORM_DIGESTS = {       # file -> SHA-256s of cv2's, PIL's RGB and PIL's sample arrays
+    "adam7_rgb16.png": {
+        "cv2": "ad7472ddd5e9a9fef255b245379a5072483deff1a7acb3206e77d863e8bd5414",
+        "rgb": "06f4ae9a80558738dced431445fee47e269696d5a07c68633c266acfa8ef1030",
+        "samples": "06f4ae9a80558738dced431445fee47e269696d5a07c68633c266acfa8ef1030"},
+    "gray16.png": {
+        "cv2": "85451448178a0eb724f27e48065bd491ec6f083ece037934de646e79e698ecdc",
+        "rgb": "9274162fa727196395681beaa4c313ab67744fb637eb53a5f0dc3ccb925c38c1",
+        "samples": "e9c9f0c09fc1828862ffcbf57ffa3d4a9d962b2d747b5a9bbea511bd626a61fa"},
+    "palette4.png": {
+        "cv2": "5bee4192436b4d1e6bf3a5262c925f22748f931c239900025abc5af79861bf0d",
+        "rgb": "96ddc076355b0777faa4453bb8b98722af785e1eeff70ed6261e486370c0c96a",
+        "samples": "1f7b328b017c57cc8cf22dfe3c70ab75dca164c2f9749f49151feb81a0555266"},
+    "exif6.png": {
+        "cv2": "5fe5116fc2d3381cc7854326511be7496dda1e596bacb05a1fb17f41a0dd63ab",
+        "rgb": "06caa147c2e57ef63a328fecb0c0cb1ce304c16877f21eefd3dab85a4deccab8",
+        "samples": "06caa147c2e57ef63a328fecb0c0cb1ce304c16877f21eefd3dab85a4deccab8"},
+    "rgb24.bmp": {
+        "cv2": "42953f9216e279dff79766055f116ef5219e75911a07fdbfb8e86f9f8677ece6",
+        "rgb": "06caa147c2e57ef63a328fecb0c0cb1ce304c16877f21eefd3dab85a4deccab8",
+        "samples": "06caa147c2e57ef63a328fecb0c0cb1ce304c16877f21eefd3dab85a4deccab8"},
+    "rle8.bmp": {
+        "cv2": "d4d7d188dddde362c54ae885f24c20377d76b11b14a7329955ac5658a502ddfc",
+        "rgb": "0a793e62ab438b593ff63d7e48d0b8aaaa9a992fee7db5e7e750a84450287d44",
+        "samples": "c2b72c6639d416fe9be471b44997096fbc8f22e44998095b8164f153d1fc6dfd"},
+    "two_frames.mpo": {
+        "cv2": "ff44fe06cbda210b29a96f969f320463378f8fb647d1c40feb626d65ff224d93",
+        "rgb": "c8f89da0553161b83d6c3aea72685c72118dfb005024cdbece58dfbc9bb275bf",
+        "samples": "c8f89da0553161b83d6c3aea72685c72118dfb005024cdbece58dfbc9bb275bf"},
+    "lzw_pred2.tif": {
+        "cv2": "42953f9216e279dff79766055f116ef5219e75911a07fdbfb8e86f9f8677ece6",
+        "rgb": "06caa147c2e57ef63a328fecb0c0cb1ce304c16877f21eefd3dab85a4deccab8",
+        "samples": "06caa147c2e57ef63a328fecb0c0cb1ce304c16877f21eefd3dab85a4deccab8"},
+    "deflate_tiles.tif": {
+        "cv2": "42953f9216e279dff79766055f116ef5219e75911a07fdbfb8e86f9f8677ece6",
+        "rgb": "06caa147c2e57ef63a328fecb0c0cb1ce304c16877f21eefd3dab85a4deccab8",
+        "samples": "06caa147c2e57ef63a328fecb0c0cb1ce304c16877f21eefd3dab85a4deccab8"},
+}
+# cv2.imencode(".bmp") of form_frame's BGR
+BMP_WRITE_DIGEST = "9f4a937361070c3a2d72708fd6654e663628419500c5b002b94858549bd05674"
+FORM_DET_FRAMES = 4
+
+
+def form_frame(h: int, w: int, seed: int = SEED + 120) -> np.ndarray:
+    """A seeded (h, w, 3) RGB frame of integer ramps in runs (what RLE and
+    LZW find), a quarter of its rows noisy."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    px = np.stack([xx // 16 + yy // 8, (yy // 12) * 3 + xx // 32, (xx + 3 * yy) // 28], -1) * 4
+    noisy = rng.rand(h, 1, 1) < 0.25
+    return ((px + noisy * rng.randint(0, 24, (h, w, 3))) % 256).astype(np.uint8)
+
+
+def _writers():
+    """tests/_torch_image_writers.py (numpy, zlib and struct only)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import _torch_image_writers
+    return _torch_image_writers
+
+
+def image_form_files() -> dict:
+    """[19]'s nine seeded files at FORM_HW: name -> bytes."""
+    from multiyolov5_tpu_torch.data import jpeg, tiff
+    W = _writers()
+    h, w = FORM_HW
+    rgb = form_frame(h, w)
+    rng = np.random.RandomState(SEED + 121)
+    idx4 = ((rgb[..., 0] // 16 + rgb[..., 2] // 32) % 16).astype(np.uint8)
+    idx8 = (rgb[..., 1] // 2).astype(np.uint8)
+    pal = rng.randint(0, 256, (256, 3))
+    deep = rgb.astype(np.uint16) * 257 + rng.randint(0, 256, rgb.shape).astype(np.uint16) % 251
+    return {
+        "adam7_rgb16.png": W.png(deep[..., ::-1], 16, 2, interlace=True, filters=(0, 1, 2)),
+        "gray16.png": W.png(deep[..., 1], 16, 0, filters=(3, 4, 2)),
+        "palette4.png": W.png(idx4, 4, 3, filters=(1, 4), palette=pal[:16]),
+        "exif6.png": W.png(rgb, 8, 2, filters=(4,), before=[(b"eXIf", W.exif_tiff(6))]),
+        "rgb24.bmp": W.bmp(rgb[..., ::-1], 24),
+        "rle8.bmp": W.bmp(None, 8, palette=pal, compression=1, rle=W.rle8(idx8), size=(w, h)),
+        "two_frames.mpo": W.mpo([jpeg.encode(rgb, 95), jpeg.encode(rgb[::-1, ::-1], 75)]),
+        "lzw_pred2.tif": tiff.encode(rgb[..., ::-1]),
+        "deflate_tiles.tif": W.tiff(rgb, 8, 2, ">", 8, 2, tile=(256, 256)),
+    }
+
+
+def form_digests(work: str) -> dict:
+    """[19] (a) and (d): each file's three reads by the port against the
+    SHA-256s of cv2's and PIL's, the BMP writer's bytes against cv2's, and
+    each read's host ms (one call) beside cv2's and PIL's where they
+    import (used nowhere in the port)."""
+    import hashlib
+
+    from multiyolov5_tpu_torch.data import bmp, host_codecs, images
+    t0 = time.perf_counter()
+    host_codecs.library()               # g++ builds the host part here, before any timing
+    out = {"build_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    files = image_form_files()
+    out["write_s"] = time.perf_counter() - t0
+    log(f"  the host library ready in {out['build_s']:.1f} s; {len(files)} seeded "
+        f"{FORM_HW[1]}x{FORM_HW[0]} files written in {out['write_s']:.1f} s")
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()  # noqa: E731
+    for name, data in files.items():
+        path = os.path.join(work, name)
+        with open(path, "wb") as fh:
+            fh.write(data)
+        t0 = time.perf_counter()
+        got = {"cv2": images.imread(path)}
+        t1 = time.perf_counter()
+        got["rgb"] = images.read_rgb(path)
+        t2 = time.perf_counter()
+        got["samples"] = images.read_samples(path)
+        for k, v in got.items():
+            if sha(v) != FORM_DIGESTS[name][k]:
+                raise AssertionError(f"[19] {name}: the port's {k} read (shape {v.shape}, "
+                                     f"{v.dtype}) is not the library's")
+        rec = {"bytes": len(data), "imread_ms": (t1 - t0) * 1e3, "read_rgb_ms": (t2 - t1) * 1e3}
+        try:
+            import cv2
+            rec["cv2_imread_ms"] = host_ms(lambda: cv2.imread(path), reps=1)
+        except ImportError:
+            rec["cv2"] = "does not import"
+        try:
+            from PIL import Image
+            rec["pil_convert_ms"] = host_ms(lambda: Image.open(path).convert("RGB"), reps=1)
+        except ImportError:
+            rec["PIL"] = "does not import"
+        out[name] = rec
+        log(f"  (a) {name}: {len(data)} bytes, imread {got['cv2'].shape}, read_samples "
+            f"{got['samples'].shape} {got['samples'].dtype}: SHA-256 equal cv2's and PIL's; "
+            "(d) host ms " + ", ".join(f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
+                                       for k, v in rec.items() if k != "bytes"))
+    bgr = np.ascontiguousarray(form_frame(*FORM_HW)[..., ::-1])
+    t0 = time.perf_counter()
+    written = bmp.encode(bgr)
+    out["bmp_write_ms"] = (time.perf_counter() - t0) * 1e3
+    if hashlib.sha256(written).hexdigest() != BMP_WRITE_DIGEST:
+        raise AssertionError("[19] the BMP writer's bytes are not cv2.imwrite's")
+    log(f"  (a) bmp.encode of the frame: cv2.imwrite's bytes, {out['bmp_write_ms']:.1f} ms")
+    return out
+
+
+def forms_app(weights: str, work: str) -> dict:
+    """[19] (b): cli.detect on a BMP, an Adam7 16-bit PNG, an eXIf-6 PNG and
+    an LZW TIFF against the same app on PNG copies of the port's decoded,
+    turned frames: equal txt lines, equal PNG artifacts, each ``.bmp``
+    artifact the bytes cv2 would write of the PNG run's pixels, each
+    ``.tif`` decoding to them; then an MPO source, whose first save raises
+    (cv2 has no MPO writer), and with ``--nosave --save-txt`` the txt of
+    its PNG copy."""
+    from multiyolov5_tpu_torch.data import bmp, images, jpeg, png, tiff
+    from multiyolov5_tpu_torch.ops import kernels as K
+    W = _writers()
+    src, copies = os.path.join(work, "app_src"), os.path.join(work, "app_png")
+    os.makedirs(src)
+    os.makedirs(copies)
+    frames = [form_frame(*ORIG_HW, seed=SEED + 130 + i) for i in range(5)]
+    files = {"f0.bmp": W.bmp(frames[0][..., ::-1], 24),
+             "f1.png": W.png(frames[1].astype(np.uint16) * 257, 16, 2, interlace=True,
+                             filters=(1, 2)),
+             "f2.png": W.png(frames[2], 8, 2, filters=(2,), before=[(b"eXIf", W.exif_tiff(6))]),
+             "f3.tif": tiff.encode(frames[3][..., ::-1])}
+    for name, data in files.items():
+        with open(os.path.join(src, name), "wb") as fh:
+            fh.write(data)
+        png.imwrite(os.path.join(copies, name.rsplit(".", 1)[0] + ".png"),
+                    images.imread(os.path.join(src, name)))
+    n = len(files)
+    runs = {}
+    for tag, d in (("forms", src), ("png", copies)):
+        argv = ["--weights", weights, "--source", d, "--img-size", str(APP_IMG), "--save-txt",
+                "--save-conf", "--project", work, "--name", f"out_{tag}", "--exist-ok",
+                "--device", "" if DEVICE == "cuda" else DEVICE]
+        K.reset_launches()
+        out, loop_s = run_app(argv)
+        torch.cuda.synchronize()
+        runs[tag] = (out, K.launch_counts(), loop_s)
+    launches = runs["forms"][1]
+    want = {"stem": n, "stem_float": 0, "conv3x3": 10 * n, "nms": n, "upsample_argmax": n,
+            "nms_greedy": 0, "c3": 0}
+    if {k: launches[k] for k in want} != want or runs["png"][1] != launches:
+        raise AssertionError(f"[19] app launches on the forms {launches}, on PNG "
+                             f"{runs['png'][1]}, want {want} on both")
+    fo, po = runs["forms"][0], runs["png"][0]
+    for name in files:
+        stem, ext = name.rsplit(".", 1)
+        with open(os.path.join(fo, "labels", f"{stem}.txt")) as a, \
+                open(os.path.join(po, "labels", f"{stem}.txt")) as b:
+            if a.read() != b.read():
+                raise AssertionError(f"[19] app: labels/{stem}.txt differs from the PNG copy's")
+        for art in ("", "_mask", "_dst"):
+            got_path = os.path.join(fo, f"{stem}{art}.{ext}")
+            want_px = png.imread(os.path.join(po, f"{stem}{art}.png"))
+            if ext == "bmp":
+                ok = open(got_path, "rb").read() == bmp.encode(want_px)
+            elif ext == "tif":
+                ok = np.array_equal(tiff.imread(got_path), want_px) and \
+                    open(got_path, "rb").read() == tiff.encode(want_px)
+            else:
+                ok = open(got_path, "rb").read() == open(
+                    os.path.join(po, f"{stem}{art}.png"), "rb").read()
+            if not ok:
+                raise AssertionError(f"[19] app: {stem}{art}.{ext} is not cv2.imwrite of the "
+                                     f"PNG run's {stem}{art}.png")
+    turned = images.imread(os.path.join(src, "f2.png")).shape
+    if turned[:2] != ORIG_HW[::-1]:
+        raise AssertionError(f"[19] the eXIf-6 frame reads as {turned}, not turned")
+    mdir, mcopy = os.path.join(work, "app_mpo"), os.path.join(work, "app_mpo_png")
+    os.makedirs(mdir)
+    os.makedirs(mcopy)
+    with open(os.path.join(mdir, "m.mpo"), "wb") as fh:
+        fh.write(W.mpo([jpeg.encode(frames[4], 95), jpeg.encode(frames[0], 75)]))
+    png.imwrite(os.path.join(mcopy, "m.png"), images.imread(os.path.join(mdir, "m.mpo")))
+    base = ["--weights", weights, "--img-size", str(APP_IMG), "--save-txt", "--save-conf",
+            "--project", work, "--exist-ok", "--device", "" if DEVICE == "cuda" else DEVICE]
+    try:
+        run_app(base + ["--source", mdir, "--name", "out_mpo_save"])
+        raise AssertionError("[19] app: saving an MPO source did not raise")
+    except ValueError as e:
+        if "could not find a writer" not in str(e):
+            raise
+    txt = []
+    for tag, d in (("mpo", mdir), ("mpo_png", mcopy)):
+        out, _ = run_app(base + ["--source", d, "--name", f"out_{tag}", "--nosave"])
+        with open(os.path.join(out, "labels", "m.txt")) as fh:
+            txt.append(fh.read())
+    if txt[0] != txt[1] or not txt[0]:
+        raise AssertionError("[19] app: the MPO's --nosave txt differs from its PNG copy's")
+    log(f"  (b) cli.detect on {n} frames {ORIG_HW} (BMP, Adam7 16-bit PNG, eXIf-6 PNG -> "
+        f"{turned[:2]}, LZW TIFF): txt, image, _mask and _dst equal the PNG copies' run "
+        f"(.bmp bytes cv2's, .tif decoding to them); launches {launches}; app ms/frame forms "
+        f"{runs['forms'][2] * 1e3 / n:.1f}, PNG {runs['png'][2] * 1e3 / n:.1f}; an MPO "
+        "source raises at its first save, its --nosave txt equals its PNG copy's")
+    return {"launches": launches, "ms_per_frame_forms": runs["forms"][2] * 1e3 / n,
+            "ms_per_frame_png": runs["png"][2] * 1e3 / n}
+
+
+def forms_eval(eng32, weights: str, work: str) -> dict:
+    """[19] (c): cli.test (fp32) on a detection split of a BMP, an RLE8 BMP,
+    an LZW TIFF, an MPO (EXIF 6) and an Adam7 16-bit PNG, and a Cityscapes
+    split of Adam7 frames with 16-bit labelId masks, against the same CLI
+    on PNG copies of the port's decodes (8-bit masks): metrics equal."""
+    from multiyolov5_tpu_torch.data import images, jpeg, png, tiff
+    from multiyolov5_tpu_torch.data.cityscapes import CITYSCAPES_IDMAP
+    from multiyolov5_tpu_torch.ops import kernels as K
+    W = _writers()
+    rng = np.random.RandomState(SEED + 140)
+    trees = {tag: os.path.join(work, f"eval_{tag}") for tag in ("forms", "png")}
+    for root in trees.values():
+        for d in ("det/images/val", "det/labels/val"):
+            os.makedirs(os.path.join(root, d))
+    fdet = os.path.join(trees["forms"], "det", "images", "val")
+    for i in range(FORM_DET_FRAMES + 1):    # noise, as [11]'s, so its labelling gives a mAP
+        rgb = rng.randint(0, 256, (*ORIG_HW, 3)).astype(np.uint8)
+        name, data = [("munich_0.bmp", lambda: W.bmp(rgb[..., ::-1], 24)),
+                      ("munich_1.bmp", lambda: W.bmp(
+                          None, 8, palette=np.repeat(np.arange(256)[:, None], 3, 1),
+                          compression=1, rle=W.rle8(rgb[..., 1] // 64 * 64), size=ORIG_HW[::-1])),
+                      ("munich_2.tif", lambda: tiff.encode(rgb[..., ::-1])),
+                      ("munich_3.mpo", lambda: W.mpo([with_exif(jpeg.encode(rgb, 95), 6),
+                                                      jpeg.encode(rgb[::2, ::2], 75)])),
+                      ("munich_4.png", lambda: W.png(rgb.astype(np.uint16) * 257 + 7, 16, 2,
+                                                     interlace=True, filters=(1, 2)))][i]
+        with open(os.path.join(fdet, name), "wb") as fh:
+            fh.write(data())
+    label_split(eng32, fdet, os.path.join(trees["forms"], "det", "labels", "val"), rng, CLI_IMG,
+                FORM_DET_FRAMES)
+    for f in sorted(os.listdir(fdet)):
+        stem = f.rsplit(".", 1)[0]
+        png.imwrite(os.path.join(trees["png"], "det", "images", "val", stem + ".png"),
+                    images.imread(os.path.join(fdet, f)))
+        shutil.copy(os.path.join(trees["forms"], "det", "labels", "val", stem + ".txt"),
+                    os.path.join(trees["png"], "det", "labels", "val", stem + ".txt"))
+    for i in range(2):
+        stem = f"munich_{i:06d}_000019"
+        rgb = form_frame(*ORIG_HW, seed=SEED + 150 + i)
+        train_ids = rng.randint(0, 19, ORIG_HW).astype(np.uint8)
+        train_ids[rng.rand(*ORIG_HW) < 0.1] = 255
+        label_ids = np.where(train_ids == 255, 255, CITYSCAPES_IDMAP[train_ids % 255])
+        for tag in trees:
+            idir = os.path.join(trees[tag], "citys", "leftImg8bit", "val", "munich")
+            mdir = os.path.join(trees[tag], "citys", "gtFine", "val", "munich")
+            os.makedirs(idir, exist_ok=True)
+            os.makedirs(mdir, exist_ok=True)
+            ipath = os.path.join(idir, f"{stem}_leftImg8bit.png")
+            mpath = os.path.join(mdir, f"{stem}_gtFine_labelIds.png")
+            if tag == "forms":
+                with open(ipath, "wb") as fh:
+                    fh.write(W.png(rgb, 8, 2, interlace=True, filters=(1, 2)))
+                with open(mpath, "wb") as fh:
+                    fh.write(W.png(label_ids.astype(np.uint16), 16, 0))
+            else:
+                png.imwrite(ipath, rgb[..., ::-1])
+                png.imwrite(mpath, label_ids.astype(np.uint8))
+    res = {}
+    for tag in trees:
+        data = os.path.join(trees[tag], "data.json")
+        with open(data, "w") as fh:
+            json.dump({"val": os.path.join(trees[tag], "det", "images", "val"),
+                       "segval": os.path.join(trees[tag], "citys"), "nc": eng32.spec.nc,
+                       "names": eng32.names}, fh)
+        argv = ["--weights", weights, "--data", data, "--img-size", str(CLI_IMG), "--base-size",
+                str(CLI_IMG), "--batch-size", str(FORM_DET_FRAMES), "--device",
+                "" if DEVICE == "cuda" else DEVICE]
+        K.reset_launches()
+        metrics, _, _, spent, count, wall = run_cli(argv, kernels=False)
+        torch.cuda.synchronize()
+        res[tag] = {"metrics": metrics, "launches": K.launch_counts(), "cli_s": wall,
+                    "loader_det_host_ms_per_image": spent["det"] * 1e3 / max(count["det"], 1),
+                    "loader_seg_host_ms_per_image": spent["seg"] * 1e3 / max(count["seg"], 1)}
+    for k in ("stem", "stem_float", "conv3x3", "c3", "nms_greedy", "upsample_argmax"):
+        if res["forms"]["launches"][k] <= 0:
+            raise AssertionError(f"[19] kernel {k} was not launched on the eval CLI's path")
+    if res["forms"]["launches"] != res["png"]["launches"]:
+        raise AssertionError(f"[19] eval launches on the forms {res['forms']['launches']}, on "
+                             f"PNG {res['png']['launches']}")
+    for k in ("P", "R", "mAP50", "mAP", "pixAcc", "mIoU"):
+        check(f"[19] eval CLI on the forms vs on their PNG copies: {k} |diff|",
+              abs(res["forms"]["metrics"][k] - res["png"]["metrics"][k]), 0)
+    if not 0.05 < res["forms"]["metrics"]["mAP50"] < 0.95:     # as [11]'s labels give
+        raise AssertionError(f"[19] degenerate detection metrics: {res['forms']['metrics']}")
+    log(f"  (c) cli.test on {FORM_DET_FRAMES + 1} detection frames (24-bit and RLE8 BMP, LZW "
+        f"TIFF, MPO with EXIF 6, Adam7 16-bit PNG) and 2 Cityscapes Adam7 frames with 16-bit "
+        f"masks: metrics equal the PNG copies' {res['forms']['metrics']}; launches "
+        f"{res['forms']['launches']}; loader host ms an image: detection forms "
+        f"{res['forms']['loader_det_host_ms_per_image']:.1f}, PNG "
+        f"{res['png']['loader_det_host_ms_per_image']:.1f}; seg forms "
+        f"{res['forms']['loader_seg_host_ms_per_image']:.1f}, PNG "
+        f"{res['png']['loader_seg_host_ms_per_image']:.1f}")
+    return res
+
+
+def phase_forms(eng32, card: str):
+    """[19] the other still-image forms and their callers: (a) digests, (b)
+    the detect app, (c) the eval CLI, (d) host times."""
+    log(f"[19] PNG forms, BMP, MPO, TIFF: the port's decoders against cv2's and PIL's "
+        f"digests at {FORM_HW}, cli.detect and cli.test on them against PNG copies")
+    work = os.path.join(ROOT, "build", "chip_smoke_forms")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    part_s = {}
+    t0 = time.perf_counter()
+    res = {"card": card, "codecs": form_digests(work), "part_s": part_s}
+    part_s["a_d"] = time.perf_counter() - t0
+    weights = smoke_weights()
+    t0 = time.perf_counter()
+    res["app"] = forms_app(weights, work)
+    part_s["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["eval"] = forms_eval(eng32, weights, work)
+    part_s["c"] = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"  [19] seconds: (a) + (d) {part_s['a_d']:.1f}, (b) {part_s['b']:.1f}, "
+        f"(c) {part_s['c']:.1f}")
+    return res
+
+
 PHASE_S = {}
 
 
@@ -5565,6 +5944,7 @@ def main() -> int:
     hb = timed("[12]", phase_hub, smi)
     pe = timed("[13]", phase_profile_export, eng32, eng16, frames, smi)
     jp = timed("[18]", phase_jpeg, eng32, smi)
+    fm = timed("[19]", phase_forms, eng32, smi)
     del eng32, eng16, cpu_eng
     tr = timed("[7]", phase_train)
     tc = timed("[14]", phase_train_cli, smi)
@@ -5639,6 +6019,8 @@ def main() -> int:
                     dsl["launches"]["seg_ce_bwd"] if k == "seg_ce" else 0),
                 "jpeg_app_launches": jp["app"]["launches"][k],
                 "jpeg_eval_cli_launches": jp["eval"]["jpg"]["launches"][k],
+                "forms_app_launches": fm["app"]["launches"][k],
+                "forms_eval_cli_launches": fm["eval"]["forms"]["launches"][k],
                 "err_dtype": "float32",
                 "ms_dtype": ("float32" if k.startswith("nms") or k == "stem_float"
                              else "bfloat16")}
@@ -5702,7 +6084,7 @@ def main() -> int:
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
                    "serving_bs8": sv, "families": fam, "app": app, "eval_cli": cli,
                    "hub": hb, "profile_export": pe, "train_cli": tc, "parallel": par,
-                   "dsl": dsl, "tools": tools, "jpeg": jp, "phase_s": PHASE_S,
+                   "dsl": dsl, "tools": tools, "jpeg": jp, "forms": fm, "phase_s": PHASE_S,
                    "total_s": time.perf_counter() - t_start}, fh,
                   indent=1)
     shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)

@@ -1,33 +1,52 @@
-"""One reader and one writer for the port's image formats, PNG and JPEG.
+"""One reader and one writer for the port's still-image formats: PNG,
+JPEG (and MPO, a JPEG whose first frame is read), BMP and baseline TIFF.
 
-A file is read by its signature (PNG's, or JPEG's ``FF D8 FF``), as cv2
-reads it, whatever its suffix; a file is written by its suffix.  The two
-semantics of the JAX package stay apart:
+A file is read by its signature (PNG's, JPEG's ``FF D8 FF``, ``BM``,
+``II*\\0`` / ``MM\\0*``), as cv2 reads it, whatever its suffix; a file is
+written by its suffix.  The JAX package's semantics stay apart, each the
+library the caller there uses:
 
-* :func:`imread` is ``cv2.imread(path)``: (H, W, 3) uint8 BGR, a JPEG's
-  EXIF orientation applied;
+* :func:`imread` is ``cv2.imread(path)``: (H, W, 3) uint8 BGR, the
+  orientation applied where OpenCV 5.0 applies it (a JPEG's or MPO's EXIF,
+  a PNG's ``eXIf``, a TIFF's tag);
 * :func:`read_rgb` / :func:`decode_rgb` are ``Image.open(...).convert("RGB")``:
-  (H, W, 3) uint8 RGB, no orientation applied;
-* :func:`exif_size` is the JAX ``exif_size(Image.open(path))``: (w, h)
-  from the header, swapped for EXIF orientations 6 and 8 (a PNG's size as
-  ``data/png.py`` reads it).
+  (H, W, 3) uint8 RGB, no orientation applied but a TIFF's (Pillow turns a
+  TIFF as it loads it);
+* :func:`read_samples` is ``np.array(Image.open(path))``, the samples in
+  PIL's mode (the seg loaders read their masks with it: uint16 for 16-bit
+  gray, bool for 1-bit, a palette's indices);
+* :func:`size` is PIL's ``Image.open(path).size`` and :func:`exif_size`
+  the JAX ``exif_size`` as the JAX label cache calls it, after
+  ``Image.verify()``: (w, h), swapped for EXIF orientations 6 and 8.
 
+Each codec module (``png``, ``jpeg``, ``bmp``, ``tiff``) documents its
+forms, and where OpenCV and Pillow read one differently.  Where cv2
+returns None or PIL raises on a file, the port raises, naming the file.
 :func:`require_readable` raises ``NotImplementedError`` naming the first
 path of a list whose suffix is an image format the port does not decode
-(bmp, tif, tiff, dng, webp, mpo): the loaders, hub and tools check their
-inputs with it before they read any.
+(``dng``, ``webp``): the loaders, hub and tools check their inputs with it
+before they read any.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple
 
 import numpy as np
 
-from . import jpeg, png
+from . import bmp, jpeg, png, tiff
 
-READABLE = ("png", "jpg", "jpeg")
+READABLE = ("png", "jpg", "jpeg", "mpo", "bmp", "tif", "tiff")
+WRITABLE = {"png": png, "jpg": jpeg, "jpeg": jpeg, "jpe": jpeg, "bmp": bmp, "dib": bmp,
+            "tif": tiff, "tiff": tiff}
 JPEG_SIGNATURE = b"\xff\xd8\xff"
+# formats of the JAX package's IMG_FORMATS that the port does not decode, and why
+UNREADABLE = {
+    "webp": "WebP needs a VP8 / VP8L decoder equal to libwebp's output, upsampler included",
+    "dng": "DNG is raw sensor data whose development (demosaicing, colour matrices) cv2 "
+           "and PIL leave to libraw / libtiff in ways the port does not reproduce",
+}
 
 
 def _codec(head: bytes, path: str):
@@ -35,12 +54,27 @@ def _codec(head: bytes, path: str):
         return png
     if head[:3] == JPEG_SIGNATURE:
         return jpeg
-    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+    if head[:2] == bmp.SIGNATURE:
+        return bmp
+    if head[:4] in tiff.SIGNATURES + tiff.BIG_SIGNATURES:
+        return tiff
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        raise NotImplementedError(f"{path}: a WebP file; {UNREADABLE['webp']}")
+    raise ValueError(f"{path}: not a PNG, JPEG, BMP or TIFF file")
+
+
+def known_signature(head: bytes) -> bool:
+    """Whether bytes start as a file the port reads."""
+    try:
+        _codec(head, "")
+        return True
+    except (ValueError, NotImplementedError):
+        return False
 
 
 def _codec_of(path: str):
     with open(path, "rb") as fh:
-        return _codec(fh.read(8), path)
+        return _codec(fh.read(12), path)
 
 
 def _suffix(path) -> str:
@@ -48,13 +82,14 @@ def _suffix(path) -> str:
 
 
 def require_readable(paths: Sequence, what: str) -> None:
-    """Raise ``NotImplementedError`` naming the first image that is neither
-    PNG nor JPEG by its suffix."""
+    """Raise ``NotImplementedError`` naming the first image whose suffix is
+    not one the port reads (PNG, JPEG, MPO, BMP, TIFF)."""
     for p in paths:
-        if _suffix(p) not in READABLE:
+        s = _suffix(p)
+        if s not in READABLE:
+            why = UNREADABLE.get(s, f"{s.upper()} needs a decoder the port does not have")
             raise NotImplementedError(
-                f"{p}: the port reads PNG and JPEG images only ({what}); "
-                f"{_suffix(p).upper()} needs a decoder the port does not have")
+                f"{p}: the port reads PNG, JPEG, MPO, BMP and TIFF images only ({what}); {why}")
 
 
 def imread(path: str) -> np.ndarray:
@@ -64,12 +99,17 @@ def imread(path: str) -> np.ndarray:
 
 def decode_rgb(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """``np.asarray(Image.open(BytesIO(data)).convert("RGB"))``."""
-    return _codec(data[:8], path).decode_rgb(data, path)
+    return _codec(data[:12], path).decode_rgb(data, path)
 
 
 def read_rgb(path: str) -> np.ndarray:
     """``np.asarray(Image.open(path).convert("RGB"))``."""
     return _codec_of(path).read_rgb(path)
+
+
+def read_samples(path: str) -> np.ndarray:
+    """``np.array(Image.open(path))``."""
+    return _codec_of(path).read_samples(path)
 
 
 def size(path: str) -> Tuple[int, int]:
@@ -78,17 +118,20 @@ def size(path: str) -> Tuple[int, int]:
 
 
 def exif_size(path: str) -> Tuple[int, int]:
-    """The JAX ``exif_size(Image.open(path))``."""
-    codec = _codec_of(path)
-    return jpeg.exif_size(path) if codec is jpeg else png.size(path)
+    """The JAX ``exif_size`` as its label cache calls it, after
+    ``Image.verify()`` (which for PNG checks every chunk and leaves an
+    ``eXIf`` after the image data unread)."""
+    return _codec_of(path).exif_size(path)
 
 
 def imwrite(path: str, img: np.ndarray) -> bool:
-    """``cv2.imwrite(path, img)`` for ``.png``, ``.jpg`` and ``.jpeg``
-    (JPEG at cv2's defaults); gray as it is, colour taken as BGR."""
-    s = _suffix(path)
-    if s == "png":
-        return png.imwrite(path, img)
-    if s in ("jpg", "jpeg"):
-        return jpeg.imwrite(path, img)
-    raise NotImplementedError(f"{path}: the port writes PNG and JPEG images only")
+    """``cv2.imwrite(path, img)`` by suffix: PNG, JPEG at cv2's defaults,
+    BMP and TIFF (LZW) as cv2 writes them; gray as it is, colour taken as
+    BGR.  Any other suffix raises ``ValueError`` with cv2's message, as
+    ``cv2.imwrite`` raises for ``.mpo`` (it has no MPO writer) and for a
+    name without one."""
+    s = _suffix(path) if "." in os.path.basename(str(path)) else ""
+    if s not in WRITABLE:
+        raise ValueError(f"{path}: could not find a writer for the specified extension (the "
+                         f"port writes .{', .'.join(WRITABLE)})")
+    return WRITABLE[s].imwrite(path, img)

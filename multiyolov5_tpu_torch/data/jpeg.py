@@ -43,20 +43,15 @@ paths do (its C path wraps past +-512, which encoded images never reach).
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
 import struct
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
-from ..utils.shared_library import CachedLibrary
+from ..utils.shared_library import host_library
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host" / "jpeg.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
-CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 # zigzag position -> natural index (ISO/IEC 10918-1 Figure A.6)
 NATURAL = np.array([
@@ -115,22 +110,6 @@ SUBSAMPLING = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2)}
 
 # ---------------------------------------------------------------- the C++ part
 
-def _cxx() -> str:
-    for cand in (os.environ.get("CXX"), shutil.which("g++"), "/usr/bin/g++"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("g++ not found (looked at $CXX, on PATH and at /usr/bin/g++)")
-
-
-def _compile(out: Path) -> str:
-    cmd = [_cxx(), *CXX_FLAGS, "-o", str(out), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"g++ failed ({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    return res.stdout + res.stderr
-
-
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.mkj_header.argtypes = [p, i64, i32, p, ctypes.c_char_p, i32]
@@ -140,8 +119,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = i32
 
 
-_LIB = CachedLibrary(BUILD_DIR, "libmultiyolov5_jpeg",
-                     lambda: " ".join(CXX_FLAGS).encode() + SOURCE.read_bytes(), _compile, _bind)
+_LIB = host_library(SOURCE, "libmultiyolov5_jpeg", _bind)
 
 
 def library() -> ctypes.CDLL:
@@ -179,12 +157,13 @@ class Header:
         self.adobe_transform = None if info[6] < 0 else info[6]
         self.orientation: Optional[int] = None
         if info[7] >= 0:
-            self.orientation = _exif_orientation(data[info[7]:info[7] + info[8]]) or 0
+            self.orientation = exif_orientation(data[info[7] + 6:info[7] + info[8]]) or 0
 
 
-def _exif_orientation(body: bytes) -> Optional[int]:
-    """Tag 0x0112 of an APP1 Exif segment's IFD0, or None."""
-    tiff = body[6:]
+def exif_orientation(tiff: bytes) -> Optional[int]:
+    """Tag 0x0112 of the IFD0 of an EXIF block's TIFF structure (an APP1
+    Exif segment's body past ``Exif\\0\\0``, a PNG's ``eXIf`` chunk), or
+    None."""
     order = {b"II*\x00": "<", b"MM\x00*": ">"}.get(tiff[:4])
     if order is None:
         return None
@@ -451,6 +430,15 @@ def _read(path: str) -> bytes:
 def read_rgb(path: str) -> np.ndarray:
     """``np.asarray(Image.open(path).convert("RGB"))`` of a JPEG."""
     return decode_rgb(_read(path), path)
+
+
+def read_samples(path: str) -> np.ndarray:
+    """``np.array(Image.open(path))`` of a JPEG: (H, W, 3) RGB, or (H, W)
+    for a gray (one-component) file, no orientation applied."""
+    data = _read(path)
+    hdr = header(data, path)
+    rgb = decode_rgb(data, path, hdr)
+    return np.ascontiguousarray(rgb[..., 0]) if len(hdr.comps) == 1 else rgb
 
 
 def decode_bgr(data: bytes, path: str = "<bytes>") -> np.ndarray:

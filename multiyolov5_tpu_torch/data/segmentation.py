@@ -17,8 +17,9 @@ HSV conversions), equal value for value:
   a multiple of 32, the mask kept at its own size; ``test``: the image and
   its file name.
 
-The mask is read as stored (``data/png.py`` ``read_samples``: a gray or a
-palette file's indices); Cityscapes labelIds map to trainIds through the
+The mask is read as stored (``data/images.py`` ``read_samples``,
+``np.array(Image.open(m))``: a gray or a palette file's indices, uint16
+for 16-bit gray, bool for 1-bit) and taken as int32; Cityscapes labelIds map to trainIds through the
 JAX package's key table, ignore = -1.  Outputs are numpy: img (H, W, 3)
 float32 in [0, 1] RGB, mask (H, W) int.  The JAX dataset draws from the
 global ``random``; an item here takes a ``random.Random`` and draws from
@@ -26,9 +27,10 @@ it in the same order (flip, long side, crop x and y, jitter factors,
 shuffle), so seeded alike the two items are equal.  ``SegLoader`` derives
 each item's generator from (seed, epoch, position in the epoch).
 
-Images are PNG and JPEG files, read as ``Image.open(...).convert("RGB")``
-reads them (``data/images.py``; no EXIF orientation applied): a split
-holding any other image raises ``NotImplementedError`` naming it when the
+Images are PNG, JPEG, MPO, BMP and TIFF files, read as
+``Image.open(...).convert("RGB")`` reads them (``data/images.py``; no EXIF
+orientation applied, but a TIFF's, which Pillow applies): a split holding a
+WebP or DNG image raises ``NotImplementedError`` naming it when the
 dataset is built.  ``CityBddSegmentation`` mixes Cityscapes with BDD100k,
 whose frames are ``.jpg``.
 """
@@ -44,7 +46,7 @@ from typing import Optional
 import numpy as np
 
 from ..ops.nn import make_divisible
-from . import images, pil_ops, png
+from . import images, pil_ops
 from .detection import generators, ordered_batches
 from .resize import resize_bilinear_pil
 
@@ -156,7 +158,11 @@ class BaseSegDataset:
             padh = h_crop - oh if oh < h_crop else 0
             padw = w_crop - ow if ow < w_crop else 0
             img = np.pad(img, ((0, padh), (0, padw), (0, 0)), constant_values=0)
-            mask = np.pad(mask, ((0, padh), (0, padw)), constant_values=255)
+            mask = np.pad(mask, ((0, padh), (0, padw)) + ((0, 0),) * (mask.ndim - 2),
+                          constant_values=255)
+            if mask.ndim == 3:      # PIL's fill 255 on a multi-band mask: its first band only
+                mask[oh:, :, 1:] = 0
+                mask[:, ow:, 1:] = 0
         h, w = img.shape[:2]
         x1 = rnd.randint(0, w - w_crop)
         y1 = rnd.randint(0, h - h_crop)
@@ -174,7 +180,7 @@ class BaseSegDataset:
         img = images.read_rgb(self.images[index])
         if self.mode == "test":
             return img, None
-        mask = png.read_samples(self.mask_paths[index])
+        mask = images.read_samples(self.mask_paths[index])
         if self.mode == "train":
             return self._sync_transform(img, mask, rnd)
         if self.mode == "val":

@@ -1,15 +1,15 @@
 """Inference input sources (counterpart of ``multiyolov5_tpu/data/sources.py``;
 reference utils/datasets.py:122-338).
 
-``LoadImages`` reads PNG and JPEG files, directories and globs with the
-port's own codecs (``data/images.py``: ``cv2.imread``'s pixels, a JPEG's
-EXIF orientation applied) and letterboxes each frame with
+``LoadImages`` reads PNG, JPEG, MPO, BMP and TIFF files, directories and
+globs with the port's own codecs (``data/images.py``: ``cv2.imread``'s
+pixels, the orientation applied where OpenCV applies it) and letterboxes each frame with
 ``data/letterbox.py`` (cv2's ``INTER_LINEAR`` in integer torch ops) on the
 host, numpy in and out, as the JAX loader does with cv2.  What needs cv2
 or another decoder raises ``NotImplementedError`` when the source is
 built, naming what is missing: video files, ``LoadWebcam`` and
-``LoadStreams`` (cv2's ``VideoCapture``), and images other than PNG and
-JPEG (a decoder for BMP, TIFF, ...).  No file is skipped.
+``LoadStreams`` (cv2's ``VideoCapture``), and WebP or DNG images.  No file
+is skipped.
 """
 
 from __future__ import annotations

@@ -12,13 +12,13 @@ Workflow (reference data/customdata/README.md): annotate with labelme ->
 convert -> drop into detdata/{images,labels} and {segimages,seglabels}.
 
 Without PIL: the shapes are filled by data/draw.py, Pillow's fill in
-numpy; a PNG or JPEG ``imageData`` or ``imagePath`` is read as PIL's
-``convert("RGB")`` reads it (data/images.py), and the image goes out as
-the JAX tool writes it, ``JPEGImages/<stem>.jpg`` and ``images/<stem>.jpg``
-at PIL's ``save`` defaults (data/jpeg.py ``pil_save``).  Another image
-format raises ``NotImplementedError`` naming it.  ``kitti2yolo`` reads an
-image's size from its PNG IHDR or JPEG frame header, as
-``Image.open(p).size`` gives it.
+numpy; a PNG, JPEG, MPO, BMP or TIFF ``imageData`` or ``imagePath`` is
+read as PIL's ``convert("RGB")`` reads it (data/images.py), and the image
+goes out as the JAX tool writes it, ``JPEGImages/<stem>.jpg`` and
+``images/<stem>.jpg`` at PIL's ``save`` defaults (data/jpeg.py
+``pil_save``).  Another image format (WebP, DNG) raises
+``NotImplementedError`` naming it.  ``kitti2yolo`` reads an image's size
+from its header, as ``Image.open(p).size`` gives it.
 
 Run: python -m multiyolov5_tpu_torch.tools.labelme_convert labelme2seg IN OUT --labels labels.txt
 """
@@ -49,9 +49,10 @@ def _labelme_image(data: dict, json_path: str) -> np.ndarray:
     """The shape file's image, (H, W, 3) uint8 RGB (PIL's ``convert("RGB")``)."""
     if data.get("imageData"):
         raw = base64.b64decode(data["imageData"])
-        if raw[:8] != png.SIGNATURE and raw[:3] != images.JPEG_SIGNATURE:
+        if not images.known_signature(raw):
             raise NotImplementedError(
-                f"{json_path}: imageData is neither PNG nor JPEG; the port decodes those only")
+                f"{json_path}: imageData is not PNG, JPEG, BMP or TIFF; the port decodes "
+                "those only")
         return images.decode_rgb(raw, json_path)
     p = osp.join(osp.dirname(json_path), data["imagePath"])
     images.require_readable([p], "labelme imagePath")
@@ -169,7 +170,7 @@ def coco2yolo(json_file: str, output_dir: str) -> None:
 
 
 def image_size(path: str) -> Tuple[int, int]:
-    """(width, height) of a PNG or JPEG file (``Image.open(path).size``)."""
+    """(width, height) of an image file (``Image.open(path).size``)."""
     return images.size(path)
 
 

@@ -1,8 +1,9 @@
 """Build a shared library at its first use and load it once a process.
 
-The port's two native libraries share this rule: the Hopper kernels
-(``ops/kernels/build.py``, nvcc into ``build/kernels/``) and the host JPEG
-codec (``data/jpeg.py``, g++ into ``build/host/``).  No torch here, so the
+The port's native libraries share this rule: the Hopper kernels
+(``ops/kernels/build.py``, nvcc into ``build/kernels/``) and the host parts
+of the image codecs (``data/jpeg.py`` and ``data/host_codecs.py``, g++ into
+``build/host/`` through :func:`host_library`).  No torch here, so the
 numpy-only data modules can use it.
 """
 
@@ -11,9 +12,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
+import subprocess
 import threading
 from pathlib import Path
 from typing import Callable, Optional
+
+HOST_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
+HOST_CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 
 class CachedLibrary:
@@ -54,3 +60,30 @@ class CachedLibrary:
                 self.bind(cdll)
             self.cdll, self.path = cdll, path
             return cdll
+
+
+def host_cxx() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++`` on PATH, else
+    ``/usr/bin/g++``."""
+    for cand in (os.environ.get("CXX"), shutil.which("g++"), "/usr/bin/g++"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("g++ not found (looked at $CXX, on PATH and at /usr/bin/g++)")
+
+
+def host_library(source: Path, stem: str,
+                 bind: Callable[[ctypes.CDLL], None]) -> CachedLibrary:
+    """A :class:`CachedLibrary` of one C++ source with a plain C interface,
+    built by :func:`host_cxx` into ``build/host/``; a failed build raises
+    with the compiler's output."""
+    def compile_to(out: Path) -> str:
+        cmd = [host_cxx(), *HOST_CXX_FLAGS, "-o", str(out), str(source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed ({res.returncode}): {' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+        return res.stdout + res.stderr
+
+    return CachedLibrary(HOST_BUILD_DIR, stem,
+                         lambda: " ".join(HOST_CXX_FLAGS).encode() + source.read_bytes(),
+                         compile_to, bind)

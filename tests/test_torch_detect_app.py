@@ -211,7 +211,7 @@ def test_load_images_matches_jax(staged, auto):
 def test_what_needs_cv2_raises_up_front(staged, tmp_path):
     from multiyolov5_tpu_torch.data.sources import LoadImages, LoadStreams, LoadWebcam
     root, ckpt, src = staged
-    for name, what in (("a.bmp", "BMP"), ("b.mp4", "VideoCapture")):
+    for name, what in (("a.webp", "WebP"), ("b.mp4", "VideoCapture")):
         d = tmp_path / name.split(".")[1]
         d.mkdir()
         (d / name).write_bytes(b"x")

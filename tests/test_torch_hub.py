@@ -12,7 +12,7 @@ tests/test_torch_serving.py's bounds: equal counts, boxes within 1e-3
 class-map pixels differing.  ``Detections``' views, ``print``,
 ``tolist``, ``pandas``, ``render`` and ``save`` (``.jpg`` files, byte
 for byte PIL's ``save``) are checked too; a ``.jpg`` path serves as in
-the JAX hub, its saved file's name and bytes included; a ``.bmp`` path
+the JAX hub, its saved file's name and bytes included; a ``.webp`` path
 raises; ``create(classes=N, pretrained=npz)`` must copy exactly the
 tensors whose names and shapes match, as the JAX ``intersect_load`` does.
 """
@@ -156,8 +156,8 @@ def test_factories_and_create(staged):
                              device="cpu", half=False)
     for k, v in eng.model.state_dict().items():
         assert torch.equal(eng_pt.model.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match="frame.bmp"):
-        shape([inputs[1], str(staged[0] / "frame.bmp")])
+    with pytest.raises(NotImplementedError, match="frame.webp"):
+        shape([inputs[1], str(staged[0] / "frame.webp")])
 
 
 def test_create_with_classes_copies_matching_tensors(staged, monkeypatch):

@@ -23,9 +23,12 @@ the card's machine need not have them.  The host tools run the same way
 (``tools/cityscapes2yolo.py``, ``tools/labelme_convert.py`` with the
 numpy fill of ``data/draw.py`` and its JPEG output, ``hist_equalize``,
 ``replicate``, ``cutout``, ``prune_params``, ``wh_iou``,
-``seg_confusion_device``), and so does the JPEG codec (``data/jpeg.py``,
-``data/images.py``): a frame written and read back.  Every module of the
-port, ``data/jpeg.py``, ``data/images.py``, ``utils/charts.py`` and
+``seg_confusion_device``), and so do the image codecs (``data/jpeg.py``,
+``data/bmp.py``, ``data/tiff.py``, ``data/png.py`` through
+``data/images.py``): a frame written and read back as JPEG, BMP and
+TIFF, and an Adam7 16-bit PNG read.  Every module of the
+port, ``data/jpeg.py``, ``data/bmp.py``, ``data/tiff.py``,
+``data/host_codecs.py``, ``data/images.py``, ``utils/charts.py`` and
 ``utils/loggers.py`` among them, imports with those modules blocked, and
 none of them is loaded after any of these runs.  The training CLI's run
 writes its plots and says W&B is off."""
@@ -81,7 +84,8 @@ _SCRIPT = textwrap.dedent("""
            "data.detection", "data.segmentation", "cli.test", "hub", "utils.profiling",
            "cli.profile", "cli.export", "tools.trace_report", "tools.convert_pt",
            "parallel.comm", "parallel.mesh", "parallel.sync_bn", "parallel.spatial",
-           "ops.shard", "data.jpeg", "data.images", "utils.charts", "utils.loggers"}
+           "ops.shard", "data.jpeg", "data.images", "utils.charts", "utils.loggers",
+           "data.bmp", "data.tiff", "data.host_codecs"}
     assert {pkg.__name__ + "." + m for m in new} <= set(names)
     from multiyolov5_tpu_torch.models import zoo
     for name in ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
@@ -347,6 +351,18 @@ _TOOLS_SCRIPT = _SCRIPT[:_SCRIPT.index("import numpy as np")] + textwrap.dedent(
     jpeg.imwrite(f"{root}/f.jpg", ramp)
     got = images.imread(f"{root}/f.jpg")
     assert got.shape == ramp.shape and np.abs(got.astype(int) - ramp).max() <= 4
+    # the BMP and TIFF codecs (LZW in the g++-built host part) round-trip it
+    # too, and a 16-bit Adam7 PNG reads as its high bytes
+    for ext in ("bmp", "tif"):
+        images.imwrite(f"{root}/f.{ext}", ramp)
+        assert np.array_equal(images.imread(f"{root}/f.{ext}"), ramp)
+        assert np.array_equal(images.read_rgb(f"{root}/f.{ext}"), ramp[..., ::-1])
+    sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+    import _torch_image_writers
+    with open(f"{root}/deep.png", "wb") as fh:
+        fh.write(_torch_image_writers.png(ramp.astype(np.uint16) * 257, 16, 2, interlace=True,
+                                          filters=(1, 4)))
+    assert np.array_equal(images.imread(f"{root}/deep.png"), ramp[..., ::-1])
     assert set(np.unique(png.read_samples(f"{root}/seg/SegmentationClassPNG/a.png"))) == {
         0, 1, 2}
     frame = rng.randint(0, 256, (37, 53, 3)).astype(np.uint8)

@@ -17,8 +17,8 @@ against the JAX package's, on the CPU.
   and subsamplings and cv2's gray files too.
 * What raises: arithmetic, lossless, 12-bit and CMYK files, truncated and
   corrupt streams, a Huffman table whose lengths overflow, a second SOI,
-  planes sized from another file's header, a file that is neither PNG nor
-  JPEG, a ``.bmp`` in ``require_readable``.
+  planes sized from another file's header, a file that is no format the
+  port reads, a ``.webp`` in ``require_readable``.
 * Loaders on seeded JPEG files against the JAX ones: ``LoadImages``
   (orientation 6 turned, as cv2 turns it), ``DetectionDataset`` in eval
   and train (mosaic) modes with the label cache's shapes under EXIF 6 and
@@ -217,11 +217,11 @@ def test_unsupported_and_corrupt_files_raise(tmp_path):
     gray = _cv2_encode(img[..., 0])
     with pytest.raises(ValueError, match="disagrees"):
         jpeg.coefficients(data, "f.jpg", jpeg.header(gray))
-    Image.fromarray(img).save(tmp_path / "b.bmp")
-    with pytest.raises(ValueError, match="neither"):
-        images.imread(str(tmp_path / "b.bmp"))
-    with pytest.raises(NotImplementedError, match="b.bmp"):
-        images.require_readable([str(tmp_path / "a.JPG"), str(tmp_path / "b.bmp")], "test")
+    (tmp_path / "b.gif").write_bytes(b"GIF89a" + bytes(20))
+    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP or TIFF"):
+        images.imread(str(tmp_path / "b.gif"))
+    with pytest.raises(NotImplementedError, match="b.webp"):
+        images.require_readable([str(tmp_path / "a.JPG"), str(tmp_path / "b.webp")], "test")
 
 
 def _exif_rotated(path, rgb, o):

@@ -5,7 +5,9 @@ choice) and by PIL (modes L, LA, RGB, RGBA
 and P: 256 entries, and 8-bit files of 40 and 100 entries, one with ``tRNS``)
 from seeded numpy images (noise over gradients), at sizes including 1 x N and N x 1, each decode to exactly
 ``cv2.imread``'s array.  Files that ``imwrite`` writes decode to exactly
-its input in cv2 and in PIL.  Interlaced, 16-bit and non-PNG files raise.
+its input in cv2 and in PIL.  cv2's 16-bit and PIL's 4-bit palette files
+decode; a corrupt stream and non-PNG files raise (tests/test_torch_png_forms.py
+holds every other form).
 """
 
 import io
@@ -111,23 +113,29 @@ def test_imwrite_decodes_exactly_in_cv2_and_pil(tmp_path, shape):
 
 
 def test_unsupported_files_raise(tmp_path):
+    """cv2's 16-bit file and PIL's 4-bit palette file decode to cv2's
+    arrays; an IHDR whose interlace byte is flipped on a plain stream (not
+    an Adam7 one: its passes need more bytes), a file that is not PNG and
+    the writer's wrong inputs raise."""
     img = np.random.RandomState(3).randint(0, 256, (9, 11, 3)).astype(np.uint8)
     p16 = str(tmp_path / "deep.png")
-    cv2.imwrite(p16, img.astype(np.uint16) * 257)
-    with pytest.raises(ValueError, match="bit depth 16"):
-        png.imread(p16)
+    cv2.imwrite(p16, img.astype(np.uint16) * 257 + np.uint16(3))
+    np.testing.assert_array_equal(png.imread(p16), cv2.imread(p16))
+    np.testing.assert_array_equal(png.read_samples(p16), np.array(Image.open(p16)))
     p4 = str(tmp_path / "p4.png")
     im = Image.fromarray(np.arange(99).reshape(9, 11).astype(np.uint8) % 7, "P")
     im.putpalette(list(range(21)))
     im.save(p4)                                   # PIL packs 7 colours in 4 bits
-    with pytest.raises(ValueError, match="bit depth 4"):
-        png.imread(p4)
+    assert png.decode_samples(open(p4, "rb").read()).depth == 4
+    np.testing.assert_array_equal(png.imread(p4), cv2.imread(p4))
+    np.testing.assert_array_equal(png.read_samples(p4), np.array(Image.open(p4)))
     data = bytearray(png.encode(img))
     data[28] = 1                                  # IHDR's interlace byte
     data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
     pil = str(tmp_path / "interlaced.png")
     open(pil, "wb").write(bytes(data))
-    with pytest.raises(ValueError, match="interlaced"):
+    assert cv2.imread(pil) is None
+    with pytest.raises(ValueError, match="interlaced.png: bad PNG row filter"):
         png.imread(pil)
     jpg = str(tmp_path / "a.jpg")
     cv2.imwrite(jpg, img)
