@@ -154,6 +154,21 @@ unless named), on the card and, for reference, on the CPU:
   Cityscapes split with Adam7 frames and 16-bit masks, metrics equal to
   the PNG copies' (K1 both modes, K2, K7, K5, K4); (d) each read's host ms
   on one frame beside cv2's and PIL's where they import.
+* WebP [20]: (a) the port's codec (``data/webp.py``) on libwebp's files
+  committed under tests/webp_fixtures/ (a 2048x1024 lossy frame with 4
+  segments and 8 partitions, the simple filter, VP8 + a filtered VP8L
+  ALPH, EXIF 6, an animation), each of ``imread`` / ``read_rgb`` /
+  ``read_samples`` held to SHA-256s of cv2's and PIL's arrays
+  (tests/test_torch_image_callers.py holds the constants to both), and the
+  lossless writer's 2048x1024 file decoding to its input; (b)
+  ``cli.detect.main`` (bf16, ``--img-size 1024 --submit --nosave``) on two
+  [19] frames written as lossless WebP and the lossy fixture against PNG
+  copies (txt and ``name._pred.png`` equal, K1-K4 as on PNG), and a saving
+  run that writes ``w0.webp`` (the PNG run's pixels) and raises at
+  ``w0._maskwebp`` as the JAX app does; (c) ``cli.test.main`` (fp32) on a
+  WebP detection split and a WebP Cityscapes frame, metrics and launches
+  equal the PNG copies'; (d) the host ms of one decode and one encode at
+  2048x1024 beside cv2's and PIL's where they import.
   Each phase's wall seconds go to chip_smoke.json (``phase_s``).
 
 It checks that every kernel ran on its path, holds each kernel against its
@@ -200,6 +215,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -5889,6 +5905,259 @@ def phase_forms(eng32, card: str):
     return res
 
 
+# [20] WebP (data/webp.py, csrc/host/webp.cpp): the port's decodes of
+# libwebp's files committed under tests/webp_fixtures/ against SHA-256s of
+# cv2's and PIL's decodes of them (digests.json, taken with both libraries
+# by tests/_torch_make_webp_fixtures.py), the lossless writer's round trip,
+# the detect app and the eval CLI on WebP copies of [19]'s frames against
+# PNG copies, and the codec's host times beside cv2's and PIL's
+WEBP_FIXTURES = os.path.join(ROOT, "tests", "webp_fixtures")
+WEBP_BIG = "lossy_2048x1024.webp"
+
+
+def webp_codec(work: str) -> dict:
+    """[20] (a) and (d): each fixture's three reads by the port against the
+    libraries' digests; the writer's 2048x1024 file decoding to its input;
+    host ms of one decode of the lossy frame and of one encode of the
+    frame, beside cv2's and PIL's where they import (used nowhere in the
+    port)."""
+    import hashlib
+
+    from multiyolov5_tpu_torch.data import images, webp
+    t0 = time.perf_counter()
+    webp.library()                      # g++ builds the host part here, before any timing
+    out = {"build_s": time.perf_counter() - t0}
+    with open(os.path.join(WEBP_FIXTURES, "digests.json")) as fh:
+        want = json.load(fh)
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()  # noqa: E731
+    for name in sorted(want):
+        path = os.path.join(WEBP_FIXTURES, name)
+        got = {"cv2": images.imread(path), "rgb": images.read_rgb(path),
+               "samples": images.read_samples(path)}
+        for k, v in got.items():
+            if sha(v) != want[name][k]:
+                raise AssertionError(f"[20] {name}: the port's {k} read (shape {v.shape}) is "
+                                     "not the library's")
+        out[name] = {"bytes": os.path.getsize(path), "imread": list(got["cv2"].shape),
+                     "samples": list(got["samples"].shape)}
+    big = os.path.join(WEBP_FIXTURES, WEBP_BIG)
+    rec = {"decode_ms": host_ms(lambda: images.imread(big), reps=1)}
+    frame = form_frame(*ORIG_HW, seed=SEED + 130)[..., ::-1].copy()
+    written = os.path.join(work, "written.webp")
+    rec["encode_ms"] = host_ms(lambda: images.imwrite(written, frame), reps=1)
+    rec["encoded_bytes"] = os.path.getsize(written)
+    rec["encoded_decode_ms"] = host_ms(lambda: images.imread(written), reps=1)
+    if not np.array_equal(images.imread(written), frame):
+        raise AssertionError("[20] the lossless writer's file does not decode to its input")
+    try:
+        import cv2
+        rec["cv2_decode_ms"] = host_ms(lambda: cv2.imread(big), reps=1)
+        theirs = os.path.join(work, "cv2.webp")
+        rec["cv2_encode_ms"] = host_ms(lambda: cv2.imwrite(theirs, frame), reps=1)
+        rec["cv2_encoded_bytes"] = os.path.getsize(theirs)
+        if not np.array_equal(cv2.imread(written), frame):
+            raise AssertionError("[20] cv2 does not decode the port's file to its input")
+    except ImportError:
+        rec["cv2"] = "does not import"
+    try:
+        from PIL import Image
+        rec["pil_decode_ms"] = host_ms(lambda: Image.open(big).convert("RGB"), reps=1)
+    except ImportError:
+        rec["PIL"] = "does not import"
+    out["host"] = rec
+    log(f"  (a) {len(want)} fixtures ({', '.join(sorted(want))}): imread, read_rgb and "
+        f"read_samples SHA-256 equal cv2's and PIL's; the writer's {ORIG_HW[1]}x{ORIG_HW[0]} "
+        f"file ({rec['encoded_bytes']} bytes) decodes to its input; (d) host ms "
+        + ", ".join(f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in rec.items()))
+    return out
+
+
+def webp_sources(work: str, tag: str, frames) -> tuple:
+    """WebP copies of ``frames`` (the port's lossless writer) plus the lossy
+    fixture under ``<work>/<tag>``, and PNG copies of the port's decodes of
+    them under ``<work>/<tag>_png``: the two directories."""
+    from multiyolov5_tpu_torch.data import images, png
+    src, copies = os.path.join(work, tag), os.path.join(work, f"{tag}_png")
+    os.makedirs(src)
+    os.makedirs(copies)
+    for i, f in enumerate(frames):
+        images.imwrite(os.path.join(src, f"w{i}.webp"), f[..., ::-1])
+    shutil.copy(os.path.join(WEBP_FIXTURES, WEBP_BIG), os.path.join(src, "lossy.webp"))
+    for name in os.listdir(src):
+        png.imwrite(os.path.join(copies, name.rsplit(".", 1)[0] + ".png"),
+                    images.imread(os.path.join(src, name)))
+    return src, copies
+
+
+def webp_app(weights: str, work: str) -> dict:
+    """[20] (b): cli.detect with ``--save-txt --submit --nosave`` on two
+    [19] frames written as lossless WebP and the lossy fixture, against the
+    same app on PNG copies: equal txt, each ``results/name._pred.png`` (the
+    JAX app's name for a ``.webp``) the PNG run's ``name_pred.png``, the
+    launches the PNG run's; then one run that saves, which writes
+    ``w0.webp`` (decoding to the PNG run's ``w0.png``) and raises at
+    ``w0._maskwebp``, as the JAX app raises there."""
+    from multiyolov5_tpu_torch.data import images, png
+    from multiyolov5_tpu_torch.ops import kernels as K
+    frames = [form_frame(*ORIG_HW, seed=SEED + 130 + i) for i in range(2)]
+    src, copies = webp_sources(work, "app", frames)
+    n = len(os.listdir(src))
+    base = ["--weights", weights, "--img-size", str(APP_IMG), "--save-txt", "--save-conf",
+            "--project", work, "--exist-ok", "--device", "" if DEVICE == "cuda" else DEVICE]
+    runs = {}
+    for tag, d in (("webp", src), ("png", copies)):
+        K.reset_launches()
+        out, loop_s = run_app(base + ["--source", d, "--name", f"out_{tag}", "--submit",
+                                      "--nosave"])
+        torch.cuda.synchronize()
+        runs[tag] = (out, K.launch_counts(), loop_s)
+    launches = runs["webp"][1]
+    want = {"stem": n, "stem_float": 0, "conv3x3": 10 * n, "nms": n, "upsample_argmax": n,
+            "nms_greedy": 0, "c3": 0}
+    if {k: launches[k] for k in want} != want or runs["png"][1] != launches:
+        raise AssertionError(f"[20] app launches on WebP {launches}, on PNG {runs['png'][1]}, "
+                             f"want {want} on both")
+    wo, po = runs["webp"][0], runs["png"][0]
+    for name in sorted(os.listdir(src)):
+        stem = name.rsplit(".", 1)[0]
+        with open(os.path.join(wo, "labels", f"{stem}.txt")) as a, \
+                open(os.path.join(po, "labels", f"{stem}.txt")) as b:
+            if a.read() != b.read():
+                raise AssertionError(f"[20] app: labels/{stem}.txt differs from the PNG copy's")
+        with open(os.path.join(wo, "results", f"{stem}._pred.png"), "rb") as a, \
+                open(os.path.join(po, "results", f"{stem}_pred.png"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"[20] app: results/{stem}._pred.png differs from the PNG "
+                                     f"copy's {stem}_pred.png")
+    one, one_png = os.path.join(work, "app_one"), os.path.join(work, "app_one_png")
+    os.makedirs(one)
+    os.makedirs(one_png)
+    shutil.copy(os.path.join(src, "w0.webp"), one)
+    shutil.copy(os.path.join(copies, "w0.png"), one_png)
+    try:
+        run_app(base + ["--source", one, "--name", "out_one"])
+        raise AssertionError("[20] app: saving a .webp source did not raise at its _mask")
+    except ValueError as e:
+        if "could not find a writer" not in str(e) or "_maskwebp" not in str(e):
+            raise
+    out_png, _ = run_app(base + ["--source", one_png, "--name", "out_one_png"])
+    saved = images.imread(os.path.join(work, "out_one", "w0.webp"))
+    if not np.array_equal(saved, png.imread(os.path.join(out_png, "w0.png"))):
+        raise AssertionError("[20] app: w0.webp does not decode to the PNG run's w0.png")
+    log(f"  (b) cli.detect --submit --nosave on {n} frames {ORIG_HW} (2 lossless WebP, the "
+        f"lossy fixture): txt and _pred.png equal the PNG copies' run; launches {launches}; "
+        f"app ms/frame WebP {runs['webp'][2] * 1e3 / n:.1f}, PNG {runs['png'][2] * 1e3 / n:.1f}; "
+        "a saving run writes w0.webp (the PNG run's pixels) and raises at w0._maskwebp")
+    return {"launches": launches, "ms_per_frame_webp": runs["webp"][2] * 1e3 / n,
+            "ms_per_frame_png": runs["png"][2] * 1e3 / n}
+
+
+def webp_eval(eng32, weights: str, work: str) -> dict:
+    """[20] (c): cli.test (fp32) on a detection split of two noise frames
+    written as lossless WebP and the lossy fixture, and a Cityscapes split
+    of one WebP frame (stored under its ``.png`` name, read by content),
+    against the same CLI on PNG copies: metrics and launches equal."""
+    from multiyolov5_tpu_torch.data import images, png
+    from multiyolov5_tpu_torch.data.cityscapes import CITYSCAPES_IDMAP
+    from multiyolov5_tpu_torch.ops import kernels as K
+    rng = np.random.RandomState(SEED + 160)
+    frames = [rng.randint(0, 256, (*ORIG_HW, 3)).astype(np.uint8) for _ in range(2)]
+    trees = {tag: os.path.join(work, f"eval_{tag}") for tag in ("webp", "png")}
+    src, copies = webp_sources(work, "eval_src", frames)
+    for tag, d in (("webp", src), ("png", copies)):
+        os.makedirs(os.path.join(trees[tag], "det", "images"))
+        shutil.copytree(d, os.path.join(trees[tag], "det", "images", "val"))
+    label_split(eng32, os.path.join(trees["webp"], "det", "images", "val"),
+                os.path.join(trees["webp"], "det", "labels", "val"), rng, CLI_IMG,
+                FORM_DET_FRAMES)
+    shutil.copytree(os.path.join(trees["webp"], "det", "labels", "val"),
+                    os.path.join(trees["png"], "det", "labels", "val"))
+    stem = "munich_000000_000019"
+    city = form_frame(*ORIG_HW, seed=SEED + 161)
+    train_ids = rng.randint(0, 19, ORIG_HW).astype(np.uint8)
+    train_ids[rng.rand(*ORIG_HW) < 0.1] = 255
+    label_ids = np.where(train_ids == 255, 255, CITYSCAPES_IDMAP[train_ids % 255]).astype(np.uint8)
+    for tag in trees:
+        idir = os.path.join(trees[tag], "citys", "leftImg8bit", "val", "munich")
+        mdir = os.path.join(trees[tag], "citys", "gtFine", "val", "munich")
+        os.makedirs(idir)
+        os.makedirs(mdir)
+        ipath = os.path.join(idir, f"{stem}_leftImg8bit.png")
+        (images.imwrite if tag == "webp" else png.imwrite)(
+            ipath + (".webp" if tag == "webp" else ""), city[..., ::-1])
+        if tag == "webp":
+            os.rename(ipath + ".webp", ipath)
+        png.imwrite(os.path.join(mdir, f"{stem}_gtFine_labelIds.png"), label_ids)
+    res = {}
+    for tag in trees:
+        data = os.path.join(trees[tag], "data.json")
+        with open(data, "w") as fh:
+            json.dump({"val": os.path.join(trees[tag], "det", "images", "val"),
+                       "segval": os.path.join(trees[tag], "citys"), "nc": eng32.spec.nc,
+                       "names": eng32.names}, fh)
+        argv = ["--weights", weights, "--data", data, "--img-size", str(CLI_IMG), "--base-size",
+                str(CLI_IMG), "--batch-size", str(FORM_DET_FRAMES), "--device",
+                "" if DEVICE == "cuda" else DEVICE]
+        K.reset_launches()
+        metrics, _, _, spent, count, wall = run_cli(argv, kernels=False)
+        torch.cuda.synchronize()
+        res[tag] = {"metrics": metrics, "launches": K.launch_counts(), "cli_s": wall,
+                    "loader_det_host_ms_per_image": spent["det"] * 1e3 / max(count["det"], 1)}
+    for k in ("stem", "stem_float", "conv3x3", "c3", "nms_greedy", "upsample_argmax"):
+        if res["webp"]["launches"][k] <= 0:
+            raise AssertionError(f"[20] kernel {k} was not launched on the eval CLI's path")
+    if res["webp"]["launches"] != res["png"]["launches"]:
+        raise AssertionError(f"[20] eval launches on WebP {res['webp']['launches']}, on PNG "
+                             f"{res['png']['launches']}")
+    for k in ("P", "R", "mAP50", "mAP", "pixAcc", "mIoU"):
+        check(f"[20] eval CLI on WebP vs on their PNG copies: {k} |diff|",
+              abs(res["webp"]["metrics"][k] - res["png"]["metrics"][k]), 0)
+    if not 0.05 < res["webp"]["metrics"]["mAP50"] < 0.95:      # as [11]'s labels give
+        raise AssertionError(f"[20] degenerate detection metrics: {res['webp']['metrics']}")
+    log(f"  (c) cli.test on 3 WebP detection frames (2 lossless, the lossy fixture) and a "
+        f"WebP Cityscapes frame: metrics equal the PNG copies' {res['webp']['metrics']}; "
+        f"launches {res['webp']['launches']}; loader host ms an image: WebP "
+        f"{res['webp']['loader_det_host_ms_per_image']:.1f}, PNG "
+        f"{res['png']['loader_det_host_ms_per_image']:.1f}")
+    return res
+
+
+def prebuild_webp() -> None:
+    """Build [20]'s host codec early, beside [1]'s nvcc builds; a failed build
+    is left for [20]'s own load to build again and raise."""
+    try:
+        from multiyolov5_tpu_torch.data import webp
+        webp.library()
+    except Exception:                   # noqa: BLE001 (raised again where [20] loads it)
+        pass
+
+
+def phase_webp(eng32, card: str):
+    """[20] WebP and its callers: (a) digests, (b) the detect app, (c) the
+    eval CLI, (d) host times."""
+    log("[20] WebP: the port's decoders against cv2's and PIL's digests of libwebp's files, "
+        "its writer, cli.detect and cli.test on WebP against PNG copies")
+    work = os.path.join(ROOT, "build", "chip_smoke_webp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    part_s = {}
+    t0 = time.perf_counter()
+    res = {"card": card, "codec": webp_codec(work), "part_s": part_s}
+    part_s["a_d"] = time.perf_counter() - t0
+    weights = smoke_weights()
+    t0 = time.perf_counter()
+    res["app"] = webp_app(weights, work)
+    part_s["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["eval"] = webp_eval(eng32, weights, work)
+    part_s["c"] = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"  [20] seconds: (a) + (d) {part_s['a_d']:.1f}, (b) {part_s['b']:.1f}, "
+        f"(c) {part_s['c']:.1f}")
+    return res
+
+
 PHASE_S = {}
 
 
@@ -5918,6 +6187,9 @@ def main() -> int:
     os.environ["WANDB_MODE"] = "disabled"
     os.environ["WANDB_ERROR_REPORTING"] = "false"
     t_start = time.perf_counter()
+    # g++ builds [20]'s host codec while [1]'s nvcc builds run (a failed
+    # build is built again, and raises, where [20] loads it)
+    threading.Thread(target=prebuild_webp, daemon=True).start()
     smi, sass = timed("[1]", phase_card)
     rng = np.random.RandomState(SEED)
     frames = [(rng.rand(*IN_HW, 3) * 255).astype(np.uint8) for _ in range(N_FRAMES)]
@@ -5945,6 +6217,7 @@ def main() -> int:
     pe = timed("[13]", phase_profile_export, eng32, eng16, frames, smi)
     jp = timed("[18]", phase_jpeg, eng32, smi)
     fm = timed("[19]", phase_forms, eng32, smi)
+    wp = timed("[20]", phase_webp, eng32, smi)
     del eng32, eng16, cpu_eng
     tr = timed("[7]", phase_train)
     tc = timed("[14]", phase_train_cli, smi)
@@ -6021,6 +6294,8 @@ def main() -> int:
                 "jpeg_eval_cli_launches": jp["eval"]["jpg"]["launches"][k],
                 "forms_app_launches": fm["app"]["launches"][k],
                 "forms_eval_cli_launches": fm["eval"]["forms"]["launches"][k],
+                "webp_app_launches": wp["app"]["launches"][k],
+                "webp_eval_cli_launches": wp["eval"]["webp"]["launches"][k],
                 "err_dtype": "float32",
                 "ms_dtype": ("float32" if k.startswith("nms") or k == "stem_float"
                              else "bfloat16")}
@@ -6084,7 +6359,8 @@ def main() -> int:
                    "eval_metrics": eval_metrics, "train": tr, "c3": c3_times,
                    "serving_bs8": sv, "families": fam, "app": app, "eval_cli": cli,
                    "hub": hb, "profile_export": pe, "train_cli": tc, "parallel": par,
-                   "dsl": dsl, "tools": tools, "jpeg": jp, "forms": fm, "phase_s": PHASE_S,
+                   "dsl": dsl, "tools": tools, "jpeg": jp, "forms": fm, "webp": wp,
+                   "phase_s": PHASE_S,
                    "total_s": time.perf_counter() - t_start}, fh,
                   indent=1)
     shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)

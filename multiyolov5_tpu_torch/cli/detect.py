@@ -7,11 +7,14 @@ the JAX app: the annotated image, the colourised mask (``*_mask``), the
 (``--save-txt``, ``--save-conf``), and with ``--submit`` the
 trainId->labelId Cityscapes export ``results/*_pred.png``.  Images are
 read and written with the port's codecs (``data/images.py``: PNG, JPEG,
-MPO, BMP, TIFF; the annotated image, ``_mask`` and ``_dst`` keep the
+MPO, BMP, TIFF, WebP; the annotated image, ``_mask`` and ``_dst`` keep the
 source's suffix, so a ``.jpg`` source gives ``.jpg`` artifacts at cv2's
-defaults, a ``.bmp`` cv2's BMP bytes and a ``.tif`` its LZW TIFF; an
-``.mpo`` source raises at its first save, as cv2 has no MPO writer, unless
-``--nosave``; the ``--submit`` exports stay PNG), boxes drawn by
+defaults, a ``.bmp`` cv2's BMP bytes, a ``.tif`` its LZW TIFF and a
+``.webp`` a lossless WebP that decodes to what cv2's does; an ``.mpo``
+source raises at its first save, as cv2 has no MPO writer, unless
+``--nosave``, and so does a ``.webp`` source at its ``_mask`` save, whose
+name the JAX app cuts to ``name._maskwebp``, which no writer takes; the
+``--submit`` exports stay PNG), boxes drawn by
 ``utils/plots.py``; nothing here needs cv2.  ``--view-img``,
 ``--save-as-video`` and video, webcam or stream sources need cv2 and
 raise ``NotImplementedError`` before anything runs.

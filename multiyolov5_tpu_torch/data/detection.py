@@ -27,12 +27,12 @@ derives each item's generators from (seed, epoch, position in the epoch)
 and each quad group's from (seed, epoch, batch): a batch is the same
 whatever the worker count.
 
-Images are PNG, JPEG, MPO, BMP and TIFF files, read by ``data/images.py``:
+Images are PNG, JPEG, MPO, BMP, TIFF and WebP files, read by ``data/images.py``:
 ``load_image`` as ``cv2.imread`` reads (the orientation applied where
 OpenCV applies it), the label cache's shapes and verdicts as the JAX
 cache's ``Image.open(f)``, ``verify()`` and ``exif_size`` give them
 (swapped for EXIF orientations 6 and 8 only; a PNG with a bad chunk
-dropped).  A WebP or DNG image in a split raises ``NotImplementedError``
+dropped).  A DNG image in a split raises ``NotImplementedError``
 naming it before anything is loaded (the JAX cache would keep it, and cv2
 read it).
 The augmentations the JAX CLI never calls are here too, on the same

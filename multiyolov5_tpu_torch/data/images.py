@@ -1,14 +1,15 @@
 """One reader and one writer for the port's still-image formats: PNG,
-JPEG (and MPO, a JPEG whose first frame is read), BMP and baseline TIFF.
+JPEG (and MPO, a JPEG whose first frame is read), BMP, baseline TIFF and
+WebP (lossy, lossless, with alpha, an animation's first frame).
 
 A file is read by its signature (PNG's, JPEG's ``FF D8 FF``, ``BM``,
-``II*\\0`` / ``MM\\0*``), as cv2 reads it, whatever its suffix; a file is
-written by its suffix.  The JAX package's semantics stay apart, each the
-library the caller there uses:
+``II*\\0`` / ``MM\\0*``, ``RIFF....WEBP``), as cv2 reads it, whatever its
+suffix; a file is written by its suffix.  The JAX package's semantics stay
+apart, each the library the caller there uses:
 
 * :func:`imread` is ``cv2.imread(path)``: (H, W, 3) uint8 BGR, the
   orientation applied where OpenCV 5.0 applies it (a JPEG's or MPO's EXIF,
-  a PNG's ``eXIf``, a TIFF's tag);
+  a PNG's ``eXIf``, a TIFF's tag, a WebP's ``EXIF`` chunk);
 * :func:`read_rgb` / :func:`decode_rgb` are ``Image.open(...).convert("RGB")``:
   (H, W, 3) uint8 RGB, no orientation applied but a TIFF's (Pillow turns a
   TIFF as it loads it);
@@ -19,12 +20,12 @@ library the caller there uses:
   the JAX ``exif_size`` as the JAX label cache calls it, after
   ``Image.verify()``: (w, h), swapped for EXIF orientations 6 and 8.
 
-Each codec module (``png``, ``jpeg``, ``bmp``, ``tiff``) documents its
-forms, and where OpenCV and Pillow read one differently.  Where cv2
-returns None or PIL raises on a file, the port raises, naming the file.
-:func:`require_readable` raises ``NotImplementedError`` naming the first
-path of a list whose suffix is an image format the port does not decode
-(``dng``, ``webp``): the loaders, hub and tools check their inputs with it
+Each codec module (``png``, ``jpeg``, ``bmp``, ``tiff``, ``webp``)
+documents its forms, and where OpenCV and Pillow read one differently.
+Where cv2 returns None or PIL raises on a file, the port raises, naming the
+file.  :func:`require_readable` raises ``NotImplementedError`` naming the
+first path of a list whose suffix is an image format the port does not
+decode (``dng``): the loaders, hub and tools check their inputs with it
 before they read any.
 """
 
@@ -35,15 +36,14 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from . import bmp, jpeg, png, tiff
+from . import bmp, jpeg, png, tiff, webp
 
-READABLE = ("png", "jpg", "jpeg", "mpo", "bmp", "tif", "tiff")
+READABLE = ("png", "jpg", "jpeg", "mpo", "bmp", "tif", "tiff", "webp")
 WRITABLE = {"png": png, "jpg": jpeg, "jpeg": jpeg, "jpe": jpeg, "bmp": bmp, "dib": bmp,
-            "tif": tiff, "tiff": tiff}
+            "tif": tiff, "tiff": tiff, "webp": webp}
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 # formats of the JAX package's IMG_FORMATS that the port does not decode, and why
 UNREADABLE = {
-    "webp": "WebP needs a VP8 / VP8L decoder equal to libwebp's output, upsampler included",
     "dng": "DNG is raw sensor data whose development (demosaicing, colour matrices) cv2 "
            "and PIL leave to libraw / libtiff in ways the port does not reproduce",
 }
@@ -59,8 +59,8 @@ def _codec(head: bytes, path: str):
     if head[:4] in tiff.SIGNATURES + tiff.BIG_SIGNATURES:
         return tiff
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        raise NotImplementedError(f"{path}: a WebP file; {UNREADABLE['webp']}")
-    raise ValueError(f"{path}: not a PNG, JPEG, BMP or TIFF file")
+        return webp
+    raise ValueError(f"{path}: not a PNG, JPEG, BMP, TIFF or WebP file")
 
 
 def known_signature(head: bytes) -> bool:
@@ -68,7 +68,7 @@ def known_signature(head: bytes) -> bool:
     try:
         _codec(head, "")
         return True
-    except (ValueError, NotImplementedError):
+    except ValueError:
         return False
 
 
@@ -83,13 +83,14 @@ def _suffix(path) -> str:
 
 def require_readable(paths: Sequence, what: str) -> None:
     """Raise ``NotImplementedError`` naming the first image whose suffix is
-    not one the port reads (PNG, JPEG, MPO, BMP, TIFF)."""
+    not one the port reads (PNG, JPEG, MPO, BMP, TIFF, WebP)."""
     for p in paths:
         s = _suffix(p)
         if s not in READABLE:
             why = UNREADABLE.get(s, f"{s.upper()} needs a decoder the port does not have")
             raise NotImplementedError(
-                f"{p}: the port reads PNG, JPEG, MPO, BMP and TIFF images only ({what}); {why}")
+                f"{p}: the port reads PNG, JPEG, MPO, BMP, TIFF and WebP images only ({what}); "
+                f"{why}")
 
 
 def imread(path: str) -> np.ndarray:
@@ -126,8 +127,8 @@ def exif_size(path: str) -> Tuple[int, int]:
 
 def imwrite(path: str, img: np.ndarray) -> bool:
     """``cv2.imwrite(path, img)`` by suffix: PNG, JPEG at cv2's defaults,
-    BMP and TIFF (LZW) as cv2 writes them; gray as it is, colour taken as
-    BGR.  Any other suffix raises ``ValueError`` with cv2's message, as
+    BMP and TIFF (LZW) as cv2 writes them, WebP lossless as cv2's default
+    decodes; gray as it is, colour taken as BGR.  Any other suffix raises ``ValueError`` with cv2's message, as
     ``cv2.imwrite`` raises for ``.mpo`` (it has no MPO writer) and for a
     name without one."""
     s = _suffix(path) if "." in os.path.basename(str(path)) else ""

@@ -27,10 +27,12 @@ it in the same order (flip, long side, crop x and y, jitter factors,
 shuffle), so seeded alike the two items are equal.  ``SegLoader`` derives
 each item's generator from (seed, epoch, position in the epoch).
 
-Images are PNG, JPEG, MPO, BMP and TIFF files, read as
+Images are PNG, JPEG, MPO, BMP, TIFF and WebP files, read as
 ``Image.open(...).convert("RGB")`` reads them (``data/images.py``; no EXIF
-orientation applied, but a TIFF's, which Pillow applies): a split holding a
-WebP or DNG image raises ``NotImplementedError`` naming it when the
+orientation applied, but a TIFF's, which Pillow applies; a WebP
+animation's first frame); masks as ``np.array(Image.open(...))`` gives
+them (a WebP mask as RGB, or RGBA where it has alpha): a split holding a
+DNG image raises ``NotImplementedError`` naming it when the
 dataset is built.  ``CityBddSegmentation`` mixes Cityscapes with BDD100k,
 whose frames are ``.jpg``.
 """

@@ -1,14 +1,14 @@
 """Inference input sources (counterpart of ``multiyolov5_tpu/data/sources.py``;
 reference utils/datasets.py:122-338).
 
-``LoadImages`` reads PNG, JPEG, MPO, BMP and TIFF files, directories and
+``LoadImages`` reads PNG, JPEG, MPO, BMP, TIFF and WebP files, directories and
 globs with the port's own codecs (``data/images.py``: ``cv2.imread``'s
 pixels, the orientation applied where OpenCV applies it) and letterboxes each frame with
 ``data/letterbox.py`` (cv2's ``INTER_LINEAR`` in integer torch ops) on the
 host, numpy in and out, as the JAX loader does with cv2.  What needs cv2
 or another decoder raises ``NotImplementedError`` when the source is
 built, naming what is missing: video files, ``LoadWebcam`` and
-``LoadStreams`` (cv2's ``VideoCapture``), and WebP or DNG images.  No file
+``LoadStreams`` (cv2's ``VideoCapture``), and DNG images.  No file
 is skipped.
 """
 

@@ -7,9 +7,10 @@ card by default; ``classes`` other than 80 rebuilds the Detect head and
 copies in the ``pretrained`` tensors whose names and shapes match.
 Weights are the port's native ``.npz`` or a reference ``.pt``
 (utils/checkpoint.load_checkpoint).  ``AutoShape`` takes PNG and JPEG
-paths (PNG, JPEG, MPO, BMP or TIFF, read by ``data/images.py`` as PIL's
-``convert("RGB")`` reads them, no EXIF orientation applied but a TIFF's;
-WebP or DNG raises ``NotImplementedError`` naming the file),
+paths (PNG, JPEG, MPO, BMP, TIFF or WebP, read by ``data/images.py`` as
+PIL's ``convert("RGB")`` reads them, no EXIF orientation applied but a
+TIFF's, a WebP animation's first frame; DNG raises ``NotImplementedError``
+naming the file),
 numpy HWC, CHW and
 2-D gray arrays, and PIL images where PIL imports; it letterboxes every
 image to one shape on the engine's device and runs each group of

@@ -12,11 +12,11 @@ Workflow (reference data/customdata/README.md): annotate with labelme ->
 convert -> drop into detdata/{images,labels} and {segimages,seglabels}.
 
 Without PIL: the shapes are filled by data/draw.py, Pillow's fill in
-numpy; a PNG, JPEG, MPO, BMP or TIFF ``imageData`` or ``imagePath`` is
+numpy; a PNG, JPEG, MPO, BMP, TIFF or WebP ``imageData`` or ``imagePath`` is
 read as PIL's ``convert("RGB")`` reads it (data/images.py), and the image
 goes out as the JAX tool writes it, ``JPEGImages/<stem>.jpg`` and
 ``images/<stem>.jpg`` at PIL's ``save`` defaults (data/jpeg.py
-``pil_save``).  Another image format (WebP, DNG) raises
+``pil_save``).  Another image format (DNG) raises
 ``NotImplementedError`` naming it.  ``kitti2yolo`` reads an image's size
 from its header, as ``Image.open(p).size`` gives it.
 
@@ -51,8 +51,8 @@ def _labelme_image(data: dict, json_path: str) -> np.ndarray:
         raw = base64.b64decode(data["imageData"])
         if not images.known_signature(raw):
             raise NotImplementedError(
-                f"{json_path}: imageData is not PNG, JPEG, BMP or TIFF; the port decodes "
-                "those only")
+                f"{json_path}: imageData is not PNG, JPEG, BMP, TIFF or WebP; the port "
+                "decodes those only")
         return images.decode_rgb(raw, json_path)
     p = osp.join(osp.dirname(json_path), data["imagePath"])
     images.require_readable([p], "labelme imagePath")

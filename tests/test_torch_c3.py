@@ -43,6 +43,7 @@ from multiyolov5_tpu_torch.models.model import Model
 from multiyolov5_tpu_torch.ops.kernels import c3, c3_plain
 from multiyolov5_tpu_torch.ops.kernels.c3 import PLANS, SMEM_LIMIT, SMS, plan, smem_bytes
 from multiyolov5_tpu_torch.utils.checkpoint import from_jax_params
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _weights(seed, c1, c_, c2, n):

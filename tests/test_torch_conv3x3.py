@@ -31,6 +31,7 @@ from multiyolov5_tpu_torch.models.config import load_spec
 from multiyolov5_tpu_torch.models.model import Model
 from multiyolov5_tpu_torch.ops.kernels import conv3x3, conv3x3_plain
 from multiyolov5_tpu_torch.ops.kernels.conv3x3 import MAX_SPLIT, SMS, plan
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 # bs1 serving, bs4 eval (cli/test.py's batch at 1024x512), bs8 serving

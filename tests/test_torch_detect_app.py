@@ -43,6 +43,7 @@ from multiyolov5_tpu_torch.models.config import load_spec
 from multiyolov5_tpu_torch.models.model import seeded_state_dict
 from multiyolov5_tpu_torch.utils.checkpoint import to_jax_params
 from multiyolov5_tpu_torch.utils import plots
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 TL = 3
 # inside the bands (read: the app 6.5-10.1% of band pixels, by at most 4
@@ -211,7 +212,7 @@ def test_load_images_matches_jax(staged, auto):
 def test_what_needs_cv2_raises_up_front(staged, tmp_path):
     from multiyolov5_tpu_torch.data.sources import LoadImages, LoadStreams, LoadWebcam
     root, ckpt, src = staged
-    for name, what in (("a.webp", "WebP"), ("b.mp4", "VideoCapture")):
+    for name, what in (("a.dng", "DNG"), ("b.mp4", "VideoCapture")):
         d = tmp_path / name.split(".")[1]
         d.mkdir()
         (d / name).write_bytes(b"x")

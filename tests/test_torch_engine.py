@@ -32,6 +32,7 @@ from multiyolov5_tpu_torch.engine import Engine
 from multiyolov5_tpu_torch.models import zoo
 from multiyolov5_tpu_torch.models.config import load_spec
 from multiyolov5_tpu_torch.utils.checkpoint import from_jax_params
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 ORIG_HW = (256, 512)
 CONF = 0.001

@@ -45,6 +45,7 @@ from multiyolov5_tpu_torch.models.config import load_spec
 from multiyolov5_tpu_torch.ops import nms as port_nms
 from multiyolov5_tpu_torch.utils import metrics as port_metrics
 from multiyolov5_tpu_torch.utils.checkpoint import from_jax_params
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 IN_HW, ORIG_HW = (128, 256), (256, 512)
 RATIO_PAD = ((0.5, 0.5), (0.0, 0.0))

@@ -43,6 +43,7 @@ from multiyolov5_tpu_torch.data.cityscapes import CITYSCAPES_IDMAP
 from multiyolov5_tpu_torch.data.letterbox import letterbox
 from multiyolov5_tpu_torch.engine import Engine
 from test_torch_engine_args import _weights
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 DET_HW = [(128, 256)] * 6 + [(150, 300)] * 2 + [(192, 128)] * 2
 SEG_HW = (128, 256)

@@ -20,7 +20,7 @@ and ``batch_shapes``, and every batch (images, targets, mask, paths,
 ``shapes``; seg images float32 and masks) exactly.  A ``.jpg`` in a
 detection split (one with EXIF orientation 6) and a BDD-style ``.jpg``
 frame in a citysbdd split are read as the JAX loaders read them; a
-``.webp`` raises ``NotImplementedError`` up front; the training modes and
+``.dng`` raises ``NotImplementedError`` up front; the training modes and
 options build (tests/test_torch_train_data.py holds them).
 """
 
@@ -35,6 +35,7 @@ from multiyolov5_tpu.data import segmentation as jax_seg
 from multiyolov5_tpu_torch.data import detection as port_det
 from multiyolov5_tpu_torch.data import png
 from multiyolov5_tpu_torch.data import segmentation as port_seg
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 # (h, w) of each detection frame: 2:1 frames shrink by 2 at img_size 128,
 # 300x150 by 128/300, 100x60 grows; the portrait ones make a second bin
@@ -175,7 +176,7 @@ def test_detection_training_parts_and_jpeg_raise(det_tree, tmp_path):
     """The training parts build (tests/test_torch_train_data.py holds their
     items): ``augment`` and ``image_weights`` datasets, a quad loader, a
     shuffled rect loader that keeps the bins in order, as the JAX one;
-    a quad batch not divisible by 4 and a ``.webp`` in a split raise; a
+    a quad batch not divisible by 4 and a ``.dng`` in a split raise; a
     ``.jpg`` (EXIF orientation 6: the cache swaps its shape, ``load_image``
     turns it, as in the JAX loader) is read as the JAX loader reads it."""
     path = str(det_tree / "images" / "val")
@@ -207,11 +208,11 @@ def test_detection_training_parts_and_jpeg_raise(det_tree, tmp_path):
         for a, b in zip(pds.load_image(i), jds.load_image(i)):
             np.testing.assert_array_equal(a, b)
     assert pds.load_image(1)[1] == (80, 48)
-    e = tmp_path / "webp" / "images"
+    e = tmp_path / "dng" / "images"
     e.mkdir(parents=True)
     Image.fromarray(_frame(np.random.RandomState(3), 64, 64)).save(e / "c.png")
-    os.rename(e / "c.png", e / "c.webp")
-    with pytest.raises(NotImplementedError, match="c.webp"):
+    os.rename(e / "c.png", e / "c.dng")
+    with pytest.raises(NotImplementedError, match="c.dng"):
         port_det.DetectionDataset(str(e), img_size=IMG_SIZE)
 
 

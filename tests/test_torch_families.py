@@ -38,6 +38,7 @@ from multiyolov5_tpu_torch.engine import Engine
 from multiyolov5_tpu_torch.models.config import load_spec
 from multiyolov5_tpu_torch.models.model import Model, seeded_state_dict
 from multiyolov5_tpu_torch.utils.checkpoint import from_jax_params, to_jax_params
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 IN_HW, ORIG_HW = (64, 128), (128, 256)
 

@@ -30,6 +30,7 @@ from multiyolov5_tpu_torch.models.config import load_spec
 from multiyolov5_tpu_torch.models.model import seeded_state_dict
 from multiyolov5_tpu_torch.ops.nn import fuse_conv_bn
 from multiyolov5_tpu_torch.utils.checkpoint import from_jax_params, to_jax_params
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 REL = 1e-5
 

@@ -13,7 +13,7 @@
   images.  Masks pixel-equal, labels, lists and class names byte-equal;
   each image the port writes has the JAX tool's name (``.jpg``) and bytes
   and decodes (in cv2) to the same pixels.  A JPEG ``imageData`` or
-  ``imagePath`` is read as the JAX tool reads it; a ``.webp`` raises
+  ``imagePath`` is read as the JAX tool reads it; a ``.dng`` raises
   ``NotImplementedError``.
 * ``data/draw.py`` against Pillow (12.1) directly: 300 seeded polygons
   (float and integer vertices, convex, concave, self-intersecting, off the
@@ -40,6 +40,7 @@ from multiyolov5_tpu.tools import labelme_convert as jax_lc
 from multiyolov5_tpu_torch.data import draw, png
 from multiyolov5_tpu_torch.tools import cityscapes2yolo as c2y
 from multiyolov5_tpu_torch.tools import labelme_convert as lc
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 LABELS = ["__ignore__", "_background_", "car", "person", "road"]
 
@@ -202,7 +203,7 @@ def test_labelme_convert_matches_jax(tmp_path):
 
 def test_non_png_images_raise(tmp_path):
     """A JPEG ``imageData`` (EXIF orientation 6, not applied) and a JPEG
-    ``imagePath`` give the JAX tool's output; a ``.webp`` ``imagePath``
+    ``imagePath`` give the JAX tool's output; a ``.dng`` ``imagePath``
     raises, naming it; JPEG sizes come from the frame header."""
     rng = np.random.RandomState(5)
     buf = io.BytesIO()
@@ -234,10 +235,10 @@ def test_non_png_images_raise(tmp_path):
         else:
             assert tp[k] == tj[k], k
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "in" / "b.png")
-    os.rename(tmp_path / "in" / "b.png", tmp_path / "in" / "b.webp")
+    os.rename(tmp_path / "in" / "b.png", tmp_path / "in" / "b.dng")
     with open(tmp_path / "in" / "k.json", "w") as fh:
-        json.dump({"imageData": None, "imagePath": "b.webp", "shapes": []}, fh)
-    with pytest.raises(NotImplementedError, match="b.webp"):
+        json.dump({"imageData": None, "imagePath": "b.dng", "shapes": []}, fh)
+    with pytest.raises(NotImplementedError, match="b.dng"):
         lc.labelme2det(str(tmp_path / "in"), str(tmp_path / "out"), str(tmp_path / "labels.txt"))
     for progressive in (False, True):
         Image.fromarray(np.zeros((29, 53, 3), np.uint8)).save(tmp_path / "s.jpg",

@@ -12,7 +12,7 @@ tests/test_torch_serving.py's bounds: equal counts, boxes within 1e-3
 class-map pixels differing.  ``Detections``' views, ``print``,
 ``tolist``, ``pandas``, ``render`` and ``save`` (``.jpg`` files, byte
 for byte PIL's ``save``) are checked too; a ``.jpg`` path serves as in
-the JAX hub, its saved file's name and bytes included; a ``.webp`` path
+the JAX hub, its saved file's name and bytes included; a ``.dng`` path
 raises; ``create(classes=N, pretrained=npz)`` must copy exactly the
 tensors whose names and shapes match, as the JAX ``intersect_load`` does.
 """
@@ -34,6 +34,7 @@ from multiyolov5_tpu_torch.data import images, png
 from multiyolov5_tpu_torch.engine import Engine
 from multiyolov5_tpu_torch.utils.checkpoint import load_checkpoint
 from test_torch_engine_args import _weights
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = 256
 FILES = ["frame.jpg", "image1.jpg", "image2.jpg", "image3.jpg", "image4.jpg"]
@@ -156,8 +157,8 @@ def test_factories_and_create(staged):
                              device="cpu", half=False)
     for k, v in eng.model.state_dict().items():
         assert torch.equal(eng_pt.model.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match="frame.webp"):
-        shape([inputs[1], str(staged[0] / "frame.webp")])
+    with pytest.raises(NotImplementedError, match="frame.dng"):
+        shape([inputs[1], str(staged[0] / "frame.dng")])
 
 
 def test_create_with_classes_copies_matching_tensors(staged, monkeypatch):

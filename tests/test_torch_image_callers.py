@@ -23,6 +23,18 @@ the image data, 4-bit palette).
   txt under ``--nosave --save-txt``.
 * chip_smoke.py [19]'s SHA-256 constants equal cv2's and PIL's decodes of
   its seeded files (and cv2's BMP bytes).
+
+WebP (``write_webp_forms``: lossy, lossy + ALPH, lossless with alpha, EXIF
+orientations 5-8 and a prefixed 6 that only Pillow reads, an animation)
+through the same callers: ``LoadImages``, the label cache and
+``load_image``, the seg loaders (WebP images and masks under ``.png``
+names, which both read by content), hub (paths, and PIL images opened from
+WebP bytes), ``labelme_convert`` (``imagePath`` and ``imageData``) and the
+detect app, whose ``.webp`` source gives ``name.webp`` and raises at the
+``_mask`` save in both apps (the JAX app cuts it to ``name._maskwebp``),
+and under ``--nosave --save-txt --submit`` writes the same txt and
+``results/name._pred.png``.  chip_smoke.py [20]'s WebP digests equal cv2's
+and PIL's decodes of its committed fixtures.
 """
 
 import base64
@@ -40,6 +52,7 @@ import pytest
 from PIL import Image
 
 import _torch_image_writers as W
+import _torch_webp_files as wf
 import multiyolov5_tpu.hub as jax_hub
 from multiyolov5_tpu.cli.detect import main as jax_detect
 from multiyolov5_tpu.data import detection as jax_det
@@ -64,6 +77,7 @@ from multiyolov5_tpu_torch.utils.checkpoint import to_jax_params
 from test_torch_detect_app import (APP_BAND_MAX, APP_BAND_SHARE, MASK_SHARE, _bands,
                                    _hold_drawing, _lines)
 from test_torch_engine_args import _weights
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -398,3 +412,231 @@ def test_chip_smoke_digests_equal_libraries():
     bgr = cs.form_frame(*cs.FORM_HW)[..., ::-1]
     assert hashlib.sha256(cv2.imencode(".bmp", bgr)[1].tobytes()).hexdigest() == \
         cs.BMP_WRITE_DIGEST
+
+
+needs_libwebp = pytest.mark.skipif(not wf.available(), reason="Pillow's bundled libwebp not found")
+
+
+def write_webp_forms(d, rng, hw=(48, 80), suffix=".webp"):
+    """One WebP file of each form under ``d``, RGB frames of ``hw``;
+    returns their names."""
+    h, w = hw
+    os.makedirs(d, exist_ok=True)
+    rgb = [_frame(rng, h, w) for _ in range(6)]
+    alpha = ((np.add.outer(np.arange(h), np.arange(w)) * 5) % 256).astype(np.uint8)
+    rgba = np.concatenate([rgb[1], alpha[..., None]], -1)
+    lossy, lossless = wf.encode(rgb[2], quality=80), wf.encode(rgba, lossless=1)
+    small = wf.encode(_frame(rng, h // 2, w // 2), quality=70)
+    files = {
+        "w1": wf.encode(rgb[0], quality=75, segments=4, partitions=2),
+        "w2": wf.encode(rgba, quality=60, alpha_compression=1, alpha_filtering=2),
+        "w3": lossless,
+        "w5": wf.with_exif(lossy, 5), "w6": wf.with_exif(lossy, 6),
+        "w7": wf.with_exif(lossless, 7), "w8": wf.with_exif(wf.encode(rgb[3], lossless=1), 8),
+        "wp": wf.with_exif(wf.encode(rgb[4], quality=90), 6, prefix=True),
+        "wa": wf.animation([(small, 4, 6), (wf.encode(rgb[5], quality=50), 0, 0)], (w, h)),
+    }
+    for name, data in files.items():
+        with open(os.path.join(d, name + suffix), "wb") as fh:
+            fh.write(data)
+    return sorted(n + suffix for n in files)
+
+
+@needs_libwebp
+def test_webp_load_images_equals_jax(tmp_path):
+    names = write_webp_forms(str(tmp_path), np.random.RandomState(11))
+    got, want = LoadImages(str(tmp_path), 96, 32), JaxLoadImages(str(tmp_path), 96, 32)
+    n = 0
+    for (pp, ip, i0p, _), (pj, ij, i0j, _) in zip(got, want):
+        assert pp == pj
+        np.testing.assert_array_equal(i0p, i0j)
+        np.testing.assert_array_equal(ip, ij)
+        n += 1
+    assert n == len(names) == 9
+    turned = {os.path.basename(p): i0.shape[:2] for p, _, i0, _ in LoadImages(str(tmp_path), 96)}
+    assert turned["w5.webp"] == turned["w8.webp"] == (80, 48)
+    assert turned["wp.webp"] == turned["w1.webp"] == (48, 80)   # cv2 reads no prefixed EXIF
+
+
+@needs_libwebp
+def test_webp_label_cache_and_load_image_equal_jax(tmp_path):
+    """Shapes after ``verify()`` (orientations 5-8: only 6 and 8 swap, and
+    the prefixed 6 swaps too, Pillow reading past its prefix), rect eval
+    batches and ``load_image``."""
+    d, lbl = tmp_path / "images" / "val", tmp_path / "labels" / "val"
+    rng = np.random.RandomState(12)
+    names = write_webp_forms(str(d), rng)
+    (d / "cut.webp").write_bytes(open(d / "w1.webp", "rb").read()[:30])
+    lbl.mkdir(parents=True)
+    for name in names + ["cut.webp"]:
+        (lbl / (name.rsplit(".", 1)[0] + ".txt")).write_text("0 0.5 0.5 0.2 0.2\n1 0.3 0.4 0.1 0.2\n")
+    kw = dict(img_size=96, batch_size=4, rect=True, stride=32, pad=0.5)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        jds, pds = jax_det.DetectionDataset(str(d), **kw), port_det.DetectionDataset(str(d), **kw)
+    assert out.getvalue().count("ignoring corrupted") == 2       # each package drops cut.webp
+    assert pds.img_files == jds.img_files and len(pds.img_files) == 9
+    np.testing.assert_array_equal(pds.shapes, jds.shapes)
+    shapes = {os.path.basename(f): s.tolist() for f, s in zip(pds.img_files, pds.shapes)}
+    assert shapes["w6.webp"] == shapes["w8.webp"] == shapes["wp.webp"] == [48, 80]
+    assert shapes["w5.webp"] == shapes["w7.webp"] == [80, 48]
+    for i in range(len(pds.img_files)):
+        for a, b in zip(pds.load_image(i), jds.load_image(i)):
+            np.testing.assert_array_equal(a, b)
+    jb = list(jax_det.DetectionLoader(jds, 4, max_targets=4, workers=1, drop_last=False))
+    pb = list(port_det.DetectionLoader(pds, 4, max_targets=4, workers=1, drop_last=False))
+    assert len(jb) == len(pb) == 3
+    for a, b in zip(jb, pb):
+        for x, y in zip(a, b):
+            if isinstance(x, np.ndarray):
+                np.testing.assert_array_equal(x, y)
+            else:
+                assert x == y
+
+
+@needs_libwebp
+@pytest.mark.parametrize("mode", ["train", "val", "testval"])
+def test_webp_seg_images_and_masks_equal_jax(tmp_path, mode):
+    """WebP images and masks under ``.png`` names: both loaders read them
+    by content (a lossless WebP mask is an RGB array to both)."""
+    rng = np.random.RandomState(13)
+    split = "val" if mode == "testval" else mode
+    idir, mdir = tmp_path / "segimages" / split, tmp_path / "seglabels" / split
+    write_webp_forms(str(idir), rng, (40, 64), suffix=".png")
+    mdir.mkdir(parents=True)
+    for name in os.listdir(idir):
+        m = rng.randint(0, 3, (40, 64)).astype(np.uint8)
+        m[rng.rand(40, 64) < 0.1] = 255
+        (mdir / name).write_bytes(wf.encode(np.repeat(m[..., None], 3, 2), lossless=1, exact=1))
+    kw = dict(root=str(tmp_path), split=split, mode=mode, base_size=64, batch_size=1, workers=1,
+              n_segcls=3)
+    jl, pl = jax_seg.get_custom_loader(**kw), port_seg.get_custom_loader(**kw)
+    assert pl.ds.images == jl.ds.images and len(pl.ds) == 9
+    for i in range(len(pl.ds)):
+        random.seed(90 + i)
+        want = jl.ds[i]
+        got = pl.ds.item(i, random.Random(90 + i) if mode == "train" else None)
+        assert np.array_equal(got[0], want[0]), (mode, i)
+        gm, wm = np.asarray(got[1]), np.asarray(want[1])
+        assert gm.dtype == wm.dtype and np.array_equal(gm, wm), (mode, i)
+
+
+@needs_libwebp
+def test_webp_hub_equals_jax(tmp_path, hub_weights):
+    """``AutoShape`` on WebP paths and on PIL images opened from WebP
+    bytes, under tests/test_torch_hub.py's bounds."""
+    write_webp_forms(str(tmp_path), np.random.RandomState(14))
+    paths = [str(tmp_path / n) for n in ("w2.webp", "w6.webp", "wa.webp")]
+    runs = []
+    for shape in (jax_hub.AutoShape(JaxEngine(hub_weights, half=False)),
+                  port_hub.AutoShape(Engine(hub_weights, device="cpu", half=False))):
+        shape.conf = 0.001
+        pil = Image.open(io.BytesIO(open(tmp_path / "w3.webp", "rb").read()))
+        runs.append(shape(list(paths) + [pil], size=64))
+    want, got = runs
+    assert got.files == want.files
+    for i in range(len(paths) + 1):
+        assert got.imgs[i].shape == want.imgs[i].shape
+        np.testing.assert_array_equal(got.imgs[i], want.imgs[i])
+        a, b = got.pred[i], want.pred[i]
+        assert a.shape == b.shape and len(a)
+        np.testing.assert_allclose(a[:, :4], b[:, :4], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(a[:, 4:], b[:, 4:], rtol=0, atol=1e-5)
+        assert (got.masks[i] != want.masks[i]).mean() <= 1e-4
+    assert got.imgs[1].shape == (48, 80, 3)            # Pillow does not turn EXIF 6
+
+
+@needs_libwebp
+def test_webp_labelme_convert_equals_jax(tmp_path):
+    """WebP ``imagePath`` (lossy + ALPH, EXIF 6, an animation) and
+    ``imageData`` (lossless with alpha) give the JAX tool's files."""
+    write_webp_forms(str(tmp_path / "lm"), np.random.RandomState(15))
+    labels = tmp_path / "labels.txt"
+    labels.write_text("__ignore__\n_background_\ncar\nperson\n")
+    raw = open(tmp_path / "lm" / "w3.webp", "rb").read()
+    for i, (path, data) in enumerate((("w2.webp", None), ("w6.webp", None), ("wa.webp", None),
+                                      ("x.png", base64.b64encode(raw).decode()))):
+        shapes = [{"label": "car", "points": [[5, 5], [40, 8], [30, 30]],
+                   "shape_type": "polygon"},
+                  {"label": "person", "points": [[50, 10], [70, 40]], "shape_type": "rectangle"}]
+        with open(tmp_path / "lm" / f"s{i}.json", "w") as fh:
+            json.dump({"imagePath": path, "imageData": data, "shapes": shapes}, fh)
+    for pkg, main in (("jax", jax_lc.main), ("port", port_lc.main)):
+        out = str(tmp_path / pkg)
+        _quiet(main, ["labelme2seg", str(tmp_path / "lm"), out + "/seg", "--labels", str(labels)])
+        _quiet(main, ["labelme2det", str(tmp_path / "lm"), out + "/det", "--labels", str(labels)])
+    tj, tp = _tree(tmp_path / "jax"), _tree(tmp_path / "port")
+    assert sorted(tp) == sorted(tj) and "seg/JPEGImages/s3.jpg" in tp
+    for k in tj:
+        if k.endswith(".png"):
+            assert np.array_equal(images.read_samples(str(tmp_path / "port" / k)),
+                                  np.asarray(Image.open(tmp_path / "jax" / k))), k
+        else:
+            assert tp[k] == tj[k], k
+    assert port_lc.image_size(str(tmp_path / "lm" / "w6.webp")) == \
+        Image.open(tmp_path / "lm" / "w6.webp").size
+
+
+@needs_libwebp
+def test_webp_detect_app_equals_jax(tmp_path, weights):
+    """A ``.webp`` source through both apps (tests/test_torch_detect_app.py's
+    weights, flags and bounds, its 256 x 512 frame stored as lossy WebP):
+    with ``--submit`` both write ``results/name._pred.png``, ``name.webp``
+    (the port's decoding to its pixels as cv2's file would) and the txt,
+    then raise at ``name._maskwebp``; with ``--nosave`` the same txt and
+    ``_pred.png``."""
+    rng = np.random.RandomState(16)
+    src = tmp_path / "src"
+    src.mkdir()
+    frame = (rng.rand(256, 512, 3) * 255).astype(np.uint8)
+    (src / "v.webp").write_bytes(wf.encode(frame, quality=90))
+    runs = {}
+    for pkg, main, err, extra in (("jax", jax_detect, cv2.error, []),
+                                  ("port", port_detect, ValueError, ["--device", "cpu"])):
+        with pytest.raises(err, match="could not find a writer"):
+            _app(main, weights, str(src), str(tmp_path), pkg, ["--submit"] + extra)
+        runs[pkg] = str(tmp_path / pkg)
+        _app(main, weights, str(src), str(tmp_path), pkg + "_nosave",
+             ["--submit", "--nosave"] + extra)
+    for suffix in ("", "_nosave"):
+        pdir, jdir = runs["port"] + suffix, runs["jax"] + suffix
+        tj, tp = _tree(jdir), _tree(pdir)
+        assert sorted(tp) == sorted(tj)
+        assert "results/v._pred.png" in tp and ("v.webp" in tp) == (suffix == "")
+        lp, lj = _lines(f"{pdir}/labels/v.txt"), _lines(f"{jdir}/labels/v.txt")
+        assert len(lp) == len(lj) >= 1
+        np.testing.assert_array_equal(lp[:, 0], lj[:, 0])
+        gn = np.array([512, 256, 512, 256])
+        np.testing.assert_allclose(lp[:, 1:5] * gn, lj[:, 1:5] * gn, rtol=0, atol=2e-3)
+        np.testing.assert_allclose(lp[:, 5], lj[:, 5], rtol=0, atol=2e-5)
+        pp, pj = (images.read_samples(f"{d}/results/v._pred.png") for d in (pdir, jdir))
+        assert (pp != pj).mean() <= MASK_SHARE
+    got, want = images.imread(f"{runs['port']}/v.webp"), cv2.imread(f"{runs['jax']}/v.webp")
+    np.testing.assert_array_equal(got, cv2.imread(f"{runs['port']}/v.webp"))
+    share, mx = _hold_drawing(got, want, _bands(got.shape, _lines(f"{runs['port']}/labels/v.txt")))
+    assert share <= APP_BAND_SHARE and mx <= APP_BAND_MAX, (share, mx)
+    assert os.path.getsize(f"{runs['port']}/v.webp") <= 2 * os.path.getsize(f"{runs['jax']}/v.webp")
+
+
+def test_chip_smoke_webp_digests_equal_libraries():
+    """[20] (a) holds the port's decodes on the card against
+    tests/webp_fixtures/digests.json; here the digests are held against
+    cv2's and PIL's decodes of the committed files, which the port's equal."""
+    cs = _chip_smoke()
+    with open(os.path.join(cs.WEBP_FIXTURES, "digests.json")) as fh:
+        want = json.load(fh)
+    assert cs.WEBP_BIG in want and len(want) == 5
+    total = 0
+    for name, digests in want.items():
+        path = os.path.join(cs.WEBP_FIXTURES, name)
+        total += os.path.getsize(path)
+        with Image.open(path) as im:
+            rgb = np.asarray(im.convert("RGB"))
+        with Image.open(path) as im:
+            samples = np.array(im)
+        for k, lib, port in (("cv2", cv2.imread(path), images.imread(path)),
+                             ("rgb", rgb, images.read_rgb(path)),
+                             ("samples", samples, images.read_samples(path))):
+            assert hashlib.sha256(np.ascontiguousarray(lib).tobytes()).hexdigest() == digests[k]
+            assert hashlib.sha256(np.ascontiguousarray(port).tobytes()).hexdigest() == digests[k]
+    assert total <= 1_500_000
+    assert images.imread(os.path.join(cs.WEBP_FIXTURES, "exif6_400x300.webp")).shape == (400, 300, 3)

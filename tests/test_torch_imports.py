@@ -24,10 +24,10 @@ the card's machine need not have them.  The host tools run the same way
 numpy fill of ``data/draw.py`` and its JPEG output, ``hist_equalize``,
 ``replicate``, ``cutout``, ``prune_params``, ``wh_iou``,
 ``seg_confusion_device``), and so do the image codecs (``data/jpeg.py``,
-``data/bmp.py``, ``data/tiff.py``, ``data/png.py`` through
-``data/images.py``): a frame written and read back as JPEG, BMP and
-TIFF, and an Adam7 16-bit PNG read.  Every module of the
-port, ``data/jpeg.py``, ``data/bmp.py``, ``data/tiff.py``,
+``data/bmp.py``, ``data/tiff.py``, ``data/webp.py``, ``data/png.py``
+through ``data/images.py``): a frame written and read back as JPEG, BMP,
+TIFF and WebP, and an Adam7 16-bit PNG read.  Every module of the
+port, ``data/jpeg.py``, ``data/bmp.py``, ``data/tiff.py``, ``data/webp.py``,
 ``data/host_codecs.py``, ``data/images.py``, ``utils/charts.py`` and
 ``utils/loggers.py`` among them, imports with those modules blocked, and
 none of them is loaded after any of these runs.  The training CLI's run
@@ -85,7 +85,7 @@ _SCRIPT = textwrap.dedent("""
            "cli.profile", "cli.export", "tools.trace_report", "tools.convert_pt",
            "parallel.comm", "parallel.mesh", "parallel.sync_bn", "parallel.spatial",
            "ops.shard", "data.jpeg", "data.images", "utils.charts", "utils.loggers",
-           "data.bmp", "data.tiff", "data.host_codecs"}
+           "data.bmp", "data.tiff", "data.host_codecs", "data.webp"}
     assert {pkg.__name__ + "." + m for m in new} <= set(names)
     from multiyolov5_tpu_torch.models import zoo
     for name in ("yolov5s_city_seg_base", "yolov5s_city_seg_bise", "yolov5s_city_seg_lab",
@@ -351,9 +351,9 @@ _TOOLS_SCRIPT = _SCRIPT[:_SCRIPT.index("import numpy as np")] + textwrap.dedent(
     jpeg.imwrite(f"{root}/f.jpg", ramp)
     got = images.imread(f"{root}/f.jpg")
     assert got.shape == ramp.shape and np.abs(got.astype(int) - ramp).max() <= 4
-    # the BMP and TIFF codecs (LZW in the g++-built host part) round-trip it
-    # too, and a 16-bit Adam7 PNG reads as its high bytes
-    for ext in ("bmp", "tif"):
+    # the BMP, TIFF and WebP codecs (LZW and VP8L in g++-built host parts)
+    # round-trip it too, and a 16-bit Adam7 PNG reads as its high bytes
+    for ext in ("bmp", "tif", "webp"):
         images.imwrite(f"{root}/f.{ext}", ramp)
         assert np.array_equal(images.imread(f"{root}/f.{ext}"), ramp)
         assert np.array_equal(images.read_rgb(f"{root}/f.{ext}"), ramp[..., ::-1])

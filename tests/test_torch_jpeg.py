@@ -18,7 +18,7 @@ against the JAX package's, on the CPU.
 * What raises: arithmetic, lossless, 12-bit and CMYK files, truncated and
   corrupt streams, a Huffman table whose lengths overflow, a second SOI,
   planes sized from another file's header, a file that is no format the
-  port reads, a ``.webp`` in ``require_readable``.
+  port reads, a ``.dng`` in ``require_readable``.
 * Loaders on seeded JPEG files against the JAX ones: ``LoadImages``
   (orientation 6 turned, as cv2 turns it), ``DetectionDataset`` in eval
   and train (mosaic) modes with the label cache's shapes under EXIF 6 and
@@ -50,6 +50,7 @@ from multiyolov5_tpu_torch.data import images, jpeg, png
 from multiyolov5_tpu_torch.data import segmentation as port_seg
 from multiyolov5_tpu_torch.data.hyps import load_hyp
 from multiyolov5_tpu_torch.data.sources import LoadImages
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = [(96, 128), (37, 53), (5, 17), (1, 1)]
@@ -218,10 +219,10 @@ def test_unsupported_and_corrupt_files_raise(tmp_path):
     with pytest.raises(ValueError, match="disagrees"):
         jpeg.coefficients(data, "f.jpg", jpeg.header(gray))
     (tmp_path / "b.gif").write_bytes(b"GIF89a" + bytes(20))
-    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP or TIFF"):
+    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, TIFF or WebP"):
         images.imread(str(tmp_path / "b.gif"))
-    with pytest.raises(NotImplementedError, match="b.webp"):
-        images.require_readable([str(tmp_path / "a.JPG"), str(tmp_path / "b.webp")], "test")
+    with pytest.raises(NotImplementedError, match="b.dng"):
+        images.require_readable([str(tmp_path / "a.JPG"), str(tmp_path / "b.dng")], "test")
 
 
 def _exif_rotated(path, rgb, o):

@@ -21,6 +21,7 @@ from multiyolov5_tpu.train import losses as JL
 from multiyolov5_tpu.utils.boxes import bbox_iou_ciou as jax_ciou
 from multiyolov5_tpu_torch.train import losses as PL
 from multiyolov5_tpu_torch.utils.boxes import bbox_iou_ciou
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 ANCHORS = [[10, 13, 16, 30, 33, 23], [30, 61, 62, 45, 59, 119], [116, 90, 156, 198, 373, 326]]
 STRIDES = [8, 16, 32]

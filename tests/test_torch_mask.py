@@ -23,6 +23,7 @@ from multiyolov5_tpu_torch.ops.kernels import upsample_argmax, upsample_argmax_p
 from multiyolov5_tpu_torch.ops.kernels.upsample_argmax import (
     MAX_TAPS, SMEM_BUDGET, TILES, band_tables, dense_weights, plan, smem_bytes, tiles,
     windows)
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 MAX_MISMATCH = 1e-4
 

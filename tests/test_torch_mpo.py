@@ -8,7 +8,7 @@ equal ``Image.open(p).convert("RGB")`` / ``np.array(Image.open(p))`` (the
 first frame, not turned), ``size`` ``.size`` and ``exif_size`` the JAX
 ``exif_size``: 0 differing values.  ``imwrite`` of ``.mpo`` raises as
 ``cv2.imwrite`` does (it has no MPO writer); a gray JPEG's samples are
-(H, W), as PIL's mode ``L`` gives them; a WebP file raises naming it.
+(H, W), as PIL's mode ``L`` gives them; a WebP file under any suffix reads as cv2 and PIL read it.
 """
 
 import io
@@ -95,5 +95,5 @@ def test_gray_jpeg_samples_and_webp(tmp_path):
     Image.fromarray(_frame(rng, 8, 8)).save(buf, "WEBP")
     webp = tmp_path / "x.png"                          # a WebP under any suffix
     webp.write_bytes(buf.getvalue())
-    with pytest.raises(NotImplementedError, match="x.png: a WebP file"):
-        images.imread(str(webp))
+    assert (images.imread(str(webp)) != cv2.imread(str(webp))).sum() == 0
+    assert (images.read_rgb(str(webp)) != np.asarray(Image.open(webp).convert("RGB"))).sum() == 0

@@ -23,6 +23,7 @@ from multiyolov5_tpu.ops.pallas.nms_fixpoint_kernel import nms_fixpoint_pallas
 from multiyolov5_tpu_torch.ops.kernels import nms, nms_packed, nms_packed_plain, nms_plain
 from multiyolov5_tpu_torch.ops.kernels.nms import Plan, plan, smem_bytes, suppression, word_pairs
 from multiyolov5_tpu_torch.ops.nms import nms_planar
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _clustered_boxes(rng, n, n_valid, img=160):

@@ -23,6 +23,7 @@ from multiyolov5_tpu.ops.nms import nms_batched as jax_nms_batched
 from multiyolov5_tpu.ops.pallas.nms_kernel import nms_pallas
 from multiyolov5_tpu_torch.ops import nms as port_nms
 from multiyolov5_tpu_torch.ops.kernels import nms_greedy, nms_greedy_plain
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 nms_greedy_mod = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.nms_greedy")
 MAX_WH = 4096.0

@@ -16,6 +16,7 @@ import torch
 
 from multiyolov5_tpu.train import optim as JO
 from multiyolov5_tpu_torch.train import optim as PO
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _params(seed):

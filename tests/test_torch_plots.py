@@ -37,6 +37,7 @@ import pytest
 from multiyolov5_tpu.utils import plots as jax_plots
 from multiyolov5_tpu_torch.data import images
 from multiyolov5_tpu_torch.utils import plots
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 TL = 1
 # inside the bands (see the docstring for the readings)

@@ -17,6 +17,7 @@ import pytest
 from PIL import Image
 
 from multiyolov5_tpu_torch.data.resize import resize_area, resize_bilinear_pil
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 SIZES = [(37, 53), (64, 128), (120, 333), (101, 77)]
 FACTORS = [2, 3, 4, 0.5, 0.6, 0.7, 0.75, 0.8, 0.9, 2 / 3, 0.999]

@@ -34,6 +34,7 @@ from multiyolov5_tpu.ops.pallas.seg_ce_kernel import seg_ce_up8
 from multiyolov5_tpu.ops.resize import resize_bilinear
 from multiyolov5_tpu.train.losses import cross_entropy_seg
 from multiyolov5_tpu_torch.ops.kernels import seg_ce, seg_ce_plain
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 K6 = importlib.import_module("multiyolov5_tpu_torch.ops.kernels.seg_ce")
 

@@ -35,6 +35,7 @@ from multiyolov5_tpu_torch.models import blocks
 from multiyolov5_tpu_torch.models.config import load_spec
 from multiyolov5_tpu_torch.serving import InferenceServer
 from multiyolov5_tpu_torch.utils.checkpoint import from_jax_params
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("hw,size,auto,scaleup", [

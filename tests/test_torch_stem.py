@@ -28,6 +28,7 @@ from multiyolov5_tpu_torch.ops.kernels import stem, stem_plain
 from multiyolov5_tpu_torch.ops.kernels.stem import (CHUNK, _packed, pack_weights,
                                                     pack_weights_tf32, space_to_depth4,
                                                     tf32_split)
+from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 
