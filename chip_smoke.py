@@ -57,7 +57,16 @@ unless named), on the card and, for reference, on the CPU:
   dtype, each kernel held against its plain version on the arguments
   each counted call gave it; boxes and class maps (fp32) card against the
   CPU under [3]'s bounds, the bf16 network against the fp32 one under
-  [3]'s bf16 bounds.
+  [3]'s bf16 bounds.  Then ``hub.create("yolov5s", channels=1 and 4,
+  autoshape=False)`` (the smoke's weights copied in where names and shapes
+  match), fp32 and bf16, on a bs1 uint8 frame of that many channels, as
+  [9] runs a family: K1 1 (on the C-channel frame), K2 and K3 as for the
+  3-channel ``yolov5s``, each held on its arguments and K1 timed there,
+  the fp32 network against float64, post-processing on the card's own
+  outputs and the detections end to end against the CPU's under [3]'s
+  bounds, bf16 against fp32; ``AutoShape`` over such a model raises
+  ``ValueError`` with no launch; and ``Model(CFG).to(card).eval().fuse().autoshape()`` on
+  one image against the hub's ``AutoShape`` on the same weights.
 * profiling, export and ``.pt`` [13]: the port's FLOP count (pspv5s at
   512x1024 must equal the JAX count plus the Focus conv's, which the JAX
   counter leaves out) and the achieved bf16 TFLOP/s of a bare forward at
@@ -118,7 +127,12 @@ unless named), on the card and, for reference, on the CPU:
   yolov5s-transformer at bs1 (K1, K2 at strides 1 and 2, K3) and bs2
   (K7), its C3TR row card against CPU.  (c) yolov3-spp, yolov3-tiny,
   yolov5-fpn and yolov5-panet at bs1 in fp32 against the CPU.  (d) one
-  float32 train step of yolov5-panet (bs2 320x320) against the CPU's.
+  float32 train step of yolov5-panet (bs2 320x320) against the CPU's.  (e)
+  pspv5s with its neck's two ``nn.Upsample`` rows bilinear (a dict cfg),
+  bs1 fp32 and bf16, as [9] runs a family: K1-K4 launch as for the
+  nearest model, each held on its arguments, the network against float64,
+  post-processing on the card's own outputs and end to end against the
+  CPU's under [3]'s bounds, bf16 against fp32.
 * the host tools [17]: tools/cityscapes2yolo.py and the five subcommands
   of tools/labelme_convert.py on a seeded tree, ``load_mosaic9``,
   ``replicate``, ``cutout``, ``hist_equalize``, ``prune_params`` and
@@ -245,6 +259,9 @@ CLI_IMG = 1024
 # hub [12]: AutoShape at size 1024 on a PNG path (1920x1080), two HWC
 # 2048x1024 frames (one batched call), a CHW 1280x720 and a gray 1024x768 one
 HUB_SIZE = 1024
+# [12] models whose input is not 3 channels: hub.create(channels=C) of the
+# detection-only yolov5s, K1 on the C-channel frame
+HUB_CH_CFG, HUB_CHANNELS = "yolov5s", (1, 4)
 M_CFG = "yolov5m_city_seg"
 X_CFG = "yolov5x_city_seg"     # pspv5x: [6] times K2's float32 form at its 22 bs1 sites
 # [13] profiling, export and .pt: cli/profile.py at bs1 (K2) and bs8 (K7 too)
@@ -2182,20 +2199,24 @@ def phase_app(eng32, eng16, cpu_eng, frames, card: str):
 
 
 WEIGHTS_DIR = os.path.join(ROOT, "build", "chip_smoke_weights")
+_WEIGHTS_WRITTEN = set()     # the npz files this run wrote
 
 
 @functools.lru_cache(maxsize=None)
 def smoke_weights(seed: int = SEED) -> str:
     """The smoke's seeded pspv5s weights as a native ``.npz``, written at the
-    first call of a run and shared by the phases that load them."""
+    first call of a run for ``seed`` and shared by the phases that load them."""
     from multiyolov5_tpu_torch.models.config import load_spec
     from multiyolov5_tpu_torch.models.model import seeded_state_dict
     from multiyolov5_tpu_torch.utils.checkpoint import save_npz, to_jax_params
+    path = os.path.join(WEIGHTS_DIR, f"w{seed}.npz")
+    if path in _WEIGHTS_WRITTEN:
+        return path
     spec = load_spec(CFG)
     params, state = to_jax_params(seeded_state_dict(spec, seed))
     os.makedirs(WEIGHTS_DIR, exist_ok=True)
-    path = os.path.join(WEIGHTS_DIR, f"w{seed}.npz")
     save_npz(path, {"params": params, "state": state, "spec_yaml": json.dumps(spec.yaml)})
+    _WEIGHTS_WRITTEN.add(path)
     return path
 
 
@@ -2524,7 +2545,8 @@ def phase_hub(card: str):
     default), on a mixed list: each kernel held against its plain version
     on the arguments each counted call gave it, fp32 card against the CPU
     under [3]'s bounds, the bf16 network against the fp32 one under [3]'s
-    bf16 bounds."""
+    bf16 bounds; then the 1- and 4-channel models (:func:`hub_channels`)
+    and the ``Model`` facade's ``autoshape()`` (:func:`hub_facade`)."""
     from multiyolov5_tpu_torch import hub
     log(f"[12] hub: yolov5s_city_seg(pretrained=<the smoke's weights>) AutoShape at size "
         f"{HUB_SIZE} on a PNG path {CLI_OTHER_HW}, two HWC {ORIG_HW} frames, a CHW (720, 1280) "
@@ -2570,6 +2592,8 @@ def phase_hub(card: str):
     # bounded; each bf16 kernel was held on its own arguments above
     compare_runs("hub bf16 card vs fp32 card", (half.pred, half.masks), (got.pred, got.masks),
                  None, None, None, BF16_MASK_SHARE, match_px=16.0, mask_hws=hws)
+    chans = {ch: hub_channels(ch, weights) for ch in HUB_CHANNELS}
+    facade = hub_facade(shape32, inputs[1])
     part = got.tolist()[3]
     quiet(part.save, os.path.join(work, "saved"))
     from multiyolov5_tpu_torch.data import jpeg
@@ -2578,7 +2602,100 @@ def phase_hub(card: str):
             raise AssertionError("Detections.save did not write the rendered image")
     shutil.rmtree(work, ignore_errors=True)
     return {"launches": launches, "bf16_launches": launches16, "ms_fp32": ms,
-            "errs": errs, "detections": [len(p) for p in got.pred], "card": card}
+            "errs": errs, "detections": [len(p) for p in got.pred], "channels": chans,
+            "facade": facade, "card": card}
+
+
+def hub_channels(ch: int, weights: str) -> dict:
+    """[12] ``hub.create(HUB_CH_CFG, channels=ch, pretrained=<the smoke's
+    weights>, autoshape=False)`` on a bs1 uint8 frame of ``ch`` channels at
+    the serving geometry, through :func:`run_family` (launches, the fp32
+    network against float64, post-processing on the card's own outputs and
+    end to end against the CPU's under [3]'s bounds, bf16 against fp32
+    beside the CPU's own drift, every K2 site); then a counted fp32 and
+    bf16 call each, K1 (on the ``ch``-channel frame), K2 and K3 held
+    against their plain versions on their arguments and K1 timed there;
+    ``AutoShape`` over the model raises ``ValueError`` with no launch."""
+    from multiyolov5_tpu_torch import hub
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.models.model import Model
+    from multiyolov5_tpu_torch.ops import kernels as K
+    t0 = time.perf_counter()
+    name = f"{HUB_CH_CFG} channels={ch}"
+    make = functools.partial(hub.create, HUB_CH_CFG, pretrained=weights, channels=ch,
+                             autoshape=False)
+    frame = np.random.RandomState(SEED + 43 + ch).randint(0, 256, (*IN_HW, ch)).astype(
+        np.uint8)
+    res, (e32, e16, _) = run_family(name, frame, timing=False, make=make)
+    with torch.device("meta"):
+        n_k2 = k2_sites(Model(load_spec(HUB_CH_CFG), fused=True))     # 3 channels
+    if not e32.fold_stem or e32.stem_weights[0].shape[2] != 16 * ch:
+        raise AssertionError(f"{name}: rows 0-1 are not K1's on {ch} channels")
+    log(f"  {name}: K1 on {ch} channels (conv1 K {144 * ch}), {res['k2_sites']} K2 sites "
+        f"(the 3-channel model: {n_k2})")
+    res.update(errs={}, launches={}, stem={})
+    for dt_name, eng, bound in (("fp32", e32, F32_REL), ("bf16", e16, BF16_REL)):
+        _, launches, rec, res["errs"][dt_name] = hold_recorded(eng, frame[None],
+                                                               f"{name} {dt_name}", bound)
+        want_launches(f"{name} bs1 {dt_name}", launches,
+                      {"stem": 1, "stem_float": 0, "conv3x3": n_k2, "nms": 1,
+                       "nms_greedy": 0, "c3": 0, "upsample_argmax": 0})
+        res["launches"][dt_name] = launches
+        (fr, *w), kw = rec["stem"][0]
+        odt = kw["out_dtype"]
+        bm, by = stem_bound(fr, w, odt)
+        t = res["stem"][dt_name] = {
+            "frame": list(fr.shape), "max_abs_err": res["errs"][dt_name]["stem"],
+            "ms": graph_ms(lambda: K.stem(fr, *w, out_dtype=odt), iters=10),
+            "plain_ms": graph_ms(lambda: K.stem_plain(fr, *w, out_dtype=odt), iters=10),
+            "library_ms": stem_library_ms(fr, w, odt), "bound_ms": bm, "bound_by": by}
+        log(f"  stem on {name}'s {dt_name} call: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f}, cuDNN conv2d x2 {t['library_ms']:.4f}, bound "
+            f"{bm:.5f} ms ({by})")
+    K.reset_launches()
+    try:
+        hub.AutoShape(e32)(frame[:, :, :1].repeat(3, 2), size=HUB_SIZE)
+    except ValueError as e:
+        log(f"  AutoShape over the {ch}-channel model: ValueError({e})")
+    else:
+        raise AssertionError(f"AutoShape over a {ch}-channel model did not raise")
+    if any(K.launch_counts().values()):
+        raise AssertionError(f"AutoShape's refusal launched {K.launch_counts()}")
+    res["s"] = PHASE_S[f"[12] channels={ch}"] = time.perf_counter() - t0
+    log(f"  channels={ch}: {res['dets']} detections (fp32); {res['s']:.1f} s")
+    return res
+
+def hub_facade(shape32, image) -> dict:
+    """[12] ``Model(CFG).to(card).eval().fuse().autoshape()`` (the facade's
+    seeded init is the smoke's weights) on one image against the hub's
+    ``AutoShape`` on the same weights: the same launches and the same
+    outputs under [3]'s post-processing bounds."""
+    from multiyolov5_tpu_torch.models.model import Model
+    from multiyolov5_tpu_torch.ops import kernels as K
+    t0 = time.perf_counter()
+    shape = Model(CFG, seed=SEED).to(DEVICE).eval().fuse().autoshape()
+    shape(image, size=HUB_SIZE)                # the geometry's first call
+    runs = {}
+    for name, sh in (("facade", shape), ("hub", shape32)):
+        K.reset_launches()
+        out = sh(image, size=HUB_SIZE)
+        torch.cuda.synchronize()
+        runs[name] = out, K.launch_counts()
+    (got, launches), (want, hub_launches) = runs["facade"], runs["hub"]
+    want_launches("Model(...).fuse().autoshape() on one image", launches, {
+        k: hub_launches[k] for k in ("stem", "stem_float", "conv3x3", "c3", "nms",
+                                     "nms_greedy", "upsample_argmax")})
+    if launches["stem"] != 1 or launches["conv3x3"] != 10:
+        raise AssertionError(f"the facade's AutoShape launched {launches}")
+    same = all(np.array_equal(a, b) for a, b in zip(got.pred + got.masks,
+                                                    want.pred + want.masks))
+    log(f"  facade vs hub outputs bitwise equal: {same}")
+    compare_runs("Model(...).fuse().autoshape() vs hub AutoShape (fp32 card)",
+                 (got.pred, got.masks), (want.pred, want.masks), MATCH_SHARE, BOX_PX,
+                 SCORE_ABS, MASK_SHARE, mask_hws=[im.shape[:2] for im in got.imgs])
+    s = PHASE_S["[12] facade"] = time.perf_counter() - t0
+    log(f"  facade: {len(got.pred[0])} detections; {s:.1f} s")
+    return {"launches": launches, "bitwise_equal": same, "s": s}
 
 
 def profile_cli(eng16, work: str, bs: int) -> dict:
@@ -2846,7 +2963,7 @@ def stem_bound(frame, w, out_dtype, cuda_cores: bool = False):
     bsz, h, wd, _ = frame.shape
     c_mid, c_out = w[0].shape[-1], w[2].shape[-1]
     px = bsz * (h // 4) * (wd // 4)
-    mac1, mac2 = px * 9 * 48 * c_mid, px * 4 * c_mid * c_out
+    mac1, mac2 = px * 9 * w[0].shape[2] * c_mid, px * 4 * c_mid * c_out
     nw = w[0].numel() + w[2].numel()
     nbias = 4 * (w[1].numel() + w[3].numel())
     nframe = frame.numel() * frame.element_size()
@@ -2966,21 +3083,49 @@ def forward64(eng, x):
     return z, None if seg is None else seg.float()
 
 
-def run_family(cfg, frame, half: bool = True, timing: bool = True):
-    """One configuration (a zoo or hub name) at bs1 on seeded weights:
+def hold_network(name, card, cpu_out, cpu, x):
+    """The card's fp32 network outputs (decoded candidates, seg logits or
+    None) against float64 (:func:`forward64` of the CPU engine ``cpu`` on
+    ``x``), each held to max(NET_REL, F64_FACTOR x the CPU's own float32
+    error ``cpu_out``). Returns each output's three errors."""
+    z64, seg64 = forward64(cpu, x.cpu())
+    net = {}
+    for what, i, sl, rel in (("boxes", 0, slice(0, 4), True),
+                             ("obj/cls", 0, slice(4, None), False),
+                             ("seg logits", 1, slice(None), True)):
+        if card[i] is None:
+            continue
+        a_c, a_p, a_r = (t[i][:, sl].cpu() for t in (card, cpu_out, (z64, seg64)))
+        k = 1 if rel else 0
+        e_card, e_cpu, e_cc = diffs(a_c, a_r)[k], diffs(a_p, a_r)[k], diffs(a_c, a_p)[k]
+        net[what] = {"card_vs_f64": e_card, "cpu_vs_f64": e_cpu, "card_vs_cpu": e_cc}
+        unit = "max|diff|/max(max|ref|,1)" if rel else "max|diff|"
+        log(f"  {name} network fp32 {what} {unit}: card vs CPU {e_cc:.3e}; against float64, "
+            f"card {e_card:.3e}, CPU {e_cpu:.3e}")
+        check(f"{name} network fp32 card vs float64: {what} {unit}", e_card,
+              max(NET_REL, F64_FACTOR * e_cpu))
+    return net
+
+
+def run_family(cfg, frame, half: bool = True, timing: bool = True, make=None):
+    """One configuration (a zoo or hub name) at bs1 on seeded weights, or
+    the engines ``make(device, half)`` builds (``cfg`` then names them):
     launches; the card's fp32 network against float64 and its
     post-processing against the CPU's; with ``half``, bf16 against fp32
     beside the CPU's own bf16 drift; every K2 site against its plain
-    version; with ``timing``, ms/frame."""
+    version; with ``timing``, ms/frame.  ``frame`` (H, W, ch_in) uint8."""
     from multiyolov5_tpu_torch.engine import Engine
     from multiyolov5_tpu_torch.models.config import load_spec
     from multiyolov5_tpu_torch.models.model import seeded_state_dict
     from multiyolov5_tpu_torch.ops import kernels as K
-    spec = load_spec(cfg)
-    sd = seeded_state_dict(spec, SEED, DEVICE)     # the statistics pass on the card
-    e32 = Engine(spec=spec, state_dict=sd, device=DEVICE, half=False)
-    e16 = Engine(spec=spec, state_dict=sd, device=DEVICE, half=True) if half else None
-    cpu = Engine(spec=spec, state_dict=sd, device="cpu", half=False)
+    if make is None:
+        spec = load_spec(cfg)
+        sd = seeded_state_dict(spec, SEED, DEVICE)     # the statistics pass on the card
+        make = functools.partial(Engine, spec=spec, state_dict=sd)
+    e32 = make(device=DEVICE, half=False)
+    e16 = make(device=DEVICE, half=True) if half else None
+    cpu = make(device="cpu", half=False)
+    spec = e32.spec
     n_k2 = k2_sites(e32.model)
     seg = spec.seg_index is not None
     stem = (f"stem c_mid {e32.stem_weights[0].shape[-1]}" if e32.fold_stem
@@ -3004,23 +3149,8 @@ def run_family(cfg, frame, half: bool = True, timing: bool = True):
     ref = cpu.postprocess(z_cpu, seg_cpu, IN_HW, ORIG_HW, conf=CONF)
     if not seg and (seg_card is not None or seg_cpu is not None or card[1] != [None]):
         raise AssertionError(f"{cfg}: a detection-only model gave a seg output")
-    z64, seg64 = forward64(cpu, x.cpu())
+    net = hold_network(cfg, (z_card, seg_card), (z_cpu, seg_cpu), cpu, x)
     z_card = z_card.cpu()
-    net = {}
-    for what, sl, rel in (("boxes", slice(0, 4), True), ("obj/cls", slice(4, None), False),
-                          ("seg logits", None, True)):
-        if sl is None and not seg:
-            continue
-        a_c, a_p, a_r = ((z_card[:, sl], z_cpu[:, sl], z64[:, sl]) if sl is not None
-                         else (seg_card.cpu(), seg_cpu, seg64))
-        k = 1 if rel else 0
-        e_card, e_cpu, e_cc = diffs(a_c, a_r)[k], diffs(a_p, a_r)[k], diffs(a_c, a_p)[k]
-        net[what] = {"card_vs_f64": e_card, "cpu_vs_f64": e_cpu, "card_vs_cpu": e_cc}
-        unit = "max|diff|/max(max|ref|,1)" if rel else "max|diff|"
-        log(f"  {cfg} network fp32 {what} {unit}: card vs CPU {e_cc:.3e}; against float64, "
-            f"card {e_card:.3e}, CPU {e_cpu:.3e}")
-        check(f"{cfg} network fp32 card vs float64: {what} {unit}", e_card,
-              max(NET_REL, F64_FACTOR * e_cpu))
     compare_runs(f"{cfg} post-processing card vs CPU on the card's network outputs", card,
                  cpu.postprocess(z_card, None if seg_card is None else seg_card.cpu(), IN_HW,
                                  ORIG_HW, conf=CONF),
@@ -3034,7 +3164,7 @@ def run_family(cfg, frame, half: bool = True, timing: bool = True):
     res = {"launches_per_frame": launches, "k2_sites": n_k2, "cpu_forward_s": t_cpu,
            "dets": len(card[0][0]), "network_fp32": net}
     if half:
-        res["bf16_vs_fp32"] = bf16_drift(cfg, spec, sd, e16, e32, x, z_cpu, seg_cpu)
+        res["bf16_vs_fp32"] = bf16_drift(cfg, spec, make, e16, e32, x, z_cpu, seg_cpu)
     # every K2 site of the path, on the engines' own weights and shapes
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
     res["k2_rel_err"] = {}
@@ -3063,16 +3193,16 @@ def run_family(cfg, frame, half: bool = True, timing: bool = True):
     return res, (e32, e16, cpu)
 
 
-def bf16_drift(cfg, spec, sd, e16, e32, x, z_cpu, seg_cpu):
+def bf16_drift(cfg, spec, make, e16, e32, x, z_cpu, seg_cpu):
     """The card's bf16 network against its fp32 one on ``x``, held to
-    BF16_FACTOR x the CPU's own bf16 drift (never tighter than [3]'s bounds)."""
-    from multiyolov5_tpu_torch.engine import Engine
+    BF16_FACTOR x the CPU's own bf16 drift (never tighter than [3]'s bounds);
+    ``make(device, half)`` builds the CPU's bf16 engine."""
     seg = spec.seg_index is not None
     z16, seg16 = e16.forward(x)
     z32, seg32 = e32.forward(x)
     # bf16's own drift on this network: the CPU's bf16 engine against its fp32
     t0 = time.perf_counter()
-    cpu16 = Engine(spec=spec, state_dict=sd, device="cpu", half=True)
+    cpu16 = make(device="cpu", half=True)
     zc16, segc16 = cpu16.forward(x.cpu())
     t_cpu16 = time.perf_counter() - t0
     del cpu16
@@ -4827,8 +4957,8 @@ def phase_parallel(card: str, tree: str = None):
 
 
 def hold_recorded(eng, frames, what: str, bound: float):
-    """One counted ``Engine`` call on ``frames`` (B, H, W, 3) uint8 with the
-    arguments of K1, K2, K7, K3 and K5 recorded; each kernel the call
+    """One counted ``Engine`` call on ``frames`` (B, H, W, C) uint8 with the
+    arguments of K1, K2, K7, K3, K5 and K4 recorded; each kernel the call
     launched then held against its plain version on them
     (:func:`hold_path_kernels`).  Returns (the call's output, its launches,
     the records, the errors)."""
@@ -4841,7 +4971,8 @@ def hold_recorded(eng, frames, what: str, bound: float):
             spied(blocks, "conv3x3", before=recorder(rec["conv3x3"])), \
             spied(blocks, "c3", before=recorder(rec["c3"])), \
             spied(nms_mod, "nms_packed", before=recorder(rec["nms"])), \
-            spied(nms_mod, "nms_greedy", before=recorder(rec["nms_greedy"])):
+            spied(nms_mod, "nms_greedy", before=recorder(rec["nms_greedy"])), \
+            spied(engine_mod, "upsample_argmax", before=recorder(rec["upsample_argmax"])):
         K.reset_launches()
         out = eng(frames, ORIG_HW, conf=CONF)
         torch.cuda.synchronize()
@@ -4885,7 +5016,8 @@ def batch_vs_cpu(name, e32, cpu, frames, own_f64):
 
 def phase_dsl(frames, card: str):
     """[16] the DSL's other rows: the v5.0 hub configs at full width on the
-    card.  Failed bounds are raised at the end of the phase."""
+    card, and pspv5s with bilinear neck upsamples.  Failed bounds are
+    raised at the end of the phase."""
     return deferring_checks("[16]", _phase_dsl, frames, card)
 
 
@@ -5060,10 +5192,61 @@ def _phase_dsl(frames, card: str):
         check(f"{DSL_TRAIN_CFG} train fp32 card vs float64: {what} tensors off max([7]'s "
               f"change bound, {F64_FACTOR:g} x the CPU's own error)", len(bad64), 0)
         res["train"][what] = {"worst": worst, "median": med, "past_change_bound": bad}
+    # (e) pspv5s with its neck's nn.Upsample rows bilinear
+    res["bilinear"], bl_counted = bilinear_neck(frames[0])
+    counted += bl_counted
     res["launches"] = {k: sum(c[k] for c in counted) for k in counted[0]}
     log(f"  [16]'s counted runs launched {res['launches']} on {card}")
     return res
 
+
+def bilinear_neck(frame):
+    """[16] (e): pspv5s (CFG) with its neck's ``nn.Upsample`` rows (11 and
+    15) bilinear, a dict cfg on the smoke's weights, bs1 at the serving
+    geometry through :func:`run_family` (fp32 and bf16, the network against
+    float64, post-processing on the card's own outputs and end to end
+    against the CPU's under [3]'s bounds, bf16 against fp32 beside the
+    CPU's own drift, every K2 site); then a counted fp32 and bf16 call
+    each, with launches equal to the nearest model's (K1-K4) and each
+    kernel held on its arguments, and seg logits that differ from the
+    nearest model's (the mode took effect).  Returns (the results, the
+    counted calls' launches)."""
+    from multiyolov5_tpu_torch.engine import Engine
+    from multiyolov5_tpu_torch.models import zoo
+    from multiyolov5_tpu_torch.models.config import load_spec
+    from multiyolov5_tpu_torch.utils.checkpoint import load_checkpoint
+    t0 = time.perf_counter()
+    cfg = zoo.get(CFG)
+    cfg["head"] = [[f, n, m, [a[0], a[1], "bilinear"] if m == "nn.Upsample" else a]
+                   for f, n, m, a in cfg["head"]]
+    spec = load_spec(cfg)
+    rows = [r.i for r in spec.rows if r.module == "nn.Upsample" and r.args[2] == "bilinear"]
+    if rows != [11, 15]:
+        raise AssertionError(f"bilinear rows {rows}, want [11, 15]")
+    sd = load_checkpoint(smoke_weights())[1]
+    res, (e32, e16, _) = run_family("pspv5s bilinear", frame, timing=False,
+                                    make=functools.partial(Engine, spec=spec, state_dict=sd))
+    near = Engine(spec=load_spec(CFG), state_dict=sd, device=DEVICE, half=False)
+    x = frame[None]
+    near(x, ORIG_HW, conf=CONF)                 # the geometry's first call
+    _, want, _, _ = hold_recorded(near, x, "pspv5s nearest bs1 fp32", F32_REL)
+    res.update(errs={}, launches={})
+    counted = []
+    for name, eng, bound in (("fp32", e32, F32_REL), ("bf16", e16, BF16_REL)):
+        _, launches, _, res["errs"][name] = hold_recorded(eng, x, f"pspv5s bilinear bs1 {name}",
+                                                          bound)
+        want_launches(f"pspv5s bilinear bs1 {name} (the nearest model's: {want})", launches,
+                      want)
+        counted.append(launches)
+        res["launches"][name] = launches
+    xt = torch.from_numpy(x).to(DEVICE)
+    res["seg_vs_nearest"] = diffs(e32.forward(xt)[1], near.forward(xt)[1])[0]
+    log(f"  bilinear vs nearest seg logits max|diff| {res['seg_vs_nearest']:.3e}")
+    if not res["seg_vs_nearest"] > 0:
+        raise AssertionError("the bilinear model's seg logits equal the nearest model's")
+    res["s"] = PHASE_S["[16] bilinear"] = time.perf_counter() - t0
+    log(f"  pspv5s bilinear: {res['dets']} detections (fp32); {res['s']:.1f} s")
+    return res, counted
 
 # [17] the host tools on a seeded tree (no PIL, no cv2 on the card's
 # machine), and seg_confusion_device on the card against SegMetric at a
@@ -6266,7 +6449,8 @@ def main() -> int:
     # counted run), hub_launches ([12], one fp32 AutoShape call on the
     # mixed list) and dsl_launches ([16]'s counted calls: yolov3 bs1 fp32
     # and bf16, bs8 fp32 and bf16, its eval batch; the transformer bs1 fp32
-    # and bf16, bs2): every kernel on those paths.
+    # and bf16, bs2; bilinear pspv5s bs1 fp32 and bf16): every kernel on
+    # those paths.
     # max_abs_err: the float32 comparison of [2] at the serving shapes; for
     # nms the keep entries that differ, for nms_greedy the picks that differ
     # on the eval path's lists, for upsample_argmax the mismatched pixel
@@ -6317,7 +6501,12 @@ def main() -> int:
     kk["stem"].update(fp32_ms=su["ms"], fp32_plain_ms=su["plain_ms"],
                       fp32_library_ms=su["library_ms"], fp32_bound_ms=su["bound_ms"],
                       fp32_cuda_core_bound_ms=su["cuda_core_bound_ms"],
-                      fp32_frame=su["frame"])
+                      fp32_frame=su["frame"],
+                      # [12]'s 1- and 4-channel models: K1's launches, error and
+                      # times on each bs1 call's own arguments, by channels and dtype
+                      channels={ch: {"launches": {d: r["launches"][d]["stem"]
+                                                  for d in r["launches"]}, **r["stem"]}
+                                for ch, r in hb["channels"].items()})
     # K3 with its pack on the serving list, and on the chain and an
     # all-invalid list ([6]); K4 at seg_validation's bs4 float32 batch and
     # the bs8 server's shape ([6]) and on the server's own bs8 launch ([8])

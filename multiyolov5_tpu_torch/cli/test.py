@@ -13,8 +13,9 @@ It prints the rounded metrics as one JSON line and returns them.
 default is float32 (``--half`` for bfloat16).  ``--task``, ``--augment``
 and ``--save-hybrid`` are accepted and ignored, as in the JAX CLI.
 ``--plots`` writes the PR, F1, P and R curves and the confusion matrix
-into ``--save-dir`` (``utils/plots.py``, no matplotlib).  An image that is
-neither PNG nor JPEG in a split raises ``NotImplementedError``.
+into ``--save-dir`` (``utils/plots.py``, no matplotlib).  A split's images
+may be PNG, JPEG, MPO, BMP, TIFF or WebP; a DNG image raises
+``NotImplementedError`` naming it.
 
 Run: ``python -m multiyolov5_tpu_torch.cli.test --weights w.npz --data d.yaml``
 (``--data`` may be a JSON file, which needs no PyYAML).

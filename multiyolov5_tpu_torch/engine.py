@@ -1,13 +1,13 @@
 """Inference engine (counterpart of ``multiyolov5_tpu/engine.py``).
 
 One call runs, on ``device``:
-    letterboxed frame (uint8, or float in [0, 1]) -> folded stem (K1; a
-    model without the Focus + Conv(3, s2) stem runs from row 0 on the
-    frame / 255) -> trunk (neck 3x3s on K2; at batch > 1 the narrow
-    backbone C3 on K7) -> seg head (its Pallas-site 3x3s on K2), if the
-    model has one, + Detect decode (float32) -> NMS (K3 for one frame, one
-    K5 launch for a batch) -> letterbox unmap -> upsample + argmax class
-    map (K4)
+    letterboxed frame (uint8, or float in [0, 1]; any number of channels
+    the spec takes) -> folded stem (K1; a model without the Focus +
+    Conv(3, s2) stem runs from row 0 on the frame / 255) -> trunk (neck
+    3x3s on K2; at batch > 1 the narrow backbone C3 on K7) -> seg head (its
+    Pallas-site 3x3s on K2), if the model has one, + Detect decode
+    (float32) -> NMS (K3 for one frame, one K5 launch for a batch) ->
+    letterbox unmap -> upsample + argmax class map (K4)
 and returns host arrays.  Every zoo entry and hub config runs: the four
 seg heads, detection-only models (no class map), the 4-level P6 models
 (stride 64), yolov3 and the transformer.  BNs that no conv absorbs keep
@@ -43,6 +43,7 @@ from .models.config import ModelSpec, load_spec
 from .models.model import Model, seeded_state_dict
 from .ops import stem as stem_lib
 from .ops.kernels import stem, upsample_argmax
+from .ops.kernels.stem import MAX_CHANNELS as STEM_MAX_CHANNELS
 from .ops.nms import nms_batched, nms_planar
 from .ops.nn import fuse_conv_bn
 from .utils.boxes import scale_coords
@@ -56,7 +57,7 @@ TTA_FLIPS = (False, True, False)
 
 
 def scale_img_pad(x: torch.Tensor, ratio: float, gs: int = 32) -> torch.Tensor:
-    """(B, H, W, 3) float frame -> bilinear (align_corners=False) resize to
+    """(B, H, W, C) float frame -> bilinear (align_corners=False) resize to
     ``int(H * ratio) x int(W * ratio)``, padded with 0.447 on the bottom and
     right up to multiples of ``gs`` (multiyolov5_tpu/engine.py:131-143)."""
     if ratio == 1.0:
@@ -114,12 +115,16 @@ class Engine:
         self.dtype = torch.bfloat16 if half else torch.float32
         fsd = fuse_conv_bn(sd)
 
-        # rows 0-1 run as the folded stem where they are Focus + Conv(3, s2);
-        # for uint8 frames /255 folds into conv1's weights, float frames
-        # (already in [0, 1]) take them unscaled.  Any other stem runs in the
-        # model from row 0, as the JAX engine runs it
-        # (multiyolov5_tpu/engine.py:379-387)
-        self.fold_stem = stem_lib.can_fold_stem(spec)
+        # rows 0-1 run as the folded stem (K1) where they are Focus +
+        # Conv(3, s2), on frames of any channel count K1 reads (the JAX
+        # engine folds any ch_in, multiyolov5_tpu/engine.py:186); for uint8
+        # frames /255 folds into conv1's weights, float frames (already in
+        # [0, 1]) take them unscaled.  Any other stem runs in the model from
+        # row 0, as the JAX engine runs a stem it does not fold
+        # (multiyolov5_tpu/engine.py:379-387).  Decided here, from the spec
+        # alone: the CPU and the card take the same route
+        self.fold_stem = (stem_lib.can_fold_stem(spec)
+                          and spec.ch_in <= STEM_MAX_CHANNELS)
         self.stem_weights = self.stem_weights_float = None
         if self.fold_stem:
             hwio = lambda k: np.asarray(fsd[k]).transpose(2, 3, 1, 0)  # noqa: E731
@@ -148,13 +153,14 @@ class Engine:
         return self.spec.names
 
     def forward(self, frames: torch.Tensor, raw: bool = False):
-        """frames (B, H, W, 3) on the engine's device, uint8, or float32 or
-        bfloat16 in [0, 1] (the seg loader's x / 255, used as it is), H and
-        W any multiples of the stride (serving's 512x1024, the eval
-        loader's rect shapes such as 576x1024) -> (decoded candidates (B,
-        no, N) float32, 1/8-res seg logits (B, C, h, w), or None for a
-        detection-only model).  With ``raw``, the first is the pair
-        (decoded candidates, Detect's raw per-level maps)."""
+        """frames (B, H, W, ch_in) on the engine's device (``ch_in`` the
+        spec's input channels), uint8, or float32 or bfloat16 in [0, 1]
+        (the seg loader's x / 255, used as it is), H and W any multiples of
+        the stride (serving's 512x1024, the eval loader's rect shapes such
+        as 576x1024) -> (decoded candidates (B, no, N) float32, 1/8-res seg
+        logits (B, n_segcls, h, w), or None for a detection-only model).
+        With ``raw``, the first is the pair (decoded candidates, Detect's
+        raw per-level maps)."""
         if frames.shape[1] % self.stride or frames.shape[2] % self.stride:
             raise ValueError(f"frame {tuple(frames.shape[1:3])} is not a "
                              f"multiple of the stride {self.stride}")
@@ -204,7 +210,9 @@ class Engine:
                  agnostic: bool = False, multi_label: bool = False,
                  max_det: int = 300,
                  augment: bool = False) -> Tuple[List[np.ndarray], List[Optional[np.ndarray]]]:
-        """img: (H, W, 3) or (B, H, W, 3) letterboxed RGB, uint8 or float in [0, 1].
+        """img: (H, W, C) or (B, H, W, C) letterboxed RGB (C the spec's
+        ``ch_in``, 3 but for a model built for other channels), uint8 or
+        float in [0, 1].
 
         Returns (per image an (n, 6) float32 array [x1, y1, x2, y2, conf,
         cls] in original-frame pixels, per image an (H0, W0) uint8 class
@@ -224,7 +232,7 @@ class Engine:
     def warmup(self, in_hw: Tuple[int, int], orig_hw: Tuple[int, int], **kw) -> None:
         """One call on a blank bs1 frame of ``in_hw``: builds the kernels and
         warms the allocator and cuDNN for that geometry."""
-        self(np.zeros((1, *in_hw, 3), np.uint8), orig_hw, **kw)
+        self(np.zeros((1, *in_hw, self.spec.ch_in), np.uint8), orig_hw, **kw)
 
     def postprocess(self, z: torch.Tensor, seg: Optional[torch.Tensor],
                     in_hw: Tuple[int, int], orig_hw: Tuple[int, int],

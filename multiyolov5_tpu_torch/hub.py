@@ -36,7 +36,6 @@ from .data.letterbox import letterbox
 from .engine import Engine
 from .models.config import load_spec
 from .models.model import seeded_state_dict
-from .ops.stem import can_fold_stem
 from .utils.boxes import xyxy2xywh
 from .utils.checkpoint import intersect_load, load_checkpoint
 from .utils.general import increment_path
@@ -51,16 +50,15 @@ def create(name: str, pretrained: Optional[str] = None, channels: int = 3,
     hubconf.py:22-48).  The default ``channels`` (3) and ``classes`` (80, or
     None) keep the config and load ``pretrained`` whole; any other values
     rebuild the model for them (a seeded init) and copy in the
-    ``pretrained`` tensors whose names and shapes match.  Other than 3
-    channels needs a model without the folded Focus stem, whose kernel
-    reads 3-channel frames."""
+    ``pretrained`` tensors whose names and shapes match.  A model of other
+    than 3 channels serves (B, H, W, ``channels``) frames through
+    ``Engine`` (K1 reads them); :class:`AutoShape`, which makes 3-channel
+    images, refuses it."""
     if channels == 3 and classes in (80, None):
         eng = Engine(pretrained if pretrained and os.path.exists(pretrained) else None,
                      cfg=name, device=device, half=half)
         return AutoShape(eng) if autoshape else eng
     spec = load_spec(name, ch=channels, nc=classes or 80)
-    if channels != 3 and can_fold_stem(spec):
-        raise NotImplementedError("the port's stem kernel reads 3-channel frames only")
     sd = seeded_state_dict(spec, 0)
     if pretrained and os.path.exists(pretrained):
         sd, _ = intersect_load(sd, load_checkpoint(pretrained)[1])
@@ -104,7 +102,10 @@ def _pil_image_class():
 
 
 class AutoShape:
-    """Input-robust wrapper (reference models/common.py:605-672)."""
+    """Input-robust wrapper (reference models/common.py:605-672).  It makes
+    3-channel RGB images of what it is given, so a model built for other
+    channels raises ``ValueError`` at the call, before anything is read or
+    launched (the JAX wrapper fails inside the model's stem)."""
 
     conf = 0.25
     iou = 0.45
@@ -115,6 +116,11 @@ class AutoShape:
         self.names = engine.names
 
     def __call__(self, imgs, size: int = 640, augment: bool = False):
+        ch = self.engine.spec.ch_in
+        if ch != 3:
+            raise ValueError(f"AutoShape makes 3-channel images; the model takes {ch} "
+                             "channels: call its Engine on (B, H, W, "
+                             f"{ch}) frames instead")
         pil_image = _pil_image_class()
         n, items = (len(imgs), list(imgs)) if isinstance(imgs, list) else (1, [imgs])
         images.require_readable([im for im in items if isinstance(im, (str, os.PathLike))],

@@ -29,7 +29,8 @@ from ..ops import shard
 from ..ops.kernels import c3, conv3x3
 from ..ops.kernels.conv3x3 import takes as k2_takes
 from ..ops.nn import BN_EPS, BN_MOMENTUM, autopad, batch_norm
-from ..ops.resize import adaptive_avg_pool_multi, max_pool_same, resize_bilinear, upsample_nearest
+from ..ops.resize import (UPSAMPLE_MODES, adaptive_avg_pool_multi, max_pool_same,
+                          resize_bilinear, upsample)
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
@@ -216,16 +217,20 @@ class Concat(nn.Module):
 
 
 class Upsample(nn.Module):
-    """``nn.Upsample(None, scale, 'nearest')`` rows of the neck."""
+    """``nn.Upsample(None, scale, mode)`` rows: every mode torch takes on a
+    4-D map (``UPSAMPLE_MODES``), with torch's default ``align_corners``
+    (the JAX package's non-nearest rows compute an align-corners bilinear,
+    multiyolov5_tpu/models/model.py:179-186, unlike the reference's)."""
 
     def __init__(self, scale: int, mode: str = "nearest"):
         super().__init__()
-        if mode != "nearest":
-            raise NotImplementedError(f"Upsample mode {mode!r}")
-        self.scale = int(scale)
+        if mode not in UPSAMPLE_MODES:
+            raise ValueError(f"nn.Upsample mode {mode!r}: a 4-D map takes one of "
+                             f"{', '.join(UPSAMPLE_MODES)}")
+        self.scale, self.mode = int(scale), mode
 
     def forward(self, x):
-        return upsample_nearest(x, self.scale)
+        return upsample(x, self.scale, self.mode)
 
 
 def _global_branch(c1: int, c2: int, fused: bool) -> nn.Module:

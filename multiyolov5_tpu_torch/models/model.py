@@ -10,14 +10,14 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional
+from typing import List, Optional, Union
 
 import torch
 import torch.nn as nn
 
 from . import blocks as B
-from ..ops.nn import BN_MOMENTUM, Dropout
-from .config import ModelSpec
+from ..ops.nn import BN_MOMENTUM, Dropout, fuse_conv_bn
+from .config import ModelSpec, load_spec
 from .heads import Detect, SegMaskBase, SegMaskBiSe, SegMaskLab, SegMaskPSP
 
 
@@ -97,7 +97,19 @@ def _build_row(spec: ModelSpec, row, fused: bool, kernel: bool,
 
 
 class Model(nn.Module):
-    """The network of a :class:`ModelSpec` on NCHW tensors.
+    """The network of a :class:`ModelSpec` on NCHW tensors, and the reference
+    ``Model`` surface (models/yolo.py:233-370; multiyolov5_tpu/models/model.py:387-451).
+
+    ``cfg`` is a :class:`ModelSpec`, built as it is with torch's default
+    init (``ch``, ``nc`` and ``anchors`` left at their defaults), or a
+    config (a zoo or hub name, a yaml path or a dict) compiled by
+    ``load_spec(cfg, ch, nc, anchors)`` and initialised from ``seed`` as
+    :func:`seeded_state_dict` does.  ``nc``, ``stride`` (the spec's
+    strides) and ``names`` read the spec; :meth:`fuse` folds BN in place,
+    :meth:`info` prints the summary and :meth:`autoshape` serves the
+    weights through ``hub.AutoShape``.  ``half()`` is ``nn.Module``'s
+    (float16); the JAX facade's ``half()`` computes in bfloat16, which here
+    is ``.to(torch.bfloat16)``, the dtype the kernels take.
 
     ``fused=True`` builds BN-folded convs (load a ``fuse_conv_bn``'d
     state_dict); then the SiLU 3x3 convs from the neck on (rows past the
@@ -112,19 +124,88 @@ class Model(nn.Module):
     first is the list of raw per-level maps (B, na, ny, nx, no)
     (heads.Detect), the input of train/losses.DetectionLoss, and with
     ``decode="both"`` the pair (decoded candidates, raw maps).  In
-    training mode the BiSe head's seg output is ``[main, aux16, aux32]``."""
+    training mode the BiSe head's seg output is ``[main, aux16, aux32]``.
+    The JAX facade's call takes and returns NHWC maps and adds the BN
+    state, ``(det, seg, state)``; this one stays NCHW, ``(det, seg)``."""
 
-    def __init__(self, spec: ModelSpec, fused: bool = False, kernels: bool = True):
+    def __init__(self, cfg: Union[ModelSpec, str, dict] = "yolov5s_city_seg", ch: int = 3,
+                 nc: Optional[int] = None, anchors=None, seed: int = 0, *,
+                 fused: bool = False, kernels: bool = True):
         super().__init__()
-        self.spec = spec
+        spec = cfg
+        if not isinstance(cfg, ModelSpec):
+            spec = load_spec(cfg, ch, nc, anchors)
+        elif (ch, nc, anchors) != (3, None, None):
+            raise ValueError("ch, nc and anchors rebuild a config; a ModelSpec is "
+                             "built as it is")
+        self.spec, self.kernels, self.fused = spec, kernels, fused
+        self.model = self._rows(fused)
+        if isinstance(cfg, ModelSpec):
+            return
+        if fused:       # the folded weights of the unfused seeded model
+            self.load_state_dict(fuse_conv_bn(seeded_state_dict(spec, seed)), strict=True)
+        else:
+            init_model(self, torch.Generator().manual_seed(seed)).train()
+
+    def _rows(self, fused: bool) -> nn.ModuleList:
+        spec = self.spec
         neck_start = len(spec.yaml.get("backbone", []))
-        self.model = nn.ModuleList(
-            _build_row(spec, row, fused, kernel=kernels and row.i >= neck_start,
-                       c3_kernel=kernels and row.i < neck_start)
+        return nn.ModuleList(
+            _build_row(spec, row, fused, kernel=self.kernels and row.i >= neck_start,
+                       c3_kernel=self.kernels and row.i < neck_start)
             for row in spec.rows)
 
+    @property
+    def nc(self) -> int:
+        return self.spec.nc
+
+    @property
+    def stride(self) -> List[int]:
+        return list(self.spec.strides)
+
+    @property
+    def names(self) -> List[str]:
+        return list(self.spec.names)
+
+    def fuse(self) -> "Model":
+        """Fold every conv-following BN in place (``fuse_conv_bn``): the rows
+        become the folded modules, on the same device and in the same
+        dtype, in the same mode.  From then on the neck's SiLU 3x3s and,
+        at batch > 1, the backbone C3s run on their kernels, as in
+        ``Model(spec, fused=True)``.  Returns ``self``."""
+        if self.fused:
+            return self
+        p = next(self.parameters())
+        dtypes = {k: v.dtype for k, v in self.state_dict().items()}
+        rows = self._rows(fused=True)
+        rows.load_state_dict({k[len("model."):]: v for k, v in
+                              fuse_conv_bn(_host_float(self.state_dict())).items()},
+                             strict=True)
+        self.model = rows.to(p.device)
+        for name, t in (*self.named_parameters(), *self.named_buffers()):
+            if t.is_floating_point():      # a folded conv's new bias: the weights' dtype
+                t.data = t.data.to(dtypes.get(name, p.dtype))
+            if isinstance(t, nn.Parameter):
+                t.requires_grad_(p.requires_grad)
+        self.fused = True
+        return self.train(self.training)
+
+    def info(self, verbose: bool = False, img_size: int = 640) -> dict:
+        """Layers, parameters and GFLOPs at ``img_size`` (reference
+        ``Model.info``, utils/profiling.model_info)."""
+        from ..utils.profiling import model_info
+        return model_info(self.spec, self.state_dict(), img_size, verbose)
+
+    def autoshape(self):
+        """These weights behind ``hub.AutoShape``: an ``Engine`` in float32
+        on this model's device (the JAX facade passes ``half=False`` too)."""
+        from ..engine import Engine
+        from ..hub import AutoShape
+        return AutoShape(Engine(spec=self.spec, state_dict=_host_float(self.state_dict()),
+                                device=next(self.parameters()).device, half=False))
+
     def forward(self, x: torch.Tensor, start_layer: int = 0, decode: bool = True):
-        """x: (B, 3, H, W) image in [0, 1], or with ``start_layer=k`` the
+        """x: (B, ch_in, H, W) image in [0, 1], or with ``start_layer=k`` the
         output of row k-1 (no skipped row may be in the save set)."""
         spec = self.spec
         cache = {}
@@ -160,6 +241,12 @@ class Model(nn.Module):
         finally:
             for m in mods:
                 m.generator = m.mesh = None
+
+
+def _host_float(sd: dict) -> dict:
+    """A ``state_dict`` on the CPU, its floating tensors in float32."""
+    return {k: (v.float() if v.is_floating_point() else v).detach().cpu()
+            for k, v in sd.items()}
 
 
 def init_model(model: Model, generator: torch.Generator, device="cpu") -> Model:

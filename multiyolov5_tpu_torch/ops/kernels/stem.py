@@ -3,8 +3,9 @@
 On a uint8 frame, the counterpart of ``stem_apply_pallas_u8`` and
 ``stem_apply_pallas_u8_multi`` (multiyolov5_tpu/ops/pallas/stem_kernel.py:141,
 :308), with the /255 folded into w1; on a float32 or bfloat16 frame in
-[0, 1], of ``stem_apply_pallas`` (:415), with w1 unscaled.  The kernel is
-``csrc/stem.cu``; its design notes are there.  The two modes count their
+[0, 1], of ``stem_apply_pallas`` (:415), with w1 unscaled.  Frames of 1
+to ``MAX_CHANNELS`` channels, as the TPU kernels take any ``c_in``.  The
+kernel is ``csrc/stem.cu``; its design notes are there.  The two modes count their
 launches apart: ``stem.launches`` (uint8) and ``stem_float.launches``.
 
 Both output types run on the tensor cores, each from a copy of the weights
@@ -26,9 +27,10 @@ import torch.nn.functional as F
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 CHUNK = 64          # c_mid channels both forms compute at a time
 MAX_COUT = 160      # the widest c_out their conv2 accumulators take (x width)
+MAX_CHANNELS = 13   # the most frame channels whose float32 patch fits in shared memory
 
 
 def space_to_depth4(frame: torch.Tensor) -> torch.Tensor:
@@ -44,9 +46,9 @@ def space_to_depth4(frame: torch.Tensor) -> torch.Tensor:
 def stem_plain(frame: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                w2: torch.Tensor, b2: torch.Tensor,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """frame (B, H, W, 3), uint8 (w1 with /255 folded in) or float in
-    [0, 1] (w1 unscaled); w1 (3, 3, 48, c_mid) HWIO; w2 (2, 2, c_mid, c_out)
-    HWIO; float32 weights and biases.  Returns (B, H/4, W/4, c_out) in
+    """frame (B, H, W, C), uint8 (w1 with /255 folded in) or float in
+    [0, 1] (w1 unscaled); w1 (3, 3, 16 C, c_mid) HWIO; w2 (2, 2, c_mid,
+    c_out) HWIO; float32 weights and biases.  Returns (B, H/4, W/4, c_out) in
     ``out_dtype``, computed in float32.
 
     A bfloat16 output rounds as the TPU kernel does in bf16
@@ -67,24 +69,24 @@ def stem_plain(frame: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 def pack_weights(w1: torch.Tensor, w2: torch.Tensor):
-    """The tensor-core form's weights: bf16 copies of w1 (3, 3, 48, c_mid)
+    """The tensor-core form's weights: bf16 copies of w1 (3, 3, 16 C, c_mid)
     and w2 (2, 2, c_mid, c_out) in the B-fragment order of mma m16n8k16,
     so that each lane of a warp reads its four registers of two 8-column
     tiles as one 16-byte load.  c_mid is padded to a multiple of CHUNK and
     c_out to a multiple of 32 with zeros (a pad channel of y1 is SiLU(0) = 0
     and meets zero weights).
 
-    Returns bf16 (p1, p2): p1 [chunk][27 k16][4 n16][g 8][t 4][nt 2][h
-    2][e 2] holds w1.reshape(432, c_mid)[16 * k16 + 8 * h + 2 * t + e][CHUNK
+    Returns bf16 (p1, p2): p1 [chunk][9 C k16][4 n16][g 8][t 4][nt 2][h
+    2][e 2] holds w1.reshape(144 C, c_mid)[16 * k16 + 8 * h + 2 * t + e][CHUNK
     * chunk + 16 * n16 + 8 * nt + g], p2 [chunk][4 tap][4 k16][c_out_p / 16
     n16][g][t][nt][h][e] holds w2.reshape(4, c_mid, c_out)[tap][CHUNK *
     chunk + 16 * k16 + 8 * h + 2 * t + e][16 * n16 + 8 * nt + g]."""
     c_mid, c_out = w1.shape[-1], w2.shape[-1]
     cm_p = -(-c_mid // CHUNK) * CHUNK
     co_p = -(-c_out // 32) * 32
-    nch = cm_p // CHUNK
-    b1m = F.pad(w1.reshape(9 * 48, c_mid), (0, cm_p - c_mid)).to(torch.bfloat16)
-    p1 = (b1m.reshape(27, 2, 4, 2, nch, 4, 2, 8)          # k16 h t e | ch n16 nt g
+    nch, k = cm_p // CHUNK, 9 * w1.shape[2]
+    b1m = F.pad(w1.reshape(k, c_mid), (0, cm_p - c_mid)).to(torch.bfloat16)
+    p1 = (b1m.reshape(k // 16, 2, 4, 2, nch, 4, 2, 8)     # k16 h t e | ch n16 nt g
           .permute(4, 0, 5, 7, 2, 6, 1, 3).contiguous())
     b2m = F.pad(w2.reshape(4, c_mid, c_out), (0, co_p - c_out, 0, cm_p - c_mid))
     p2 = (b2m.to(torch.bfloat16)
@@ -107,25 +109,25 @@ def tf32_split(w: torch.Tensor):
 
 
 def pack_weights_tf32(w1: torch.Tensor, w2: torch.Tensor):
-    """The float32 form's weights: w1 (3, 3, 48, c_mid) and w2 (2, 2, c_mid,
-    c_out), split by :func:`tf32_split` into tf32 hi and lo parts, in the
+    """The float32 form's weights: w1 (3, 3, 16 C, c_mid) and w2 (2, 2,
+    c_mid, c_out), split by :func:`tf32_split` into tf32 hi and lo parts, in the
     B-fragment order of mma m16n8k8 (b0 = (k = t, n = g), b1 = (k = t + 4,
     n = g) for lane 4 g + t), so that each lane reads the registers of two
     8-column tiles of one part as one 16-byte load, the hi load and the lo
     load 512 bytes apart.  c_mid is padded to a multiple of CHUNK and c_out
     to a multiple of 32 with zeros, as in :func:`pack_weights`.
 
-    Returns float32 (p1, p2): p1 [chunk][54 k8][4 n16][part 2][g 8][t 4][nt
-    2][h 2] holds part(w1.reshape(432, c_mid))[8 * k8 + 4 * h + t][CHUNK *
+    Returns float32 (p1, p2): p1 [chunk][18 C k8][4 n16][part 2][g 8][t
+    4][nt 2][h 2] holds part(w1.reshape(144 C, c_mid))[8 * k8 + 4 * h + t][CHUNK *
     chunk + 16 * n16 + 8 * nt + g], p2 [chunk][4 tap][8 k8][c_out_p / 16
     n16][part][g][t][nt][h] holds part(w2.reshape(4, c_mid, c_out))[tap][CHUNK
     * chunk + 8 * k8 + 4 * h + t][16 * n16 + 8 * nt + g], part 0 hi, 1 lo."""
     c_mid, c_out = w1.shape[-1], w2.shape[-1]
     cm_p = -(-c_mid // CHUNK) * CHUNK
     co_p = -(-c_out // 32) * 32
-    nch = cm_p // CHUNK
-    b1m = torch.stack(tf32_split(F.pad(w1.reshape(9 * 48, c_mid), (0, cm_p - c_mid))))
-    p1 = (b1m.reshape(2, 54, 2, 4, nch, 4, 2, 8)          # part k8 h t | ch n16 nt g
+    nch, k = cm_p // CHUNK, 9 * w1.shape[2]
+    b1m = torch.stack(tf32_split(F.pad(w1.reshape(k, c_mid), (0, cm_p - c_mid))))
+    p1 = (b1m.reshape(2, k // 8, 2, 4, nch, 4, 2, 8)      # part k8 h t | ch n16 nt g
           .permute(4, 1, 5, 0, 7, 3, 6, 2).contiguous())
     b2m = F.pad(w2.reshape(4, c_mid, c_out), (0, co_p - c_out, 0, cm_p - c_mid))
     p2 = (torch.stack(tf32_split(b2m))
@@ -185,12 +187,13 @@ def stem_float(frame: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 def _launch(frame, w1, b1, w2, b2, out_dtype):
-    build.require(frame.dim() == 4 and frame.shape[-1] == 3 and frame.is_contiguous(),
-                  "stem: frame must be contiguous (B, H, W, 3)")
-    bsz, h, w, _ = frame.shape
+    build.require(frame.dim() == 4 and 1 <= frame.shape[-1] <= MAX_CHANNELS
+                  and frame.is_contiguous(),
+                  f"stem: frame must be contiguous (B, H, W, C), 1 <= C <= {MAX_CHANNELS}")
+    bsz, h, w, ch = frame.shape
     build.require(h % 4 == 0 and w % 4 == 0, f"stem: frame {h}x{w} not a multiple of 4")
     c_mid, c_out = w1.shape[-1], w2.shape[-1]
-    for t, shape in ((w1, (3, 3, 48, c_mid)), (b1, (c_mid,)),
+    for t, shape in ((w1, (3, 3, 16 * ch, c_mid)), (b1, (c_mid,)),
                      (w2, (2, 2, c_mid, c_out)), (b2, (c_out,))):
         build.require(tuple(t.shape) == shape and t.dtype == torch.float32
                       and t.is_contiguous() and t.device == frame.device,
@@ -205,7 +208,7 @@ def _launch(frame, w1, b1, w2, b2, out_dtype):
         fn = build.function("mk_stem_tc" if out_dtype == torch.bfloat16 else "mk_stem_tf32",
                             _ARGTYPES)
         err = fn(build.ptr(frame), *map(build.ptr, (p1, b1, p2, b2)), build.ptr(out), bsz,
-                 h // 4, w // 4, c_mid, c_out, _DTYPES[frame.dtype],
+                 h // 4, w // 4, c_mid, c_out, ch, _DTYPES[frame.dtype],
                  build.stream_of(frame))
     build.check(err, "stem")
     return out

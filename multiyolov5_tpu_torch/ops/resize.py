@@ -2,8 +2,9 @@
 
 The JAX package re-derives torch's semantics as dense matmuls; here the
 same functions are torch's own ops on NCHW tensors.  Inside a sharded
-forward (ops/shard.py) the bilinear resize and the adaptive pools read the
-whole map, gathered from the ranks, and the max pool takes a halo.
+forward (ops/shard.py) the bilinear resize, the upsamples other than
+nearest and the adaptive pools read the whole map, gathered from the
+ranks, and the max pool takes a halo.
 """
 
 from __future__ import annotations
@@ -32,9 +33,19 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
     return out.narrow(2, start, rows)
 
 
-def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
-    """``nn.Upsample(scale_factor=scale, mode='nearest')``."""
-    return F.interpolate(x, scale_factor=scale, mode="nearest")
+# the modes torch's nn.Upsample takes on a 4-D map
+UPSAMPLE_MODES = ("nearest", "bilinear", "bicubic", "area", "nearest-exact")
+
+
+def upsample(x: torch.Tensor, scale: int, mode: str) -> torch.Tensor:
+    """``nn.Upsample(None, scale, mode)`` (torch's default ``align_corners``).
+    A nearest upsample reads only its own rows; in a sharded forward any
+    other mode reads the whole map (gathered) and returns this rank's rows."""
+    if mode == "nearest":
+        return F.interpolate(x, scale_factor=scale, mode=mode)
+    full = shard.gather_rows(x)
+    _, start, rows = shard.place(x.shape[2] * scale, x.shape[3] * scale)
+    return F.interpolate(full, scale_factor=scale, mode=mode).narrow(2, start, rows)
 
 
 def adaptive_avg_pool_multi(x: torch.Tensor, ks: Sequence[int]) -> List[torch.Tensor]:

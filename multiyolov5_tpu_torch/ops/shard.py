@@ -13,9 +13,10 @@ the ops here for what reads across rows:
 * :func:`zero_pad`: top rows on the first rank that holds rows, bottom
   rows on the last;
 * :func:`mean_hw`: the global mean as a sum over the group;
-* ``resize_bilinear``, ``adaptive_avg_pool_multi`` (ops/resize.py) and the
-  transformer (models/blocks.py) gather the whole map first and keep this
-  rank's rows of what they compute (:func:`place`).
+* ``resize_bilinear``, ``upsample`` in a mode other than nearest,
+  ``adaptive_avg_pool_multi`` (ops/resize.py) and the transformer
+  (models/blocks.py) gather the whole map first and keep this rank's rows
+  of what they compute (:func:`place`).
 
 Focus, 1x1 convs, nearest upsamples and concats stay local.  Outside
 :func:`sharded` every op is the plain one.  Tensors that every rank of the

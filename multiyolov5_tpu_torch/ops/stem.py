@@ -1,9 +1,9 @@
 """Folded stem weights (counterpart of ``multiyolov5_tpu/ops/stem.py``).
 
 The YOLOv5 stem (Focus(3, c2, k=3) then Conv(c2, c2b, 3, s=2)) is rewritten
-exactly on the 4x4 space-to-depth grid of the frame: conv1' is a 3x3 conv
-48 -> 4*c2 whose output channel (P, co) holds phase P of the Focus conv
-output, and conv2' is a 2x2 conv 4*c2 -> c2b with top/left padding 1.
+exactly on the 4x4 space-to-depth grid of a frame of c1 channels: conv1'
+is a 3x3 conv 16*c1 -> 4*c2 whose output channel (P, co) holds phase P of
+the Focus conv output, and conv2' is a 2x2 conv 4*c2 -> c2b with top/left padding 1.
 The folded convs themselves run in kernel K1 (ops/kernels/stem.py).
 The two functions here are pure numpy and equal the JAX package's.
 """

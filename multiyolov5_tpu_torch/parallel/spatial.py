@@ -9,8 +9,9 @@ reach take halos from ``parallel/comm.halo_exchange`` (3x3 convs at
 dilation 1-3 in C3, the neck, RFB2 and FFM; ASPP's dilations 3, 6 and 9;
 stride-2 convs: 1 row above, none below; SPP's k5/9/13 pools, filled with
 ``-inf``), and the ops that read the whole map (the adaptive pools, the
-global means, the align-corners bilinear resizes of the seg heads) work
-from a gather.  Focus, 1x1 convs, nearest upsamples and concats stay local.
+global means, the align-corners bilinear resizes of the seg heads, the
+neck's upsamples in any mode but nearest) work from a gather.  Focus, 1x1
+convs, nearest upsamples and concats stay local.
 Parameters are replicated.
 
 H splits in units of the largest stride (mesh.split_rows), so a level's

@@ -4,15 +4,18 @@ eval path's shapes on one NVIDIA GPU, optionally against another checkout.
     python3 prof_stem_torch.py                    # this checkout
     python3 prof_stem_torch.py --against DIR      # DIR, this, this, DIR
     python3 prof_stem_torch.py --accuracy [--against DIR]   # against float64
+    python3 prof_stem_torch.py --channels 1,3,4 [--against DIR]
 
 Seeded random weights at s width (c_mid 128, c_out 64) and x width (320,
-160), 512x1024 frames at bs1 and bs4, float32 frames in [0, 1] (w1
-unscaled) and uint8 frames (w1 / 255), float32 output.  Each run prints one
-JSON line a case: K1's device ms (CUDA graph replay) and its max |diff| /
-max(max |ref|, 1) against ``stem_plain``; for this checkout also the plain
-version, the cuDNN conv2d pair in float32 (TF32 off), K1's bfloat16 form,
-and the bounds of ``chip_smoke.stem_bound`` (the 3xTF32 form's, and
-float32 on the CUDA cores).  With ``--against``, the two trees run in turns
+160), 512x1024 frames of 3 channels (or each of ``--channels``; DIR runs
+3 only) at bs1 and bs4, float32 frames in [0, 1] (w1 unscaled) and uint8
+frames (w1 / 255), float32 output.  Each run prints one JSON line a case:
+K1's device ms (CUDA graph replay) and its max |diff| / max(max |ref|, 1)
+against ``stem_plain``; for this checkout also the plain version, the
+cuDNN conv2d pair in float32 (TF32 off), K1's bfloat16 form with its
+error, the cuDNN pair in bfloat16 and its bound, and the bounds of
+``chip_smoke.stem_bound`` (the 3xTF32 form's, and float32 on the CUDA
+cores).  With ``--against``, the two trees run in turns
 in separate processes (each builds its own kernels into its own
 ``build/kernels``), so both are timed on the same card within one call.
 Writes ``chiprun_out/prof_stem.json`` (``prof_stem_accuracy.json`` with
@@ -44,6 +47,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CASES = [(width, c_mid, c_out, bsz, mode) for width, c_mid, c_out in (("s", 128, 64),
                                                                       ("x", 320, 160))
          for bsz in (1, 4) for mode in ("float", "uint8")]
+BF16_REL = 2e-2     # chip_smoke.py's bound on a bf16 output
 
 
 def _smoke():
@@ -54,8 +58,9 @@ def _smoke():
     return mod
 
 
-def run(tree: str, label: str, full: bool) -> None:
-    """Time the K1 of the checkout at ``tree``; print a JSON line a case."""
+def run(tree: str, label: str, full: bool, channels=(3,)) -> None:
+    """Time the K1 of the checkout at ``tree`` on frames of each of
+    ``channels``; print a JSON line a case."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("prof_stem_torch: no CUDA device")
@@ -66,35 +71,49 @@ def run(tree: str, label: str, full: bool) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     weights = {}
-    for width, c_mid, c_out, bsz, mode in CASES:
-        if width not in weights:
-            w1 = torch.randn(3, 3, 48, c_mid, generator=g, device="cuda") * 0.2
-            rest = (torch.randn(c_mid, generator=g, device="cuda") * 0.1,
-                    torch.randn(2, 2, c_mid, c_out, generator=g, device="cuda")
-                    / (4 * c_mid) ** 0.5,
-                    torch.randn(c_out, generator=g, device="cuda") * 0.1)
-            weights[width] = {"float": (w1, *rest), "uint8": (w1 / 255, *rest)}
-        w = weights[width][mode]
-        frame = (torch.rand((bsz, 512, 1024, 3), generator=g, device="cuda")
-                 if mode == "float" else
-                 torch.randint(0, 256, (bsz, 512, 1024, 3), generator=g, device="cuda",
-                               dtype=torch.uint8))
-        got = K.stem(frame, *w, out_dtype=torch.float32)
+    for ch in channels:
+        g.manual_seed(0 if ch == 3 else ch)      # C = 3: the inputs of every tree
+        for width, c_mid, c_out, bsz, mode in CASES:
+            if (width, ch) not in weights:    # the C = 3 weights as they always were
+                w1 = torch.randn(3, 3, 16 * ch, c_mid, generator=g, device="cuda") * (
+                    0.2 * (3 / ch) ** 0.5)
+                rest = (torch.randn(c_mid, generator=g, device="cuda") * 0.1,
+                        torch.randn(2, 2, c_mid, c_out, generator=g, device="cuda")
+                        / (4 * c_mid) ** 0.5,
+                        torch.randn(c_out, generator=g, device="cuda") * 0.1)
+                weights[width, ch] = {"float": (w1, *rest), "uint8": (w1 / 255, *rest)}
+            case(K, smoke, g, label, full, weights[width, ch][mode], width, ch, bsz, mode)
+
+
+def case(K, smoke, g, label, full, w, width, ch, bsz, mode) -> None:
+    """One case of :func:`run`: K1 on a seeded frame of ``ch`` channels."""
+    import torch
+    frame = (torch.rand((bsz, 512, 1024, ch), generator=g, device="cuda")
+             if mode == "float" else
+             torch.randint(0, 256, (bsz, 512, 1024, ch), generator=g, device="cuda",
+                           dtype=torch.uint8))
+    got = K.stem(frame, *w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _, rel = smoke.diffs(got, K.stem_plain(frame, *w, out_dtype=torch.float32))
+    row = {"tree": label, "width": width, "channels": ch, "bs": bsz, "frame": mode,
+           "rel_err": rel, "ok": rel <= smoke.F32_REL,
+           "ms": smoke.graph_ms(lambda: K.stem(frame, *w, out_dtype=torch.float32), iters=10)}
+    if full:
+        got = K.stem(frame, *w, out_dtype=torch.bfloat16)
         torch.cuda.synchronize()
-        _, rel = smoke.diffs(got, K.stem_plain(frame, *w, out_dtype=torch.float32))
-        row = {"tree": label, "width": width, "bs": bsz, "frame": mode, "rel_err": rel,
-               "ms": smoke.graph_ms(lambda: K.stem(frame, *w, out_dtype=torch.float32),
-                                    iters=10)}
-        if full:
-            row.update(
-                plain_ms=smoke.graph_ms(lambda: K.stem_plain(frame, *w), iters=10),
-                cudnn_fp32_ms=smoke.stem_library_ms(frame, w, torch.float32),
-                bf16_ms=smoke.graph_ms(lambda: K.stem(frame, *w, out_dtype=torch.bfloat16),
-                                       iters=10),
-                bound_ms=smoke.stem_bound(frame, w, torch.float32)[0],
-                cuda_core_bound_ms=smoke.stem_bound(frame, w, torch.float32,
-                                                    cuda_cores=True)[0])
-        print(json.dumps(row), flush=True)
+        _, rel16 = smoke.diffs(got, K.stem_plain(frame, *w, out_dtype=torch.bfloat16))
+        row.update(bf16_rel_err=rel16, ok=row["ok"] and rel16 <= BF16_REL,
+                   bf16_library_ms=smoke.stem_library_ms(frame, w, torch.bfloat16),
+                   bf16_bound_ms=smoke.stem_bound(frame, w, torch.bfloat16)[0])
+        row.update(
+            plain_ms=smoke.graph_ms(lambda: K.stem_plain(frame, *w), iters=10),
+            cudnn_fp32_ms=smoke.stem_library_ms(frame, w, torch.float32),
+            bf16_ms=smoke.graph_ms(lambda: K.stem(frame, *w, out_dtype=torch.bfloat16),
+                                   iters=10),
+            bound_ms=smoke.stem_bound(frame, w, torch.float32)[0],
+            cuda_core_bound_ms=smoke.stem_bound(frame, w, torch.float32,
+                                                cuda_cores=True)[0])
+    print(json.dumps(row), flush=True)
 
 
 def accuracy(tree: str, label: str, cfgs) -> None:
@@ -151,6 +170,8 @@ def main() -> int:
     ap.add_argument("--against", help="another checkout's root, timed in turns with this one")
     ap.add_argument("--accuracy", action="store_true",
                     help="K1's float32 error against float64 and its effect on the network")
+    ap.add_argument("--channels", default="3",
+                    help="frame channels of this checkout's cases, comma-separated")
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     ap.add_argument("--label", default="this", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -158,7 +179,8 @@ def main() -> int:
         accuracy(args.tree, args.label, ("yolov5x_city_seg", "yolov5s_city_seg"))
         return 0
     if args.tree:
-        run(args.tree, args.label, full=args.tree == ROOT)
+        run(args.tree, args.label, full=args.tree == ROOT,
+            channels=[int(c) for c in args.channels.split(",")])
         return 0
     if args.accuracy:
         order = ([(args.against, "other")] if args.against else []) + [(ROOT, "this")]
@@ -171,7 +193,8 @@ def main() -> int:
     print(smi, flush=True)
     for tree, label in order:
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree",
-                              os.path.abspath(tree), "--label", label]
+                              os.path.abspath(tree), "--label", label,
+                              "--channels", args.channels if tree == ROOT else "3"]
                              + (["--accuracy"] if args.accuracy else []),
                              capture_output=True, text=True, check=True).stdout
         print(out, end="", flush=True)
@@ -180,7 +203,7 @@ def main() -> int:
     name = "prof_stem_accuracy.json" if args.accuracy else "prof_stem.json"
     with open(os.path.join(ROOT, "chiprun_out", name), "w") as fh:
         json.dump({"card": smi, "rows": rows}, fh, indent=1)
-    return 0
+    return 0 if all(r.get("ok", True) for r in rows) else 1
 
 
 if __name__ == "__main__":

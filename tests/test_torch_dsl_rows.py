@@ -26,8 +26,9 @@ moments (E[x^2] - mean^2 there, torch's own here).  In a forward whose H
 axis is split unevenly over two ranks (threads of this process), ZeroPad2d,
 max pools reaching across rows and C3TR no longer raise: their gathered
 outputs equal the unsharded row's (the pad and the pools exactly, C3TR
-within 1e-5); only a window op whose stride the shards' rows do not
-align with raises.
+within 1e-5), and so do bilinear and bicubic ``nn.Upsample`` rows, which
+read rows across the shards' edge (the gathered map, exactly); only a
+window op whose stride the shards' rows do not align with raises.
 """
 
 import os
@@ -253,8 +254,10 @@ def test_block_matches_jax(case, fused):
 
 SHARD_ROWS = pytest.mark.parametrize(
     "make", [lambda: B.ZeroPad2d([0, 1, 0, 1]), lambda: B.MaxPool2d(3, 2, 1),
-             lambda: B.MaxPool2d(2, 1), lambda: B.C3TR(16, 16)],
-    ids=["zeropad", "maxpool_k3_s2_p1", "maxpool_k2_s1", "c3tr"])
+             lambda: B.MaxPool2d(2, 1), lambda: B.C3TR(16, 16),
+             lambda: B.Upsample(2, "bilinear"), lambda: B.Upsample(2, "bicubic")],
+    ids=["zeropad", "maxpool_k3_s2_p1", "maxpool_k2_s1", "c3tr", "upsample_bilinear",
+         "upsample_bicubic"])
 
 
 def _drawn(make):

@@ -251,6 +251,33 @@ def test_stem_kernel_bf16_widths(dev, dtype, frame_dtype, c_mid, c_out):
     _close(got, K.stem_plain(*args, out_dtype=dtype), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("frame_dtype", [torch.uint8, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ch", [1, 2, 4, 13])
+def test_stem_kernel_channels(dev, dtype, frame_dtype, ch):
+    """K1 on frames of other channel counts (C a kernel argument), odd
+    geometry, against stem_plain; a frame wider than K1 reads raises."""
+    g = torch.Generator().manual_seed(ch)
+    if frame_dtype == torch.uint8:
+        frame = torch.randint(0, 256, (3, 44, 76, ch), generator=g, dtype=torch.uint8)
+        scale = 0.2 / 255
+    else:
+        frame = torch.rand(3, 44, 76, ch, generator=g).to(frame_dtype)
+        scale = 0.2
+    w1 = torch.randn(3, 3, 16 * ch, 128, generator=g) * scale * (3 / ch) ** 0.5
+    b1 = torch.randn(128, generator=g) * 0.1
+    w2 = torch.randn(2, 2, 128, 64, generator=g) / 16
+    b2 = torch.randn(64, generator=g) * 0.1
+    args = [t.to(dev).contiguous() for t in (frame, w1, b1, w2, b2)]
+    got = K.stem(*args, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 11, 19, 64) and got.dtype == dtype
+    _close(got, K.stem_plain(*args, out_dtype=dtype), dtype)
+    wide = torch.zeros(1, 8, 8, 14, dtype=frame_dtype, device=dev)
+    with pytest.raises(ValueError):
+        K.stem(wide, torch.zeros(3, 3, 224, 128, device=dev), *args[2:], out_dtype=dtype)
+
+
 def test_stem_kernel_alternating_forms(dev):
     """Both forms on the same weight tensors, in turns: each reads its own
     packed copy (kept side by side on w1), as chip_smoke's [2] calls them."""

@@ -10,7 +10,10 @@ with w1 unscaled, against ``stem_apply_pallas`` (interpret mode) and
 ``stem_apply`` on its space-to-depth, to 1e-4 absolute.  A bfloat16 output
 rounds as the TPU kernels do in bf16 (bf16 operands, a bf16 y1): against
 ``stem_apply_pallas_u8(out_dtype=bfloat16)`` and ``stem_apply_pallas`` on
-a bf16 space-to-depth, to one bf16 ulp (see ``_assert_bf16_close``)."""
+a bf16 space-to-depth, to one bf16 ulp (see ``_assert_bf16_close``).
+Frames of 1 and 4 channels (16 and 64 conv1 inputs) in every mode against
+the same JAX functions under the same bounds, and the packed weights of
+both forms at those widths by their index formulas."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,8 +36,8 @@ from test_torch_profiling import one_torch_thread  # noqa: F401 (autouse)
 ATOL = 1e-4
 
 
-def _weights(rng, c2, c2b):
-    w0 = rng.randn(3, 3, 12, c2).astype(np.float32) * 0.2
+def _weights(rng, c2, c2b, c1=3):
+    w0 = rng.randn(3, 3, 4 * c1, c2).astype(np.float32) * 0.2
     b0 = rng.randn(c2).astype(np.float32) * 0.1
     w1 = rng.randn(3, 3, c2, c2b).astype(np.float32) * 0.2
     b1 = rng.randn(c2b).astype(np.float32) * 0.1
@@ -123,6 +126,46 @@ def test_stem_plain_bf16_matches_jax(b, h, w, c2, c2b):
     _assert_bf16_close(got.float().numpy(), want)
 
 
+# frames of other channel counts: uint8 and float, float32 and bf16 outputs
+@pytest.mark.parametrize("ch", [1, 4])
+def test_stem_channels_match_jax(ch):
+    b, h, w, c2, c2b = 2, 32, 64, 16, 24
+    rng = np.random.RandomState(40 + ch)
+    w0, b0, w1, b1 = _weights(rng, c2, c2b, ch)
+    fw = jax_stem.fold_stem_weights(w0, b0, w1, b1)
+    for a, p in zip(fw, torch_stem.fold_stem_weights(w0, b0, w1, b1)):
+        np.testing.assert_array_equal(a, p)
+    w1p, b1p, w2p, b2p = (torch.from_numpy(a) for a in fw)
+    assert w1p.shape == (3, 3, 16 * ch, c2 * 4)
+    hq, wq = h // 4, w // 4
+    cp, _ = stem_pack_geometry(hq, wq)
+
+    frame = (rng.rand(b, h, w, ch) * 255).astype(np.uint8)
+    x16 = space_to_depth_host(space_to_depth_host(frame))
+    np.testing.assert_array_equal(
+        space_to_depth4(torch.from_numpy(frame)).permute(0, 2, 3, 1).numpy(), x16)
+    packed = jnp.asarray(pack_stem96_host(x16, cp))
+    w1u = w1p * np.float32(1.0 / 255.0)
+    got = stem(torch.from_numpy(frame), w1u, b1p, w2p, b2p)     # CPU: plain
+    assert got.shape == (b, hq, wq, c2b)
+    np.testing.assert_allclose(got.numpy(), np.asarray(stem_apply_pallas_u8(
+        packed, *fw, cols=wq, out_dtype=jnp.float32)), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_stem.stem_apply(
+        jnp.asarray(x16, jnp.float32) / 255.0, *fw)), rtol=0, atol=ATOL)
+    got = stem(torch.from_numpy(frame), w1u, b1p, w2p, b2p, out_dtype=torch.bfloat16)
+    _assert_bf16_close(got.float().numpy(), np.asarray(stem_apply_pallas_u8(
+        packed, *fw, cols=wq, out_dtype=jnp.bfloat16).astype(jnp.float32)))
+
+    frame = rng.rand(b, h, w, ch).astype(np.float32)
+    x16 = space_to_depth_host(space_to_depth_host(frame))
+    got = stem(torch.from_numpy(frame), w1p, b1p, w2p, b2p)
+    np.testing.assert_allclose(got.numpy(), np.asarray(stem_apply_pallas(
+        jnp.asarray(x16), *fw)), rtol=0, atol=ATOL)
+    got = stem(torch.from_numpy(frame), w1p, b1p, w2p, b2p, out_dtype=torch.bfloat16)
+    _assert_bf16_close(got.float().numpy(), np.asarray(stem_apply_pallas(
+        jnp.asarray(x16, jnp.bfloat16), *fw).astype(jnp.float32)))
+
+
 def _assert_bf16_close(got, want):
     """Both sides multiply the same bf16 operands exactly and sum in float32
     in different orders, so a y1 or output value near a rounding boundary
@@ -183,12 +226,24 @@ def _unpack(p, fields, k_of, n_of, shape):
 @pytest.mark.parametrize("form", ["bf16", "tf32"])
 @pytest.mark.parametrize("c_mid,c_out", [(32, 16), (128, 64), (320, 160)])
 def test_pack_weights_round_trip(form, c_mid, c_out):
+    _pack_round_trip(form, c_mid, c_out, 3)
+
+
+# conv1's K at frames of 1 and 4 channels: 144 and 576 rows
+@pytest.mark.parametrize("form", ["bf16", "tf32"])
+@pytest.mark.parametrize("ch", [1, 4])
+def test_pack_weights_round_trip_channels(form, ch):
+    _pack_round_trip(form, 128, 64, ch)
+
+
+def _pack_round_trip(form, c_mid, c_out, c_in):
     rng = np.random.RandomState(c_mid + c_out)
-    w1 = rng.randn(3, 3, 48, c_mid).astype(np.float32)
+    k = 144 * c_in
+    w1 = rng.randn(3, 3, 16 * c_in, c_mid).astype(np.float32)
     w2 = rng.randn(2, 2, c_mid, c_out).astype(np.float32)
     cm_p, co_p, ch = -(-c_mid // CHUNK) * CHUNK, -(-c_out // 32) * 32, CHUNK
-    m1 = np.zeros((432, cm_p), np.float32)
-    m1[:, :c_mid] = w1.reshape(432, c_mid)
+    m1 = np.zeros((k, cm_p), np.float32)
+    m1[:, :c_mid] = w1.reshape(k, c_mid)
     m2 = np.zeros((4, cm_p, co_p), np.float32)
     m2[:, :c_mid, :c_out] = w2.reshape(4, c_mid, c_out)
     packer = pack_weights if form == "bf16" else pack_weights_tf32
